@@ -1,0 +1,159 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The sources include no PyTorch header, so a build takes seconds, not the
+minutes a ``torch.utils.cpp_extension`` build would.  The library is named
+by a hash of the sources and flags and cached under ``kernels/_build/``
+(listed in ``.gitignore``); the first launch of any kernel builds it.
+
+Each C entry point takes device pointers, sizes, scalars and the CUDA stream
+as ``void*``/``int``/``float``, launches on that stream, and returns
+``cudaGetLastError()`` so the Python wrapper can raise on a refused launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = [
+    "BUILD_DIR",
+    "CSRC_DIR",
+    "LaunchCounter",
+    "NVCC_FLAGS",
+    "build_info",
+    "check",
+    "load_library",
+]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points in csrc/ (see each source's header note).
+_SIGNATURES = {
+    # r, v, d, last, adv, ret, T, B, gamma, gamma*lam, stream
+    "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, B, A, lo, hi, stream
+    "ppo_surrogate_fwd_launch": [_P] * 10 + [_I, _I, _F, _F, _P],
+    # logits, actions, values, blp, adv, ret, gpg, gvf, gent, gkl,
+    # dlogits, dv, dblp, dadv, dret, B, A, lo, hi, stream
+    "ppo_surrogate_bwd_launch": [_P] * 15 + [_I, _I, _F, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+            "of repro_torch build only where the CUDA toolkit is installed"
+        )
+    return str(path)
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(sources: list) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        target = BUILD_DIR / f"librepro_torch_kernels-{_digest(sources)}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not target.exists():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            os.replace(tmp, target)
+            (BUILD_DIR / "build.log").write_text(log)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _info.update(path=str(target), seconds=time.perf_counter() - t0, log=log)
+        _lib = lib
+        return lib
+
+
+def build_info() -> dict:
+    """Library path, build seconds (0-ish when cached) and the nvcc log."""
+    return dict(_info)
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc != 0:
+        text = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {rc} ({text})")
+
+
+class LaunchCounter:
+    """Number of launches of one kernel, safe across rollout threads.
+
+    A wrapper calls ``add()`` right where it launches its kernel and nowhere
+    else, so a run can show that its main path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0

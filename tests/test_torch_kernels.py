@@ -1,0 +1,222 @@
+"""Parity of the PyTorch port's kernel modules with the JAX package on the CPU.
+
+Each case makes its inputs with numpy from a seed and feeds the same arrays
+to the JAX function (the Pallas kernel in interpret mode and the jnp oracle)
+and to the port's counterpart, which on CPU tensors runs the kernel's plain
+PyTorch version.  Tolerance: 1e-5 absolute and relative, the reference's own
+kernel-vs-oracle gate, in float32.  The CUDA kernels themselves run only on
+a GPU: ``chip_smoke.py`` holds them against these plain versions there.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.advantages import gae_pallas
+from repro.kernels.ref import ppo_surrogate_ref
+from repro.kernels.surrogate import ppo_surrogate_pallas
+from repro.rl.advantages import gae as jax_gae
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.advantages import gae_cuda
+from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
+
+TOL = 1e-5
+
+
+def _close(got, want, name=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL, rtol=TOL, err_msg=name)
+
+
+# ------------------------------------------------------------------- GAE
+def _gae_data(T, B, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((T, B)).astype(np.float32)
+    v = rng.standard_normal((T, B)).astype(np.float32)
+    d = (rng.random((T, B)) < 0.15).astype(np.float32)
+    last = rng.standard_normal((B,)).astype(np.float32)
+    return r, v, d, last
+
+
+# T=1 (bootstrap only), B off the 128-lane panel (130, 257), the PPO path's
+# [64, 8] rollout, and a 1-column rollout.
+@pytest.mark.parametrize("T,B", [(1, 5), (64, 8), (33, 130), (7, 257), (40, 1)])
+def test_gae_matches_pallas_and_scan(T, B):
+    r, v, d, last = _gae_data(T, B, seed=T * 1000 + B)
+    adv_k, ret_k = gae_pallas(*map(jnp.asarray, (r, v, d, last)), gamma=0.97, lam=0.9,
+                              interpret=True)
+    adv_s, ret_s = jax_gae(*map(jnp.asarray, (r, v, d, last)), gamma=0.97, lam=0.9)
+    adv_t, ret_t = ops.fused_gae(*map(torch.from_numpy, (r, v, d, last)), gamma=0.97, lam=0.9)
+    for name, want in (("pallas", (adv_k, ret_k)), ("scan", (adv_s, ret_s))):
+        _close(adv_t, want[0], f"adv vs {name}")
+        _close(ret_t, want[1], f"ret vs {name}")
+
+
+def test_gae_trailing_dims_flatten_like_reference():
+    r, v, d, last = _gae_data(6, 12, seed=3)
+    shaped = [x.reshape((6, 3, 4)) for x in (r, v, d)] + [last.reshape(3, 4)]
+    adv_j, _ = jax_gae(*map(jnp.asarray, shaped))
+    adv_t, _ = ops.fused_gae(*map(torch.from_numpy, shaped))
+    assert tuple(adv_t.shape) == (6, 3, 4)
+    _close(adv_t, adv_j)
+
+
+# ----------------------------------------------------------- surrogate
+def _boundary_blp(bound):
+    """A behaviour logp putting the ratio of a row whose logp is exactly 0
+    exactly on ``bound`` in both frameworks (each computes exp(0 - blp))."""
+    target = np.float32(bound)
+    cands = (-np.log(target) + np.arange(-64, 65) * 5e-9).astype(np.float32)
+    r_j = np.asarray(jnp.exp(-jnp.asarray(cands)))
+    r_t = torch.exp(-torch.from_numpy(cands)).numpy()
+    hit = np.nonzero((r_j == target) & (r_t == target))[0]
+    assert hit.size, f"no behaviour logp puts the ratio exactly on {bound}"
+    return cands[hit[hit.size // 2]]
+
+
+def _surrogate_data(B, A, seed, clip_eps):
+    """Random rows, then at the top rows with zero logits and ratio exactly 1
+    (the min() ties inside the band), and rows exactly on the hi and lo clip
+    bounds: logits [30, 0, ...] with action 0 make logp exactly 0 (the exp
+    sum rounds to 1), so the ratio is exp(-blp) and a searched blp pins it."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, A)).astype(np.float32)
+    actions = rng.integers(0, A, B).astype(np.int64)
+    values = rng.standard_normal(B).astype(np.float32)
+    adv = rng.standard_normal(B).astype(np.float32)
+    ret = rng.standard_normal(B).astype(np.float32)
+    n = max(B // 8, 1)
+    logits[:n] = 0.0
+    logits[n: 3 * n] = 0.0
+    logits[n: 3 * n, 0] = 30.0
+    actions[n: 3 * n] = 0
+    logp = np.asarray(
+        jax.nn.log_softmax(jnp.asarray(logits))[np.arange(B), actions], np.float32
+    )
+    assert (logp[n: 3 * n] == 0.0).all()
+    blp = (logp + 0.3 * rng.standard_normal(B)).astype(np.float32)
+    blp[:n] = logp[:n]
+    blp[n: 2 * n] = _boundary_blp(1.0 + clip_eps)
+    blp[2 * n: 3 * n] = _boundary_blp(1.0 - clip_eps)
+    return logits, actions, values, blp, adv, ret
+
+
+def _jax_terms(fn, data, clip_eps):
+    logits, actions, values, blp, adv, ret = map(jnp.asarray, data)
+    return fn(logits, values, actions.astype(jnp.int32), blp, adv, ret, clip_eps=clip_eps)
+
+
+def _jax_grads(fn, data, clip_eps, cots):
+    logits, actions, values, blp, adv, ret = map(jnp.asarray, data)
+
+    def f(lg, v, b, a, r):
+        terms = fn(lg, v, actions.astype(jnp.int32), b, a, r, clip_eps=clip_eps)
+        return sum(jnp.sum(t * c) for t, c in zip(terms, cots))
+
+    return jax.grad(f, argnums=(0, 1, 2, 3, 4))(logits, values, blp, adv, ret)
+
+
+def _torch_terms_and_grads(data, clip_eps, cots):
+    logits, actions, values, blp, adv, ret = map(torch.from_numpy, data)
+    xs = [t.clone().requires_grad_(True) for t in (logits, values, blp, adv, ret)]
+    terms = ppo_surrogate_plain(xs[0], xs[1], actions, xs[2], xs[3], xs[4], clip_eps=clip_eps)
+    grads = torch.autograd.grad(terms, xs, grad_outputs=[torch.from_numpy(c) for c in cots])
+    return [t.detach() for t in terms], grads
+
+
+# The PPO path's minibatch [256, 2], lanes off the panel (130), a wide action
+# space, and clip_eps = 0 where the ratio-1 rows sit on both bounds at once.
+@pytest.mark.parametrize(
+    "B,A,clip_eps", [(256, 2, 0.2), (130, 5, 0.2), (64, 18, 0.1), (40, 3, 0.0)]
+)
+def test_surrogate_terms_and_grads_match_pallas(B, A, clip_eps):
+    data = _surrogate_data(B, A, seed=B * 100 + A, clip_eps=clip_eps)
+    cots = [np.random.default_rng(B + i).standard_normal(B).astype(np.float32) for i in range(4)]
+    terms_t, grads_t = _torch_terms_and_grads(data, clip_eps, cots)
+    for fn in (ppo_surrogate_ref, lambda *a, **k: ppo_surrogate_pallas(*a, **k, interpret=True)):
+        for name, t, j in zip(("pg", "vf", "ent", "kl"), terms_t, _jax_terms(fn, data, clip_eps)):
+            _close(t, j, name)
+        grads_j = _jax_grads(fn, data, clip_eps, cots)
+        for name, t, j in zip(("logits", "values", "blp", "adv", "ret"), grads_t, grads_j):
+            _close(t, j, f"d{name}")
+
+
+def test_surrogate_tie_rows_take_the_balanced_gradient():
+    """On a row exactly on a clip bound, the clip's max or min ties and so
+    does the outer min: JAX takes half of each, so d pg / d ratio is
+    -(0.5 + 0.5 * 0.5) * adv and d blp = 0.75 * adv * bound.  ``torch.clamp``
+    would pass a full gradient and give adv * bound."""
+    B, A, clip_eps = 16, 2, 0.2
+    data = _surrogate_data(B, A, seed=7, clip_eps=clip_eps)
+    cots = [np.ones(B, np.float32), *(np.zeros(B, np.float32) for _ in range(3))]
+    _, grads_t = _torch_terms_and_grads(data, clip_eps, cots)
+    grads_j = _jax_grads(ppo_surrogate_ref, data, clip_eps, cots)
+    adv = data[4]
+    n = B // 8
+    for rows, bound in ((slice(n, 2 * n), 1.0 + clip_eps), (slice(2 * n, 3 * n), 1.0 - clip_eps)):
+        want = 0.75 * adv[rows] * np.float32(bound)
+        np.testing.assert_allclose(grads_t[2].numpy()[rows], want, rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(grads_j[2])[rows], want, rtol=1e-6)
+
+
+def test_fused_ppo_loss_matches_reference_dispatch():
+    from repro.kernels import ops as jax_ops
+
+    data = _surrogate_data(256, 2, seed=11, clip_eps=0.2)
+    logits, actions, values, blp, adv, ret = data
+    loss_j, aux_j = jax_ops.fused_ppo_loss(
+        *map(jnp.asarray, (logits, values)), jnp.asarray(actions, jnp.int32),
+        *map(jnp.asarray, (blp, adv, ret)), clip_eps=0.2, vf_coef=0.5, ent_coef=0.01,
+    )
+    loss_t, aux_t = ops.fused_ppo_loss(
+        *map(torch.from_numpy, (logits, values, actions, blp, adv, ret)),
+        clip_eps=0.2, vf_coef=0.5, ent_coef=0.01,
+    )
+    _close(loss_t, loss_j, "loss")
+    assert set(aux_t) == set(aux_j)
+    for k in aux_j:
+        _close(aux_t[k], aux_j[k], k)
+
+
+# ------------------------------------------------------------ wrappers
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper launches on CUDA tensors or raises; the plain version
+    is reached only through ``ops`` for CPU tensors, never as a fallback."""
+    r, v, d, last = map(torch.from_numpy, _gae_data(4, 3, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        gae_cuda(r, v, d, last)
+    data = list(map(torch.from_numpy, _surrogate_data(8, 2, seed=0, clip_eps=0.2)))
+    logits, actions, values, blp, adv, ret = data
+    with pytest.raises(ValueError, match="CUDA"):
+        ppo_surrogate_cuda(logits, values, actions, blp, adv, ret)
+
+
+def test_ctypes_signatures_match_the_cuda_sources():
+    """The C entry points the wrappers bind exist in csrc/ with as many
+    parameters as their ctypes signature declares (the sources compile only
+    on the GPU machine, so this is the CPU-side check of the binding)."""
+    found = {}
+    for src in build.CSRC_DIR.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert found == {name: len(sig) for name, sig in build._SIGNATURES.items()}
+    assert any(f.startswith("-gencode=arch=compute_90a,code=sm_90a") for f in build.NVCC_FLAGS)
+
+
+def test_launch_counter_counts_under_threads():
+    import threading
+
+    counter = build.LaunchCounter("t")
+    threads = [threading.Thread(target=lambda: [counter.add() for _ in range(1000)])
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert counter.value == 8000
+    counter.reset()
+    assert counter.value == 0
