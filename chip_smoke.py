@@ -7,25 +7,45 @@ Phases, one line each (the script stops with a non-zero exit at the first
 phase that fails, and then prints no result line):
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile every CUDA kernel of the port from ``csrc/`` (nvcc, sm_90a);
+2. build: compile every CUDA kernel of the port from ``csrc/`` (one nvcc per
+   source, all at once, sm_90a);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the PPO path's shapes and at large ones (GAE at [64, 8], [128, 4096]
-   and a ragged [33, 1001]; the surrogate forward + autograd backward at
-   [256, 2] and [65536, 18], with rows whose ratio is exactly 1 and rows
-   exactly on the clip boundary), and time kernel, plain version and bound;
-4. learner parity: four PPO SGD steps on one batch on the card (kernels) and
-   on the CPU (plain versions) from the same weights agree to 1e-4;
-5. main path: PPO on CartPole through ``WorkerSet.create`` ->
-   ``Algorithm.from_plan("ppo")`` -> ``ITERS`` ``train()`` iterations with the
-   configuration of
-   ``examples/ppo_cartpole.py`` (2 workers, 8 envs x 64 steps, 1024-row train
-   batch, 4 SGD epochs of 256-row minibatches), launch counters zeroed just
-   before and read just after, checked against what the configuration
-   implies.
+   and time kernel, plain version, bound and (for attention) the
+   ``scaled_dot_product_attention`` yardstick: GAE at [32, 8], [64, 8],
+   [128, 4096] and a ragged [33, 1001]; the surrogate forward + autograd
+   backward at [128, 151936] (the LM learner's vocabulary), [256, 2] and
+   [65536, 18], with rows whose ratio is exactly 1 and rows exactly on the
+   clip boundary; decode attention at the RLHF path's [8, 1, 20, 128] x
+   W = 256 with a ragged per-lane mask, GQA 40/8 at W = 4096, an
+   all-invalid row (exact zeros) and a ragged W; flash attention forward at
+   the learner's [128, 256, 20, 128], the bootstrap's [256, 256, 20, 128],
+   the prefill's sliding window, GQA 40/8 at S = 2048 with a 512 window and
+   with a q_offset, and a ragged S; its backward at [128, 256, 20, 128],
+   [4, 512, 20, 128] and GQA [2, 1024, 40/8, 128];
+4. learner parity: four PPO SGD steps on one CartPole batch on the card
+   (kernels) and on the CPU (plain versions) from the same weights agree to
+   1e-4;
+5. main path 1: PPO on CartPole through ``WorkerSet.create`` ->
+   ``Algorithm.from_plan("ppo")`` -> ``ITERS`` ``train()`` iterations with
+   the configuration of ``examples/ppo_cartpole.py`` (2 workers, 8 envs x 64
+   steps, 1024-row train batch, 4 SGD epochs of 256-row minibatches), launch
+   counters zeroed just before and read just after, checked against what
+   the configuration implies;
+6. LM learner parity: one ``learn_on_batch`` (SGD, lr 1) of an
+   ``LMTokenPolicy`` at a reduced width (d_model 256, 4 heads, 2 KV heads,
+   ctx 64, 2 layers) on the card and on the CPU from the same weights
+   agrees to 1e-4;
+7. main path 2: PPO on a language model (``build_ppo_lm``) at Qwen1.5-4B's
+   attention and vocabulary widths cut to 2 layers, through
+   ``Algorithm.from_plan("ppo_lm")``, ``RLHF_ITERS`` ``train()`` iterations
+   with KV-cache rollouts; counters zeroed just before and read just after
+   and checked against the configuration, the decode-vs-forward logits gap,
+   peak memory, seconds per iteration and the device's idle share.
 
-Then one JSON line with every kernel's launches, error, times and bound, and
-last ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo's
-``src/`` beside this file; it imports nothing of JAX or of ``repro``.
+Then one JSON line with every kernel's launches, error, times, bound and
+library time, and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
+device and the repo's ``src/`` beside this file; it imports nothing of JAX
+or of ``repro``.
 """
 
 from __future__ import annotations
@@ -45,13 +65,30 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TOL = 1e-5  # atol = rtol for kernel vs plain version, float32
-LEARNER_TOL = 1e-4  # weights after 4 SGD steps, card vs CPU
+# atol = rtol for attention gradients, kernel vs autograd through the plain
+# version: each dK/dV element sums Sq * g terms, each dQ element Sk terms,
+# in another order.
+GRAD_TOL = 1e-4
+LEARNER_TOL = 1e-4  # weights after SGD steps, card vs CPU
 
 PPO_CONFIG = dict(
     num_workers=2, num_envs=8, rollout_len=64,
     train_batch_size=1024, num_sgd_iter=4, sgd_minibatch_size=256,
 )
 ITERS = 8  # train() iterations on the main path
+
+# The RLHF path: Qwen1.5-4B's attention and vocabulary widths (the port's
+# copy of src/repro/configs/qwen15_4b.py), cut to 2 layers; LMTokenPolicy
+# fixes d_ff = 4 * d_model and has no QKV bias.
+RLHF_LAYERS = 2
+RLHF_ENV = dict(ctx=256, min_prompt=64, max_prompt=192, horizon=32)
+RLHF_CONFIG = dict(
+    num_workers=2, num_envs=8, rollout_len=32,
+    train_batch_size=512, num_sgd_iter=1, sgd_minibatch_size=128,
+)
+RLHF_ITERS = 3
+# Reduced width of the card-vs-CPU LM learner parity phase.
+LM_PARITY = dict(vocab_size=512, ctx=64, d_model=256, n_layers=2, num_heads=4, num_kv_heads=2)
 
 
 class PhaseError(RuntimeError):
@@ -201,6 +238,7 @@ def _gae_case(T: int, B: int, seed: int) -> dict:
     bound, by = _bound_ms(nbytes, 8 * T * B)
     return {
         "shape": [T, B], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "library_ms": None,
         **_timings(lambda: gae_cuda(r, v, d, last), lambda: gae(r, v, d, last), plain_iters=20),
     }
 
@@ -245,7 +283,7 @@ def _surrogate_inputs(B: int, A: int, seed: int, clip_eps: float):
     return logits, actions, values, blp, adv, ret
 
 
-def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2) -> dict:
+def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iters: int = 50) -> dict:
     import torch
 
     from repro_torch.kernels.surrogate import (
@@ -288,12 +326,12 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2) -> dict:
 
     fwd_t = _timings(
         lambda: surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps),
-        plain_fwd, plain_iters=50,
+        plain_fwd, plain_iters=plain_iters,
     )
     bwd_t = _timings(
         lambda: surrogate_bwd_cuda(logits, actions, values, blp, adv, ret, *cots, clip_eps),
         lambda: torch.autograd.grad(plain_terms, xs, grad_outputs=cots, retain_graph=True),
-        plain_iters=50,
+        plain_iters=plain_iters,
     )
 
     row_in = 4 * 4 + 8  # four float [B] vectors and the int64 action
@@ -304,27 +342,234 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2) -> dict:
     shape = [B, A]
     return {
         "fwd": {"shape": shape, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
-                "bound_by": fwd_bound[1], "bytes": fwd_bytes, **fwd_t},
+                "bound_by": fwd_bound[1], "bytes": fwd_bytes, "library_ms": None, **fwd_t},
         "bwd": {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0],
-                "bound_by": bwd_bound[1], "bytes": bwd_bytes, **bwd_t},
+                "bound_by": bwd_bound[1], "bytes": bwd_bytes, "library_ms": None, **bwd_t},
+    }
+
+
+def _library(fn, iters: int = 20) -> dict:
+    """The PyTorch library call's device ms per call, and which SDPA backend
+    it took, read from the names of the kernels it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    total_us = sum(kernels.values())
+    names = " ".join(kernels).lower()
+    backend = next(
+        (b for key, b in (("flash", "flash"), ("fmha", "efficient"), ("cutlass", "efficient"),
+                          ("cudnn", "cudnn")) if key in names),
+        "math",
+    )
+    top = sorted(kernels, key=lambda k: -kernels[k])[:3]
+    return {
+        "library_ms": total_us / iters / 1e3 if total_us > 0 else _time_ms(fn, iters=iters, warmup=2),
+        "library_backend": backend,
+        "library_kernels": [k[:60] for k in top],
+    }
+
+
+def _randn(g, *shape):
+    import torch
+
+    return torch.randn(shape, generator=g, device="cuda")
+
+
+def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) -> dict:
+    """``mode``: "ragged" (per-lane [B, W] lengths in [1, W]), "empty_row"
+    (ragged, lane 1 has no valid slot and must give exact zeros) or
+    "shared" (one [W] mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, kc, vc = _randn(g, B, 1, H, D), _randn(g, B, W, KV, D), _randn(g, B, W, KV, D)
+    pos = torch.arange(W, device="cuda")
+    if mode == "shared":
+        valid = pos < W - W // 7
+    else:
+        lens = torch.randint(1, W + 1, (B,), generator=g, device="cuda")
+        valid = pos[None] < lens[:, None]
+        if mode == "empty_row":
+            valid[1] = False
+    got = decode_attention_cuda(q, kc, vc, valid)
+    want = decode_attention_plain(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    err = _close(f"decode_attention[{B},1,{H},{D}] W={W} {mode}", got, want)
+    if mode == "empty_row":
+        _require(bool((got[1] == 0).all()), "decode_attention: an all-invalid row is not exactly 0")
+    n_valid = int(valid.sum()) * (B if valid.dim() == 1 else 1)
+    nbytes = (2 * B * H * D + 2 * n_valid * KV * D) * 4 + valid.numel()
+    bound, by = _bound_ms(nbytes, 4 * H * D * n_valid)
+    mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    out = {
+        "shape": [B, 1, H, KV, D, W], "mode": mode, "max_abs_err": err,
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        **_timings(lambda: decode_attention_cuda(q, kc, vc, valid),
+                   lambda: decode_attention_plain(q, kc, vc, valid), plain_iters=20),
+    }
+    if mode != "empty_row":  # SDPA's softmax over an empty row is NaN
+        out.update(_library(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+    return out
+
+
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset: int):
+    import torch
+
+    q_pos = q_offset + torch.arange(Sq, device="cuda")
+    k_pos = torch.arange(Sk, device="cuda")
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask, int(mask.sum())
+
+
+def _sdpa(q, k, v, mask, simple_causal: bool):
+    """The library yardstick: SDPA on the port's [B, S, heads, D] tensors."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if simple_causal:
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed) -> dict:
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_fwd_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _randn(g, B, Sq, H, D), _randn(g, B, Sk, KV, D), _randn(g, B, Sk, KV, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with torch.no_grad():
+        got, _ = flash_fwd_cuda(q, k, v, causal, window, q_offset)
+        want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = _close(f"flash_attention_fwd[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}", got, want)
+    del want
+    mask, pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D + B * H * Sq) * 4
+    bound, by = _bound_ms(nbytes, 4 * B * H * D * pairs)
+    simple = causal and not window and not q_offset and Sq == Sk
+
+    def plain():
+        with torch.no_grad():
+            flash_attention_plain(q, k, v, **kw)
+
+    return {
+        "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 4 * B * H * D * pairs,
+        **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5),
+        **_library(lambda: _sdpa(q, k, v, mask, simple)),
+    }
+
+
+def _flash_bwd_case(B, S, H, KV, D, seed) -> dict:
+    """Causal backward: gradients of the kernel's autograd.Function against
+    torch autograd through the plain version, and the backward launch alone
+    timed against the plain version's autograd backward and SDPA's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+        flash_bwd_cuda,
+        flash_fwd_cuda,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _randn(g, B, S, H, D), _randn(g, B, S, KV, D), _randn(g, B, S, KV, D)
+    dout = _randn(g, B, S, H, D)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*xs, causal=True)
+        return torch.autograd.grad(out, xs, dout, retain_graph=True), (out, xs)
+
+    got, _ = grads(flash_attention_cuda)
+    again, _ = grads(flash_attention_cuda)
+    want, (plain_out, plain_xs) = grads(flash_attention_plain)
+    torch.cuda.synchronize()
+    err = max(_close(f"flash_attention_bwd[{B},{S},{H}/{KV},{D}] d{n}", a, b, GRAD_TOL)
+              for n, a, b in zip("qkv", got, want))
+    _require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+             "flash_attention_bwd: gradients differ between two runs")
+    del got, again, want
+    o, lse = flash_fwd_cuda(q, k, v, True, 0, 0)
+    _, pairs = _visible_pairs(S, S, True, 0, 0)
+    # reads q, o, dO, lse, k, v; writes dq, dk, dv
+    nbytes = (3 * B * S * H * D + 2 * B * S * KV * D + B * H * S) * 4 + (B * S * H * D + 2 * B * S * KV * D) * 4
+    bound, by = _bound_ms(nbytes, 10 * B * H * D * pairs)
+    lib_xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = _sdpa(*lib_xs, None, True)
+    return {
+        "shape": [B, S, H, KV, D], "causal": True, "max_abs_err": err, "deterministic": True,
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 10 * B * H * D * pairs,
+        **_timings(
+            lambda: flash_bwd_cuda(q, k, v, o, lse, dout, True, 0, 0),
+            lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
+            plain_iters=5,
+        ),
+        **_library(lambda: torch.autograd.grad(lib_out, lib_xs, dout.transpose(1, 2), retain_graph=True)),
     }
 
 
 def phase_kernels() -> dict:
-    gae_cases = [_gae_case(64, 8, 0), _gae_case(128, 4096, 1), _gae_case(33, 1001, 2)]
-    sur_cases = [_surrogate_case(256, 2, 3), _surrogate_case(65536, 18, 4)]
+    """Every kernel at its main paths' shapes and at large ones; the first
+    case of each kernel is the RLHF path's shape."""
+    gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(128, 4096, 1),
+                 _gae_case(33, 1001, 2)]
+    sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
+                 _surrogate_case(65536, 18, 4)]
+    d = RLHF_ENV["ctx"]
     out = {
         "gae": gae_cases,
         "ppo_surrogate_fwd": [c["fwd"] for c in sur_cases],
         "ppo_surrogate_bwd": [c["bwd"] for c in sur_cases],
+        "decode_attention": [
+            _decode_case(8, 20, 20, 128, d, "ragged", 10),
+            _decode_case(8, 40, 8, 128, 4096, "ragged", 11),
+            _decode_case(4, 20, 20, 128, d, "empty_row", 12),
+            _decode_case(8, 40, 8, 128, 1000, "shared", 13),
+        ],
+        "flash_attention_fwd": [
+            _flash_fwd_case(128, d, d, 20, 20, 128, True, 0, 0, 20),   # learner
+            _flash_fwd_case(256, d, d, 20, 20, 128, True, 0, 0, 21),   # GAE bootstrap
+            _flash_fwd_case(8, d, d, 20, 20, 128, True, d, 0, 22),     # prefill (window = ctx)
+            _flash_fwd_case(2, 2048, 2048, 40, 8, 128, True, 512, 0, 23),
+            _flash_fwd_case(2, 1024, 2048, 40, 8, 128, True, 0, 1024, 24),
+            _flash_fwd_case(2, 1000, 1000, 40, 8, 128, True, 0, 0, 25),
+        ],
+        "flash_attention_bwd": [
+            _flash_bwd_case(128, d, 20, 20, 128, 30),  # learner
+            _flash_bwd_case(4, 512, 20, 20, 128, 31),
+            _flash_bwd_case(2, 1024, 40, 8, 128, 32),
+        ],
     }
     for name, cases in out.items():
+        tol = GRAD_TOL if name == "flash_attention_bwd" else TOL
         for c in cases:
+            lib = c.get("library_ms")
+            lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
             print(
-                f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {TOL}) "
+                f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}) "
                 f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
-                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']})"
+                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){lib_txt}"
             )
     return out
 
@@ -450,6 +695,204 @@ def phase_main_path(counters: list) -> dict:
     return {"iterations": rows, "seconds": total, "launches": launches, "profile": profiled}
 
 
+# ----------------------------------------------------------------- phase 6
+def _lm_parity_worker(device: str):
+    """The parity phase's worker.  It learns with SGD at lr 1, so the weight
+    difference after one step is the gradient difference.  Adam's first
+    step is lr * sign(g) wherever |g| >> eps, so any of the ~1M gradients
+    whose true value lies within rounding of zero moves by 2 * lr apart on
+    the two devices whatever the kernels do."""
+    from repro_torch.optim import sgd
+    from repro_torch.rl import LMTokenPolicy, TokenEnv, VectorizedRolloutWorker
+
+    c = LM_PARITY
+    env = TokenEnv(vocab_size=c["vocab_size"], ctx=c["ctx"], min_prompt=8, max_prompt=32, horizon=32)
+    policy = LMTokenPolicy(ctx=c["ctx"], vocab_size=c["vocab_size"], d_model=c["d_model"],
+                           n_layers=c["n_layers"], num_heads=c["num_heads"],
+                           num_kv_heads=c["num_kv_heads"])
+    return VectorizedRolloutWorker(env, policy, algo="ppo", num_envs=8, rollout_len=32,
+                                   decode="cache", seed=0, optimizer=sgd(1.0), device=device)
+
+
+def phase_lm_learner_parity() -> dict:
+    import numpy as np
+
+    from repro_torch.core.operators import StandardizeFields
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.tree import tree_leaves
+
+    gpu, cpu = _lm_parity_worker("cuda"), _lm_parity_worker("cpu")
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    batch = StandardizeFields(["advantages"])(gpu.sample())
+    info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+    w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
+    w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
+    stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
+    _require(err <= LEARNER_TOL, f"LM learner parity: card vs CPU weights differ by {err:.3e}")
+    _require(stat_err <= LEARNER_TOL, f"LM learner parity: stats differ by {stat_err:.3e}")
+    print(f"LM learner parity: one learn_on_batch on {batch.count} rows at {LM_PARITY}, card vs "
+          f"CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol {LEARNER_TOL})")
+    return {"weight_err": err, "stat_err": stat_err, "config": dict(LM_PARITY)}
+
+
+# ----------------------------------------------------------------- phase 7
+def _rlhf_worker(index: int):
+    from repro_torch.configs.qwen15_4b import CONFIG as QWEN
+    from repro_torch.rl import LMTokenPolicy, TokenEnv, VectorizedRolloutWorker
+
+    env = TokenEnv(vocab_size=QWEN.vocab_size, **RLHF_ENV)
+    policy = LMTokenPolicy(
+        ctx=RLHF_ENV["ctx"], vocab_size=QWEN.vocab_size, d_model=QWEN.d_model,
+        n_layers=RLHF_LAYERS, num_heads=QWEN.num_heads, num_kv_heads=QWEN.num_kv_heads,
+    )
+    return VectorizedRolloutWorker(
+        env, policy, algo="ppo", num_envs=RLHF_CONFIG["num_envs"],
+        rollout_len=RLHF_CONFIG["rollout_len"], decode="cache", seed=0, worker_index=index,
+        device="cuda",
+    )
+
+
+def _rlhf_expected_launches() -> dict:
+    """Launches per train() iteration implied by the RLHF configuration: with
+    the sync TokenEnv every lane resets together, so a rollout prefills once
+    per episode and decodes every other step; the GAE bootstrap runs one
+    forward per sample and the learner one forward and one backward per SGD
+    minibatch, each through every layer."""
+    c, L = RLHF_CONFIG, RLHF_LAYERS
+    _require(c["rollout_len"] % RLHF_ENV["horizon"] == 0, "rollout_len must be a multiple of horizon")
+    samples = c["train_batch_size"] // (c["num_envs"] * c["rollout_len"])
+    prefills = c["rollout_len"] // RLHF_ENV["horizon"]
+    decodes = c["rollout_len"] - prefills
+    sgd_steps = c["num_sgd_iter"] * (c["train_batch_size"] // c["sgd_minibatch_size"])
+    return {
+        "gae": samples,
+        "ppo_surrogate_fwd": sgd_steps,
+        "ppo_surrogate_bwd": sgd_steps,
+        "decode_attention": samples * decodes * L,
+        "flash_attention_fwd": samples * (prefills + 1) * L + sgd_steps * L,
+        "flash_attention_bwd": sgd_steps * L,
+    }
+
+
+def _split_times(worker) -> dict:
+    """Seconds of one rollout (decode loop), its GAE bootstrap forward and
+    one learner SGD step on ``worker``, each ended by a synchronize."""
+    import torch
+
+    from repro_torch.core.operators import StandardizeFields
+    from repro_torch.rl.rollout_worker import assemble_fragments
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cols, t_roll = timed(worker._vrollout)
+    cols, t_boot = timed(lambda: worker._postprocess_cols(worker.params, cols))
+    cols.pop("completed")
+    batch = StandardizeFields(["advantages"])(assemble_fragments(cols, worker._lane_base))
+    mb = batch.slice(0, RLHF_CONFIG["sgd_minibatch_size"])
+    _, t_learn = timed(lambda: worker.learn_on_batch(mb))
+    return {"rollout_s": t_roll, "bootstrap_s": t_boot, "sgd_step_s": t_learn}
+
+
+def phase_rlhf(counters: list) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.launch.rlhf import parity_gap
+
+    cfg, iters = RLHF_CONFIG, RLHF_ITERS
+    per_iter = _rlhf_expected_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    workers = WorkerSet.create(_rlhf_worker, cfg["num_workers"])
+    init_s = time.perf_counter() - t_init
+    rows = []
+    try:
+        with Algorithm.from_plan(
+            "ppo_lm", workers, train_batch_size=cfg["train_batch_size"],
+            num_sgd_iter=cfg["num_sgd_iter"], sgd_minibatch_size=cfg["sgd_minibatch_size"],
+        ) as algo:
+            for c in counters:
+                c.reset()
+            t_all = time.perf_counter()
+            for i in range(iters):
+                prof = None
+                if i == iters - 1:  # the last iteration runs under the profiler
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.start()
+                before = {c.name: c.value for c in counters}
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if prof is not None:
+                    prof.stop()
+                    busy = _device_kernels(prof)
+                launched = {c.name: c.value - before[c.name] for c in counters}
+                info, ctr = result["info"], result["counters"]
+                rows.append({"iter": i, "seconds": dt, "loss": info["loss"], "launches": launched,
+                             "reward": result["episodes"]["episode_reward_mean"]})
+                print(
+                    f"rlhf train {i}: steps_sampled={ctr['num_steps_sampled']} "
+                    f"steps_trained={ctr['num_steps_trained']} loss={info['loss']:.4f} "
+                    f"kl={info['kl']:.5f} entropy={info['entropy']:.4f} "
+                    f"reward_mean={result['episodes']['episode_reward_mean']:.4f} {dt:.3f} s "
+                    + " ".join(f"{k}={v}" for k, v in launched.items())
+                )
+                _require(set(result) == RESULT_KEYS, f"result keys {sorted(result)}")
+                _require(set(info) == INFO_KEYS, f"info keys {sorted(info)}")
+                _require(all(math.isfinite(info[k]) for k in INFO_KEYS), f"non-finite stats {info}")
+                steps = (i + 1) * cfg["train_batch_size"]
+                _require(ctr["num_steps_sampled"] == steps and ctr["num_steps_trained"] == steps,
+                         f"counters {ctr} after {i + 1} iterations")
+                _require(launched == per_iter,
+                         f"iteration {i} launched {launched}, expected {per_iter}")
+            total = time.perf_counter() - t_all
+            launches = {c.name: c.value for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            lw = workers.local_worker()
+            gap = parity_gap(lw)
+            with torch.no_grad():
+                logits, _ = lw.policy.logits_value(lw.params, lw.vstate.obs)
+            scale = float(logits.abs().max())
+            print(f"rlhf parity: decode-vs-forward max |logits gap| {gap:.3e}, max |forward "
+                  f"logits| {scale:.3e}, limit {1e-4 * scale:.3e}")
+            _require(gap <= 1e-4 * scale, f"decode-vs-forward gap {gap:.3e} > 1e-4 * {scale:.3e}")
+            split = _split_times(lw)
+    finally:
+        workers.stop()
+    busy_ms = sum(busy.values()) / 1e3
+    names = ("decode_attention", "flash_fwd", "flash_bwd", "surrogate_", "gae_kernel")
+    ours = {k[:60]: v / 1e3 for k, v in busy.items() if any(n in k for n in names)}
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    warm_ms = 1e3 * sum(r["seconds"] for r in rows[1:-1]) / max(len(rows) - 2, 1)
+    profiled = {
+        "wall_ms": dt * 1e3, "unprofiled_mean_ms": warm_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (dt * 1e3),
+        "idle_share_vs_unprofiled": 1.0 - busy_ms / warm_ms,
+        "port_kernels_ms": ours,
+        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+    }
+    print(
+        f"rlhf profile train {iters - 1}: wall {dt * 1e3:.1f} ms (unprofiled {warm_ms:.1f} ms), "
+        f"device busy {busy_ms:.2f} ms, idle share {profiled['idle_share']:.4f} "
+        f"({profiled['idle_share_vs_unprofiled']:.4f} vs unprofiled); peak memory "
+        f"{peak / 2**30:.2f} GiB; worker init {init_s:.2f} s; split {split}"
+    )
+    print(f"rlhf top device kernels (ms): {profiled['top_kernels_ms']}")
+    print(f"rlhf main path: {iters} train() iterations in {total:.3f} s, launches {launches}")
+    return {"iterations": rows, "seconds": total, "launches": launches, "profile": profiled,
+            "expected_per_iter": per_iter, "peak_memory_bytes": peak, "init_s": init_s,
+            "parity_gap": gap, "max_abs_logit": scale, "split": split}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
@@ -457,6 +900,14 @@ KERNEL_SITES = {
                           "src/repro/kernels/surrogate.py:58"),
     "ppo_surrogate_bwd": ("src/repro_torch/kernels/csrc/surrogate.cu",
                           "src/repro/kernels/surrogate.py:85"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:29"),
+    "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:30"),
+    # The TPU kernel has no backward: the reference learner differentiates
+    # its oracle, jax.grad through ref.chunked_attention.
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/ref.py:58"),
 }
 
 
@@ -478,6 +929,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels.advantages import GAE_LAUNCHES
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
+    from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
 
     record: dict = {}
@@ -489,21 +942,29 @@ def main() -> int:
         record["main_path"] = phase_main_path(
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES]
         )
+        record["lm_learner_parity"] = phase_lm_learner_parity()
+        record["rlhf"] = phase_rlhf(
+            [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
+             DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES]
+        )
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     kernels = []
+    paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"]}
     for name, (source, replaces) in KERNEL_SITES.items():
-        path_case = record["kernels"][name][0]  # the main path's shape comes first
+        path_case = record["kernels"][name][0]  # the RLHF path's shape comes first
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": record["main_path"]["launches"][name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in record["kernels"][name]),
             "ms": path_case["ms"], "plain_ms": path_case["plain_ms"],
             "ms_from": path_case["ms_from"], "plain_ms_from": path_case["plain_ms_from"],
             "bound_ms": path_case["bound_ms"], "bound_by": path_case["bound_by"],
-            "library_ms": None, "shape": path_case["shape"],
+            "library_ms": path_case["library_ms"],
+            "library_backend": path_case.get("library_backend"), "shape": path_case["shape"],
             "call_ms": path_case["call_ms"], "plain_call_ms": path_case["plain_call_ms"],
         })
     if args.out:

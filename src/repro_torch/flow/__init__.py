@@ -1,5 +1,6 @@
 """repro_torch.flow: the dataflow-graph IR and the Algorithm runtime
-(PyTorch port; ``build_ppo`` is the plan this slice carries).
+(PyTorch port; ``build_ppo`` and ``build_ppo_lm`` are the plans ported so
+far).
 
     from repro_torch.flow import Algorithm
 
@@ -17,7 +18,7 @@ from repro_torch.flow.compile import (
     fuse_for_each,
     partition_flowspec,
 )
-from repro_torch.flow.plans import PLAN_BUILDERS, REPLAY_PLANS, build_ppo
+from repro_torch.flow.plans import PLAN_BUILDERS, REPLAY_PLANS, build_ppo, build_ppo_lm
 from repro_torch.flow.spec import (
     FlowSpec,
     HostSpec,
@@ -44,6 +45,7 @@ __all__ = [
     "StageSpec",
     "Stream",
     "build_ppo",
+    "build_ppo_lm",
     "compose_stages",
     "fuse_for_each",
     "partition_flowspec",

@@ -3,8 +3,9 @@
 Each ``build_*`` function assembles a ``FlowSpec`` — the graph the paper
 draws in Figures 9–12, as a value you can inspect (``to_dot()``), optimize
 (stage fusion), and lower (``compile()``); ``repro_torch.flow.Algorithm``
-is the run-facade.  The port carries ``build_ppo`` (Fig 10b) so far; the
-other builders of ``repro/flow/plans.py`` follow their workers and buffers.
+is the run-facade.  The port carries ``build_ppo`` (Fig 10b) and its
+language-model variant ``build_ppo_lm`` so far; the other builders of
+``repro/flow/plans.py`` follow their workers and buffers.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from repro_torch.core.operators import ConcatBatches, StandardizeFields, TrainOn
 from repro_torch.core.workers import WorkerSet
 from repro_torch.flow.spec import FlowSpec
 
-__all__ = ["PLAN_BUILDERS", "REPLAY_PLANS", "build_ppo"]
+__all__ = ["PLAN_BUILDERS", "REPLAY_PLANS", "build_ppo", "build_ppo_lm"]
 
 
 # --------------------------------------------------------------------- PPO
@@ -79,7 +80,57 @@ def build_ppo(
     return spec
 
 
-PLAN_BUILDERS: Dict[str, Any] = {"ppo": build_ppo}
+# --------------------------------------------------------------- PPO on an LM
+def build_ppo_lm(
+    workers: WorkerSet,
+    train_batch_size: int = 256,
+    num_sgd_iter: int = 4,
+    sgd_minibatch_size: int = 64,
+    num_learners: int = 0,
+    microbatch: int = 0,
+    vector: int = 0,
+    inference: str = None,
+    inference_replicas: int = 0,
+    inference_routing: str = None,
+    decode: str = "cache",
+) -> FlowSpec:
+    """PPO on a language-model workload (RLHF-style token generation).
+
+    Same dataflow shape as ``build_ppo`` (sample -> concat -> standardize ->
+    multi-epoch SGD), but the rollouts node carries ``decode='cache'``:
+    ``compile()`` lowers it onto the stateful-policy protocol so each env
+    lane generates tokens through a per-lane KV cache (prefill once per
+    episode, then one ``ops.decode_attention`` step per action) instead of
+    re-running the O(S) forward every token.  ``decode='forward'`` takes the
+    no-cache path; workers whose policy lacks the protocol fall back to it.
+    """
+    spec = FlowSpec("ppo_lm")
+    train_op = (
+        spec.rollouts(
+            workers, mode="bulk_sync", vector=vector or None, inference=inference,
+            inference_replicas=inference_replicas or None,
+            inference_routing=inference_routing,
+            decode=decode,
+        )
+        .for_each(ConcatBatches(train_batch_size), label=f"ConcatBatches({train_batch_size})")
+        .for_each(StandardizeFields(["advantages"]))
+        .for_each(
+            TrainOneStep(
+                workers,
+                num_sgd_iter=num_sgd_iter,
+                sgd_minibatch_size=sgd_minibatch_size,
+            )
+        )
+    )
+    if num_learners:
+        train_op = train_op.learners(num_learners)
+    if microbatch:
+        train_op = train_op.microbatch(microbatch)
+    spec.set_output(train_op.report(workers))
+    return spec
+
+
+PLAN_BUILDERS: Dict[str, Any] = {"ppo": build_ppo, "ppo_lm": build_ppo_lm}
 
 # No replay plan is ported yet (DQN/Ape-X/SAC/MBPO wait for rl/replay.py).
 REPLAY_PLANS: frozenset = frozenset()

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The sources include no PyTorch header, so a build takes seconds, not the
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  The
+sources include no PyTorch header, so a build takes seconds, not the
 minutes a ``torch.utils.cpp_extension`` build would.  The library is named
 by a hash of the sources and flags and cached under ``kernels/_build/``
 (listed in ``.gitignore``); the first launch of any kernel builds it.
@@ -41,7 +42,6 @@ NVCC_FLAGS = [
     "-std=c++17",
     "-O3",
     "-Xptxas=-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -58,6 +58,13 @@ _SIGNATURES = {
     # logits, actions, values, blp, adv, ret, gpg, gvf, gent, gkl,
     # dlogits, dv, dblp, dadv, dret, B, A, lo, hi, stream
     "ppo_surrogate_bwd_launch": [_P] * 15 + [_I, _I, _F, _F, _P],
+    # q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream
+    "decode_attention_launch": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset, scale, stream
+    "flash_attention_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D, causal,
+    # window, q_offset, scale, stream
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -91,6 +98,39 @@ def _digest(sources: list) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(sources: list, target: Path) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``target``; returns the compilers' output (ptxas register counts)."""
+    nvcc = _nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" + "".join(logs))
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                          capture_output=True, text=True)
+    logs.append(link.stdout + link.stderr)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{logs[-1]}")
+    os.replace(tmp, target)
+    for obj in objects:
+        obj.unlink()
+    return "".join(logs)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
@@ -103,13 +143,7 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         log = ""
         if not target.exists():
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-            os.replace(tmp, target)
+            log = _compile(sources, target)
             (BUILD_DIR / "build.log").write_text(log)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():

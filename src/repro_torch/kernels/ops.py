@@ -14,9 +14,38 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels.advantages import gae_cuda
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
-__all__ = ["fused_gae", "fused_ppo_loss"]
+__all__ = ["decode_attention", "flash_attention", "fused_gae", "fused_ppo_loss"]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Prefill / training attention, q [B,Sq,H,D] against k, v [B,Sk,KV,D]:
+    the CUDA kernels (forward and backward) for CUDA tensors, the plain
+    version for CPU tensors."""
+    attention = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    return attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """Single-token attention against a KV cache.
+
+    q: [B,1,H,D]; caches: [B,W,KV,D]; valid: [W] (shared) or [B,W]
+    (per-sequence occupancy). Rows with no valid slot return zeros.
+    """
+    attention = decode_attention_cuda if q.is_cuda else decode_attention_plain
+    return attention(q, k_cache, v_cache, valid)
 
 
 def fused_ppo_loss(

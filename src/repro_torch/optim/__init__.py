@@ -1,3 +1,10 @@
-from repro_torch.optim.optimizers import AdamState, Optimizer, adam, constant_schedule
+from repro_torch.optim.optimizers import (
+    AdamState,
+    Optimizer,
+    SgdState,
+    adam,
+    constant_schedule,
+    sgd,
+)
 
-__all__ = ["AdamState", "Optimizer", "adam", "constant_schedule"]
+__all__ = ["AdamState", "Optimizer", "SgdState", "adam", "constant_schedule", "sgd"]

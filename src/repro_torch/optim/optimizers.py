@@ -24,7 +24,7 @@ from repro_torch.tree import tree_map
 PyTree = Any
 Schedule = Callable[[int], float]
 
-__all__ = ["Optimizer", "AdamState", "adam", "constant_schedule"]
+__all__ = ["Optimizer", "AdamState", "SgdState", "adam", "sgd", "constant_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +44,29 @@ def constant_schedule(lr: float) -> Schedule:
 
 def _as_schedule(lr: Any) -> Schedule:
     return lr if callable(lr) else constant_schedule(lr)
+
+
+class SgdState(NamedTuple):
+    step: int
+    momentum: PyTree  # None without momentum
+
+
+def sgd(lr: Any, momentum: float = 0.0) -> Optimizer:
+    """Plain or heavy-ball SGD; momentum buffers in fp32."""
+    sched = _as_schedule(lr)
+
+    def init(params: PyTree) -> SgdState:
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return SgdState(0, tree_map(zeros, params) if momentum else None)
+
+    def update(grads: PyTree, state: SgdState, params: PyTree):
+        lr_t = sched(state.step)
+        if momentum:
+            new_mom = tree_map(lambda m, g: momentum * m + g.float(), state.momentum, grads)
+            return tree_map(lambda m: -lr_t * m, new_mom), SgdState(state.step + 1, new_mom)
+        return tree_map(lambda g: -lr_t * g.float(), grads), SgdState(state.step + 1, None)
+
+    return Optimizer(init, update)
 
 
 class AdamState(NamedTuple):

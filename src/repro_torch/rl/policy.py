@@ -89,6 +89,11 @@ class ActorCriticPolicy:
         logp = logp_all.gather(-1, action)[..., 0]
         return action[..., 0], logp, value, logits
 
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        """Batched acting for the vectorized rollout engine (``act`` is
+        already batched)."""
+        return self.act(params, obs, generator)
+
     def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         """Critic value only (the GAE bootstrap)."""
         return mlp_apply(params["vf"], obs)[..., 0]

@@ -20,13 +20,14 @@ import torch
 from repro.core.operators import StandardizeFields as JaxStandardizeFields
 from repro.core.operators import TrainOneStep as JaxTrainOneStep
 from repro.optim import adam as jax_adam
+from repro.optim import sgd as jax_sgd
 from repro.rl.env import CartPole as JaxCartPole
 from repro.rl.env import CartPoleState as JaxCartPoleState
 from repro.rl.policy import ActorCriticPolicy as JaxPolicy
 from repro.rl.rollout_worker import RolloutWorker as JaxWorker
 from repro_torch.core.operators import StandardizeFields, TrainOneStep
 from repro_torch.interop import params_from_numpy, params_to_numpy
-from repro_torch.optim import adam
+from repro_torch.optim import adam, sgd
 from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker, SampleBatch
 from repro_torch.rl.env import CartPoleState
 from repro_torch.tree import tree_leaves
@@ -167,6 +168,24 @@ def test_adam_steps_match_reference():
     assert s_t.step == int(s_j.step) == 3
     _tree_close(s_t.mu, s_j.mu)
     _tree_close(s_t.nu, s_j.nu)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_steps_match_reference(momentum):
+    rng = np.random.default_rng(6)
+    normal = lambda shape: rng.standard_normal(shape).astype(np.float32)
+    params = {"a": [normal((3, 4))], "b": normal(4)}
+    grads = [jax.tree_util.tree_map(lambda p: normal(p.shape), params) for _ in range(3)]
+    opt_j, opt_t = jax_sgd(0.1, momentum=momentum), sgd(0.1, momentum=momentum)
+    p_j = jax.tree_util.tree_map(jnp.asarray, params)
+    s_j = opt_j.init(p_j)
+    p_t = params_from_numpy(params)
+    s_t = opt_t.init(p_t)
+    for g in grads:
+        p_j, s_j = opt_j.apply(p_j, jax.tree_util.tree_map(jnp.asarray, g), s_j)
+        p_t, s_t = opt_t.apply(p_t, params_from_numpy(g), s_t)
+        _tree_close(p_t, p_j)
+    assert s_t.step == int(s_j.step) == 3
 
 
 # --------------------------------------------------------- learner half
