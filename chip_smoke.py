@@ -12,7 +12,10 @@ phase that fails, and then prints no result line):
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version, bound and (for attention) the
    ``scaled_dot_product_attention`` yardstick: GAE at [32, 8], [64, 8],
-   [128, 4096] and a ragged [33, 1001]; the surrogate forward + autograd
+   [128, 4096] and a ragged [33, 1001]; V-trace at the IMPALA learner's
+   [32, 16] and the many-lane learner's [32, 512], at [128, 4096], a ragged
+   [33, 1001], trailing dims [16, 8, 2], T = 1, and with clips 2.0 / 0.5;
+   the surrogate forward + autograd
    backward at [128, 151936] (the LM learner's vocabulary), [256, 2] and
    [65536, 18], with rows whose ratio is exactly 1 and rows exactly on the
    clip boundary; decode attention at the RLHF path's [8, 1, 20, 128] x
@@ -40,7 +43,23 @@ phase that fails, and then prints no result line):
    ``Algorithm.from_plan("ppo_lm")``, ``RLHF_ITERS`` ``train()`` iterations
    with KV-cache rollouts; counters zeroed just before and read just after
    and checked against the configuration, the decode-vs-forward logits gap,
-   peak memory, seconds per iteration and the device's idle share.
+   peak memory, seconds per iteration and the device's idle share;
+8. V-trace learner parity: one ``learn_on_batch`` (SGD, lr 1) of an IMPALA
+   worker on a 512-row batch concatenated from 4 samples, on the card and
+   on the CPU from the same weights, agrees to 1e-4;
+9. main path 3: IMPALA (``Algorithm.from_plan("impala")``) at the
+   configuration of ``examples/impala_vtrace.py`` (3 workers x 4 envs x 32
+   steps, 512-row train batch, ``num_async`` 2): asynchronous rollouts, a
+   learner thread and the weight-broadcast gate, ``train()`` under a
+   deadline until the learner has taken ``min_steps`` steps, the learner
+   thread checked alive after every iteration, one profiled window, then
+   ``stop()`` and no thread of the flow left alive; launches checked
+   against the learner's own step count (V-trace once per step, no GAE);
+10. main path 4: APPO (``Algorithm.from_plan("appo")``), the same with PPO
+   workers (surrogate forward and backward once per learner step, GAE once
+   per rollout the workers ran);
+11. main path 5: IMPALA with many lanes: ``VectorizedRolloutWorker``s with
+   256 lanes, 2 workers x 32 steps, 16,384-row train batch.
 
 Then one JSON line with every kernel's launches, error, times, bound and
 library time, and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
@@ -51,10 +70,13 @@ or of ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +111,22 @@ RLHF_CONFIG = dict(
 RLHF_ITERS = 3
 # Reduced width of the card-vs-CPU LM learner parity phase.
 LM_PARITY = dict(vocab_size=512, ctx=64, d_model=256, n_layers=2, num_heads=4, num_kv_heads=2)
+
+# The asynchronous paths: IMPALA at examples/impala_vtrace.py's configuration,
+# APPO on the same graph with PPO workers, and IMPALA's many-lane scenario
+# (build_impala's vector=N lanes per shard).  ``min_steps`` is the number of
+# learner-thread steps each must reach.
+ASYNC_PATHS = {
+    "impala": dict(plan="impala", algo="vtrace", num_workers=3, num_envs=4, rollout_len=32,
+                   train_batch_size=512, num_async=2, vector=0, min_steps=16),
+    "appo": dict(plan="appo", algo="ppo", num_workers=3, num_envs=4, rollout_len=32,
+                 train_batch_size=512, num_async=2, vector=0, min_steps=16),
+    "impala_vector": dict(plan="impala", algo="vtrace", num_workers=2, num_envs=256,
+                          rollout_len=32, train_batch_size=16384, num_async=2, vector=256,
+                          min_steps=8),
+}
+ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
+ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
 
 
 class PhaseError(RuntimeError):
@@ -240,6 +278,43 @@ def _gae_case(T: int, B: int, seed: int) -> dict:
         "shape": [T, B], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         "library_ms": None,
         **_timings(lambda: gae_cuda(r, v, d, last), lambda: gae(r, v, d, last), plain_iters=20),
+    }
+
+
+def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float = 1.0) -> dict:
+    """V-trace kernel against its plain loop on time-major ``shape``: about
+    10 % dones, log-ratios spread so rho lands below and above the clips,
+    and every fifth element with target == behaviour log-prob exactly."""
+    import torch
+
+    from repro_torch.kernels.advantages import vtrace_cuda
+    from repro_torch.rl.advantages import vtrace
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    blp = -2.0 * torch.rand(shape, generator=g, device="cuda") - 0.05
+    tlp = blp + 0.8 * torch.randn(shape, generator=g, device="cuda")
+    tlp.view(-1)[::5] = blp.view(-1)[::5]
+    r = torch.randn(shape, generator=g, device="cuda")
+    v = torch.randn(shape, generator=g, device="cuda")
+    d = (torch.rand(shape, generator=g, device="cuda") < 0.1).float()
+    last = torch.randn(shape[1:], generator=g, device="cuda")
+    rho = torch.exp(tlp - blp)
+    _require(bool((rho < min(rho_clip, c_clip)).any()) and bool((rho > max(rho_clip, c_clip)).any()),
+             f"vtrace{list(shape)}: rho does not straddle the clips")
+    kw = dict(gamma=0.99, rho_clip=rho_clip, c_clip=c_clip)
+    vs_k, pg_k = vtrace_cuda(blp, tlp, r, v, d, last, **kw)
+    vs_p, pg_p = vtrace(blp, tlp, r, v, d, last, **kw)
+    torch.cuda.synchronize()
+    name = f"vtrace{list(shape)} clips {rho_clip}/{c_clip}"
+    err = max(_close(f"{name} vs", vs_k, vs_p), _close(f"{name} pg_adv", pg_k, pg_p))
+    T, B = shape[0], math.prod(shape[1:])
+    nbytes = (5 * T * B + B) * 4 + 2 * T * B * 4  # six inputs read, two outputs written
+    bound, by = _bound_ms(nbytes, 20 * T * B)
+    return {
+        "shape": list(shape), "rho_clip": rho_clip, "c_clip": c_clip, "max_abs_err": err,
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None,
+        **_timings(lambda: vtrace_cuda(blp, tlp, r, v, d, last, **kw),
+                   lambda: vtrace(blp, tlp, r, v, d, last, **kw), plain_iters=20),
     }
 
 
@@ -530,14 +605,20 @@ def _flash_bwd_case(B, S, H, KV, D, seed) -> dict:
 
 def phase_kernels() -> dict:
     """Every kernel at its main paths' shapes and at large ones; the first
-    case of each kernel is the RLHF path's shape."""
+    case of each kernel is its path's shape (the RLHF path's, and the IMPALA
+    learner's for V-trace)."""
     gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(128, 4096, 1),
                  _gae_case(33, 1001, 2)]
+    vtrace_cases = [_vtrace_case((32, 16), 40), _vtrace_case((32, 512), 41),
+                    _vtrace_case((128, 4096), 42), _vtrace_case((33, 1001), 43),
+                    _vtrace_case((16, 8, 2), 44), _vtrace_case((1, 64), 45),
+                    _vtrace_case((32, 512), 46, rho_clip=2.0, c_clip=0.5)]
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
                  _surrogate_case(65536, 18, 4)]
     d = RLHF_ENV["ctx"]
     out = {
         "gae": gae_cases,
+        "vtrace": vtrace_cases,
         "ppo_surrogate_fwd": [c["fwd"] for c in sur_cases],
         "ppo_surrogate_bwd": [c["bwd"] for c in sur_cases],
         "decode_attention": [
@@ -893,9 +974,244 @@ def phase_rlhf(counters: list) -> dict:
             "parity_gap": gap, "max_abs_logit": scale, "split": split}
 
 
+# ----------------------------------------------------------------- phase 8
+def _async_worker(index: int, device: str, cfg: dict, optimizer=None):
+    """A CartPole worker of an async path: the example's 64x64 actor-critic
+    with the V-trace loss (IMPALA) or the PPO loss (APPO)."""
+    from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker, VectorizedRolloutWorker
+
+    loss_kind = "vtrace" if cfg["algo"] == "vtrace" else "ppo"
+    policy = ActorCriticPolicy(4, 2, hidden=(64, 64), loss_kind=loss_kind, ent_coef=0.01,
+                               rollout_len=cfg["rollout_len"])
+    cls = VectorizedRolloutWorker if cfg["vector"] else RolloutWorker
+    kw = {"optimizer": optimizer} if optimizer is not None else {}
+    return cls(CartPole(), policy, algo=cfg["algo"], num_envs=cfg["num_envs"],
+               rollout_len=cfg["rollout_len"], seed=0, worker_index=index, device=device, **kw)
+
+
+def phase_vtrace_learner_parity() -> dict:
+    """One IMPALA learner step on the card (V-trace kernel) and on the CPU
+    (plain loop) from the same weights, with SGD at lr 1 so the weight
+    difference is the gradient difference (see phase 6)."""
+    import numpy as np
+
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.optim import sgd
+    from repro_torch.rl import SampleBatch
+    from repro_torch.tree import tree_leaves
+
+    cfg = ASYNC_PATHS["impala"]
+    gpu = _async_worker(0, "cuda", cfg, optimizer=sgd(1.0))
+    cpu = _async_worker(0, "cpu", cfg, optimizer=sgd(1.0))
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    batch = SampleBatch.concat_samples([gpu.sample() for _ in range(4)])
+    _require(batch.count == cfg["train_batch_size"], f"parity batch has {batch.count} rows")
+    info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+    w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
+    w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
+    stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
+    _require(err <= LEARNER_TOL, f"V-trace learner parity: card vs CPU weights differ by {err:.3e}")
+    _require(stat_err <= LEARNER_TOL, f"V-trace learner parity: stats differ by {stat_err:.3e}")
+    print(f"V-trace learner parity: one learn_on_batch (SGD, lr 1) on {batch.count} rows, card "
+          f"vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol {LEARNER_TOL})")
+    return {"weight_err": err, "stat_err": stat_err, "rows": batch.count}
+
+
+# ------------------------------------------------------------ phases 9-11
+class _Rollouts:
+    """Count and host seconds of the rollouts (``sample()`` calls) the
+    workers of one path ran, across their actor threads."""
+
+    def __init__(self):
+        self.count = 0
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def wrap(self, worker):
+        sample = worker.sample
+
+        def counted():
+            t0 = time.perf_counter()
+            out = sample()  # ends in a device-to-host copy
+            with self._lock:
+                self.count += 1
+                self.seconds += time.perf_counter() - t0
+            return out
+
+        worker.sample = counted
+        return worker
+
+
+@contextlib.contextmanager
+def _deadline(seconds: int, what: str):
+    """Raise PhaseError in the main thread when ``seconds`` pass."""
+
+    def expired(signum, frame):
+        raise PhaseError(f"{what}: not done within its {seconds} s deadline")
+
+    previous = signal.signal(signal.SIGALRM, expired)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+def phase_async(name: str, counters: list) -> dict:
+    """One asynchronous main path: ``train()`` until the learner thread has
+    taken ``min_steps`` steps, then a profiled window, then ``stop()``.
+    Launches are read after ``stop()`` has joined every thread of the flow
+    and checked against the learner's and the workers' own counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+
+    cfg = ASYNC_PATHS[name]
+    rollouts = _Rollouts()
+    thread_errors: dict = {}
+    hook = threading.excepthook
+
+    def record(args):
+        thread_errors[args.thread.name] = repr(args.exc_value)
+        hook(args)
+
+    threads_before = set(threading.enumerate())
+    threading.excepthook = record
+    t_init = time.perf_counter()
+    workers = WorkerSet.create(lambda i: rollouts.wrap(_async_worker(i, "cuda", cfg)),
+                               cfg["num_workers"])
+    plan_kw = dict(train_batch_size=cfg["train_batch_size"], num_async=cfg["num_async"])
+    if cfg["vector"]:
+        plan_kw["vector"] = cfg["vector"]
+    algo = Algorithm.from_plan(cfg["plan"], workers, **plan_kw)
+    init_s = time.perf_counter() - t_init
+    learner = algo.resources["learner"]
+    info_keys = INFO_KEYS if cfg["algo"] == "ppo" else INFO_KEYS - {"kl"}
+    rows = []
+
+    def train_once(i: int) -> dict:
+        t0 = time.perf_counter()
+        result = algo.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _require(learner.is_alive(), f"{name}: the learner thread died after iteration {i}: "
+                                     f"{thread_errors.get(learner.name, 'no exception recorded')}")
+        _require(set(result) == RESULT_KEYS, f"{name}: result keys {sorted(result)}")
+        info, ctr = result["info"], result["counters"]
+        if info:  # empty until the first learner result reaches the driver
+            _require(set(info) == info_keys, f"{name}: info keys {sorted(info)}")
+            _require(all(math.isfinite(info[k]) for k in info), f"{name}: non-finite stats {info}")
+        reward = result["episodes"]["episode_reward_mean"]
+        rows.append({"iter": i, "seconds": dt, "reward": reward, "loss": info.get("loss"),
+                     "steps_sampled": ctr.get("num_steps_sampled", 0),
+                     "steps_trained": ctr.get("num_steps_trained", 0),
+                     "learner_steps": learner.num_steps})
+        print(f"{name} train {i}: steps_sampled={rows[-1]['steps_sampled']} "
+              f"steps_trained={rows[-1]['steps_trained']} learner_steps={learner.num_steps} "
+              f"reward_mean={reward:.2f} loss={info.get('loss')} {dt:.3f} s "
+              + " ".join(f"{c.name}={c.value}" for c in counters))
+        return result
+
+    def snapshot() -> dict:
+        return {"t": time.perf_counter(), "learn_s": learner.learn_timer.total,
+                "learn_n": learner.learn_timer.count, "roll_s": rollouts.seconds,
+                "roll_n": rollouts.count, "trained": rows[-1]["steps_trained"] if rows else 0}
+
+    try:
+        with _deadline(ASYNC_DEADLINE_S, name):
+            for c in counters:
+                c.reset()
+            t_all = time.perf_counter()
+            result = train_once(0)
+            warm = snapshot()  # the first iteration starts every thread: warm-up
+            while learner.num_steps < cfg["min_steps"] or len(rows) < 3:
+                result = train_once(len(rows))
+            steady = snapshot()
+            total = steady["t"] - t_all
+            # The profiled window: whole train() calls lasting at least
+            # ASYNC_PROFILE_S, so the learner and rollout threads' kernels
+            # launched meanwhile are in it.
+            steps0, trained0 = learner.num_steps, rows[-1]["steps_trained"]
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            t_prof = time.perf_counter()
+            while time.perf_counter() - t_prof < ASYNC_PROFILE_S:
+                result = train_once(len(rows))
+            window = time.perf_counter() - t_prof
+            window_steps = learner.num_steps - steps0
+            window_trained = rows[-1]["steps_trained"] - trained0
+            prof.stop()
+            busy = _device_kernels(prof)
+            _require(rows[-1]["steps_trained"] > 0, f"{name}: nothing trained")
+    finally:
+        algo.stop()
+        threading.excepthook = hook
+    _require(not learner.is_alive(), f"{name}: the learner thread is alive after stop()")
+    # Dummy threads are the Python faces of native threads (the autograd
+    # engine's device threads run the surrogate backward): not the flow's.
+    left = [t.name for t in threading.enumerate() if t not in threads_before and t.is_alive()
+            and not isinstance(t, threading._DummyThread)]
+    _require(not left, f"{name}: threads of the flow alive after stop(): {left}")
+
+    launches = {c.name: c.value for c in counters}
+    steps = learner.num_steps
+    received = rows[-1]["steps_sampled"] // (cfg["num_envs"] * cfg["rollout_len"])
+    if cfg["algo"] == "vtrace":
+        expect = {"gae": 0, "vtrace": steps, "ppo_surrogate_fwd": 0, "ppo_surrogate_bwd": 0}
+    else:
+        expect = {"gae": rollouts.count, "vtrace": 0,
+                  "ppo_surrogate_fwd": steps, "ppo_surrogate_bwd": steps}
+    _require(launches == expect, f"{name}: launches {launches}, expected {expect} "
+                                 f"(learner steps {steps}, rollouts run {rollouts.count})")
+    _require(rollouts.count >= received, f"{name}: {received} rollouts received but "
+                                         f"{rollouts.count} run")
+    busy_ms = sum(busy.values()) / 1e3
+    ours = {k[:60]: v / 1e3 for k, v in busy.items()
+            if any(n in k for n in ("vtrace_kernel", "gae_kernel", "surrogate_"))}
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    iters = [r["seconds"] for r in rows]
+    profiled = {
+        "window_s": window, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (window * 1e3),
+        "learner_steps": window_steps, "steps_trained": window_trained,
+        "port_kernels_ms": ours, "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+    }
+    # Where the time goes, over the unprofiled iterations after the first:
+    # the learner thread's learn_on_batch time and the rollout threads'
+    # sample time, each against the wall time of that stretch.
+    d = {k: steady[k] - warm[k] for k in warm}
+    split = {
+        "wall_s": d["t"], "steps_trained_per_s": d["trained"] / d["t"],
+        "learner_steps": d["learn_n"], "learner_s": d["learn_s"],
+        "learn_step_mean_s": d["learn_s"] / max(d["learn_n"], 1),
+        "learner_busy_share": d["learn_s"] / d["t"], "rollouts": d["roll_n"],
+        "rollout_s": d["roll_s"], "rollout_mean_s": d["roll_s"] / max(d["roll_n"], 1),
+        "rollout_busy_share_per_worker": d["roll_s"] / cfg["num_workers"] / d["t"],
+        "latencies": result["latencies"],
+    }
+    print(f"{name} profile: window {window:.3f} s, device busy {busy_ms:.2f} ms, idle share "
+          f"{profiled['idle_share']:.4f}, {window_steps} learner steps, {window_trained} steps "
+          f"trained; port kernels {ours}")
+    print(f"{name} top device kernels (ms): {profiled['top_kernels_ms']}")
+    print(f"{name} split: {json.dumps(split)}")
+    print(f"{name} main path: {len(rows)} train() iterations in {total:.3f} s (mean "
+          f"{sum(iters) / len(iters):.4f} s, init {init_s:.2f} s), learner steps {steps}, "
+          f"rollouts run {rollouts.count} (received {received}), "
+          f"{split['steps_trained_per_s']:.1f} steps trained/s after the first iteration, "
+          f"launches {launches}; no flow thread alive after stop()")
+    return {"config": dict(cfg), "iterations": rows, "seconds": total, "init_s": init_s,
+            "launches": launches, "learner_steps": steps, "rollouts_run": rollouts.count,
+            "rollouts_received": received, "profile": profiled, "split": split}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
+    "vtrace": ("src/repro_torch/kernels/csrc/vtrace.cu", "src/repro/kernels/advantages.py:72"),
     "ppo_surrogate_fwd": ("src/repro_torch/kernels/csrc/surrogate.cu",
                           "src/repro/kernels/surrogate.py:58"),
     "ppo_surrogate_bwd": ("src/repro_torch/kernels/csrc/surrogate.cu",
@@ -928,7 +1244,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels.advantages import GAE_LAUNCHES
+    from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
     from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
@@ -947,14 +1263,21 @@ def main() -> int:
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
              DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES]
         )
+        record["vtrace_learner_parity"] = phase_vtrace_learner_parity()
+        for name in ASYNC_PATHS:
+            record[name] = phase_async(
+                name, [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
+                       SURROGATE_BWD_LAUNCHES]
+            )
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     kernels = []
-    paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"]}
+    paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
+             **{name: record[name]["launches"] for name in ASYNC_PATHS}}
     for name, (source, replaces) in KERNEL_SITES.items():
-        path_case = record["kernels"][name][0]  # the RLHF path's shape comes first
+        path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

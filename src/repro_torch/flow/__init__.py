@@ -1,6 +1,6 @@
 """repro_torch.flow: the dataflow-graph IR and the Algorithm runtime
-(PyTorch port; ``build_ppo`` and ``build_ppo_lm`` are the plans ported so
-far).
+(PyTorch port; ``build_ppo``, ``build_ppo_lm``, ``build_impala`` and
+``build_appo`` are the plans ported so far).
 
     from repro_torch.flow import Algorithm
 
@@ -18,7 +18,14 @@ from repro_torch.flow.compile import (
     fuse_for_each,
     partition_flowspec,
 )
-from repro_torch.flow.plans import PLAN_BUILDERS, REPLAY_PLANS, build_ppo, build_ppo_lm
+from repro_torch.flow.plans import (
+    PLAN_BUILDERS,
+    REPLAY_PLANS,
+    build_appo,
+    build_impala,
+    build_ppo,
+    build_ppo_lm,
+)
 from repro_torch.flow.spec import (
     FlowSpec,
     HostSpec,
@@ -44,6 +51,8 @@ __all__ = [
     "Severity",
     "StageSpec",
     "Stream",
+    "build_appo",
+    "build_impala",
     "build_ppo",
     "build_ppo_lm",
     "compose_stages",

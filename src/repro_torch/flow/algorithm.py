@@ -16,7 +16,8 @@ Side effects are deferred: constructing the Algorithm compiles the graph but
 starts nothing; the first ``train()`` starts learner threads; ``stop()``
 joins them — after it returns, no flow-owned threads are alive.
 
-The PyTorch port registers the ``"ppo"`` plan only; ``check``, ``explain``,
+The PyTorch port registers the ``"ppo"``, ``"ppo_lm"``, ``"impala"`` and
+``"appo"`` plans; ``check``, ``explain``,
 ``save`` and ``restore`` of the JAX package are not ported yet.
 """
 

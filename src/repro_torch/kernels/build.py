@@ -53,6 +53,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # r, v, d, last, adv, ret, T, B, gamma, gamma*lam, stream
     "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # blp, tlp, r, v, d, last, vs, pg, T, B, gamma, rho_clip, c_clip, stream
+    "vtrace_launch": [_P] * 8 + [_I, _I, _F, _F, _F, _P],
     # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, B, A, lo, hi, stream
     "ppo_surrogate_fwd_launch": [_P] * 10 + [_I, _I, _F, _F, _P],
     # logits, actions, values, blp, adv, ret, gpg, gvf, gent, gkl,

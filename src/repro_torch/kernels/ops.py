@@ -13,12 +13,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.advantages import gae_cuda
+from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
-__all__ = ["decode_attention", "flash_attention", "fused_gae", "fused_ppo_loss"]
+__all__ = ["decode_attention", "flash_attention", "fused_gae", "fused_ppo_loss", "fused_vtrace"]
 
 
 def flash_attention(
@@ -91,3 +91,24 @@ def fused_gae(
     from repro_torch.rl.advantages import gae
 
     return gae(rewards, values, dones, last_value, gamma=gamma, lam=lam)
+
+
+def fused_vtrace(
+    behaviour_logp: torch.Tensor,
+    target_logp: torch.Tensor,
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    last_value: torch.Tensor,
+    gamma: float = 0.99,
+    rho_clip: float = 1.0,
+    c_clip: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """V-trace over time-major [T, ...]: the CUDA kernel for CUDA tensors,
+    the reverse-time loop for CPU tensors."""
+    kw = dict(gamma=gamma, rho_clip=rho_clip, c_clip=c_clip)
+    if rewards.is_cuda:
+        return vtrace_cuda(behaviour_logp, target_logp, rewards, values, dones, last_value, **kw)
+    from repro_torch.rl.advantages import vtrace
+
+    return vtrace(behaviour_logp, target_logp, rewards, values, dones, last_value, **kw)

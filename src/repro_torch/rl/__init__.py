@@ -1,4 +1,4 @@
-from repro_torch.rl.advantages import gae
+from repro_torch.rl.advantages import discounted_returns, gae, vtrace
 from repro_torch.rl.env import CartPole, CartPoleState, Env, VectorEnv, VectorEnvState, VectorStep
 from repro_torch.rl.lm_policy import LMTokenPolicy
 from repro_torch.rl.policy import ActorCriticPolicy, mlp_apply, mlp_init

@@ -14,7 +14,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import fused_ppo_loss
+from repro_torch.kernels.ops import fused_ppo_loss, fused_vtrace
 
 PyTree = Any
 
@@ -46,7 +46,8 @@ def mlp_apply(params: PyTree, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ Actor-critic
 class ActorCriticPolicy:
-    """Discrete actor-critic with selectable loss: 'pg' (A2C/A3C) or 'ppo'."""
+    """Discrete actor-critic with selectable loss: 'pg' (A2C/A3C), 'ppo',
+    'vtrace' (IMPALA)."""
 
     def __init__(
         self,
@@ -57,11 +58,12 @@ class ActorCriticPolicy:
         vf_coef: float = 0.5,
         ent_coef: float = 0.01,
         clip_eps: float = 0.2,
+        gamma: float = 0.99,
+        rollout_len: int = 0,  # needed for vtrace reshaping
     ):
-        if loss_kind not in ("pg", "ppo"):
+        if loss_kind not in ("pg", "ppo", "vtrace"):
             raise NotImplementedError(
-                f"loss_kind={loss_kind!r}: the port has the 'pg' and 'ppo' losses "
-                "(the V-trace loss waits for its kernel)"
+                f"loss_kind={loss_kind!r}: the policy has the 'pg', 'ppo' and 'vtrace' losses"
             )
         self.obs_dim = obs_dim
         self.num_actions = num_actions
@@ -70,6 +72,8 @@ class ActorCriticPolicy:
         self.vf_coef = vf_coef
         self.ent_coef = ent_coef
         self.clip_eps = clip_eps
+        self.gamma = gamma
+        self.rollout_len = rollout_len
 
     def init_params(self, generator: torch.Generator) -> PyTree:
         return {
@@ -102,13 +106,19 @@ class ActorCriticPolicy:
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         if self.loss_kind == "ppo":
             return self._ppo_loss(params, batch)
+        if self.loss_kind == "vtrace":
+            return self._vtrace_loss(params, batch)
         return self._pg_loss(params, batch)
 
-    def _pg_loss(self, params, batch):
+    def _dist_terms(self, params, batch):
         logits, values = self.logits_value(params, batch["obs"])
         logp_all = torch.log_softmax(logits, dim=-1)
         logp = logp_all.gather(-1, batch["actions"].long()[:, None])[:, 0]
         entropy = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+        return logp, entropy, values
+
+    def _pg_loss(self, params, batch):
+        logp, entropy, values = self._dist_terms(params, batch)
         pg = -torch.mean(logp * batch["advantages"])
         vf = torch.mean(torch.square(values - batch["returns"]))
         ent = torch.mean(entropy)
@@ -131,3 +141,39 @@ class ActorCriticPolicy:
             vf_coef=self.vf_coef,
             ent_coef=self.ent_coef,
         )
+
+    def _vtrace_loss(self, params, batch):
+        """IMPALA: importance-corrected off-policy actor-critic.
+
+        Batch rows are [N*T] with contiguous length-T traces (batch-major);
+        they are reshaped to [T, N] time-major for ``ops.fused_vtrace``: the
+        CUDA V-trace kernel for CUDA tensors, the reverse-time loop for CPU
+        tensors.  The targets are stop-gradient, as in the reference, so
+        the target log-probs and values enter detached.  The bootstrap is
+        the value at each trace's own last step, as in the reference.
+        """
+        T = self.rollout_len
+        if T <= 0:
+            raise ValueError("the vtrace loss needs rollout_len > 0")
+        logp, entropy, values = self._dist_terms(params, batch)
+
+        def tm(x):  # [N*T, ...] -> [T, N, ...]
+            return x.reshape((-1, T) + tuple(x.shape[1:])).transpose(0, 1)
+
+        def stopped(x):
+            return x.detach().contiguous()
+
+        vs, pg_adv = fused_vtrace(
+            behaviour_logp=stopped(tm(batch["logp"])),
+            target_logp=stopped(tm(logp)),
+            rewards=stopped(tm(batch["rewards"])),
+            values=stopped(tm(values)),
+            dones=stopped(tm(batch["dones"])),
+            last_value=stopped(tm(values)[-1]),
+            gamma=self.gamma,
+        )
+        pg = -torch.mean(tm(logp) * pg_adv)
+        vf = torch.mean(torch.square(tm(values) - vs))
+        ent = torch.mean(entropy)
+        loss = pg + self.vf_coef * vf - self.ent_coef * ent
+        return loss, {"pg_loss": pg, "vf_loss": vf, "entropy": ent}

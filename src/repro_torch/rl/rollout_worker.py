@@ -4,8 +4,10 @@
 Owns a batched env, a policy, its parameters and optimizer state, and a
 ``torch.Generator``, all on one device.  Where the reference compiles the
 T-step rollout into one ``lax.scan``, the port runs it as a loop of eager
-batched steps on the device and ends it with the GAE kernel; the learner
-step is autograd through the surrogate kernels plus the hand-written Adam.
+batched steps on the device and ends it with the GAE kernel (``pg`` and
+``ppo``; ``vtrace`` workers compute no advantages); the learner step is
+autograd through the surrogate or V-trace kernels plus the hand-written
+optimizer.
 The dataflow layer composes workers through the same protocol as the
 reference (sample / get_weights / set_weights / compute_gradients /
 apply_gradients / learn_on_batch / episode_stats / get_state / set_state).
@@ -14,6 +16,10 @@ Weights cross workers by value: ``get_weights`` returns detached clones and
 ``set_weights`` copies into the worker's own tensors.  The reference can
 share one weights object between workers because JAX arrays are immutable;
 here a shared tensor would let one worker see another's update mid-rollout.
+The learner step never updates in place either: the optimizer builds new
+tensors and rebinds ``self.params``, so a ``get_weights`` on another thread
+(the IMPALA broadcast gate, while the learner thread runs
+``learn_on_batch``) reads either the old or the new weights, never a mix.
 
 ``VectorizedRolloutWorker`` is the vectorized engine over a ``VectorEnv``:
 one batched policy dispatch per step, per-episode fragments with globally
@@ -105,7 +111,7 @@ class RolloutWorker:
         self,
         env: Env,
         policy: Any,
-        algo: str = "pg",  # pg | ppo
+        algo: str = "pg",  # pg | ppo | vtrace
         num_envs: int = 4,
         rollout_len: int = 64,
         optimizer: Optional[Optimizer] = None,
@@ -115,9 +121,9 @@ class RolloutWorker:
         worker_index: int = 0,
         device: Any = "cuda",
     ):
-        if algo not in ("pg", "ppo"):
+        if algo not in ("pg", "ppo", "vtrace"):
             raise NotImplementedError(
-                f"algo={algo!r}: the port's RolloutWorker runs 'pg' and 'ppo'"
+                f"algo={algo!r}: the port's RolloutWorker runs 'pg', 'ppo' and 'vtrace'"
             )
         self.env = env
         self.policy = policy
@@ -167,12 +173,13 @@ class RolloutWorker:
             })
             obs = next_obs
         cols = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        last_value = self.policy.value(params, obs)
-        adv, ret = gae(
-            cols["rewards"], cols["values"], cols["dones"], last_value, self.gamma, self.lam
-        )
-        cols["advantages"] = adv
-        cols["returns"] = ret
+        if self.algo in ("pg", "ppo"):  # V-trace computes its targets in the loss
+            last_value = self.policy.value(params, obs)
+            adv, ret = gae(
+                cols["rewards"], cols["values"], cols["dones"], last_value, self.gamma, self.lam
+            )
+            cols["advantages"] = adv
+            cols["returns"] = ret
         self.env_state, self.obs, self._ep_returns = env_state, obs, ep_ret
         return cols
 
@@ -423,16 +430,20 @@ class VectorizedRolloutWorker(RolloutWorker):
 
     @torch.no_grad()
     def _postprocess_cols(self, params: PyTree, cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Advantage columns over [T, B] rollout columns.  Truncation
+        """Advantage columns over [T, B] rollout columns (none for
+        ``algo="vtrace"``, whose loss computes its targets).  Truncation
         bootstrap: the successor value (true pre-reset next obs) is folded
         into the reward at truncated steps, then ``fused_gae`` runs with
         ``dones`` as the accumulation mask."""
         cols = dict(cols)
-        v_next = self.policy.value(params, cols["next_obs"])
-        rewards_adj = cols["rewards"] + self.gamma * v_next * cols["truncateds"]
-        adv, ret = gae(rewards_adj, cols["values"], cols["dones"], v_next[-1], self.gamma, self.lam)
-        cols["advantages"] = adv
-        cols["returns"] = ret
+        if self.algo in ("pg", "ppo"):  # V-trace computes its targets in the loss
+            v_next = self.policy.value(params, cols["next_obs"])
+            rewards_adj = cols["rewards"] + self.gamma * v_next * cols["truncateds"]
+            adv, ret = gae(
+                rewards_adj, cols["values"], cols["dones"], v_next[-1], self.gamma, self.lam
+            )
+            cols["advantages"] = adv
+            cols["returns"] = ret
         return cols
 
     def _record_completed(self, completed: np.ndarray) -> None:

@@ -21,7 +21,7 @@ from repro.kernels.ref import ppo_surrogate_ref
 from repro.kernels.surrogate import ppo_surrogate_pallas
 from repro.rl.advantages import gae as jax_gae
 from repro_torch.kernels import build, ops
-from repro_torch.kernels.advantages import gae_cuda
+from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
 TOL = 1e-5
@@ -188,6 +188,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r, v, d, last = map(torch.from_numpy, _gae_data(4, 3, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         gae_cuda(r, v, d, last)
+    with pytest.raises(ValueError, match="CUDA"):
+        vtrace_cuda(v, v, r, v, d, last)
     data = list(map(torch.from_numpy, _surrogate_data(8, 2, seed=0, clip_eps=0.2)))
     logits, actions, values, blp, adv, ret = data
     with pytest.raises(ValueError, match="CUDA"):

@@ -48,8 +48,8 @@ def _tree_close(got, want, tol=TOL):
         _close(g, w, tol)
 
 
-def _ppo_policies(hidden=(64, 64), ent_coef=0.0, loss_kind="ppo"):
-    kw = dict(hidden=hidden, loss_kind=loss_kind, ent_coef=ent_coef)
+def _ppo_policies(hidden=(64, 64), ent_coef=0.0, loss_kind="ppo", rollout_len=0):
+    kw = dict(hidden=hidden, loss_kind=loss_kind, ent_coef=ent_coef, rollout_len=rollout_len)
     return JaxPolicy(4, 2, **kw), ActorCriticPolicy(4, 2, **kw)
 
 
@@ -131,11 +131,27 @@ def _ppo_batch(n, seed):
     )
 
 
-@pytest.mark.parametrize("loss_kind,ent_coef", [("ppo", 0.0), ("ppo", 0.01), ("pg", 0.01)])
+def _vtrace_batch(rollout_len):
+    """64 rows of length-``rollout_len`` traces concatenated from two
+    workers' samples, batch-major as ``ConcatBatches`` hands them over."""
+    def worker(i):
+        pol = ActorCriticPolicy(4, 2, hidden=(16, 16), loss_kind="vtrace", rollout_len=rollout_len)
+        return RolloutWorker(CartPole(), pol, algo="vtrace", num_envs=2, rollout_len=rollout_len,
+                             seed=7, worker_index=i, device="cpu")
+
+    return SampleBatch.concat_samples([worker(i).sample() for i in range(2)])
+
+
+@pytest.mark.parametrize(
+    "loss_kind,ent_coef", [("ppo", 0.0), ("ppo", 0.01), ("pg", 0.01), ("vtrace", 0.01)]
+)
 def test_policy_loss_and_grads_match_reference(loss_kind, ent_coef):
-    pol_j, pol_t = _ppo_policies(hidden=(16, 16), ent_coef=ent_coef, loss_kind=loss_kind)
+    T = 16 if loss_kind == "vtrace" else 0
+    pol_j, pol_t = _ppo_policies(
+        hidden=(16, 16), ent_coef=ent_coef, loss_kind=loss_kind, rollout_len=T
+    )
     params = _jax_params(pol_j, seed=1)
-    batch = _ppo_batch(64, seed=2)
+    batch = _vtrace_batch(T) if loss_kind == "vtrace" else _ppo_batch(64, seed=2)
     batch_j = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss_j, aux_j), grads_j = jax.value_and_grad(pol_j.loss, has_aux=True)(
         jax.tree_util.tree_map(jnp.asarray, params), batch_j
@@ -355,7 +371,9 @@ def test_unported_paths_raise_instead_of_falling_back(what):
 
 def test_unported_losses_and_algos_raise():
     with pytest.raises(NotImplementedError):
-        ActorCriticPolicy(4, 2, loss_kind="vtrace")
+        ActorCriticPolicy(4, 2, loss_kind="dqn")
+    with pytest.raises(NotImplementedError):
+        RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="sac", device="cpu")
     with pytest.raises(NotImplementedError):
         RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="dqn", device="cpu")
 
