@@ -11,14 +11,15 @@ phase that fails, and then prints no result line):
    source, all at once, sm_90a);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version, bound and (for attention) the
-   ``scaled_dot_product_attention`` yardstick: GAE at [32, 8], [64, 8],
-   [128, 4096] and a ragged [33, 1001]; V-trace at the IMPALA learner's
+   ``scaled_dot_product_attention`` yardstick: GAE at the LM path's
+   [32, 8], CartPole's [64, 8], an APPO rollout's [32, 4], [128, 4096] and
+   a ragged [33, 1001]; V-trace at the IMPALA learner's
    [32, 16] and the many-lane learner's [32, 512], at [128, 4096], a ragged
    [33, 1001], trailing dims [16, 8, 2], T = 1, and with clips 2.0 / 0.5;
    the surrogate forward + autograd
-   backward at [128, 151936] (the LM learner's vocabulary), [256, 2] and
-   [65536, 18], with rows whose ratio is exactly 1 and rows exactly on the
-   clip boundary; decode attention at the RLHF path's [8, 1, 20, 128] x
+   backward at [128, 151936] (the LM learner's vocabulary), CartPole's
+   [256, 2], the APPO learner's [512, 2] and [65536, 18], with rows whose
+   ratio is exactly 1 and rows exactly on the clip boundary; decode attention at the RLHF path's [8, 1, 20, 128] x
    W = 256 with a ragged per-lane mask, GQA 40/8 at W = 4096, an
    all-invalid row (exact zeros) and a ragged W; flash attention forward at
    the learner's [128, 256, 20, 128], the bootstrap's [256, 256, 20, 128],
@@ -62,7 +63,8 @@ phase that fails, and then prints no result line):
    256 lanes, 2 workers x 32 steps, 16,384-row train batch.
 
 Then one JSON line with every kernel's launches, error, times, bound and
-library time, and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
+library time (at the first case's shape, and under ``cases_by_path`` at
+each main path's own shape), and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
 device and the repo's ``src/`` beside this file; it imports nothing of JAX
 or of ``repro``.
 """
@@ -124,6 +126,13 @@ ASYNC_PATHS = {
     "impala_vector": dict(plan="impala", algo="vtrace", num_workers=2, num_envs=256,
                           rollout_len=32, train_batch_size=16384, num_async=2, vector=256,
                           min_steps=8),
+}
+# The shape each main path gives each kernel, where phase 3 checks it.
+PATH_SHAPES = {
+    "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4]},
+    "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
+    "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
+    "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
 }
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
@@ -607,14 +616,14 @@ def phase_kernels() -> dict:
     """Every kernel at its main paths' shapes and at large ones; the first
     case of each kernel is its path's shape (the RLHF path's, and the IMPALA
     learner's for V-trace)."""
-    gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(128, 4096, 1),
-                 _gae_case(33, 1001, 2)]
+    gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(32, 4, 7),
+                 _gae_case(128, 4096, 1), _gae_case(33, 1001, 2)]
     vtrace_cases = [_vtrace_case((32, 16), 40), _vtrace_case((32, 512), 41),
                     _vtrace_case((128, 4096), 42), _vtrace_case((33, 1001), 43),
                     _vtrace_case((16, 8, 2), 44), _vtrace_case((1, 64), 45),
                     _vtrace_case((32, 512), 46, rho_clip=2.0, c_clip=0.5)]
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
-                 _surrogate_case(65536, 18, 4)]
+                 _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4)]
     d = RLHF_ENV["ctx"]
     out = {
         "gae": gae_cases,
@@ -1186,6 +1195,8 @@ def phase_async(name: str, counters: list) -> dict:
     d = {k: steady[k] - warm[k] for k in warm}
     split = {
         "wall_s": d["t"], "steps_trained_per_s": d["trained"] / d["t"],
+        # The learner's own rate: the driver drains results behind it.
+        "learner_rows_per_s": d["learn_n"] * cfg["train_batch_size"] / d["t"],
         "learner_steps": d["learn_n"], "learner_s": d["learn_s"],
         "learn_step_mean_s": d["learn_s"] / max(d["learn_n"], 1),
         "learner_busy_share": d["learn_s"] / d["t"], "rollouts": d["roll_n"],
@@ -1201,7 +1212,8 @@ def phase_async(name: str, counters: list) -> dict:
     print(f"{name} main path: {len(rows)} train() iterations in {total:.3f} s (mean "
           f"{sum(iters) / len(iters):.4f} s, init {init_s:.2f} s), learner steps {steps}, "
           f"rollouts run {rollouts.count} (received {received}), "
-          f"{split['steps_trained_per_s']:.1f} steps trained/s after the first iteration, "
+          f"after the first iteration {split['learner_rows_per_s']:.1f} rows learned/s "
+          f"(learner) and {split['steps_trained_per_s']:.1f} steps trained/s (driver), "
           f"launches {launches}; no flow thread alive after stop()")
     return {"config": dict(cfg), "iterations": rows, "seconds": total, "init_s": init_s,
             "launches": launches, "learner_steps": steps, "rollouts_run": rollouts.count,
@@ -1279,6 +1291,11 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}
+        cases_by_path = {}
+        for p, shape in PATH_SHAPES.get(name, {}).items():
+            c = next(c for c in record["kernels"][name] if c["shape"] == shape)
+            cases_by_path[p] = {k: c[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "call_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1289,6 +1306,7 @@ def main() -> int:
             "library_ms": path_case["library_ms"],
             "library_backend": path_case.get("library_backend"), "shape": path_case["shape"],
             "call_ms": path_case["call_ms"], "plain_call_ms": path_case["plain_call_ms"],
+            "cases_by_path": cases_by_path,
         })
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
