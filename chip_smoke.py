@@ -24,8 +24,16 @@ phase that fails, and then prints no result line):
    all-invalid row (exact zeros) and a ragged W; flash attention forward at
    the learner's [128, 256, 20, 128], the bootstrap's [256, 256, 20, 128],
    the prefill's sliding window, GQA 40/8 at S = 2048 with a 512 window and
-   with a q_offset, and a ragged S; its backward at [128, 256, 20, 128],
-   [4, 512, 20, 128] and GQA [2, 1024, 40/8, 128];
+   with a q_offset, a ragged S, and Phi-3.5-MoE's [2, 4096, 32/8, 128]; its
+   backward at [128, 256, 20, 128], [4, 512, 20, 128], GQA [2, 1024, 40/8,
+   128] and Phi's [2, 4096, 32/8, 128]; the RWKV-6 recurrence forward and
+   backward (gradients of r, k, v, w, u and the start state against autograd
+   through the plain loop, and bitwise equal across two runs) at the
+   pretraining path's [2, 4096, 64, 64], a ragged T = 1000, with a start
+   state, and at narrow [4, 256, 8, 32] heads; the MoE grouped matmul at the
+   path's two products ([20480, 4096] x [16, 4096, 6400] and [20480, 6400] x
+   [16, 6400, 4096], beside ``torch.bmm``), ragged unequal groups, and a group
+   that is not a multiple of 64;
 4. learner parity: four PPO SGD steps on one CartPole batch on the card
    (kernels) and on the CPU (plain versions) from the same weights agree to
    1e-4;
@@ -60,7 +68,22 @@ phase that fails, and then prints no result line):
    workers (surrogate forward and backward once per learner step, GAE once
    per rollout the workers ran);
 11. main path 5: IMPALA with many lanes: ``VectorizedRolloutWorker``s with
-   256 lanes, 2 workers x 32 steps, 16,384-row train batch.
+   256 lanes, 2 workers x 32 steps, 16,384-row train batch;
+12. pretraining learner parity: one ``learn_on_batch`` (SGD, lr 1) of the
+   LM pretraining learner at the reduced configuration of RWKV-6 and of
+   Phi-3.5-MoE (float32), on the card and on the CPU from the same weights,
+   agrees to 1e-4, after checking that every token routes to the same
+   experts on both devices;
+13. main path 6: LM pretraining (``launch/train.py``: ``make_pretrain`` ->
+   ``build_lm_flow`` -> ``Algorithm.from_plan``) of RWKV-6 7B at its
+   published widths cut to 2 layers, 4 ``train()`` steps of 2 x 4,096
+   tokens under a deadline, launches read per step and checked against the
+   configuration (every other kernel 0), losses finite and within 0.5 of
+   ln V + sigma^2 / 2 (uniform tokens under the initial logits), peak
+   memory, seconds per step, tokens per second and the idle share of the
+   profiled last step;
+14. main path 7: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
+   layers.
 
 Then one JSON line with every kernel's launches, error, times, bound and
 library time (at the first case's shape, and under ``cases_by_path`` at
@@ -127,12 +150,35 @@ ASYNC_PATHS = {
                           rollout_len=32, train_batch_size=16384, num_async=2, vector=256,
                           min_steps=8),
 }
-# The shape each main path gives each kernel, where phase 3 checks it.
+# The LM pretraining paths (launch/train.py): each configuration at its
+# published widths cut to 2 layers, 4,096 tokens per sequence (the repo's
+# train_4k length) and a global batch of 2 (from 256) in 2 data shards.
+PRETRAIN = dict(seq=4096, batch=2, data_shards=2, steps=4, layers=2)
+PRETRAIN_PATHS = {"pretrain_rwkv6": "rwkv6-7b", "pretrain_phi": "phi3.5-moe-42b-a6.6b"}
+PRETRAIN_DEADLINE_S = 420  # per path, model init included
+# The shapes those paths give their kernels (the path phases check them
+# against the configurations): RWKV-6's r, k, v, w [B, T, H, N]; Phi's
+# grouped matmul [E * B * C, D] x [E, D, F], C = ceil(1.25 * T * top_k / E)
+# = 640 slots per expert and row; Phi's attention [B, S, H, KV, D].
+RWKV6_PATH_SHAPE = (2, 4096, 64, 64)
+MOE_GMM_UP = (20480, 4096, 6400, 16)  # [T, D, F, E] of the up and gate products
+PHI_ATTENTION = (2, 4096, 32, 8, 128)
+# atol = rtol for the grouped matmul against the loop over groups: each
+# output element sums 4,096 to 6,400 products, in another order than cuBLAS.
+GMM_TOL = 1e-4
+# The shape each main path gives each kernel, where phase 3 checks it (a
+# list of shapes where one path gives a kernel several).
 PATH_SHAPES = {
     "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4]},
     "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
     "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
     "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
+    "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
+    "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
+    "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
+    "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
+    "moe_gmm": {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
+                                                    MOE_GMM_UP[3]]]},
 }
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
@@ -191,16 +237,20 @@ def _device_ms(fn, iters: int = 50):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def _timings(kernel, plain, plain_iters: int) -> dict:
+def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
+             plain_profile: bool = True) -> dict:
     """Kernel and plain version: device ms per call (profiler) and ms per
     call on the stream (CUDA events, host launch cost included).  ``ms`` is
     the device time where the profiler gives one, else the event time;
-    ``ms_from`` and ``plain_ms_from`` say which ("profiler" or "cuda_events")."""
+    ``ms_from`` and ``plain_ms_from`` say which ("profiler" or "cuda_events").
+    Kernels of tens of milliseconds take a smaller ``kernel_iters``; a plain
+    version of tens of thousands of launches is not profiled
+    (``plain_profile``), its trace alone would take minutes."""
     t = {
-        "call_ms": _time_ms(kernel),
-        "plain_call_ms": _time_ms(plain, iters=plain_iters, warmup=2),
-        "device_ms": _device_ms(kernel),
-        "plain_device_ms": _device_ms(plain, iters=plain_iters),
+        "call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters)),
+        "plain_call_ms": _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1),
+        "device_ms": _device_ms(kernel, iters=min(50, kernel_iters)),
+        "plain_device_ms": _device_ms(plain, iters=plain_iters) if plain_profile else None,
     }
     for key, device, call in (("ms", "device_ms", "call_ms"),
                               ("plain_ms", "plain_device_ms", "plain_call_ms")):
@@ -433,8 +483,11 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
 
 
 def _library(fn, iters: int = 20) -> dict:
-    """The PyTorch library call's device ms per call, and which SDPA backend
-    it took, read from the names of the kernels it launched."""
+    """The PyTorch library call's ms per call on the stream (CUDA events),
+    the device ms its kernels took by the profiler, and which SDPA backend it
+    took, read from the names of those kernels.  ``library_ms`` is the event
+    time: on an H100 the profiler read cuBLAS's batched fp32 GEMM at 7.7 ms
+    in a run whose CUDA events read 20.2 ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -454,7 +507,8 @@ def _library(fn, iters: int = 20) -> dict:
     )
     top = sorted(kernels, key=lambda k: -kernels[k])[:3]
     return {
-        "library_ms": total_us / iters / 1e3 if total_us > 0 else _time_ms(fn, iters=iters, warmup=2),
+        "library_ms": _time_ms(fn, iters=iters, warmup=2),
+        "library_device_ms": total_us / iters / 1e3 if total_us > 0 else None,
         "library_backend": backend,
         "library_kernels": [k[:60] for k in top],
     }
@@ -531,7 +585,7 @@ def _sdpa(q, k, v, mask, simple_causal: bool):
     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed) -> dict:
+def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_plain, flash_fwd_cuda
@@ -557,12 +611,13 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed) -> dict
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 4 * B * H * D * pairs,
-        **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5),
+        **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
+                   kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
     }
 
 
-def _flash_bwd_case(B, S, H, KV, D, seed) -> dict:
+def _flash_bwd_case(B, S, H, KV, D, seed, kernel_iters=200) -> dict:
     """Causal backward: gradients of the kernel's autograd.Function against
     torch autograd through the plain version, and the backward launch alone
     timed against the plain version's autograd backward and SDPA's."""
@@ -606,10 +661,140 @@ def _flash_bwd_case(B, S, H, KV, D, seed) -> dict:
         **_timings(
             lambda: flash_bwd_cuda(q, k, v, o, lse, dout, True, 0, 0),
             lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
-            plain_iters=5,
+            plain_iters=5, kernel_iters=kernel_iters,
         ),
         **_library(lambda: torch.autograd.grad(lib_out, lib_xs, dout.transpose(1, 2), retain_graph=True)),
     }
+
+
+def _rwkv6_inputs(B: int, T: int, H: int, N: int, seed: int, state: bool):
+    """r, k, v ~ N(0, 0.25); decays from the model's own law at its
+    initial bias, w = exp(-exp(clip(-2 + 0.5 z, -8, 2))); u ~ N(0, 0.01);
+    a start state ~ N(0, 1) when asked for."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (0.5 * _randn(g, B, T, H, N) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.clamp(-2.0 + 0.5 * _randn(g, B, T, H, N), -8.0, 2.0)))
+    u = 0.1 * _randn(g, H, N)
+    s0 = _randn(g, B, H, N, N) if state else None
+    return r, k, v, w, u, s0
+
+
+def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
+                chunk: int = 64, kernel_iters: int = 50) -> dict:
+    """Forward (out, final state) and the gradients of all inputs, with
+    cotangents on the output and the final state, through the kernels'
+    autograd.Function, against the plain loop in float64 (chunk-checkpointed,
+    as the reference's oracle) and its autograd; the backward twice, for
+    bitwise equal gradients.  The oracle runs in float64 because du sums
+    B * T steps: at [2, 4096, 64, 64] on an H100 the float32 plain loop's
+    own du is 6.8e-4 away from the oracle in places, more than the
+    tolerance (each case records the float32 loop's distance as
+    ``plain_fp32_err``).  Times are of the float32 plain loop."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_cuda, rwkv6_fwd_cuda, rwkv6_plain
+
+    xs = _rwkv6_inputs(B, T, H, N, seed, state)
+    s0 = xs[5]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cot_o, cot_s = _randn(g, B, T, H, N), _randn(g, B, H, N, N)
+    name = f"rwkv6[{B},{T},{H},{N}]" + (" with a start state" if state else "")
+
+    def grads(fn, dtype, **kw):
+        ts = [x.to(dtype, copy=True).requires_grad_(True) for x in xs if x is not None]
+        out, final = fn(*ts[:5], state=ts[5] if state else None, chunk=chunk, **kw)
+        cots = (cot_o.to(dtype), cot_s.to(dtype))
+        return (out, final), ts, torch.autograd.grad((out, final), ts, cots, retain_graph=True)
+
+    (out_k, fin_k), _, got = grads(rwkv6_cuda, torch.float32)
+    _, _, again = grads(rwkv6_cuda, torch.float32)
+    (out_p, fin_p), _, want = grads(rwkv6_plain, torch.float64)
+    torch.cuda.synchronize()
+    fwd_err = max(_close(f"{name} out", out_k.detach().double(), out_p.detach()),
+                  _close(f"{name} final state", fin_k.detach().double(), fin_p.detach()))
+    names = ["r", "k", "v", "w", "u", "state"]
+    bwd_err = max(_close(f"{name} d{n}", a.double(), b, GRAD_TOL) for n, a, b in zip(names, got, want))
+    _require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+             f"{name}: gradients differ between two runs")
+    del got, again, out_k, fin_k, out_p, fin_p
+    # The float32 plain loop against the same oracle, for the record.
+    (out_p, fin_p), plain_ts, plain32 = grads(rwkv6_plain, torch.float32)
+    plain_fp32_err = {n: _max_err(a, b) for n, a, b in zip(names, plain32, want)}
+    del want, plain32
+
+    r, k, v, w, u = xs[:5]
+    plain_graph = (out_p, fin_p)
+
+    def plain_fwd():
+        with torch.no_grad():
+            rwkv6_plain(r, k, v, w, u, state=s0)
+
+    _, _, ckpt = rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True)
+    fwd_t = _timings(lambda: rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True), plain_fwd,
+                     plain_iters=1, kernel_iters=kernel_iters, plain_profile=False)
+    bwd_t = _timings(
+        lambda: rwkv6_bwd_cuda(r, k, v, w, u, cot_o, ckpt, cot_s, chunk, state),
+        lambda: torch.autograd.grad(plain_graph, plain_ts, (cot_o, cot_s), retain_graph=True),
+        plain_iters=1, kernel_iters=kernel_iters, plain_profile=False,
+    )
+    del plain_graph, plain_ts, out_p, fin_p
+
+    # Bytes: the training forward reads r, k, v, w, u (and s0) and writes o,
+    # the final state and the chunk-start states; the backward reads r, k,
+    # v, w, u, dO, dS_T and the chunk-start states and writes dr, dk, dv, dw,
+    # du (and dS_0).  Operations per (b, t, h), counting an FMA as two: the
+    # forward's k v, S + u k v, r . (...) and w S + k v, 7 N^2; the
+    # backward's recomputed update, 3 N^2, and its sums and G update, 11 N^2.
+    seq, st_bytes = B * T * H * N * 4, B * H * N * N * 4
+    ck_bytes = B * H * -(-T // chunk) * N * N * 4
+    fwd_bytes = 5 * seq + H * N * 4 + 2 * st_bytes + ck_bytes + (st_bytes if state else 0)
+    bwd_bytes = 9 * seq + 2 * H * N * 4 + st_bytes + ck_bytes + (st_bytes if state else 0)
+    fwd_bound = _bound_ms(fwd_bytes, 7 * B * T * H * N * N)
+    bwd_bound = _bound_ms(bwd_bytes, 14 * B * T * H * N * N)
+    shape = [B, T, H, N]
+    common = {"shape": shape, "state": state, "chunk": chunk, "library_ms": None}
+    return {
+        "fwd": {**common, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
+                "bound_by": fwd_bound[1], "bytes": fwd_bytes, **fwd_t},
+        "bwd": {**common, "max_abs_err": bwd_err, "deterministic": True, "bound_ms": bwd_bound[0],
+                "bound_by": bwd_bound[1], "bytes": bwd_bytes, "plain_fp32_err": plain_fp32_err,
+                **bwd_t},
+    }
+
+
+def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20) -> dict:
+    """The grouped matmul against the loop over groups; inputs N(0, 1) and
+    weights N(0, 1/D), as the model's experts, so outputs are O(1)."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+
+    E, T = len(sizes), sum(sizes)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(g, T, D)
+    w = _randn(g, E, D, F) / math.sqrt(D)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    got = moe_gmm_cuda(x, w, gs)
+    want = moe_gmm_plain(x, w, gs)
+    torch.cuda.synchronize()
+    err = _close(f"moe_gmm [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:6]}...", got, want, GMM_TOL)
+    del got, want
+    nbytes = 4 * (T * D + E * D * F + T * F)
+    bound, by = _bound_ms(nbytes, 2 * T * D * F)
+    out = {
+        "shape": [T, D, F, E], "groups": sizes, "max_abs_err": err, "bound_ms": bound,
+        "bound_by": by, "bytes": nbytes, "flops": 2 * T * D * F,
+        **_timings(lambda: moe_gmm_cuda(x, w, gs), lambda: moe_gmm_plain(x, w, gs),
+                   plain_iters=3, kernel_iters=kernel_iters),
+        "library_ms": None,
+    }
+    if len(set(sizes)) == 1:  # equal groups: one batched product computes the same
+        xb = x.view(E, sizes[0], D)
+        out.update(_library(lambda: torch.bmm(xb, w), iters=5))
+        out["library_backend"] = "cublas"
+    return out
 
 
 def phase_kernels() -> dict:
@@ -648,10 +833,31 @@ def phase_kernels() -> dict:
             _flash_bwd_case(128, d, 20, 20, 128, 30),  # learner
             _flash_bwd_case(4, 512, 20, 20, 128, 31),
             _flash_bwd_case(2, 1024, 40, 8, 128, 32),
+            _flash_bwd_case(*PHI_ATTENTION, 33, kernel_iters=10),  # Phi-3.5-MoE's learner
         ],
     }
+    out["flash_attention_fwd"].append(
+        _flash_fwd_case(PHI_ATTENTION[0], PHI_ATTENTION[1], *PHI_ATTENTION[1:], True, 0, 0, 26,
+                        kernel_iters=20)
+    )
+    rwkv6_cases = [
+        _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20),  # the path's shape
+        _rwkv6_case(2, 1000, 64, 64, 51),  # ragged T
+        _rwkv6_case(2, 300, 8, 64, 52, state=True),  # a start state
+        _rwkv6_case(4, 256, 8, 32, 53, chunk=16),  # narrow heads
+    ]
+    out["rwkv6_fwd"] = [c["fwd"] for c in rwkv6_cases]
+    out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
+    T, D, F, E = MOE_GMM_UP
+    out["moe_gmm"] = [
+        _gmm_case([T // E] * E, D, F, 60, kernel_iters=10),  # up and gate products
+        _gmm_case([T // E] * E, F, D, 61, kernel_iters=10),  # down product
+        _gmm_case([300, 0, 1000, 77, 129, 640, 1, 511], 1024, 1536, 62),  # ragged groups
+        _gmm_case([1280, 1000, 1280, 1280], D, F, 63),  # a group not a multiple of 64
+    ]
     for name, cases in out.items():
-        tol = GRAD_TOL if name == "flash_attention_bwd" else TOL
+        tol = GRAD_TOL if name in ("flash_attention_bwd", "rwkv6_bwd") else TOL
+        tol = GMM_TOL if name == "moe_gmm" else tol
         for c in cases:
             lib = c.get("library_ms")
             lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
@@ -1220,6 +1426,213 @@ def phase_async(name: str, counters: list) -> dict:
             "rollouts_received": received, "profile": profiled, "split": split}
 
 
+# ------------------------------------------------------------ phase 12
+def _record_routing(fn):
+    """Run ``fn`` while recording the experts every MoE layer routes to."""
+    from repro_torch.models import moe as moe_mod
+
+    route, seen = moe_mod.route, []
+
+    def recording(params, x, cfg):
+        probs, top_p, top_e = route(params, x, cfg)
+        seen.append(top_e.detach().cpu())
+        return probs, top_p, top_e
+
+    moe_mod.route = recording
+    try:
+        fn()
+    finally:
+        moe_mod.route = route
+    return seen
+
+
+def phase_pretrain_parity() -> dict:
+    """One ``learn_on_batch`` of the pretraining learner (SGD at lr 1, so
+    the weight difference is the gradient difference; see phase 6) on the
+    card and on the CPU from the same weights, at the reduced configuration
+    of each architecture in float32.  For the MoE one the experts every
+    token routes to must first be the same on both devices: one flipped
+    choice would make the weight comparison meaningless."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import InputShape
+    from repro_torch.core.spmd import SPMDLearnerWorker, SPMDTrainContext
+    from repro_torch.data import make_batch
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.launch.train import train_config
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch in PRETRAIN_PATHS.values():
+        cfg = train_config(arch, smoke=True)
+        gpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cuda"))
+        cpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cpu"))
+        cpu.set_weights(params_to_numpy(gpu.get_weights()))
+        batch = make_batch(cfg, InputShape("t", 64, 2, "train"), seed=0, step=0)
+        routed = 0
+        if cfg.moe is not None:
+            def probe(worker):
+                tokens, labels = (torch.from_numpy(batch[k]).to(worker.ctx.device)
+                                  for k in ("tokens", "labels"))
+                with torch.no_grad():
+                    return _record_routing(lambda: worker.ctx.model.loss(worker.params, tokens, labels))
+
+            on_gpu, on_cpu = probe(gpu), probe(cpu)
+            _require(len(on_gpu) == len(on_cpu) == cfg.num_layers, "routing probe missed a layer")
+            flips = sum(int((a != b).sum()) for a, b in zip(on_gpu, on_cpu))
+            _require(flips == 0, f"pretrain parity ({arch}): {flips} expert choices differ between "
+                                 "card and CPU, so the weights cannot be compared")
+            routed = sum(a.numel() for a in on_gpu)
+        info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+        w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
+        w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
+        stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
+        _require(err <= LEARNER_TOL, f"pretrain parity ({arch}): card vs CPU weights differ by {err:.3e}")
+        _require(stat_err <= LEARNER_TOL, f"pretrain parity ({arch}): stats differ by {stat_err:.3e}")
+        routing = f"; {routed} expert choices identical" if cfg.moe is not None else ""
+        print(f"pretrain learner parity ({cfg.name}): one learn_on_batch (SGD, lr 1) on 2 x 64 tokens, "
+              f"card vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol "
+              f"{LEARNER_TOL}){routing}; loss {info_g['loss']:.4f}")
+        out[arch] = {"weight_err": err, "stat_err": stat_err, "expert_choices_checked": routed}
+    return out
+
+
+# --------------------------------------------------------- phases 13-14
+def _pretrain_expected(cfg) -> dict:
+    """Launches per train() step implied by the configuration: each layer's
+    forward once (no remat) and its backward once; an MoE layer runs three
+    expert products (up, gate, down) with a gated MLP, two without."""
+    L = cfg.num_layers
+    spec = cfg.block_pattern[0]
+    expect = {}
+    if spec.kind == "rwkv6":
+        expect.update(rwkv6_fwd=L, rwkv6_bwd=L)
+    if spec.kind == "attn":
+        expect.update(flash_attention_fwd=L, flash_attention_bwd=L)
+    if spec.mlp == "moe":
+        expect["moe_gmm"] = L * (3 if cfg.activation == "silu" else 2)
+    return expect
+
+
+def _check_path_shapes(cfg) -> None:
+    """The shapes phase 3 held the kernels to are this path's own."""
+    B, T = PRETRAIN["batch"], PRETRAIN["seq"]
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        shape = (B, T, cfg.d_model // s.head_dim, s.head_dim)
+        _require(shape == RWKV6_PATH_SHAPE, f"{cfg.name}: RWKV-6 shape {shape} != {RWKV6_PATH_SHAPE}")
+    if cfg.moe is not None:
+        e = cfg.moe
+        C = max(1, math.ceil(e.capacity_factor * T * e.top_k / e.num_experts))
+        shape = (e.num_experts * B * C, cfg.d_model, e.d_ff, e.num_experts)
+        _require(shape == MOE_GMM_UP, f"{cfg.name}: grouped-matmul shape {shape} != {MOE_GMM_UP}")
+    if cfg.num_heads:
+        shape = (B, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        _require(shape == PHI_ATTENTION, f"{cfg.name}: attention shape {shape} != {PHI_ATTENTION}")
+
+
+def phase_pretrain(name: str, counters: list) -> dict:
+    """One LM pretraining main path: ``launch/train.py``'s flow
+    (``make_pretrain`` -> ``build_lm_flow`` -> ``Algorithm.from_plan``) at
+    the configuration's widths cut to 2 layers, ``steps`` train() calls
+    under a deadline, the last one profiled.  Launches are read per step and
+    must be exactly what the configuration implies, every other kernel 0."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.flow import Algorithm
+    from repro_torch.launch.train import make_pretrain, train_config
+    from repro_torch.tree import tree_leaves
+
+    c = PRETRAIN
+    cfg = train_config(PRETRAIN_PATHS[name], layers=c["layers"])
+    _check_path_shapes(cfg)
+    expect = {k.name: 0 for k in counters}
+    expect.update(_pretrain_expected(cfg))
+    # The synthetic tokens are uniform, so the loss stays at the NLL of
+    # uniform labels under the initial logits, ln V + sigma^2 / 2, with sigma
+    # = 0.02 sqrt(d_model) the logits' spread (the head's init scale times
+    # the unit-RMS final norm): 11.91 for RWKV-6 and 11.20 for Phi-3.5-MoE.
+    loss0 = math.log(cfg.vocab_size) + (0.02 * math.sqrt(cfg.d_model)) ** 2 / 2
+    tokens = c["seq"] * c["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    with _deadline(PRETRAIN_DEADLINE_S, name):
+        t_init = time.perf_counter()
+        learner, _, workers, spec = make_pretrain(
+            cfg, c["seq"], c["batch"], c["data_shards"], c["steps"], device="cuda"
+        )
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_init
+        n_params = sum(p.numel() for p in tree_leaves(learner.params))
+        with Algorithm.from_plan(spec, workers) as algo:
+            for k in counters:
+                k.reset()
+            for i in range(c["steps"]):
+                prof = None
+                if i == c["steps"] - 1:  # the last step runs under the profiler
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.start()
+                before = {k.name: k.value for k in counters}
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if prof is not None:
+                    prof.stop()
+                    busy = _device_kernels(prof)
+                launched = {k.name: k.value - before[k.name] for k in counters}
+                info = result["info"]
+                rows.append({"step": i, "seconds": dt, "tokens_per_s": tokens / dt, **info})
+                print(f"{name} train {i}: loss={info['loss']:.4f} nll={info['nll']:.4f} "
+                      f"aux={info['aux']:.5f} {dt:.3f} s {tokens / dt:.1f} tokens/s "
+                      + " ".join(f"{k}={v}" for k, v in launched.items() if v))
+                _require(set(info) == {"loss", "nll", "aux"}, f"{name}: info keys {sorted(info)}")
+                _require(all(math.isfinite(v) for v in info.values()), f"{name}: non-finite {info}")
+                _require(abs(info["loss"] - loss0) < 0.5,
+                         f"{name}: loss {info['loss']:.4f} not within 0.5 of ln V + sigma^2/2 = "
+                         f"{loss0:.4f}")
+                _require(result["counters"]["num_steps_trained"] == (i + 1) * c["batch"],
+                         f"{name}: counters {result['counters']} after {i + 1} steps")
+                _require(launched == expect, f"{name}: step {i} launched {launched}, expected {expect}")
+            launches = {k.name: k.value for k in counters}
+        peak = torch.cuda.max_memory_allocated()
+        del learner, workers, spec, algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    _require(peak < 80e9, f"{name}: peak memory {peak / 1e9:.2f} GB")
+    busy_ms = sum(busy.values()) / 1e3
+    names = ("rwkv6_", "moe_gmm", "flash_")
+    ours = {k[:60]: v / 1e3 for k, v in busy.items() if any(n in k for n in names)}
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    warm = [r["seconds"] for r in rows[1:-1]]
+    warm_s = sum(warm) / len(warm)
+    profiled = {
+        "wall_ms": dt * 1e3, "unprofiled_mean_ms": warm_s * 1e3, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (dt * 1e3), "idle_share_vs_unprofiled": 1.0 - busy_ms / (warm_s * 1e3),
+        "port_kernels_ms": ours, "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+    }
+    print(f"{name} profile step {c['steps'] - 1}: wall {dt * 1e3:.1f} ms (unprofiled {warm_s * 1e3:.1f} "
+          f"ms), device busy {busy_ms:.2f} ms, idle share {profiled['idle_share']:.4f} "
+          f"({profiled['idle_share_vs_unprofiled']:.4f} vs unprofiled); peak memory "
+          f"{peak / 2**30:.2f} GiB; {n_params / 1e9:.3f} B parameters, init {init_s:.2f} s")
+    print(f"{name} top device kernels (ms): {profiled['top_kernels_ms']}")
+    print(f"{name} main path: {c['steps']} train() steps of {tokens} tokens, "
+          f"{warm_s:.3f} s per step and {tokens / warm_s:.1f} tokens/s after the first "
+          f"(steps 1-{c['steps'] - 2}), per-step launches {expect}")
+    return {"config": cfg.name, "layers": cfg.num_layers, "params": n_params, "steps": rows,
+            "seconds_per_step": warm_s, "tokens_per_s": tokens / warm_s, "init_s": init_s,
+            "launches": launches,
+            "expected_per_step": expect, "peak_memory_bytes": peak, "profile": profiled}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
@@ -1236,6 +1649,10 @@ KERNEL_SITES = {
     # its oracle, jax.grad through ref.chunked_attention.
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/ref.py:58"),
+    "rwkv6_fwd": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:31"),
+    # No TPU kernel either: the reference learner differentiates ref.rwkv6_ref.
+    "rwkv6_bwd": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/ref.py:128"),
+    "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:24"),
 }
 
 
@@ -1259,8 +1676,13 @@ def main() -> int:
     from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
     from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
+    from repro_torch.kernels.moe_gmm import MOE_GMM_LAUNCHES
+    from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
 
+    every_counter = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
+                     DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
+                     RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES]
     record: dict = {}
     try:
         record["device"] = phase_device()
@@ -1281,21 +1703,28 @@ def main() -> int:
                 name, [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
                        SURROGATE_BWD_LAUNCHES]
             )
+        record["pretrain_parity"] = phase_pretrain_parity()
+        for name in PRETRAIN_PATHS:
+            record[name] = phase_pretrain(name, every_counter)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     kernels = []
     paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
-             **{name: record[name]["launches"] for name in ASYNC_PATHS}}
+             **{name: record[name]["launches"] for name in ASYNC_PATHS},
+             **{name: record[name]["launches"] for name in PRETRAIN_PATHS}}
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}
         cases_by_path = {}
-        for p, shape in PATH_SHAPES.get(name, {}).items():
-            c = next(c for c in record["kernels"][name] if c["shape"] == shape)
-            cases_by_path[p] = {k: c[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by", "call_ms")}
+        for p, shapes in PATH_SHAPES.get(name, {}).items():
+            picked = []
+            for shape in shapes if isinstance(shapes[0], list) else [shapes]:
+                c = next(c for c in record["kernels"][name] if c["shape"] == shape)
+                picked.append({k: c.get(k) for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "call_ms", "library_ms")})
+            cases_by_path[p] = picked if len(picked) > 1 else picked[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -1,8 +1,9 @@
 """Carry parameter trees between the JAX package and the port as numpy.
 
-Both packages keep the same tree, ``{"pi": [{"w": [din, dout], "b":
-[dout]}, ...], "vf": [...]}``, so one numpy round trip serves every parity
-test and checkpoint.  This module takes and returns numpy arrays and never
+Both packages keep the same trees, the policies' ``{"pi": [{"w": [din,
+dout], "b": [dout]}, ...], "vf": [...]}`` and the models' nested dicts with
+their blocks stacked along a leading ``num_blocks`` axis, so one numpy round
+trip serves every parity test and checkpoint.  This module takes and returns numpy arrays and never
 imports JAX; a caller holding JAX arrays converts them with ``np.asarray``.
 """
 

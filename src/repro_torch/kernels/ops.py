@@ -9,16 +9,26 @@ cannot take raises.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plain
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
-__all__ = ["decode_attention", "flash_attention", "fused_gae", "fused_ppo_loss", "fused_vtrace"]
+__all__ = [
+    "decode_attention",
+    "flash_attention",
+    "fused_gae",
+    "fused_ppo_loss",
+    "fused_vtrace",
+    "moe_gmm",
+    "rwkv6",
+]
 
 
 def flash_attention(
@@ -46,6 +56,46 @@ def decode_attention(
     """
     attention = decode_attention_cuda if q.is_cuda else decode_attention_plain
     return attention(q, k_cache, v_cache, valid)
+
+
+def rwkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence, r/k/v/w [B, T, H, N], u [H, N], optional start
+    state [B, H, N, N]; returns (out, final state).  CUDA tensors go to the
+    kernels (forward and backward) with or without a start state: unlike the
+    reference, which routes a nonzero state to its oracle, nothing here
+    falls back.  ``chunk`` is the backward's remat length: the kernel saves
+    one state per chunk, and the CPU's step loop checkpoints per chunk."""
+    if r.is_cuda:
+        return rwkv6_cuda(r, k, v, w, u, state=state, chunk=chunk)
+    return rwkv6_plain(r, k, v, w, u, state=state, chunk=chunk)
+
+
+def moe_gmm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    group_sizes: torch.Tensor,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Grouped matmul [T, D] x [E, D, F] -> [T, F] over expert-contiguous
+    rows: the CUDA kernel for CUDA tensors, the loop over groups for CPU
+    tensors.  ``block_m``/``block_n`` are the TPU kernel's tile sizes, kept
+    for the reference's signature: there every group must be a multiple of
+    ``block_m``; the CUDA kernel tiles each group itself and takes any sizes,
+    so it needs neither."""
+    if block_m < 1 or block_n < 1:
+        raise ValueError(f"moe_gmm: block sizes must be positive, got {block_m}, {block_n}")
+    if x.is_cuda:
+        return moe_gmm_cuda(x, w, group_sizes)
+    return moe_gmm_plain(x, w, group_sizes)
 
 
 def fused_ppo_loss(

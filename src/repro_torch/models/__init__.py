@@ -1,3 +1,3 @@
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, make_train_step
 
-__all__ = ["Model"]
+__all__ = ["Model", "make_train_step"]

@@ -1,0 +1,224 @@
+"""Mixture-of-Experts layer on tensors (PyTorch port of
+``repro/models/moe.py``): top-k routing with per-row sort-based dispatch
+into a dense ``[B, E, C, d]`` buffer, per-row capacity (tokens over it are
+dropped), the Switch load-balance aux loss, and shared experts.
+
+As in the reference, ``dispatch="gather"`` (the default) builds the
+dispatch and combine with row gathers whose backwards are gathers too
+(``_PermuteRows``, ``_ReplicateRows``), and ``"scatter"`` with scatter-adds.
+The expert products go through ``GmmMatmul``, whose forward is
+``ops.moe_gmm`` (the grouped-matmul kernel on the card, the loop over groups
+on the CPU) and whose backward is the reference's two batched products.
+The reference sends an expert product to its kernel only where the TPU's
+tiling gate (``_gmm_ok``) allows and to an einsum elsewhere; the CUDA kernel
+takes any group size, so the port sends every one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init, torch_dtype
+
+PyTree = Any
+
+__all__ = ["GmmMatmul", "moe_init", "moe_apply", "route"]
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """y[b, i] = x[b, idx[b, i]]: x [B, N, d], idx [B, M] -> [B, M, d]."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+class _PermuteRows(torch.autograd.Function):
+    """y[b,i] = x[b, idx[b,i]] * mask_fwd[b,i], idx a (masked) bijection;
+    the backward is a gather by ``inv_idx`` (no scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx, mask_fwd, mask_bwd):
+        ctx.save_for_backward(inv_idx, mask_fwd, mask_bwd)
+        return _take_rows(x, idx) * mask_fwd[..., None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inv_idx, mask_fwd, mask_bwd = ctx.saved_tensors
+        dx = _take_rows(dy * mask_fwd[..., None].to(dy.dtype), inv_idx)
+        return dx * mask_bwd[..., None].to(dy.dtype), None, None, None, None
+
+
+class _ReplicateRows(torch.autograd.Function):
+    """y[b,i] = x[b, st[b,i]], each source row appearing exactly k times;
+    the backward sums the k cotangent copies through a gather."""
+
+    @staticmethod
+    def forward(ctx, x, st, inv, k):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return _take_rows(x, st)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (inv,) = ctx.saved_tensors
+        B, Sk, d = dy.shape
+        picked = _take_rows(dy, inv)  # [B, S*k, d]
+        return picked.reshape(B, Sk // ctx.k, ctx.k, d).sum(dim=2), None, None, None
+
+
+class GmmMatmul(torch.autograd.Function):
+    """[B, E, C, K] x [E, K, N] -> [B, E, C, N] through ``ops.moe_gmm``: the
+    dispatch buffer transposed to [E, B*C, K] is a grouped-rows layout with
+    E groups of B*C rows.  The backward is the reference's two batched
+    products (``repro/models/moe.py`` ``_gmm_matmul_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, xe, w):
+        ctx.save_for_backward(xe, w)
+        B, E, C, K = xe.shape
+        xg = xe.transpose(0, 1).reshape(E * B * C, K)
+        groups = torch.full((E,), B * C, dtype=torch.int32, device=xe.device)
+        out = ops.moe_gmm(xg, w, groups)
+        return out.reshape(E, B, C, w.shape[-1]).transpose(0, 1).to(xe.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w = ctx.saved_tensors
+        dxe = torch.einsum("becn,ekn->beck", dy, w).to(xe.dtype)
+        dw = torch.einsum("beck,becn->ekn", xe, dy).to(w.dtype)
+        return dxe, dw
+
+
+def moe_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
+    assert cfg.moe is not None
+    e = cfg.moe
+    d = cfg.d_model
+    dtype = torch_dtype(cfg.dtype)
+    device = generator.device
+
+    def experts_mat(din: int, dout: int) -> torch.Tensor:
+        w = torch.randn((e.num_experts, din, dout), generator=generator, device=device)
+        return (w / math.sqrt(din)).to(dtype)
+
+    p: Dict[str, Any] = {
+        "router": dense_init(generator, d, e.num_experts, dtype),
+        "up": experts_mat(d, e.d_ff),
+        "down": experts_mat(e.d_ff, d),
+    }
+    gated = cfg.activation == "silu"
+    if gated:
+        p["gate"] = experts_mat(d, e.d_ff)
+    if e.num_shared:
+        shared_ff = e.d_ff * e.num_shared
+        p["shared_up"] = dense_init(generator, d, shared_ff, dtype)
+        p["shared_down"] = dense_init(generator, shared_ff, d, dtype)
+        if gated:
+            p["shared_gate"] = dense_init(generator, d, shared_ff, dtype)
+    return p
+
+
+def _activate(h: torch.Tensor, gate: Any, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN's nonlinearity; ``gate`` is a zero-argument callable giving
+    the gate projection (computed only for the gated silu)."""
+    if cfg.activation == "silu":
+        return F.silu(gate()) * h
+    if cfg.activation == "relu2":
+        return torch.square(F.relu(h))
+    return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _expert_ffn(p: PyTree, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """xe: [B, E, C, d] -> [B, E, C, d] via the per-expert (gated) FFN."""
+    h = _activate(GmmMatmul.apply(xe, p["up"]), lambda: GmmMatmul.apply(xe, p["gate"]), cfg)
+    return GmmMatmul.apply(h, p["down"])
+
+
+def route(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
+    """Router probabilities [B, S, E] and the top-k (weights, experts), each
+    [B, S, k], largest first.  ``torch.topk`` does not promise
+    ``lax.top_k``'s lower-index-first order among equal probabilities; the
+    two agree wherever the top k are distinct."""
+    logits = (x @ params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, top_p, top_e
+
+
+def moe_apply(
+    params: PyTree, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], router aux loss scalar)."""
+    e = cfg.moe
+    B, S, d = x.shape
+    k = e.top_k
+    E = e.num_experts
+    Sk = S * k
+    device = x.device
+
+    # ------------------------------------------------------------- routing
+    probs, top_p, top_e = route(params, x, cfg)
+    top_p = (top_p / torch.sum(top_p, dim=-1, keepdim=True)).to(x.dtype)
+
+    # Load-balance auxiliary loss (Switch-style).
+    density = torch.mean(torch.sum(F.one_hot(top_e, E).float(), dim=2), dim=(0, 1))
+    aux = e.router_aux_coef * E * torch.mean(density * torch.mean(probs, dim=(0, 1)))
+
+    # --------------------------------------- per-row sort-based dispatch
+    C = max(1, int(math.ceil(e.capacity_factor * S * k / E)))
+    flat_e = top_e.reshape(B, Sk)
+    flat_t = torch.arange(S, device=device)[:, None].expand(S, k).reshape(Sk)
+    flat_w = top_p.reshape(B, Sk)
+
+    order = torch.argsort(flat_e, dim=-1, stable=True)  # [B, Sk], as jnp.argsort
+    se = torch.gather(flat_e, 1, order)
+    st = flat_t[order]  # token index per sorted slot
+    sw = torch.gather(flat_w, 1, order)
+    counts = torch.sum(F.one_hot(se, E), dim=1)  # [B, E]
+    starts = torch.cumsum(counts, dim=-1) - counts
+    pos = torch.arange(Sk, device=device)[None, :] - torch.gather(starts, 1, se)
+    keep = pos < C
+    slot = se * C + torch.clamp(pos, max=C - 1)  # drops -> C-1
+
+    if e.dispatch == "gather":
+        # After the per-row sort, expert e's kept tokens sit at sorted
+        # positions starts[e] .. starts[e]+C-1, so the dispatch buffer is a
+        # gather, and so are the backwards.
+        cpos = torch.arange(E * C, device=device) % C  # capacity slot
+        eid = torch.arange(E * C, device=device) // C
+        src_idx = starts[:, eid] + cpos[None, :]  # slot -> sorted idx
+        slot_filled = cpos[None, :] < torch.clamp(counts[:, eid], 0, C)
+        src_idx = torch.clamp(src_idx, max=Sk - 1)
+        inv = torch.argsort(order, dim=-1)  # flat pos -> sorted idx
+
+        gathered = _ReplicateRows.apply(x, st, inv, k)  # [B, Sk, d]
+        xe = _PermuteRows.apply(gathered, src_idx, slot, slot_filled, keep).reshape(B, E, C, d)
+        ye = _expert_ffn(params, xe, cfg).reshape(B, E * C, d)
+
+        # Slots -> token positions (backward: a gather by the slot's reader).
+        tok_slot = torch.gather(slot, 1, inv)
+        inv_p = torch.gather(order, 1, src_idx)  # slot -> flat pos
+        picked_raw = _PermuteRows.apply(ye, tok_slot, inv_p, torch.ones_like(keep), slot_filled)
+        tok_w = torch.gather(sw * keep.to(sw.dtype), 1, inv)
+        picked = picked_raw * tok_w[..., None].to(x.dtype)
+        out = torch.sum(picked.reshape(B, S, k, d), dim=2)
+    elif e.dispatch == "scatter":
+        gathered = _take_rows(x, st) * keep[..., None].to(x.dtype)  # dropped -> 0
+        xe = torch.zeros((B, E * C, d), dtype=x.dtype, device=device)
+        xe = xe.scatter_add(1, slot[..., None].expand(-1, -1, d), gathered).reshape(B, E, C, d)
+        ye = _expert_ffn(params, xe, cfg).reshape(B, E * C, d)
+        back = _take_rows(ye, slot) * (sw * keep.to(sw.dtype))[..., None].to(x.dtype)
+        out = torch.zeros((B, S, d), dtype=x.dtype, device=device)
+        out = out.scatter_add(1, st[..., None].expand(-1, -1, d), back)
+    else:
+        raise ValueError(f"unknown MoE dispatch {e.dispatch!r}")
+
+    # ------------------------------------------------------ shared experts
+    if e.num_shared:
+        h = _activate(x @ params["shared_up"], lambda: x @ params["shared_gate"], cfg)
+        out = out + h @ params["shared_down"]
+
+    return out, aux

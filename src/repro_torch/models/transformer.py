@@ -1,28 +1,32 @@
 """Model assembly on tensors (PyTorch port of ``repro/models/transformer.py``):
 embeddings -> prologue -> stacked blocks -> head, with the train/prefill
-forward, prefill returning the KV cache, and single-token decode against a
-ring-buffer cache.
+forward and the causal LM loss, prefill returning the KV cache, single-token
+decode against a ring-buffer cache, and ``make_train_step``.
 
 The parameter tree is the reference's: the repeated blocks are stacked along
 a leading ``num_blocks`` axis (``params["blocks"]["0"]["attn"]["wq"]`` is
 ``[num_blocks, d, H * hd]``), and so are the block caches, so
 ``repro_torch.interop`` carries a JAX model's weights over in one round
 trip.  Where the reference runs ``lax.scan`` over that axis, the port loops
-over block ``i`` in Python.
+over block ``i`` in Python; it does not rematerialise (the reference's
+``remat``), so each layer's forward runs once per step.
 
-This slice ports the dense-attention text model: layer kinds ``rwkv6`` and
-``mamba``, ``mlp="moe"``, the ``vlm``/``audio`` modalities, MLA and the int8
-KV cache raise ``NotImplementedError``.
+Ported: text models with attention (``kind="attn"``) and RWKV-6
+(``kind="rwkv6"``) layers and dense or MoE (``mlp="moe"``) MLPs.  Layer kind
+``mamba``, the ``vlm``/``audio`` modalities, MLA and the int8 KV cache raise
+``NotImplementedError``, and so do prefill and decode through an RWKV-6 or
+MoE layer (the serving slice).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     _project_qkv,
     attention_apply,
@@ -34,21 +38,32 @@ from repro_torch.models.layers import (
     rms_norm,
     torch_dtype,
 )
-from repro_torch.tree import tree_map
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["Model"]
+__all__ = ["Model", "make_train_step"]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.modality != "text":
         raise NotImplementedError(f"modality {cfg.modality!r} is not ported to repro_torch yet")
     for spec in tuple(cfg.prologue) + tuple(cfg.block_pattern):
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "rwkv6"):
             raise NotImplementedError(f"layer kind {spec.kind!r} is not ported to repro_torch yet")
-        if spec.mlp not in ("dense", "none"):
+        if spec.mlp not in ("dense", "none", "moe"):
             raise NotImplementedError(f"mlp={spec.mlp!r} is not ported to repro_torch yet")
+
+
+def _check_cacheable(cfg: ModelConfig) -> None:
+    """Prefill and decode are ported for attention layers with dense MLPs."""
+    for spec in tuple(cfg.prologue) + tuple(cfg.block_pattern):
+        if spec.kind != "attn" or spec.mlp == "moe":
+            raise NotImplementedError(
+                f"prefill/decode through a {spec.kind!r} layer with mlp={spec.mlp!r} "
+                "is not ported to repro_torch yet"
+            )
 
 
 def _block(tree: PyTree, i: int) -> PyTree:
@@ -73,10 +88,16 @@ class Model:
         dtype = torch_dtype(cfg.dtype)
         device = generator.device
         p: Dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
-        p["attn"] = attention_init(generator, cfg)
+        if spec.kind == "rwkv6":
+            p["attn"] = ssm_mod.rwkv6_init(generator, cfg)
+        else:
+            p["attn"] = attention_init(generator, cfg)
         if spec.mlp != "none":
             p["norm2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
-            p["mlp"] = mlp_init(generator, cfg, cfg.d_ff)
+            if spec.mlp == "moe":
+                p["mlp"] = moe_init(generator, cfg)
+            else:
+                p["mlp"] = mlp_init(generator, cfg, cfg.d_ff)
         return p
 
     def init_params(self, generator: torch.Generator) -> PyTree:
@@ -112,32 +133,62 @@ class Model:
         return x @ params["lm_head"]
 
     # --------------------------------------------------------------- forward
-    def _apply_layer(self, lp: PyTree, x: torch.Tensor, spec: LayerSpec, window: int) -> torch.Tensor:
+    def _apply_layer(
+        self, lp: PyTree, x: torch.Tensor, spec: LayerSpec, window: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attention_apply(lp["attn"], h, cfg, window=window)
+        if spec.kind == "rwkv6":
+            x = x + ssm_mod.rwkv6_apply(lp["attn"], h, cfg)
+        else:
+            x = x + attention_apply(lp["attn"], h, cfg, window=window)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if spec.mlp != "none":
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h2, cfg)
-        return x
+            if spec.mlp == "moe":
+                h2, aux = moe_apply(lp["mlp"], h2, cfg)
+            else:
+                h2 = mlp_apply(lp["mlp"], h2, cfg)
+            x = x + h2
+        return x, aux
 
     def forward(
         self, params: PyTree, tokens: torch.Tensor, window: int = 0
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (hidden [B, S, d], aux loss), aux a zero scalar (no MoE)."""
+        """Returns (hidden [B, S, d], MoE aux loss, a float32 scalar)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.prologue):
-            x = self._apply_layer(params[f"prologue_{i}"], x, spec, window)
+            x, a = self._apply_layer(params[f"prologue_{i}"], x, spec, window)
+            aux = aux + a
         for b in range(self.num_blocks):
             bp = _block(params["blocks"], b)
             for i, spec in enumerate(self.pattern):
-                x = self._apply_layer(bp[str(i)], x, spec, window)
+                x, a = self._apply_layer(bp[str(i)], x, spec, window)
+                aux = aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
+
+    # ------------------------------------------------------------------ loss
+    def loss(
+        self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Causal LM loss: the mean next-token NLL over labels >= 0 (labels
+        < 0 are masked) plus the MoE aux loss; returns (loss, {"nll", "aux"})."""
+        x, aux = self.forward(params, tokens)
+        logits = self._head(params, x).float()
+        labels = labels.long()
+        mask = (labels >= 0).float()
+        safe = torch.clamp(labels, min=0)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return loss + aux, {"nll": loss, "aux": aux}
 
     # ------------------------------------------------------------- caching
     def init_cache(self, batch: int, window: int, device: Any = "cpu") -> PyTree:
+        _check_cacheable(self.cfg)
         cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
         for i, spec in enumerate(self.cfg.prologue):
             cache[f"prologue_{i}"] = init_attn_cache(self.cfg, batch, window, device)
@@ -173,6 +224,7 @@ class Model:
         when ``with_hidden`` (for value heads riding the decode path).
         """
         cfg = self.cfg
+        _check_cacheable(cfg)
         pos = cache["pos"]
         x = self._embed(params, tokens)
         new_cache: Dict[str, Any] = {"pos": pos + 1}
@@ -206,6 +258,7 @@ class Model:
         logits at their own last position, not at S - 1).
         """
         cfg = self.cfg
+        _check_cacheable(cfg)
         S = tokens.shape[1]
         W = window or S
         x = self._embed(params, tokens)
@@ -236,6 +289,27 @@ class Model:
         if with_hidden:
             return logits, cache, x
         return logits, cache
+
+
+# ----------------------------------------------------------- step builder
+def make_train_step(model: Model, optimizer) -> Callable:
+    """The learner's step: the loss, its gradient, and ``optimizer.apply_``,
+    which updates the parameters and the optimizer's moments in place (see
+    ``repro_torch.optim.optimizers``).  ``train_step(params, opt_state,
+    batch)`` takes parameter leaves that require grad and a batch of
+    ``tokens`` and ``labels`` tensors, and returns (params, the new state,
+    {"loss", "nll", "aux"} as tensors); the returned params are the same
+    tensors, updated."""
+
+    def train_step(params: PyTree, opt_state: PyTree, batch: Dict[str, torch.Tensor]):
+        loss, parts = model.loss(params, batch["tokens"], batch["labels"])
+        leaves = tree_leaves(params)
+        grads: List[Any] = list(torch.autograd.grad(loss, leaves))
+        opt_state = optimizer.apply_(params, grads, opt_state)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 # ------------------------------------------------- prefill cache builders

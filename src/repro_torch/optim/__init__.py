@@ -3,8 +3,23 @@ from repro_torch.optim.optimizers import (
     Optimizer,
     SgdState,
     adam,
+    adamw,
+    chain_clip_by_global_norm,
     constant_schedule,
+    cosine_schedule,
+    linear_warmup_cosine,
     sgd,
 )
 
-__all__ = ["AdamState", "Optimizer", "SgdState", "adam", "constant_schedule", "sgd"]
+__all__ = [
+    "AdamState",
+    "Optimizer",
+    "SgdState",
+    "adam",
+    "adamw",
+    "chain_clip_by_global_norm",
+    "constant_schedule",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+    "sgd",
+]

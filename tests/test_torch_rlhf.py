@@ -147,11 +147,24 @@ def test_unported_model_features_raise():
     _, cfg = _cfgs(4, 2)
     for bad in (
         dict(block_pattern=(LayerSpec(kind="mamba", mlp="dense"),)),
-        dict(block_pattern=(LayerSpec(kind="attn", mlp="moe"),)),
         dict(modality="audio"),
     ):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **bad))
+    # MoE MLPs and RWKV-6 layers train (the pretraining slice) but have no
+    # prefill or decode path yet.
+    from repro_torch.configs.base import MoEConfig, SSMConfig
+
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for serve_only in (
+        dict(block_pattern=(LayerSpec(kind="attn", mlp="moe"),), moe=MoEConfig(num_experts=2, d_ff=8)),
+        dict(block_pattern=(LayerSpec(kind="rwkv6", mlp="dense"),), ssm=SSMConfig(kind="rwkv6", head_dim=8)),
+    ):
+        model = Model(dataclasses.replace(cfg, **serve_only))
+        with pytest.raises(NotImplementedError):
+            model.init_cache(2, 8)
+        with pytest.raises(NotImplementedError):
+            model.prefill(model.init_params(torch.Generator().manual_seed(0)), tokens)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(cfg, kv_cache_dtype="int8")).init_cache(2, 8)
