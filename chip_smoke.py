@@ -87,7 +87,9 @@ phase that fails, and then prints no result line):
 
 Then one JSON line with every kernel's launches, error, times, bound and
 library time (at the first case's shape, and under ``cases_by_path`` at
-each main path's own shape), and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
+each main path's own shape; ``ms``, ``plain_ms`` and ``library_ms`` are device
+time by the profiler unless their ``*_from`` key says ``cuda_events``, the
+``*call_ms`` beside them CUDA events per call on the stream), and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
 device and the repo's ``src/`` beside this file; it imports nothing of JAX
 or of ``repro``.
 """
@@ -220,20 +222,74 @@ def _device_kernels(prof) -> dict:
     return out
 
 
+class _DeviceProfile:
+    """``torch.profiler`` (CUPTI) over the kernels launched between
+    ``start()`` and ``stop()``; ``stop()`` returns device microseconds by
+    kernel name.  On an H100, once the port's kernel library was loaded, a
+    profiler session lost the device records of kernels launched at its
+    start (their launches were recorded), so device times per call came out
+    low: ``torch.bmm`` at the grouped matmul's shape read 7.7 ms per call
+    over 5 calls against 20.2 ms by CUDA events.  With a short spin kernel
+    launched first no record was lost, so ``start()`` launches one and
+    ``stop()`` leaves it out (``prime=False`` skips it, for
+    ``_profiler_records``, which counts the records both ways)."""
+
+    PRIMER = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+    def __init__(self, prime: bool = True):
+        self.prime = prime
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.start()
+        if self.prime:
+            torch.cuda._sleep(1000)
+
+    def stop(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        return {k: v for k, v in _device_kernels(self.prof).items() if self.PRIMER not in k}
+
+
+def _profiler_records(fn, iters: int = 50) -> dict:
+    """How many device records of ``fn``'s main kernel a profiler session
+    kept over ``iters`` calls, started cold and primed as
+    ``_DeviceProfile`` starts: the evidence for its primer."""
+    import torch
+
+    out = {"calls": iters}
+    for name, prime in (("cold", False), ("primed", True)):
+        fn()
+        torch.cuda.synchronize()
+        prof = _DeviceProfile(prime)
+        prof.start()
+        for _ in range(iters):
+            fn()
+        kernels = prof.stop()
+        main = max(kernels, key=kernels.get)
+        out[name] = next(e.count for e in prof.prof.key_averages()
+                         if e.key == main and e.device_type == torch.autograd.DeviceType.CUDA)
+    return out
+
+
 def _device_ms(fn, iters: int = 50):
     """Mean device milliseconds per call: the device time of every kernel
     the call launched (torch.profiler, CUPTI), or None when the profiler
     records no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_device_kernels(prof).values())
+    prof = _DeviceProfile()
+    prof.start()
+    for _ in range(iters):
+        fn()
+    total_us = sum(prof.stop().values())
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -483,21 +539,20 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
 
 
 def _library(fn, iters: int = 20) -> dict:
-    """The PyTorch library call's ms per call on the stream (CUDA events),
-    the device ms its kernels took by the profiler, and which SDPA backend it
-    took, read from the names of those kernels.  ``library_ms`` is the event
-    time: on an H100 the profiler read cuBLAS's batched fp32 GEMM at 7.7 ms
-    in a run whose CUDA events read 20.2 ms per call."""
+    """The PyTorch library call's device ms per call by the profiler
+    (``library_ms``, the clock of the kernels' ``ms``), its ms per call on
+    the stream (CUDA events, ``library_call_ms``, beside the kernels'
+    ``call_ms``), and which SDPA backend it took, read from the names of
+    its kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = _device_kernels(prof)
+    prof = _DeviceProfile()
+    prof.start()
+    for _ in range(iters):
+        fn()
+    kernels = prof.stop()
     total_us = sum(kernels.values())
     names = " ".join(kernels).lower()
     backend = next(
@@ -506,9 +561,11 @@ def _library(fn, iters: int = 20) -> dict:
         "math",
     )
     top = sorted(kernels, key=lambda k: -kernels[k])[:3]
+    call_ms = _time_ms(fn, iters=iters, warmup=2)
     return {
-        "library_ms": _time_ms(fn, iters=iters, warmup=2),
-        "library_device_ms": total_us / iters / 1e3 if total_us > 0 else None,
+        "library_ms": total_us / iters / 1e3 if total_us > 0 else call_ms,
+        "library_ms_from": "profiler" if total_us > 0 else "cuda_events",
+        "library_call_ms": call_ms,
         "library_backend": backend,
         "library_kernels": [k[:60] for k in top],
     }
@@ -682,7 +739,7 @@ def _rwkv6_inputs(B: int, T: int, H: int, N: int, seed: int, state: bool):
 
 
 def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
-                chunk: int = 64, kernel_iters: int = 50) -> dict:
+                chunk: int = 64, kernel_iters: int = 50, check_profiler: bool = False) -> dict:
     """Forward (out, final state) and the gradients of all inputs, with
     cotangents on the output and the final state, through the kernels'
     autograd.Function, against the plain loop in float64 (chunk-checkpointed,
@@ -691,7 +748,8 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     B * T steps: at [2, 4096, 64, 64] on an H100 the float32 plain loop's
     own du is 6.8e-4 away from the oracle in places, more than the
     tolerance (each case records the float32 loop's distance as
-    ``plain_fp32_err``).  Times are of the float32 plain loop."""
+    ``plain_fp32_err``).  Times are of the float32 plain loop.  With
+    ``check_profiler``, also ``_profiler_records`` of the forward."""
     import torch
 
     from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_cuda, rwkv6_fwd_cuda, rwkv6_plain
@@ -734,6 +792,10 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     _, _, ckpt = rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True)
     fwd_t = _timings(lambda: rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True), plain_fwd,
                      plain_iters=1, kernel_iters=kernel_iters, plain_profile=False)
+    if check_profiler:
+        fwd_t["profiler_records"] = _profiler_records(
+            lambda: rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True))
+        print(f"profiler records of {name}'s forward: {fwd_t['profiler_records']}")
     bwd_t = _timings(
         lambda: rwkv6_bwd_cuda(r, k, v, w, u, cot_o, ckpt, cot_s, chunk, state),
         lambda: torch.autograd.grad(plain_graph, plain_ts, (cot_o, cot_s), retain_graph=True),
@@ -749,7 +811,7 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     # backward's recomputed update, 3 N^2, and its sums and G update, 11 N^2.
     seq, st_bytes = B * T * H * N * 4, B * H * N * N * 4
     ck_bytes = B * H * -(-T // chunk) * N * N * 4
-    fwd_bytes = 5 * seq + H * N * 4 + 2 * st_bytes + ck_bytes + (st_bytes if state else 0)
+    fwd_bytes = 5 * seq + H * N * 4 + st_bytes + ck_bytes + (st_bytes if state else 0)
     bwd_bytes = 9 * seq + 2 * H * N * 4 + st_bytes + ck_bytes + (st_bytes if state else 0)
     fwd_bound = _bound_ms(fwd_bytes, 7 * B * T * H * N * N)
     bwd_bound = _bound_ms(bwd_bytes, 14 * B * T * H * N * N)
@@ -764,9 +826,12 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     }
 
 
-def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20) -> dict:
+def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
+              overrun: int = 0) -> dict:
     """The grouped matmul against the loop over groups; inputs N(0, 1) and
-    weights N(0, 1/D), as the model's experts, so outputs are O(1)."""
+    weights N(0, 1/D), as the model's experts, so outputs are O(1).  With
+    ``overrun``, also the same groups over x cut by that many rows: groups
+    that sum past x's end are cut there by both versions."""
     import torch
 
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
@@ -781,6 +846,10 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20) ->
     torch.cuda.synchronize()
     err = _close(f"moe_gmm [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:6]}...", got, want, GMM_TOL)
     del got, want
+    if overrun:
+        cut = x[: T - overrun]
+        err = max(err, _close(f"moe_gmm groups summing to {T} over {T - overrun} rows",
+                              moe_gmm_cuda(cut, w, gs), moe_gmm_plain(cut, w, gs), GMM_TOL))
     nbytes = 4 * (T * D + E * D * F + T * F)
     bound, by = _bound_ms(nbytes, 2 * T * D * F)
     out = {
@@ -841,7 +910,7 @@ def phase_kernels() -> dict:
                         kernel_iters=20)
     )
     rwkv6_cases = [
-        _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20),  # the path's shape
+        _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20, check_profiler=True),  # path shape
         _rwkv6_case(2, 1000, 64, 64, 51),  # ragged T
         _rwkv6_case(2, 300, 8, 64, 52, state=True),  # a start state
         _rwkv6_case(4, 256, 8, 32, 53, chunk=16),  # narrow heads
@@ -852,7 +921,7 @@ def phase_kernels() -> dict:
     out["moe_gmm"] = [
         _gmm_case([T // E] * E, D, F, 60, kernel_iters=10),  # up and gate products
         _gmm_case([T // E] * E, F, D, 61, kernel_iters=10),  # down product
-        _gmm_case([300, 0, 1000, 77, 129, 640, 1, 511], 1024, 1536, 62),  # ragged groups
+        _gmm_case([300, 0, 1000, 77, 129, 640, 1, 511], 1024, 1536, 62, overrun=600),  # ragged
         _gmm_case([1280, 1000, 1280, 1280], D, F, 63),  # a group not a multiple of 64
     ]
     for name, cases in out.items():
@@ -916,7 +985,6 @@ INFO_KEYS = {"loss", "pg_loss", "vf_loss", "entropy", "kl"}
 
 def phase_main_path(counters: list) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.workers import WorkerSet
     from repro_torch.flow import Algorithm
@@ -934,15 +1002,14 @@ def phase_main_path(counters: list) -> dict:
         for i in range(iters):
             prof = None
             if i == iters - 1:  # the last iteration runs under the profiler
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof = _DeviceProfile()
                 prof.start()
             t0 = time.perf_counter()
             result = algo.train()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             if prof is not None:
-                prof.stop()
-                busy = _device_kernels(prof)
+                busy = prof.stop()
             info, ctr = result["info"], result["counters"]
             reward = result["episodes"]["episode_reward_mean"]
             rows.append({"iter": i, "seconds": dt, "reward": reward, "loss": info["loss"]})
@@ -1097,7 +1164,6 @@ def _split_times(worker) -> dict:
 
 def phase_rlhf(counters: list) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.workers import WorkerSet
     from repro_torch.flow import Algorithm
@@ -1121,7 +1187,7 @@ def phase_rlhf(counters: list) -> dict:
             for i in range(iters):
                 prof = None
                 if i == iters - 1:  # the last iteration runs under the profiler
-                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof = _DeviceProfile()
                     prof.start()
                 before = {c.name: c.value for c in counters}
                 t0 = time.perf_counter()
@@ -1129,8 +1195,7 @@ def phase_rlhf(counters: list) -> dict:
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 if prof is not None:
-                    prof.stop()
-                    busy = _device_kernels(prof)
+                    busy = prof.stop()
                 launched = {c.name: c.value - before[c.name] for c in counters}
                 info, ctr = result["info"], result["counters"]
                 rows.append({"iter": i, "seconds": dt, "loss": info["loss"], "launches": launched,
@@ -1280,7 +1345,6 @@ def phase_async(name: str, counters: list) -> dict:
     Launches are read after ``stop()`` has joined every thread of the flow
     and checked against the learner's and the workers' own counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.workers import WorkerSet
     from repro_torch.flow import Algorithm
@@ -1351,7 +1415,7 @@ def phase_async(name: str, counters: list) -> dict:
             # ASYNC_PROFILE_S, so the learner and rollout threads' kernels
             # launched meanwhile are in it.
             steps0, trained0 = learner.num_steps, rows[-1]["steps_trained"]
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof = _DeviceProfile()
             prof.start()
             t_prof = time.perf_counter()
             while time.perf_counter() - t_prof < ASYNC_PROFILE_S:
@@ -1359,8 +1423,7 @@ def phase_async(name: str, counters: list) -> dict:
             window = time.perf_counter() - t_prof
             window_steps = learner.num_steps - steps0
             window_trained = rows[-1]["steps_trained"] - trained0
-            prof.stop()
-            busy = _device_kernels(prof)
+            busy = prof.stop()
             _require(rows[-1]["steps_trained"] > 0, f"{name}: nothing trained")
     finally:
         algo.stop()
@@ -1543,7 +1606,6 @@ def phase_pretrain(name: str, counters: list) -> dict:
     import gc
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.flow import Algorithm
     from repro_torch.launch.train import make_pretrain, train_config
@@ -1578,7 +1640,7 @@ def phase_pretrain(name: str, counters: list) -> dict:
             for i in range(c["steps"]):
                 prof = None
                 if i == c["steps"] - 1:  # the last step runs under the profiler
-                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof = _DeviceProfile()
                     prof.start()
                 before = {k.name: k.value for k in counters}
                 t0 = time.perf_counter()
@@ -1586,8 +1648,7 @@ def phase_pretrain(name: str, counters: list) -> dict:
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 if prof is not None:
-                    prof.stop()
-                    busy = _device_kernels(prof)
+                    busy = prof.stop()
                 launched = {k.name: k.value - before[k.name] for k in counters}
                 info = result["info"]
                 rows.append({"step": i, "seconds": dt, "tokens_per_s": tokens / dt, **info})
@@ -1723,7 +1784,8 @@ def main() -> int:
             for shape in shapes if isinstance(shapes[0], list) else [shapes]:
                 c = next(c for c in record["kernels"][name] if c["shape"] == shape)
                 picked.append({k: c.get(k) for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by", "call_ms", "library_ms")})
+                                                     "bound_ms", "bound_by", "call_ms", "library_ms",
+                                                     "library_call_ms")})
             cases_by_path[p] = picked if len(picked) > 1 else picked[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1732,9 +1794,10 @@ def main() -> int:
             "ms": path_case["ms"], "plain_ms": path_case["plain_ms"],
             "ms_from": path_case["ms_from"], "plain_ms_from": path_case["plain_ms_from"],
             "bound_ms": path_case["bound_ms"], "bound_by": path_case["bound_by"],
-            "library_ms": path_case["library_ms"],
+            "library_ms": path_case["library_ms"], "library_ms_from": path_case.get("library_ms_from"),
             "library_backend": path_case.get("library_backend"), "shape": path_case["shape"],
             "call_ms": path_case["call_ms"], "plain_call_ms": path_case["plain_call_ms"],
+            "library_call_ms": path_case.get("library_call_ms"),
             "cases_by_path": cases_by_path,
         })
     if args.out:

@@ -5,7 +5,7 @@
 // group_sizes[e] rows (in expert order), w [E, D, F]; out [T, F] with
 //     out[t] = x[t] @ w[e(t)],  e(t) the group that holds row t,
 // accumulated in float32.  Rows past the last group are left as the caller
-// set them.  Needs D % 4 == 0, F % 4 == 0 and 16-byte aligned x, w and out
+// set them; groups that run past row T are cut at T.  Needs D % 4 == 0, F % 4 == 0 and 16-byte aligned x, w and out
 // (float4 loads and stores).
 //
 // Bound on the H100: operations.  2 * T * D * F flops against 4 * (T * D +
@@ -48,7 +48,7 @@ constexpr int kAPad = 4;  // row padding of the transposed A tile: conflict-free
 __global__ void __launch_bounds__(kThreads)
     moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const int* __restrict__ ends, const int* __restrict__ tile_ends,
-                   float* __restrict__ out, int D, int F, int E) {
+                   float* __restrict__ out, int T, int D, int F, int E) {
   __shared__ __align__(16) float As[2][kBK][kBM + kAPad];  // A tile, transposed: [k][m]
   __shared__ __align__(16) float Bs[2][kBK][kBN];
 
@@ -58,7 +58,10 @@ __global__ void __launch_bounds__(kThreads)
   if (g == E) return;  // past the last row tile
   const int g_begin = g ? ends[g - 1] : 0;
   const int row0 = g_begin + (tile - (g ? tile_ends[g - 1] : 0)) * kBM;
-  const int rows = min(kBM, ends[g] - row0);
+  // Clamped to T as well: group sizes that sum past x's rows read and
+  // write nothing beyond them.
+  const int rows = min(min(kBM, ends[g] - row0), T - row0);
+  if (rows <= 0) return;
   const int col0 = blockIdx.y * kBN;
   const float* wg = w + static_cast<size_t>(g) * D * F;
 
@@ -156,6 +159,6 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, const void* ends,
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   moe_gmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const int*>(ends),
-      static_cast<const int*>(tile_ends), static_cast<float*>(out), D, F, E);
+      static_cast<const int*>(tile_ends), static_cast<float*>(out), T, D, F, E);
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,21 +78,12 @@ def rwkv6(
     return rwkv6_plain(r, k, v, w, u, state=state, chunk=chunk)
 
 
-def moe_gmm(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    group_sizes: torch.Tensor,
-    block_m: int = 128,
-    block_n: int = 128,
-) -> torch.Tensor:
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """Grouped matmul [T, D] x [E, D, F] -> [T, F] over expert-contiguous
     rows: the CUDA kernel for CUDA tensors, the loop over groups for CPU
-    tensors.  ``block_m``/``block_n`` are the TPU kernel's tile sizes, kept
-    for the reference's signature: there every group must be a multiple of
-    ``block_m``; the CUDA kernel tiles each group itself and takes any sizes,
-    so it needs neither."""
-    if block_m < 1 or block_n < 1:
-        raise ValueError(f"moe_gmm: block sizes must be positive, got {block_m}, {block_n}")
+    tensors.  The reference's ``block_m``/``block_n`` (the TPU kernel's
+    tiles, to which every group must be aligned) have no counterpart: the
+    CUDA kernel tiles each group itself and takes any sizes."""
     if x.is_cuda:
         return moe_gmm_cuda(x, w, group_sizes)
     return moe_gmm_plain(x, w, group_sizes)
