@@ -211,28 +211,18 @@ def _time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_kernels(prof) -> dict:
-    """Device microseconds by kernel name from a ``torch.profiler`` run."""
-    import torch
-
-    out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total
-    return out
-
-
 class _DeviceProfile:
     """``torch.profiler`` (CUPTI) over the kernels launched between
     ``start()`` and ``stop()``; ``stop()`` returns device microseconds by
-    kernel name.  On an H100, once the port's kernel library was loaded, a
-    profiler session lost the device records of kernels launched at its
-    start (their launches were recorded), so device times per call came out
-    low: ``torch.bmm`` at the grouped matmul's shape read 7.7 ms per call
-    over 5 calls against 20.2 ms by CUDA events.  With a short spin kernel
-    launched first no record was lost, so ``start()`` launches one and
-    ``stop()`` leaves it out (``prime=False`` skips it, for
-    ``_profiler_records``, which counts the records both ways)."""
+    kernel name and leaves the count of each kernel's device records in
+    ``records``.  On an H100, once the port's kernel library was loaded, a
+    profiler session lost device records of kernels whose launches it
+    recorded: the first kernel of a session, and now and then one later
+    (``torch.bmm`` at the grouped matmul's shape read 7.7 ms per call over
+    5 calls against 20.2 ms by CUDA events).  A short spin kernel launched
+    first kept the first record (``_profiler_records`` counts the records
+    both ways), so ``start()`` launches one and ``stop()`` leaves it out
+    (``prime=False`` skips it); ``_per_call`` copes with the later ones."""
 
     PRIMER = "spin_kernel"  # the kernel of torch.cuda._sleep
 
@@ -253,7 +243,14 @@ class _DeviceProfile:
 
         torch.cuda.synchronize()
         self.prof.stop()
-        return {k: v for k, v in _device_kernels(self.prof).items() if self.PRIMER not in k}
+        out: dict = {}
+        self.records: dict = {}
+        for e in self.prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                    and self.PRIMER not in e.key):
+                out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total
+                self.records[e.key] = self.records.get(e.key, 0) + e.count
+        return out
 
 
 def _profiler_records(fn, iters: int = 50) -> dict:
@@ -271,16 +268,16 @@ def _profiler_records(fn, iters: int = 50) -> dict:
         for _ in range(iters):
             fn()
         kernels = prof.stop()
-        main = max(kernels, key=kernels.get)
-        out[name] = next(e.count for e in prof.prof.key_averages()
-                         if e.key == main and e.device_type == torch.autograd.DeviceType.CUDA)
+        out[name] = prof.records[max(kernels, key=kernels.get)]
     return out
 
 
-def _device_ms(fn, iters: int = 50):
-    """Mean device milliseconds per call: the device time of every kernel
-    the call launched (torch.profiler, CUPTI), or None when the profiler
-    records no device time."""
+def _per_call(fn, iters: int) -> tuple:
+    """Device microseconds per call of ``fn`` by kernel name over ``iters``
+    calls, and how many device records the profiler lost.  A kernel's time
+    per call is the mean of its records times its launches per call,
+    ceil(records / iters): a lost record leaves the mean as it was, where
+    dividing the sum by ``iters`` would read it as a faster call."""
     import torch
 
     fn()
@@ -289,8 +286,23 @@ def _device_ms(fn, iters: int = 50):
     prof.start()
     for _ in range(iters):
         fn()
-    total_us = sum(prof.stop().values())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    total = prof.stop()
+    per_call, lost = {}, 0
+    for name, us in total.items():
+        n = prof.records[name]
+        launches = -(-n // iters)
+        per_call[name] = us / n * launches
+        lost += launches * iters - n
+    return per_call, lost
+
+
+def _device_ms(fn, iters: int = 50) -> tuple:
+    """Mean device milliseconds per call, by the profiler's records of every
+    kernel the call launched (``_per_call``), or None when it records no
+    device time; and the records it lost."""
+    per_call, lost = _per_call(fn, iters)
+    total_us = sum(per_call.values())
+    return (total_us / 1e3 if total_us > 0 else None), lost
 
 
 def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
@@ -305,9 +317,10 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     t = {
         "call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters)),
         "plain_call_ms": _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1),
-        "device_ms": _device_ms(kernel, iters=min(50, kernel_iters)),
-        "plain_device_ms": _device_ms(plain, iters=plain_iters) if plain_profile else None,
     }
+    t["device_ms"], t["records_lost"] = _device_ms(kernel, iters=min(50, kernel_iters))
+    t["plain_device_ms"], t["plain_records_lost"] = (
+        _device_ms(plain, iters=plain_iters) if plain_profile else (None, None))
     for key, device, call in (("ms", "device_ms", "call_ms"),
                               ("plain_ms", "plain_device_ms", "plain_call_ms")):
         profiled = t[device] is not None
@@ -544,15 +557,7 @@ def _library(fn, iters: int = 20) -> dict:
     the stream (CUDA events, ``library_call_ms``, beside the kernels'
     ``call_ms``), and which SDPA backend it took, read from the names of
     its kernels."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    prof = _DeviceProfile()
-    prof.start()
-    for _ in range(iters):
-        fn()
-    kernels = prof.stop()
+    kernels, lost = _per_call(fn, iters)
     total_us = sum(kernels.values())
     names = " ".join(kernels).lower()
     backend = next(
@@ -563,9 +568,10 @@ def _library(fn, iters: int = 20) -> dict:
     top = sorted(kernels, key=lambda k: -kernels[k])[:3]
     call_ms = _time_ms(fn, iters=iters, warmup=2)
     return {
-        "library_ms": total_us / iters / 1e3 if total_us > 0 else call_ms,
+        "library_ms": total_us / 1e3 if total_us > 0 else call_ms,
         "library_ms_from": "profiler" if total_us > 0 else "cuda_events",
         "library_call_ms": call_ms,
+        "library_records_lost": lost,
         "library_backend": backend,
         "library_kernels": [k[:60] for k in top],
     }
@@ -934,7 +940,8 @@ def phase_kernels() -> dict:
                 f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}) "
                 f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
-                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){lib_txt}"
+                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}) records_lost={c['records_lost']}"
+                f"{lib_txt}"
             )
     return out
 
@@ -1718,6 +1725,7 @@ KERNEL_SITES = {
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write every measurement here as JSON")
     args = ap.parse_args()
@@ -1803,6 +1811,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
