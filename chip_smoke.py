@@ -274,10 +274,14 @@ def _profiler_records(fn, iters: int = 50) -> dict:
 
 def _per_call(fn, iters: int) -> tuple:
     """Device microseconds per call of ``fn`` by kernel name over ``iters``
-    calls, and how many device records the profiler lost.  A kernel's time
-    per call is the mean of its records times its launches per call,
-    ceil(records / iters): a lost record leaves the mean as it was, where
-    dividing the sum by ``iters`` would read it as a faster call."""
+    calls, and how many device records the profiler lost.  A kernel with
+    fewer records than its launches per call, round(records / iters) and
+    at least 1, times ``iters`` lost the rest: its time per call is the
+    mean of its records times those launches (a lost record leaves the mean
+    as it was, where dividing the sum by ``iters`` would read it as a
+    faster call).  Any other kernel's is its sum over ``iters``, so a kernel
+    that does not run the same number of times in every call is not
+    scaled up."""
     import torch
 
     fn()
@@ -290,9 +294,12 @@ def _per_call(fn, iters: int) -> tuple:
     per_call, lost = {}, 0
     for name, us in total.items():
         n = prof.records[name]
-        launches = -(-n // iters)
-        per_call[name] = us / n * launches
-        lost += launches * iters - n
+        launches = max(1, round(n / iters))
+        if n < launches * iters:
+            per_call[name] = us / n * launches
+            lost += launches * iters - n
+        else:
+            per_call[name] = us / iters
     return per_call, lost
 
 
