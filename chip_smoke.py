@@ -89,9 +89,9 @@ Then one JSON line with every kernel's launches, error, times, bound and
 library time (at the first case's shape, and under ``cases_by_path`` at
 each main path's own shape; ``ms``, ``plain_ms`` and ``library_ms`` are device
 time by the profiler unless their ``*_from`` key says ``cuda_events``, the
-``*call_ms`` beside them CUDA events per call on the stream), and last ``{"ok": true, "device": {...}}``.  Needs a CUDA
-device and the repo's ``src/`` beside this file; it imports nothing of JAX
-or of ``repro``.
+``*call_ms`` beside them CUDA events per call on the stream), and last
+``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo's
+``src/`` beside this file; it imports nothing of JAX or of ``repro``.
 """
 
 from __future__ import annotations
