@@ -8,7 +8,9 @@ phase that fails, and then prints no result line):
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile every CUDA kernel of the port from ``csrc/`` (one nvcc per
-   source, all at once, sm_90a);
+   source, all at once, sm_90a); each flash kernel's registers, spills,
+   shared memory and resident blocks per SM, and its count of TF32 tensor-core
+   instructions in the SASS (``cuobjdump``; none fails the phase);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version, bound and (for attention) the
    ``scaled_dot_product_attention`` yardstick: GAE at the LM path's
@@ -26,8 +28,11 @@ phase that fails, and then prints no result line):
    the prefill's sliding window, GQA 40/8 at S = 2048 with a 512 window and
    with a q_offset, a ragged S, and Phi-3.5-MoE's [2, 4096, 32/8, 128]; its
    backward at [128, 256, 20, 128], [4, 512, 20, 128], GQA [2, 1024, 40/8,
-   128] and Phi's [2, 4096, 32/8, 128]; the RWKV-6 recurrence forward and
-   backward (gradients of r, k, v, w, u and the start state against autograd
+   128], Phi's [2, 4096, 32/8, 128], GQA 40/8 at S = 2048 with a 512 window
+   and with a q_offset; both at D = 64 and D = 32 (GQA with a ragged S, a
+   non-causal case with Sq != Sk, a window with a q_offset), each with the
+   3xTF32 bound and the fp32 CUDA-core bound beside it; the RWKV-6
+   recurrence forward and backward (gradients of r, k, v, w, u and the start state against autograd
    through the plain loop, and bitwise equal across two runs) at the
    pretraining path's [2, 4096, 64, 64], a ragged T = 1000, with a start
    state, and at narrow [4, 256, 8, 32] heads; the MoE grouped matmul at the
@@ -100,6 +105,8 @@ import argparse
 import contextlib
 import json
 import math
+import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -110,9 +117,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor-core fp32.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor-core fp32,
+# and TF32 on the tensor cores (dense).  The flash kernels run 3xTF32: three
+# tensor-core products for each fp32 product.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 TOL = 1e-5  # atol = rtol for kernel vs plain version, float32
 # atol = rtol for attention gradients, kernel vs autograd through the plain
 # version: each dK/dV element sums Sq * g terms, each dQ element Sk terms,
@@ -336,10 +346,19 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     return t
 
 
-def _bound_ms(nbytes: int, nops: int) -> tuple:
+def _bound_ms(nbytes: int, nops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_bounds(nbytes: int, flops: int) -> dict:
+    """The flash kernels' bound on their route, 3xTF32 (three TF32
+    tensor-core products per product), and the fp32 CUDA-core bound of
+    earlier PRs beside it as ``bound_fp32_ms``."""
+    bound, by = _bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
+    return {"bound_ms": bound, "bound_by": by, "bound_fp32_ms": _bound_ms(nbytes, flops)[0],
+            "bytes": nbytes, "flops": flops}
 
 
 def _max_err(a, b) -> float:
@@ -376,6 +395,81 @@ def phase_device() -> dict:
 
 
 # ----------------------------------------------------------------- phase 2
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# Rows of the streamed tile by D (forward, backward) and of a block's own
+# tile, as flash_attention.cu's fwd_cols / bwd_cols / kRows, for the dynamic
+# shared memory of its fwd_smem / dq_smem / dkdv_smem.
+FLASH_COLS = {32: (64, 32), 64: (64, 32), 128: (16, 16)}
+FLASH_ROWS = 64
+SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
+SM_REGISTERS = 65536
+
+
+def _flash_name(symbol: str):
+    """``flash_fwd_kernel<128>`` from a mangled flash kernel symbol, or None."""
+    m = re.search(r"(" + "|".join(FLASH_KERNELS) + r")ILi(\d+)E", symbol)
+    return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+
+def _flash_smem(kernel: str, D: int) -> int:
+    fwd_cols, bwd_cols = FLASH_COLS[D]
+    if kernel == "flash_fwd_kernel":
+        return (FLASH_ROWS + 4 * fwd_cols) * (D + 4) * 4
+    dq = (2 * FLASH_ROWS + 4 * bwd_cols) * (D + 4) * 4
+    return dq + 16 * bwd_cols if kernel == "flash_bwd_dkdv_kernel" else dq
+
+
+def _flash_usage(log: str, library: str) -> dict:
+    """Each flash kernel's registers and spills (``ptxas -v``), dynamic shared
+    memory, resident 128-thread blocks per SM by registers and shared memory,
+    and, where ``cuobjdump`` is found, its count of TF32 ``HMMA``/``HGMMA``
+    instructions in the SASS (a kernel with none fails the phase: its
+    products would not be on the tensor cores)."""
+    usage: dict = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = _flash_name(m.group(1))
+            if name:
+                usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    for name, u in usage.items():
+        kernel, D = name[:-1].split("<")
+        smem = _flash_smem(kernel, int(D))
+        regs_per_warp = -(-u.get("registers", 255) * 32 // 256) * 256
+        u.update(smem_bytes=smem, blocks_per_sm=min(SM_REGISTERS // (4 * regs_per_warp),
+                                                     SM_SMEM_BYTES // (smem + 1024), 16))
+    _require(len(usage) == 9, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head dims")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
+        _require(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+        name = None
+        for ln in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                name = _flash_name(m.group(1))
+                if name:
+                    usage[name].update(hmma=0, hmma_tf32=0)
+            elif name and "MMA" in ln:
+                usage[name]["hmma"] += 1
+                usage[name]["hmma_tf32"] += "TF32" in ln
+        for name, u in usage.items():
+            _require(u.get("hmma_tf32", 0) > 0,
+                     f"{name}: no TF32 HMMA/HGMMA instruction in its SASS ({u.get('hmma')} MMA)")
+    return usage
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
@@ -388,7 +482,11 @@ def phase_build() -> dict:
         print(f"ptxas: {ln}")
     n_src = len(list(build.CSRC_DIR.glob("*.cu")))
     print(f"build: {n_src} sources in {seconds:.2f} s -> {info['path']}")
-    return {"build_s": seconds}
+    log = info["log"] or (build.BUILD_DIR / "build.log").read_text()  # "" when cached
+    flash = _flash_usage(log, info["path"])
+    for name, u in flash.items():
+        print(f"flash kernel {name}: {json.dumps(u)}")
+    return {"build_s": seconds, "flash_kernels": flash}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -671,7 +769,6 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     del want
     mask, pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
     nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D + B * H * Sq) * 4
-    bound, by = _bound_ms(nbytes, 4 * B * H * D * pairs)
     simple = causal and not window and not q_offset and Sq == Sk
 
     def plain():
@@ -680,17 +777,18 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
 
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 4 * B * H * D * pairs,
+        **_flash_bounds(nbytes, 4 * B * H * D * pairs),
         **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
                    kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
     }
 
 
-def _flash_bwd_case(B, S, H, KV, D, seed, kernel_iters=200) -> dict:
-    """Causal backward: gradients of the kernel's autograd.Function against
-    torch autograd through the plain version, and the backward launch alone
-    timed against the plain version's autograd backward and SDPA's."""
+def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200) -> dict:
+    """Backward: gradients of the kernel's autograd.Function against torch
+    autograd through the plain version (and bitwise equal across two runs),
+    and the backward launch alone timed against the plain version's
+    autograd backward and SDPA's, under the same mask."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -701,35 +799,36 @@ def _flash_bwd_case(B, S, H, KV, D, seed, kernel_iters=200) -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = _randn(g, B, S, H, D), _randn(g, B, S, KV, D), _randn(g, B, S, KV, D)
-    dout = _randn(g, B, S, H, D)
+    q, k, v = _randn(g, B, Sq, H, D), _randn(g, B, Sk, KV, D), _randn(g, B, Sk, KV, D)
+    dout = _randn(g, B, Sq, H, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    name = f"flash_attention_bwd[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}"
 
     def grads(fn):
         xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = fn(*xs, causal=True)
+        out = fn(*xs, **kw)
         return torch.autograd.grad(out, xs, dout, retain_graph=True), (out, xs)
 
     got, _ = grads(flash_attention_cuda)
     again, _ = grads(flash_attention_cuda)
     want, (plain_out, plain_xs) = grads(flash_attention_plain)
     torch.cuda.synchronize()
-    err = max(_close(f"flash_attention_bwd[{B},{S},{H}/{KV},{D}] d{n}", a, b, GRAD_TOL)
-              for n, a, b in zip("qkv", got, want))
+    err = max(_close(f"{name} d{n}", a, b, GRAD_TOL) for n, a, b in zip("qkv", got, want))
     _require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-             "flash_attention_bwd: gradients differ between two runs")
+             f"{name}: gradients differ between two runs")
     del got, again, want
-    o, lse = flash_fwd_cuda(q, k, v, True, 0, 0)
-    _, pairs = _visible_pairs(S, S, True, 0, 0)
+    o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
+    mask, pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
     # reads q, o, dO, lse, k, v; writes dq, dk, dv
-    nbytes = (3 * B * S * H * D + 2 * B * S * KV * D + B * H * S) * 4 + (B * S * H * D + 2 * B * S * KV * D) * 4
-    bound, by = _bound_ms(nbytes, 10 * B * H * D * pairs)
+    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KV * D + B * H * Sq) * 4
+    simple = causal and not window and not q_offset and Sq == Sk
     lib_xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    lib_out = _sdpa(*lib_xs, None, True)
+    lib_out = _sdpa(*lib_xs, mask, simple)
     return {
-        "shape": [B, S, H, KV, D], "causal": True, "max_abs_err": err, "deterministic": True,
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 10 * B * H * D * pairs,
+        "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err, "deterministic": True,
+        **_flash_bounds(nbytes, 10 * B * H * D * pairs),
         **_timings(
-            lambda: flash_bwd_cuda(q, k, v, o, lse, dout, True, 0, 0),
+            lambda: flash_bwd_cuda(q, k, v, o, lse, dout, causal, window, q_offset),
             lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
             plain_iters=5, kernel_iters=kernel_iters,
         ),
@@ -879,6 +978,18 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
     return out
 
 
+def _narrow_heads(case, seed: int) -> list:
+    """Flash cases at D = 64 and D = 32 (tiles of other sizes than D = 128's):
+    GQA with a ragged S, a non-causal one with Sq != Sk, and a window with a
+    q_offset."""
+    return [
+        case(2, 1000, 1000, 16, 4, 64, True, 0, 0, seed),
+        case(2, 777, 777, 8, 2, 32, True, 0, 0, seed + 1),
+        case(2, 300, 500, 8, 2, 64, False, 0, 0, seed + 2),
+        case(2, 300, 812, 8, 8, 32, True, 128, 512, seed + 3),
+    ]
+
+
 def phase_kernels() -> dict:
     """Every kernel at its main paths' shapes and at large ones; the first
     case of each kernel is its path's shape (the RLHF path's, and the IMPALA
@@ -892,6 +1003,8 @@ def phase_kernels() -> dict:
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
                  _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4)]
     d = RLHF_ENV["ctx"]
+    B, S, H, KV, D = PHI_ATTENTION
+    _phi = (B, S, S, H, KV, D)
     out = {
         "gae": gae_cases,
         "vtrace": vtrace_cases,
@@ -912,16 +1025,19 @@ def phase_kernels() -> dict:
             _flash_fwd_case(2, 1000, 1000, 40, 8, 128, True, 0, 0, 25),
         ],
         "flash_attention_bwd": [
-            _flash_bwd_case(128, d, 20, 20, 128, 30),  # learner
-            _flash_bwd_case(4, 512, 20, 20, 128, 31),
-            _flash_bwd_case(2, 1024, 40, 8, 128, 32),
-            _flash_bwd_case(*PHI_ATTENTION, 33, kernel_iters=10),  # Phi-3.5-MoE's learner
+            _flash_bwd_case(128, d, d, 20, 20, 128, True, 0, 0, 30),  # learner
+            _flash_bwd_case(4, 512, 512, 20, 20, 128, True, 0, 0, 31),
+            _flash_bwd_case(2, 1024, 1024, 40, 8, 128, True, 0, 0, 32),
+            _flash_bwd_case(*_phi, True, 0, 0, 33, kernel_iters=10),  # Phi-3.5-MoE's learner
+            _flash_bwd_case(2, 2048, 2048, 40, 8, 128, True, 512, 0, 34),  # sliding window
+            _flash_bwd_case(2, 1024, 2048, 40, 8, 128, True, 0, 1024, 35),  # q_offset
+            *_narrow_heads(_flash_bwd_case, 36),
         ],
     }
-    out["flash_attention_fwd"].append(
-        _flash_fwd_case(PHI_ATTENTION[0], PHI_ATTENTION[1], *PHI_ATTENTION[1:], True, 0, 0, 26,
-                        kernel_iters=20)
-    )
+    out["flash_attention_fwd"] += [
+        _flash_fwd_case(*_phi, True, 0, 0, 26, kernel_iters=20),
+        *_narrow_heads(_flash_fwd_case, 27),
+    ]
     rwkv6_cases = [
         _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20, check_profiler=True),  # path shape
         _rwkv6_case(2, 1000, 64, 64, 51),  # ragged T
@@ -943,12 +1059,14 @@ def phase_kernels() -> dict:
         for c in cases:
             lib = c.get("library_ms")
             lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
+            fp32 = c.get("bound_fp32_ms")
+            fp32_txt = f" bound_fp32_ms={fp32:.6f}" if fp32 is not None else ""
             print(
                 f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}) "
                 f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
-                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}) records_lost={c['records_lost']}"
-                f"{lib_txt}"
+                f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){fp32_txt} "
+                f"records_lost={c['records_lost']}{lib_txt}"
             )
     return out
 
@@ -1799,8 +1917,8 @@ def main() -> int:
             for shape in shapes if isinstance(shapes[0], list) else [shapes]:
                 c = next(c for c in record["kernels"][name] if c["shape"] == shape)
                 picked.append({k: c.get(k) for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by", "call_ms", "library_ms",
-                                                     "library_call_ms")})
+                                                     "bound_ms", "bound_by", "bound_fp32_ms",
+                                                     "call_ms", "library_ms", "library_call_ms")})
             cases_by_path[p] = picked if len(picked) > 1 else picked[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1809,6 +1927,7 @@ def main() -> int:
             "ms": path_case["ms"], "plain_ms": path_case["plain_ms"],
             "ms_from": path_case["ms_from"], "plain_ms_from": path_case["plain_ms_from"],
             "bound_ms": path_case["bound_ms"], "bound_by": path_case["bound_by"],
+            **({"bound_fp32_ms": path_case["bound_fp32_ms"]} if "bound_fp32_ms" in path_case else {}),
             "library_ms": path_case["library_ms"], "library_ms_from": path_case.get("library_ms_from"),
             "library_backend": path_case.get("library_backend"), "shape": path_case["shape"],
             "call_ms": path_case["call_ms"], "plain_call_ms": path_case["plain_call_ms"],

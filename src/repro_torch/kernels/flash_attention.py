@@ -13,8 +13,11 @@ agree.
 
 The kernels take float32 ``q`` ``[B, Sq, H, D]`` and ``k``/``v``
 ``[B, Sk, KV, D]``, contiguous on one CUDA device, with ``H % KV == 0`` and
-``D`` in {32, 64, 128}; anything else raises.  CPU tensors take the plain
-version in ``repro_torch.kernels.ops.flash_attention``.
+``D`` in {32, 64, 128}; anything else raises.  They multiply on the tensor
+cores in 3xTF32 (each operand split into two TF32 parts, three products
+summed in fp32), which keeps them within 1e-5 of the plain version forward
+and 1e-4 in the gradients.  CPU tensors take the plain version in
+``repro_torch.kernels.ops.flash_attention``.
 """
 
 from __future__ import annotations

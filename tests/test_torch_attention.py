@@ -18,7 +18,7 @@ import torch
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ref import chunked_attention, decode_attention_ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, flash_variants, ops
 from repro_torch.kernels.decode_attention import (
     DECODE_ATTENTION_LAUNCHES,
     decode_attention_cuda,
@@ -164,3 +164,83 @@ def test_attention_wrappers_refuse_cpu_tensors_and_ops_dispatch_by_device():
         ops.decode_attention(qd, kc, vc, valid), decode_attention_plain(qd, kc, vc, valid), rtol=0, atol=0
     )
     assert [c.value for c in (FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES, DECODE_ATTENTION_LAUNCHES)] == counts
+
+
+# ------------------------------------------------ precision of the kernels
+# The CUDA flash kernels multiply on the tensor cores in 3xTF32: each fp32
+# operand x is split into big = tf32(x) (to nearest) and small = x - big,
+# which the tensor cores read truncated to TF32, and small*big + big*small +
+# big*big is summed in fp32.  Here that arithmetic is emulated in PyTorch on
+# the CPU, against an fp64 oracle, to show why the kernels take it and not
+# one TF32 pass: the first keeps the forward's 1e-5 tolerance, with small
+# rounded to nearest (cvt.rna.tf32.f32) or truncated as in the kernels, and
+# the second does not.
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: on the 13 low mantissa bits of the
+    bit pattern (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float32 truncated to TF32: how the tensor cores read an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, small=_tf32) -> torch.Tensor:
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = small(a - a_big), small(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_with(mm, q, k, v, mask):
+    """Causal attention forward with its two products (Q K^T and P V) by
+    ``mm``, the softmax in fp32."""
+    s = mm(q, k.transpose(-1, -2)) * (1.0 / np.sqrt(q.shape[-1]))
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
+    return mm(p, v)
+
+
+def test_tf32_rounding_emulation():
+    one = torch.tensor([1.0], dtype=torch.float32)
+    ulp = 2.0 ** -10  # TF32's spacing at 1
+    cases = {1 + ulp / 4: 1.0, 1 + ulp / 2: 1 + ulp, 1 + 3 * ulp / 4: 1 + ulp, -(1 + ulp / 2): -(1 + ulp)}
+    for x, want in cases.items():
+        assert _tf32(one * x).item() == want, x
+    x = torch.from_numpy(_normal(np.random.default_rng(0), 4096))
+    rel = ((_tf32(x) - x).abs() / x.abs()).max().item()
+    assert 2.0 ** -12 < rel <= 2.0 ** -11
+    assert torch.equal(_tf32(_tf32(x)), _tf32(x))
+    assert ((x - _tf32_toward_zero(x)) * x.sign() >= 0).all()
+    assert ((_tf32_toward_zero(x) - x).abs() / x.abs()).max().item() <= 2.0 ** -10
+
+
+@pytest.mark.parametrize("small", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [256, 512])
+def test_3xtf32_attention_products_keep_fp32_tolerance_and_one_tf32_pass_does_not(D, S, small):
+    q, k, v = (torch.from_numpy(x[0].transpose(1, 0, 2).copy()) for x in _qkv(1, S, S, 2, 2, D, seed=D + S))
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool))
+    oracle = _attention_with(torch.matmul, q.double(), k.double(), v.double(), mask)
+    round_small = _tf32 if small == "nearest" else _tf32_toward_zero
+    three = _attention_with(lambda a, b: _mm_3xtf32(a, b, round_small), q, k, v, mask)
+    one = _attention_with(_mm_1xtf32, q, k, v, mask)
+    _close(three, oracle, name=f"3xTF32, small rounded {small}")
+    err_one = (one.double() - oracle).abs().max().item()
+    assert err_one > 10 * TOL, f"one TF32 pass came within {err_one:.2e} of fp64"
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.VARIANTS))
+def test_flash_variants_edit_the_shipped_source(name):
+    """``python -m repro_torch.kernels.flash_variants`` builds each variant by
+    replacing text of ``csrc/flash_attention.cu``: each text must be there
+    once, or the variant would not be the one its name says."""
+    text = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    for old, new in flash_variants.VARIANTS[name]:
+        assert text.count(old) == 1, old
+        assert new != old
