@@ -189,8 +189,9 @@ PATH_SHAPES = {
     "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
     "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
-    "moe_gmm": {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
-                                                    MOE_GMM_UP[3]]]},
+    **{name: {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
+                                                 MOE_GMM_UP[3]]]}
+       for name in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw")},
 }
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
@@ -322,20 +323,37 @@ def _device_ms(fn, iters: int = 50) -> tuple:
     return (total_us / 1e3 if total_us > 0 else None), lost
 
 
+def _smi_sample() -> dict:
+    """The card's SM clock (MHz), power draw (W) and temperature (C) now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=60)
+    fields = smi.stdout.strip().splitlines()[0].split(",") if smi.returncode == 0 else []
+    return dict(zip(("clocks_sm", "power_draw", "temperature"),
+                    (float(f) for f in fields))) if len(fields) == 3 else {}
+
+
 def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
-             plain_profile: bool = True) -> dict:
+             plain_profile: bool = True, clocks: bool = False) -> dict:
     """Kernel and plain version: device ms per call (profiler) and ms per
-    call on the stream (CUDA events, host launch cost included).  ``ms`` is
-    the device time where the profiler gives one, else the event time;
-    ``ms_from`` and ``plain_ms_from`` say which ("profiler" or "cuda_events").
-    Kernels of tens of milliseconds take a smaller ``kernel_iters``; a plain
-    version of tens of thousands of launches is not profiled
-    (``plain_profile``), its trace alone would take minutes."""
-    t = {
-        "call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters)),
-        "plain_call_ms": _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1),
-    }
+    call on the stream (CUDA events, host launch cost included), the
+    kernel's events read before (``call_ms``) and after (``call_ms_after``)
+    its profiled calls.  ``ms`` is the device time where the profiler gives
+    one, else the event time; ``ms_from`` and ``plain_ms_from`` say which
+    ("profiler" or "cuda_events").  Kernels of tens of milliseconds take a
+    smaller ``kernel_iters``; a plain version of tens of thousands of
+    launches is not profiled (``plain_profile``), its trace alone would take
+    minutes.  With ``clocks``, the card's SM clock, power draw and
+    temperature before and after each of the kernel's three readings."""
+    samples = [_smi_sample()] if clocks else []
+    t = {"call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters))}
+    samples += [_smi_sample()] if clocks else []
     t["device_ms"], t["records_lost"] = _device_ms(kernel, iters=min(50, kernel_iters))
+    samples += [_smi_sample()] if clocks else []
+    t["call_ms_after"] = _time_ms(kernel, iters=kernel_iters, warmup=0)
+    if clocks:
+        t["clocks"] = samples + [_smi_sample()]
+    t["plain_call_ms"] = _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1)
     t["plain_device_ms"], t["plain_records_lost"] = (
         _device_ms(plain, iters=plain_iters) if plain_profile else (None, None))
     for key, device, call in (("ms", "device_ms", "call_ms"),
@@ -352,10 +370,10 @@ def _bound_ms(nbytes: int, nops: int, ops_per_s: float = FP32_OPS_PER_S) -> tupl
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _flash_bounds(nbytes: int, flops: int) -> dict:
-    """The flash kernels' bound on their route, 3xTF32 (three TF32
-    tensor-core products per product), and the fp32 CUDA-core bound of
-    earlier PRs beside it as ``bound_fp32_ms``."""
+def _tensor_core_bounds(nbytes: int, flops: int) -> dict:
+    """The bound of the flash and grouped-matmul kernels on their route,
+    3xTF32 (three TF32 tensor-core products per product), and the fp32
+    CUDA-core bound of earlier PRs beside it as ``bound_fp32_ms``."""
     bound, by = _bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
     return {"bound_ms": bound, "bound_by": by, "bound_fp32_ms": _bound_ms(nbytes, flops)[0],
             "bytes": nbytes, "flops": flops}
@@ -401,36 +419,53 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kern
 # shared memory of its fwd_smem / dq_smem / dkdv_smem.
 FLASH_COLS = {32: (64, 32), 64: (64, 32), 128: (16, 16)}
 FLASH_ROWS = 64
+# The grouped-matmul kernels of moe_gmm.cu (forward, dX, dW) and, as its
+# kBM / kBN / kBK / kStages, their tiles: a K-major operand tile holds
+# [rows][GMM_BK + 4] floats, an MN-major one [GMM_BK][cols + 8].
+GMM_KERNELS = {"gmm_rows_kernelILb0E": "gmm_rows_kernel<false>",
+               "gmm_rows_kernelILb1E": "gmm_rows_kernel<true>", "gmm_dw_kernel": "gmm_dw_kernel"}
+GMM_TILE, GMM_BK, GMM_STAGES, GMM_THREADS = 128, 32, 4, 256
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
 SM_REGISTERS = 65536
 
 
-def _flash_name(symbol: str):
-    """``flash_fwd_kernel<128>`` from a mangled flash kernel symbol, or None."""
+def _kernel_name(symbol: str):
+    """``flash_fwd_kernel<128>`` or ``gmm_rows_kernel<false>`` from a mangled
+    kernel symbol of the flash or grouped-matmul sources, or None."""
     m = re.search(r"(" + "|".join(FLASH_KERNELS) + r")ILi(\d+)E", symbol)
-    return f"{m.group(1)}<{m.group(2)}>" if m else None
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    return next((name for key, name in GMM_KERNELS.items() if key in symbol), None)
 
 
-def _flash_smem(kernel: str, D: int) -> int:
-    fwd_cols, bwd_cols = FLASH_COLS[D]
+def _kernel_smem(name: str) -> tuple:
+    """Dynamic shared memory bytes and threads of a block of ``name``."""
+    if name.startswith("gmm_"):
+        k_major = GMM_TILE * (GMM_BK + 4)
+        mn_major = GMM_BK * (GMM_TILE + 8)
+        tiles = {"gmm_rows_kernel<false>": k_major + mn_major,
+                 "gmm_rows_kernel<true>": 2 * k_major, "gmm_dw_kernel": 2 * mn_major}[name]
+        return GMM_STAGES * tiles * 4, GMM_THREADS
+    kernel, D = name[:-1].split("<")
+    fwd_cols, bwd_cols = FLASH_COLS[int(D)]
     if kernel == "flash_fwd_kernel":
-        return (FLASH_ROWS + 4 * fwd_cols) * (D + 4) * 4
-    dq = (2 * FLASH_ROWS + 4 * bwd_cols) * (D + 4) * 4
-    return dq + 16 * bwd_cols if kernel == "flash_bwd_dkdv_kernel" else dq
+        return (FLASH_ROWS + 4 * fwd_cols) * (int(D) + 4) * 4, 128
+    dq = (2 * FLASH_ROWS + 4 * bwd_cols) * (int(D) + 4) * 4
+    return (dq + 16 * bwd_cols if kernel == "flash_bwd_dkdv_kernel" else dq), 128
 
 
-def _flash_usage(log: str, library: str) -> dict:
-    """Each flash kernel's registers and spills (``ptxas -v``), dynamic shared
-    memory, resident 128-thread blocks per SM by registers and shared memory,
-    and, where ``cuobjdump`` is found, its count of TF32 ``HMMA``/``HGMMA``
-    instructions in the SASS (a kernel with none fails the phase: its
-    products would not be on the tensor cores)."""
+def _kernel_usage(log: str, library: str) -> dict:
+    """Each flash and grouped-matmul kernel's registers and spills (``ptxas
+    -v``), dynamic shared memory, resident blocks per SM by registers and
+    shared memory, and, where ``cuobjdump`` is found, its count of TF32
+    ``HMMA``/``HGMMA`` instructions in the SASS (a kernel with none fails the
+    phase: its products would not be on the tensor cores)."""
     usage: dict = {}
     name = None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = _flash_name(m.group(1))
+            name = _kernel_name(m.group(1))
             if name:
                 usage[name] = {}
             continue
@@ -444,12 +479,12 @@ def _flash_usage(log: str, library: str) -> dict:
         if m:
             usage[name]["registers"] = int(m.group(1))
     for name, u in usage.items():
-        kernel, D = name[:-1].split("<")
-        smem = _flash_smem(kernel, int(D))
+        smem, threads = _kernel_smem(name)
         regs_per_warp = -(-u.get("registers", 255) * 32 // 256) * 256
-        u.update(smem_bytes=smem, blocks_per_sm=min(SM_REGISTERS // (4 * regs_per_warp),
+        u.update(smem_bytes=smem, blocks_per_sm=min(SM_REGISTERS // (threads // 32 * regs_per_warp),
                                                      SM_SMEM_BYTES // (smem + 1024), 16))
-    _require(len(usage) == 9, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head dims")
+    _require(len(usage) == 12, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head "
+                               "dims and 3 grouped-matmul kernels")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).exists():
         sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
@@ -458,7 +493,7 @@ def _flash_usage(log: str, library: str) -> dict:
         for ln in sass.stdout.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                name = _flash_name(m.group(1))
+                name = _kernel_name(m.group(1))
                 if name:
                     usage[name].update(hmma=0, hmma_tf32=0)
             elif name and "MMA" in ln:
@@ -483,10 +518,10 @@ def phase_build() -> dict:
     n_src = len(list(build.CSRC_DIR.glob("*.cu")))
     print(f"build: {n_src} sources in {seconds:.2f} s -> {info['path']}")
     log = info["log"] or (build.BUILD_DIR / "build.log").read_text()  # "" when cached
-    flash = _flash_usage(log, info["path"])
-    for name, u in flash.items():
-        print(f"flash kernel {name}: {json.dumps(u)}")
-    return {"build_s": seconds, "flash_kernels": flash}
+    usage = _kernel_usage(log, info["path"])
+    for name, u in usage.items():
+        print(f"tensor-core kernel {name}: {json.dumps(u)}")
+    return {"build_s": seconds, "tensor_core_kernels": usage}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -777,18 +812,20 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
 
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
-        **_flash_bounds(nbytes, 4 * B * H * D * pairs),
+        **_tensor_core_bounds(nbytes, 4 * B * H * D * pairs),
         **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
                    kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
     }
 
 
-def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200) -> dict:
+def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200,
+                    clocks=False) -> dict:
     """Backward: gradients of the kernel's autograd.Function against torch
     autograd through the plain version (and bitwise equal across two runs),
     and the backward launch alone timed against the plain version's
-    autograd backward and SDPA's, under the same mask."""
+    autograd backward and SDPA's, under the same mask; ``clocks`` as
+    ``_timings``'."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -826,11 +863,11 @@ def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     lib_out = _sdpa(*lib_xs, mask, simple)
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err, "deterministic": True,
-        **_flash_bounds(nbytes, 10 * B * H * D * pairs),
+        **_tensor_core_bounds(nbytes, 10 * B * H * D * pairs),
         **_timings(
             lambda: flash_bwd_cuda(q, k, v, o, lse, dout, causal, window, q_offset),
             lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
-            plain_iters=5, kernel_iters=kernel_iters,
+            plain_iters=5, kernel_iters=kernel_iters, clocks=clocks,
         ),
         **_library(lambda: torch.autograd.grad(lib_out, lib_xs, dout.transpose(1, 2), retain_graph=True)),
     }
@@ -938,21 +975,41 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     }
 
 
+def _gmm_inputs(sizes: list, D: int, F: int, seed: int, tail: int):
+    """x [T, D] and dy [T, F] N(0, 1) and w [E, D, F] N(0, 1/D), as the
+    model's experts, so the forward's and dX's outputs are O(1); T is the
+    groups' rows plus ``tail`` rows past the last group."""
+    import torch
+
+    E, T = len(sizes), sum(sizes) + tail
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, dy = _randn(g, T, D), _randn(g, T, F)
+    w = _randn(g, E, D, F) / math.sqrt(D)
+    return x, dy, w, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _gmm_library(sizes: list, fn) -> dict:
+    """With equal groups, the PyTorch call on the same inputs that the
+    grouped product replaces (``fn``), else None."""
+    if len(set(sizes)) != 1:
+        return {"library_ms": None}
+    out = _library(fn, iters=5)
+    out["library_backend"] = "cublas"
+    return out
+
+
 def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
-              overrun: int = 0) -> dict:
-    """The grouped matmul against the loop over groups; inputs N(0, 1) and
-    weights N(0, 1/D), as the model's experts, so outputs are O(1).  With
-    ``overrun``, also the same groups over x cut by that many rows: groups
-    that sum past x's end are cut there by both versions."""
+              overrun: int = 0, tail: int = 0) -> dict:
+    """The grouped matmul against the loop over groups.  With ``overrun``,
+    also the same groups over x cut by that many rows: groups that sum past
+    x's end are cut there by both versions; with ``tail``, x has that many
+    rows past the last group, which come out zero."""
     import torch
 
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 
-    E, T = len(sizes), sum(sizes)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = _randn(g, T, D)
-    w = _randn(g, E, D, F) / math.sqrt(D)
-    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    x, _, w, gs = _gmm_inputs(sizes, D, F, seed, tail)
+    (T, _), E = x.shape, len(sizes)
     got = moe_gmm_cuda(x, w, gs)
     want = moe_gmm_plain(x, w, gs)
     torch.cuda.synchronize()
@@ -963,18 +1020,94 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
         err = max(err, _close(f"moe_gmm groups summing to {T} over {T - overrun} rows",
                               moe_gmm_cuda(cut, w, gs), moe_gmm_plain(cut, w, gs), GMM_TOL))
     nbytes = 4 * (T * D + E * D * F + T * F)
-    bound, by = _bound_ms(nbytes, 2 * T * D * F)
-    out = {
-        "shape": [T, D, F, E], "groups": sizes, "max_abs_err": err, "bound_ms": bound,
-        "bound_by": by, "bytes": nbytes, "flops": 2 * T * D * F,
+    path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3]
+    return {
+        "shape": [T, D, F, E], "groups": sizes, "tail": tail, "max_abs_err": err,
+        **_tensor_core_bounds(nbytes, 2 * T * D * F),
         **_timings(lambda: moe_gmm_cuda(x, w, gs), lambda: moe_gmm_plain(x, w, gs),
-                   plain_iters=3, kernel_iters=kernel_iters),
-        "library_ms": None,
+                   plain_iters=3, kernel_iters=kernel_iters, clocks=path),
+        **_gmm_library(sizes, lambda: torch.bmm(x.view(E, sizes[0], D), w)),
     }
-    if len(set(sizes)) == 1:  # equal groups: one batched product computes the same
-        xb = x.view(E, sizes[0], D)
-        out.update(_library(lambda: torch.bmm(xb, w), iters=5))
-        out["library_backend"] = "cublas"
+
+
+def _gmm_bwd_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
+                  overrun: int = 0, tail: int = 0) -> dict:
+    """The backward products of the grouped matmul out = x @ w[e] against the
+    loops over groups: dX = dy @ w[e]^T and dW[e] = x_e^T dy_e (twice: bitwise
+    equal), with ``overrun`` and ``tail`` as ``_gmm_case``.  For dW, dy is
+    scaled by 1 / sqrt(mean group size), so dW is O(1) as the other outputs.
+    Each yardstick is the einsum of ``GmmMatmul``'s backward that the kernel
+    replaces (``repro/models/moe.py:145``), on the [B, E, C, .] layout of
+    the pretraining path (B = PRETRAIN["batch"])."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import (
+        moe_gmm_dw_cuda,
+        moe_gmm_dw_plain,
+        moe_gmm_dx_cuda,
+        moe_gmm_dx_plain,
+    )
+
+    x, dy, w, gs = _gmm_inputs(sizes, D, F, seed, tail)
+    (T, _), E = x.shape, len(sizes)
+    dyw = dy / math.sqrt(max(1, sum(sizes)) / E)
+    name = f"[{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:6]}..."
+    dx_err = _close(f"moe_gmm_dx {name}", moe_gmm_dx_cuda(dy, w, gs), moe_gmm_dx_plain(dy, w, gs),
+                    GMM_TOL)
+    got = moe_gmm_dw_cuda(x, dyw, gs)
+    _require(bool(torch.equal(got, moe_gmm_dw_cuda(x, dyw, gs))),
+             f"moe_gmm_dw {name}: dW differs between two runs")
+    dw_err = _close(f"moe_gmm_dw {name}", got, moe_gmm_dw_plain(x, dyw, gs), GMM_TOL)
+    del got
+    if overrun:
+        n = T - overrun
+        dx_err = max(dx_err, _close(f"moe_gmm_dx groups summing to {T} over {n} rows",
+                                    moe_gmm_dx_cuda(dy[:n], w, gs), moe_gmm_dx_plain(dy[:n], w, gs),
+                                    GMM_TOL))
+        dw_err = max(dw_err, _close(f"moe_gmm_dw groups summing to {T} over {n} rows",
+                                    moe_gmm_dw_cuda(x[:n], dyw[:n], gs),
+                                    moe_gmm_dw_plain(x[:n], dyw[:n], gs), GMM_TOL))
+    torch.cuda.synchronize()
+    path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3]
+    common = {"shape": [T, D, F, E], "groups": sizes, "tail": tail,
+              **_tensor_core_bounds(4 * (T * D + E * D * F + T * F), 2 * T * D * F)}
+    dx_lib, dw_lib = {"library_ms": None}, {"library_ms": None}
+    if len(set(sizes)) == 1:
+        B = PRETRAIN["batch"]
+        per_b = (E, B, sizes[0] // B)
+        dy4 = dy.view(*per_b, F).transpose(0, 1).contiguous()
+        x4 = x.view(*per_b, D).transpose(0, 1).contiguous()
+        dx_lib = _gmm_library(sizes, lambda: torch.einsum("becn,ekn->beck", dy4, w))
+        dw_lib = _gmm_library(sizes, lambda: torch.einsum("beck,becn->ekn", x4, dy4))
+    return {
+        "dx": {**common, "max_abs_err": dx_err, **dx_lib,
+               **_timings(lambda: moe_gmm_dx_cuda(dy, w, gs), lambda: moe_gmm_dx_plain(dy, w, gs),
+                          plain_iters=3, kernel_iters=kernel_iters, clocks=path)},
+        "dw": {**common, "max_abs_err": dw_err, "deterministic": True, **dw_lib,
+               **_timings(lambda: moe_gmm_dw_cuda(x, dyw, gs),
+                          lambda: moe_gmm_dw_plain(x, dyw, gs),
+                          plain_iters=3, kernel_iters=kernel_iters, clocks=path)},
+    }
+
+
+def _gmm_cases() -> dict:
+    """The grouped matmul and its backward products at the pretraining
+    path's two shapes, at ragged groups (an empty one, groups past x's end,
+    rows past the last group) and with a group that is not a multiple of
+    64."""
+    T, D, F, E = MOE_GMM_UP
+    ragged = [300, 0, 1000, 77, 129, 640, 1, 511]
+    shapes = [([T // E] * E, D, F, 60, 10, 0, 0),  # up and gate products
+              ([T // E] * E, F, D, 61, 10, 0, 0),  # down product
+              (ragged, 1024, 1536, 62, 20, 600, 0),
+              (ragged, 1024, 1536, 64, 20, 0, 250),
+              ([1280, 1000, 1280, 1280], D, F, 63, 20, 0, 0)]
+    out = {"moe_gmm": [], "moe_gmm_dx": [], "moe_gmm_dw": []}
+    for sizes, d, f, seed, iters, overrun, tail in shapes:
+        out["moe_gmm"].append(_gmm_case(sizes, d, f, seed, iters, overrun, tail))
+        bwd = _gmm_bwd_case(sizes, d, f, seed + 10, iters, overrun, tail)
+        out["moe_gmm_dx"].append(bwd["dx"])
+        out["moe_gmm_dw"].append(bwd["dw"])
     return out
 
 
@@ -1028,7 +1161,7 @@ def phase_kernels() -> dict:
             _flash_bwd_case(128, d, d, 20, 20, 128, True, 0, 0, 30),  # learner
             _flash_bwd_case(4, 512, 512, 20, 20, 128, True, 0, 0, 31),
             _flash_bwd_case(2, 1024, 1024, 40, 8, 128, True, 0, 0, 32),
-            _flash_bwd_case(*_phi, True, 0, 0, 33, kernel_iters=10),  # Phi-3.5-MoE's learner
+            _flash_bwd_case(*_phi, True, 0, 0, 33, kernel_iters=10, clocks=True),  # Phi's learner
             _flash_bwd_case(2, 2048, 2048, 40, 8, 128, True, 512, 0, 34),  # sliding window
             _flash_bwd_case(2, 1024, 2048, 40, 8, 128, True, 0, 1024, 35),  # q_offset
             *_narrow_heads(_flash_bwd_case, 36),
@@ -1046,16 +1179,10 @@ def phase_kernels() -> dict:
     ]
     out["rwkv6_fwd"] = [c["fwd"] for c in rwkv6_cases]
     out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
-    T, D, F, E = MOE_GMM_UP
-    out["moe_gmm"] = [
-        _gmm_case([T // E] * E, D, F, 60, kernel_iters=10),  # up and gate products
-        _gmm_case([T // E] * E, F, D, 61, kernel_iters=10),  # down product
-        _gmm_case([300, 0, 1000, 77, 129, 640, 1, 511], 1024, 1536, 62, overrun=600),  # ragged
-        _gmm_case([1280, 1000, 1280, 1280], D, F, 63),  # a group not a multiple of 64
-    ]
+    out.update(_gmm_cases())
     for name, cases in out.items():
         tol = GRAD_TOL if name in ("flash_attention_bwd", "rwkv6_bwd") else TOL
-        tol = GMM_TOL if name == "moe_gmm" else tol
+        tol = GMM_TOL if name.startswith("moe_gmm") else tol
         for c in cases:
             lib = c.get("library_ms")
             lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
@@ -1064,6 +1191,7 @@ def phase_kernels() -> dict:
             print(
                 f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}) "
                 f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
+                f"call_ms_after={c['call_ms_after']:.5f} "
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
                 f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){fp32_txt} "
                 f"records_lost={c['records_lost']}{lib_txt}"
@@ -1699,7 +1827,8 @@ def phase_pretrain_parity() -> dict:
 def _pretrain_expected(cfg) -> dict:
     """Launches per train() step implied by the configuration: each layer's
     forward once (no remat) and its backward once; an MoE layer runs three
-    expert products (up, gate, down) with a gated MLP, two without."""
+    expert products (up, gate, down) with a gated MLP, two without, and the
+    dX and dW products of each in the backward."""
     L = cfg.num_layers
     spec = cfg.block_pattern[0]
     expect = {}
@@ -1708,7 +1837,8 @@ def _pretrain_expected(cfg) -> dict:
     if spec.kind == "attn":
         expect.update(flash_attention_fwd=L, flash_attention_bwd=L)
     if spec.mlp == "moe":
-        expect["moe_gmm"] = L * (3 if cfg.activation == "silu" else 2)
+        products = L * (3 if cfg.activation == "silu" else 2)
+        expect.update(moe_gmm=products, moe_gmm_dx=products, moe_gmm_dw=products)
     return expect
 
 
@@ -1802,7 +1932,7 @@ def phase_pretrain(name: str, counters: list) -> dict:
     torch.cuda.empty_cache()
     _require(peak < 80e9, f"{name}: peak memory {peak / 1e9:.2f} GB")
     busy_ms = sum(busy.values()) / 1e3
-    names = ("rwkv6_", "moe_gmm", "flash_")
+    names = ("rwkv6_", "gmm_", "flash_")
     ours = {k[:60]: v / 1e3 for k, v in busy.items() if any(n in k for n in names)}
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     warm = [r["seconds"] for r in rows[1:-1]]
@@ -1846,6 +1976,10 @@ KERNEL_SITES = {
     # No TPU kernel either: the reference learner differentiates ref.rwkv6_ref.
     "rwkv6_bwd": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/ref.py:128"),
     "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:24"),
+    # No TPU kernel: the reference's custom VJP computes both products of
+    # the backward with einsums.
+    "moe_gmm_dx": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/models/moe.py:145"),
+    "moe_gmm_dw": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/models/moe.py:145"),
 }
 
 
@@ -1870,13 +2004,18 @@ def main() -> int:
     from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
     from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
-    from repro_torch.kernels.moe_gmm import MOE_GMM_LAUNCHES
+    from repro_torch.kernels.moe_gmm import (
+        MOE_GMM_DW_LAUNCHES,
+        MOE_GMM_DX_LAUNCHES,
+        MOE_GMM_LAUNCHES,
+    )
     from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
 
     every_counter = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
                      DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
-                     RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES]
+                     RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_DX_LAUNCHES,
+                     MOE_GMM_DW_LAUNCHES]
     record: dict = {}
     try:
         record["device"] = phase_device()
@@ -1918,7 +2057,8 @@ def main() -> int:
                 c = next(c for c in record["kernels"][name] if c["shape"] == shape)
                 picked.append({k: c.get(k) for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                                      "bound_ms", "bound_by", "bound_fp32_ms",
-                                                     "call_ms", "library_ms", "library_call_ms")})
+                                                     "call_ms", "call_ms_after", "library_ms",
+                                                     "library_call_ms")})
             cases_by_path[p] = picked if len(picked) > 1 else picked[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

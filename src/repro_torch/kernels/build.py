@@ -74,6 +74,10 @@ _SIGNATURES = {
     "rwkv6_bwd_launch": [_P] * 15 + [_I] * 5 + [_P],
     # x, w, ends, tile_ends, out, T, D, F, E, stream
     "moe_gmm_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # dy, w, ends, tile_ends, dx, T, D, F, E, stream
+    "moe_gmm_dx_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # x, dy, ends, dw, T, D, F, E, stream
+    "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

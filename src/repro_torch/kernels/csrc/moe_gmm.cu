@@ -1,164 +1,399 @@
-// Grouped matrix product for Hopper (sm_90a), the MoE expert FFN: the port
-// of the Pallas kernel repro/kernels/moe_gmm.py::moe_gmm_pallas (_gmm_kernel).
+// Grouped matrix products for Hopper (sm_90a), the MoE expert FFN, on the
+// tensor cores in 3xTF32: the port of the Pallas kernel
+// repro/kernels/moe_gmm.py::moe_gmm_pallas (_gmm_kernel), plus the two
+// products of its backward, which the reference leaves to einsums
+// (repro/models/moe.py::_gmm_matmul_bwd).
 //
-// float32: x [T, D] with its rows sorted into E expert-contiguous groups of
-// group_sizes[e] rows (in expert order), w [E, D, F]; out [T, F] with
-//     out[t] = x[t] @ w[e(t)],  e(t) the group that holds row t,
-// accumulated in float32.  Rows past the last group are left as the caller
-// set them; groups that run past row T are cut at T.  Needs D % 4 == 0, F % 4 == 0 and 16-byte aligned x, w and out
-// (float4 loads and stores).
+// float32, x [T, D] with its rows sorted into E expert-contiguous groups of
+// group_sizes[e] rows (in expert order), w [E, D, F], e(t) the group that
+// holds row t:
+//   forward  out [T, F]:    out[t] = x[t] @ w[e(t)];
+//   dX       dx [T, D]:     dx[t] = dy[t] @ w[e(t)]^T, from dy [T, F];
+//   dW       dw [E, D, F]:  dw[e] = sum over the rows t of group e of
+//                                   x[t]^T dy[t] (zeros for an empty group).
+// Groups that run past row T are cut at T; the forward and dX write zeros
+// in the rows past the last group.  Needs D % 4 == 0, F % 4 == 0 and
+// 16-byte aligned tensors (16-byte cp.async copies).
+//
+// Precision: 3xTF32, as flash_attention.cu.  Every operand x is split into
+// big = x rounded to TF32 and small = x - big, and small*big + big*small +
+// big*big is accumulated by mma.sync m16n8k8 TF32: only small*small and
+// small's truncation (about 2^-21 relative) are lost, against one TF32
+// pass's ~2^-11, which misses the port's 1e-4 for sums of 4,096 to 6,400
+// products (tests/test_torch_moe.py emulates both).  The tensor cores add
+// each product into their accumulator with truncation, so one accumulator
+// kept over a whole contraction drifts (flash attention's one_accumulator,
+// 9.9e-4 off at Phi-3.5-MoE's shape): here each K tile of 32 is summed in
+// fresh accumulators from zero and added into an fp32 running sum
+// (moe_gmm_variants.py times the alternatives).
 //
 // Bound on the H100: operations.  2 * T * D * F flops against 4 * (T * D +
 // E * D * F + T * F) bytes: at the LM path's [20480, 4096] x [16, 4096,
-// 6400] that is 1.07 TFLOP and 0.99 GB, 1,080 flops per byte, far above the
-// 20 at which 67 TFLOP/s of fp32 on the CUDA cores meets 3.35 TB/s; so the
-// bound is flops / 67 TFLOP/s, 16.0 ms.  (The tensor cores would need TF32,
-// which the port's 1e-4 tolerance for sums of thousands of products does
-// not allow yet.)
+// 6400] that is 1.07 TFLOP and 2.54 GB, 423 flops per byte, above the 148
+// at which 3 x 1.07 TFLOP of TF32 at 495 TFLOP/s meets 3.35 TB/s; so the
+// bound is 3 * flops / 495 TFLOP/s, 6.51 ms (fp32 on the CUDA cores: flops /
+// 67 TFLOP/s, 16.0 ms).  The same holds for dX and dW, which do the same
+// flops.
 //
-// Design: a tiled SGEMM on the CUDA cores.  Each block of 256 threads
-// computes one 128 x 128 output tile, each thread an 8 x 8 register tile
-// (rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise columns, so the
-// float4 reads of the shared tiles are broadcasts or conflict-free), over
-// K tiles of 8 staged in double-buffered shared memory: the next K tile is
-// loaded into registers while the current one is multiplied, one barrier
-// per K tile.  The grid enumerates (row tile within a group, column tile):
-// the wrapper computes on the device the groups' row ends and the running
-// count of row tiles per group (ceil(size / 128) each), and each block finds
-// its own group from these, the counterpart of the TPU kernel's scalar
-// prefetch of expert ids.  So no row tile straddles two experts whatever
-// the group sizes; the ragged last tile of a group is masked.  The TPU
-// kernel needs groups padded to its block size (the reference's _gmm_ok
-// gate falls back to an einsum otherwise); this kernel takes any sizes.
-// The grid's row dimension is an upper bound (ceil(T / 128) + E tiles), so
-// the wrapper never waits for the device to learn the sizes; blocks past
-// the last tile return at once.  Launches on the caller's stream and
-// allocates nothing.
+// Design: one tiled GEMM main loop for all three products.  A block of 8
+// warps computes a 128 x 128 output tile, each warp 64 x 32 of it (4 x 4
+// m16n8 fragments), over K tiles of 32 staged by 16-byte cp.async in a ring
+// of 4 shared-memory stages (one barrier per K tile).  Each warp reads its
+// fragments from shared memory and splits them in registers; a fragment
+// serves 4 (A) or 4 (B) products, so the split costs 1.5 instructions per
+// MMA.  Shared tiles are laid out as their source: K-major ([rows][32 + 4])
+// where the contraction is contiguous in device memory (x and dy in the
+// forward and dX, w in dX), MN-major ([32][cols + 8]) where the rows or
+// columns are (w in the forward, x and dy in dW); the padding makes every
+// fragment load of a warp hit 32 distinct banks.  The 2 x 64 accumulators
+// of a lane (running sum and K-tile partial) keep one block of 256 threads
+// on an SM.
+//   * Forward and dX: a block finds its (group, column tile, row tile) from
+//     the groups' row ends and running counts of 128-row tiles, computed by
+//     the wrapper on the device (the counterpart of the TPU kernel's scalar
+//     prefetch of expert ids), so the launch never waits to learn the sizes
+//     and no row tile straddles two experts.  Row tiles are the fastest
+//     index, then column tiles, then groups: the blocks on the card at once
+//     share one expert's rows (21 MB at the path shape) in L2 while its
+//     weights stream through once.  The TPU kernel needs groups padded to its
+//     block size (the reference's _gmm_ok gate falls back to an einsum
+//     otherwise); this one takes any sizes.  The grid is an upper bound,
+//     ceil(T / 128) + E row tiles per column tile; the blocks past the last
+//     group's tiles write the zeros of the rows past it and return.
+//   * dW: one block per (row tile of D, column tile of F, expert) sums its
+//     group's rows in K tiles of 32; no atomics, so every element is summed
+//     in a fixed order and dW is the same from run to run.
+// Each kernel launches on the caller's stream and allocates nothing.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128;  // rows per tile
-constexpr int kBN = 128;  // columns per tile
-constexpr int kBK = 8;    // depth per staged K tile
-constexpr int kThreads = 256;
-constexpr int kAPad = 4;  // row padding of the transposed A tile: conflict-free stores
+constexpr int kBM = 128;  // rows of an output tile
+constexpr int kBN = 128;  // columns of an output tile
+constexpr int kBK = 32;   // depth of a staged K tile
+constexpr int kStages = 4;
+constexpr int kWarpsM = 2;
+constexpr int kWarpsN = 4;
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kMT = kBM / kWarpsM / 16;  // m16 fragments of a warp
+constexpr int kNT = kBN / kWarpsN / 8;   // n8 fragments of a warp
 
-__global__ void __launch_bounds__(kThreads)
-    moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const int* __restrict__ ends, const int* __restrict__ tile_ends,
-                   float* __restrict__ out, int T, int D, int F, int E) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kAPad];  // A tile, transposed: [k][m]
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+// An operand tile of kRows (m or n) x kBK (k) in shared memory, K-major
+// ([kRows][kBK + 4]) or MN-major ([kBK][kRows + 8]).
+template <bool KMajor, int kRows>
+struct Tile {
+  static constexpr int kLd = KMajor ? kBK + 4 : kRows + 8;
+  static constexpr int kFloats = KMajor ? kRows * kLd : kBK * kLd;
+  __device__ static int at(int r, int k) { return KMajor ? r * kLd + k : k * kLd + r; }
+};
 
-  const int tile = blockIdx.x;
-  int g = 0;
-  while (g < E && tile >= tile_ends[g]) ++g;
-  if (g == E) return;  // past the last row tile
-  const int g_begin = g ? ends[g - 1] : 0;
-  const int row0 = g_begin + (tile - (g ? tile_ends[g - 1] : 0)) * kBM;
-  // Clamped to T as well: group sizes that sum past x's rows read and
-  // write nothing beyond them.
-  const int rows = min(min(kBM, ends[g] - row0), T - row0);
-  if (rows <= 0) return;
-  const int col0 = blockIdx.y * kBN;
-  const float* wg = w + static_cast<size_t>(g) * D * F;
+template <bool AK, bool BK>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kStages) * (Tile<AK, kBM>::kFloats + Tile<BK, kBN>::kFloats) *
+         sizeof(float);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  // Global -> shared load assignment: A rows tid / 2, k tid % 2 * 4 .. +3;
-  // B row tid / 32, columns tid % 32 * 4 .. +3.
-  const int a_m = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_n = (tid & 31) * 4;
-  const bool a_row_ok = a_m < rows;
-  const bool b_col_ok = col0 + b_n < F;
-  const float* a_src = x + static_cast<size_t>(row0 + a_m) * D + a_k;
-  const float* b_src = wg + static_cast<size_t>(b_k) * F + col0 + b_n;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0));
+}
 
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load_a = [&](int k0) {
-    return a_row_ok && k0 + a_k < D ? *reinterpret_cast<const float4*>(a_src + k0) : zero;
-  };
-  auto load_b = [&](int k0) {
-    return b_col_ok && k0 + b_k < D
-               ? *reinterpret_cast<const float4*>(b_src + static_cast<size_t>(k0) * F)
-               : zero;
-  };
-  auto store = [&](int buf, float4 a, float4 b) {
-    As[buf][a_k + 0][a_m] = a.x;
-    As[buf][a_k + 1][a_m] = a.y;
-    As[buf][a_k + 2][a_m] = a.z;
-    As[buf][a_k + 3][a_m] = a.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = b;
-  };
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  float acc[8][8];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small, as flash_attention.cu's split: big is x rounded to TF32
+// (to nearest, ties away from zero) in two integer operations, small = x -
+// big, which the tensor cores read truncated to TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Rows [0, R) x columns [0, C) of a row-major source (row stride `ld`
+// floats) into a shared tile of row stride LD: 16-byte copies, zeros at or
+// past `rows` rows or `cols` columns (`cols` a multiple of 4).  `base` is a
+// valid address for the copies that read nothing.
+template <int R, int C, int LD>
+__device__ __forceinline__ void load_block(float* dst, const float* src, size_t ld, int rows,
+                                           int cols, const float* base) {
+  constexpr int kC4 = C / 4;
+  static_assert((R * kC4) % kThreads == 0, "whole copies per thread");
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  store(0, load_a(0), load_b(0));
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < D; k0 += kBK) {
-    const bool more = k0 + kBK < D;
-    float4 a_next = zero, b_next = zero;
-    if (more) {
-      a_next = load_a(k0 + kBK);
-      b_next = load_b(k0 + kBK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
-    }
-    if (more) store(buf ^ 1, a_next, b_next);
-    __syncthreads();  // the next tile is stored; every thread is done with this one
-    buf ^= 1;
+  for (int i = 0; i < R * kC4 / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kC4;
+    const int c = (idx % kC4) * 4;
+    const bool in = r < rows && c < cols;
+    cp_async16(dst + r * LD + c, in ? src + r * ld + c : base, in);
   }
+}
+
+// K tile `kt` of an operand into its shared tile.  `src` is the operand's
+// element (0, 0): (r, k) lies at src[r * ld + k] when K-major, src[k * ld +
+// r] when MN-major; `rows` of its kRows and `depth` of the contraction are
+// real.
+template <bool KMajor, int kRows>
+__device__ __forceinline__ void load_operand(float* dst, const float* src, size_t ld, int rows,
+                                             int depth, int kt, const float* base) {
+  using T = Tile<KMajor, kRows>;
+  const int k0 = kt * kBK;
+  if constexpr (KMajor) {
+    load_block<kRows, kBK, T::kLd>(dst, src + k0, ld, rows, depth - k0, base);
+  } else {
+    load_block<kBK, kRows, T::kLd>(dst, src + static_cast<size_t>(k0) * ld, ld, depth - k0, rows,
+                                   base);
+  }
+}
+
+// acc[i][j] += A B over the contraction [0, depth) for the block's 128 x 128
+// tile: A's row m is the tile's row, B's row n its column (see
+// load_operand); `a_rows` / `b_rows` of them are real, the rest read zeros.
+// Lane (g, t) of warp (wm, wn) holds rows wm * 64 + 16 i + g (+ 8) and
+// columns wn * 32 + 8 j + 2 t (+ 1) of the tile in acc[i][j].
+template <bool AK, bool BK>
+__device__ __forceinline__ void gemm_tile(float (&acc)[kMT][kNT][4], float* smem,
+                                          const float* a, size_t lda, int a_rows,
+                                          const float* b, size_t ldb, int b_rows, int depth,
+                                          const float* a_base, const float* b_base) {
+  using TA = Tile<AK, kBM>;
+  using TB = Tile<BK, kBN>;
+  constexpr int kStageFloats = TA::kFloats + TB::kFloats;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / kWarpsN) * (kBM / kWarpsM);
+  const int wn = (warp % kWarpsN) * (kBN / kWarpsN);
+  const int ktiles = (depth + kBK - 1) / kBK;
+
+  auto load = [&](int kt) {
+    float* stage = smem + (kt % kStages) * kStageFloats;
+    load_operand<AK, kBM>(stage, a, lda, a_rows, depth, kt, a_base);
+    load_operand<BK, kBN>(stage + TA::kFloats, b, ldb, b_rows, depth, kt, b_base);
+  };
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    if (m >= rows) continue;
-    float* dst = out + static_cast<size_t>(row0 + m) * F + col0;
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = half * 64 + tx * 4;
-      if (col0 + n < F) {
-        *reinterpret_cast<float4*>(dst + n) =
-            make_float4(acc[i][half * 4 + 0], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
-                        acc[i][half * 4 + 3]);
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + kStages - 1 < ktiles) load(kt + kStages - 1);
+    cp_async_commit();
+    const float* As = smem + (kt % kStages) * kStageFloats;
+    const float* Bs = As + TA::kFloats;
+    float part[kMT][kNT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kBK; ks += 8) {
+      uint32_t ab[kMT][4], as[kMT][4], bb[kNT][2], bs[kNT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          split(As[TA::at(wm + 16 * i + g + 8 * (c & 1), ks + t + 4 * (c >> 1))], ab[i][c],
+                as[i][c]);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          split(Bs[TB::at(wn + 8 * j + g, ks + t + 4 * c)], bb[j][c], bs[j][c]);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          mma_tf32(part[i][j], as[i], bb[j]);
+          mma_tf32(part[i][j], ab[i], bs[j]);
+          mma_tf32(part[i][j], ab[i], bb[j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+  }
+  cp_async_wait<0>();
+}
+
+// The block's tile of acc into out (row stride ldo), `rows` x `cols` of it.
+__device__ __forceinline__ void store_tile(const float (&acc)[kMT][kNT][4], float* out,
+                                           size_t ldo, int rows, int cols) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / kWarpsN) * (kBM / kWarpsM);
+  const int wn = (warp % kWarpsN) * (kBN / kWarpsN);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm + 16 * i + g + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = wn + 8 * j + 2 * t;
+        if (c < cols)
+          *reinterpret_cast<float2*>(out + r * ldo + c) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
+}
+
+// Forward (B_KMAJOR false: b = w [E, K, N]) and dX (true: b = w [E, N, K],
+// read transposed): out [T, N] = a [T, K] grouped by `ends` times b[e].
+// `ends` [E] are the groups' running row ends cut at T, `tile_ends` [E] the
+// running counts of 128-row tiles of those cut groups.
+template <bool B_KMAJOR>
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const int* __restrict__ ends, const int* __restrict__ tile_ends,
+                    float* __restrict__ out, int T, int K, int N, int E) {
+  extern __shared__ __align__(16) float smem[];
+  const int nc = (N + kBN - 1) / kBN;
+  const int used = tile_ends[E - 1] * nc;
+  const int tile = blockIdx.x;
+  if (tile >= used) {  // the zeros of rows [ends[E - 1], T)
+    const int row0 = ends[E - 1] + (tile - used) / nc * kBM;
+    const int col0 = (tile - used) % nc * kBN;
+    const int rows = min(kBM, T - row0), cols = min(kBN, N - col0);
+    for (int idx = threadIdx.x; idx < kBM * kBN / 4; idx += kThreads) {
+      const int r = idx / (kBN / 4), c = idx % (kBN / 4) * 4;
+      if (r < rows && c < cols)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(row0 + r) * N + col0 + c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
   }
+  int g = 0;
+  while (tile >= tile_ends[g] * nc) ++g;
+  const int t_begin = g ? tile_ends[g - 1] : 0;
+  const int row_tiles = tile_ends[g] - t_begin;
+  const int local = tile - t_begin * nc;
+  const int col0 = local / row_tiles * kBN;
+  const int row0 = (g ? ends[g - 1] : 0) + local % row_tiles * kBM;
+  const int rows = min(kBM, ends[g] - row0);
+  const float* bg = b + static_cast<size_t>(g) * K * N;
+  float acc[kMT][kNT][4];
+  if constexpr (B_KMAJOR) {
+    gemm_tile<true, true>(acc, smem, a + static_cast<size_t>(row0) * K, K, rows,
+                          bg + static_cast<size_t>(col0) * K, K, N - col0, K, a, b);
+  } else {
+    gemm_tile<true, false>(acc, smem, a + static_cast<size_t>(row0) * K, K, rows, bg + col0, N,
+                           N - col0, K, a, b);
+  }
+  store_tile(acc, out + static_cast<size_t>(row0) * N + col0, N, rows, N - col0);
+}
+
+// dW: dw [E, K, N], dw[e] = x_e^T dy_e over group e's rows of x [T, K] and
+// dy [T, N]; `ends` as gmm_rows_kernel's.  Block (m tile + mc * n tile, e).
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                  const int* __restrict__ ends, float* __restrict__ dw, int K, int N) {
+  extern __shared__ __align__(16) float smem[];
+  const int mc = (K + kBM - 1) / kBM;
+  const int m0 = blockIdx.x % mc * kBM;
+  const int n0 = blockIdx.x / mc * kBN;
+  const int e = blockIdx.y;
+  const int begin = e ? ends[e - 1] : 0;
+  float acc[kMT][kNT][4];
+  gemm_tile<false, false>(acc, smem, x + static_cast<size_t>(begin) * K + m0, K, K - m0,
+                          dy + static_cast<size_t>(begin) * N + n0, N, N - n0, ends[e] - begin,
+                          x, dy);
+  store_tile(acc, dw + (static_cast<size_t>(e) * K + m0) * N + n0, N, K - m0, N - n0);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+bool bad_shape(int T, int D, int F, int E) {
+  return T < 0 || D < 1 || F < 1 || E < 1 || D % 4 || F % 4;
+}
+
+template <bool B_KMAJOR>
+int launch_rows(const void* a, const void* w, const void* ends, const void* tile_ends, void* out,
+                int T, int K, int N, int E, void* stream) {
+  if (T == 0) return static_cast<int>(cudaSuccess);
+  const int64_t blocks =
+      (static_cast<int64_t>(T + kBM - 1) / kBM + E) * ((N + kBN - 1) / kBN);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t bytes = smem_bytes<true, B_KMAJOR>();
+  cudaError_t err = allow_smem(gmm_rows_kernel<B_KMAJOR>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gmm_rows_kernel<B_KMAJOR><<<static_cast<unsigned>(blocks), kThreads, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w), static_cast<const int*>(ends),
+      static_cast<const int*>(tile_ends), static_cast<float*>(out), T, K, N, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out [T, F] = x [T, D] grouped by `ends` (the [E] running row ends) times
-// w [E, D, F]; `tile_ends` [E] are the running counts of 128-row tiles per
-// group.  Both int32 on the device.
+// out [T, F] = x [T, D] grouped by `ends` times w [E, D, F]: `ends` [E] are
+// the groups' running row ends cut at T, `tile_ends` [E] the running counts
+// of 128-row tiles of the cut groups, both int32 on the device.
 extern "C" int moe_gmm_launch(const void* x, const void* w, const void* ends,
                               const void* tile_ends, void* out, int T, int D, int F, int E,
                               void* stream) {
-  if (T < 0 || D < 1 || F < 1 || E < 1 || D % 4 || F % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (T == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((T + kBM - 1) / kBM + E, (F + kBN - 1) / kBN);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  moe_gmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const int*>(ends),
-      static_cast<const int*>(tile_ends), static_cast<float*>(out), T, D, F, E);
+  if (bad_shape(T, D, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<false>(x, w, ends, tile_ends, out, T, D, F, E, stream);
+}
+
+// dx [T, D] = dy [T, F] grouped as moe_gmm_launch's x, times w[e]^T.
+extern "C" int moe_gmm_dx_launch(const void* dy, const void* w, const void* ends,
+                                 const void* tile_ends, void* dx, int T, int D, int F, int E,
+                                 void* stream) {
+  if (bad_shape(T, D, F, E)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<true>(dy, w, ends, tile_ends, dx, T, F, D, E, stream);
+}
+
+// dw [E, D, F]: dw[e] = x_e^T dy_e over group e's rows of x [T, D] and dy
+// [T, F]; `ends` as moe_gmm_launch's.
+extern "C" int moe_gmm_dw_launch(const void* x, const void* dy, const void* ends, void* dw, int T,
+                                 int D, int F, int E, void* stream) {
+  if (bad_shape(T, D, F, E) || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = static_cast<int64_t>((D + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t bytes = smem_bytes<false, false>();
+  cudaError_t err = allow_smem(gmm_dw_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles), E);
+  gmm_dw_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const int*>(ends),
+      static_cast<float*>(dw), D, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,18 +1,25 @@
-"""Grouped matrix product (the MoE expert FFN) on the GPU: the wrapper of
-the hand-written CUDA kernel ``csrc/moe_gmm.cu`` (the port of
-``repro/kernels/moe_gmm.py::moe_gmm_pallas``) and its plain PyTorch version.
+"""Grouped matrix products (the MoE expert FFN) on the GPU: the wrappers of
+the hand-written CUDA kernels ``csrc/moe_gmm.cu`` (the port of
+``repro/kernels/moe_gmm.py::moe_gmm_pallas``, and the two products of its
+backward) and their plain PyTorch versions.
+
+* ``moe_gmm``: out [T, F] = x [T, D] @ w[e] per group of rows;
+* ``moe_gmm_dx``: dx [T, D] = dy [T, F] @ w[e]^T per group of rows;
+* ``moe_gmm_dw``: dw [E, D, F], dw[e] = x_e^T @ dy_e over group e's rows.
 
 ``moe_gmm_plain`` computes what ``repro/kernels/ref.py::moe_gmm_ref`` does,
 as a loop over the groups of ``x[group] @ w[e]``: the reference's oracle form
 gathers ``w[eid]`` for every row, which at the LM path's shape would take
-2 TB.
+2 TB.  ``moe_gmm_dx_plain`` and ``moe_gmm_dw_plain`` are the same loop for
+the products of ``repro/models/moe.py::_gmm_matmul_bwd``.
 
-The kernel takes float32 ``x [T, D]`` whose rows are sorted into
+The kernels take float32 tensors whose rows are sorted into
 expert-contiguous groups, ``w [E, D, F]`` and ``group_sizes [E]`` (integer,
 on the same device), contiguous, 16-byte aligned, with D and F multiples of
-4; anything else raises.  The groups need no alignment to any block size.
-Rows past ``sum(group_sizes)`` come out zero in both versions.  CPU tensors
-take the plain version through ``repro_torch.kernels.ops.moe_gmm``.
+4; anything else raises.  The groups need no alignment to any block size;
+groups that run past row T are cut there.  Rows past ``sum(group_sizes)``
+come out zero in every version, and so does ``dw`` of an empty group.  CPU
+tensors take the plain versions through ``repro_torch.kernels.ops``.
 """
 
 from __future__ import annotations
@@ -21,68 +28,155 @@ import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, load_library
 
-__all__ = ["moe_gmm_cuda", "moe_gmm_plain", "MOE_GMM_LAUNCHES"]
+__all__ = [
+    "moe_gmm_cuda",
+    "moe_gmm_dx_cuda",
+    "moe_gmm_dw_cuda",
+    "moe_gmm_plain",
+    "moe_gmm_dx_plain",
+    "moe_gmm_dw_plain",
+    "MOE_GMM_LAUNCHES",
+    "MOE_GMM_DX_LAUNCHES",
+    "MOE_GMM_DW_LAUNCHES",
+]
 
 MOE_GMM_LAUNCHES = LaunchCounter("moe_gmm")
+MOE_GMM_DX_LAUNCHES = LaunchCounter("moe_gmm_dx")
+MOE_GMM_DW_LAUNCHES = LaunchCounter("moe_gmm_dw")
 
-ROW_TILE = 128  # rows per output tile of the kernel (kBM in moe_gmm.cu)
+ROW_TILE = 128  # rows per output tile of the kernels (kBM in moe_gmm.cu)
+
+
+def _groups(group_sizes: torch.Tensor):
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        yield e, slice(start, start + size)
+        start += size
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """x: [T, D] rows grouped by expert (sorted order); w: [E, D, F];
     group_sizes: [E] rows per expert. Returns [T, F] in x's dtype."""
     out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device)
-    start = 0
-    for e, size in enumerate(group_sizes.tolist()):
-        if size:
-            out[start:start + size] = x[start:start + size] @ w[e]
-        start += size
+    for e, rows in _groups(group_sizes):
+        out[rows] = x[rows] @ w[e]
     return out
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+def moe_gmm_dx_plain(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """dy: [T, F] grouped as ``moe_gmm_plain``'s x; w: [E, D, F]. Returns
+    dx [T, D], the gradient of ``moe_gmm_plain`` with respect to x."""
+    dx = torch.zeros((dy.shape[0], w.shape[1]), dtype=dy.dtype, device=dy.device)
+    for e, rows in _groups(group_sizes):
+        dx[rows] = dy[rows] @ w[e].T
+    return dx
+
+
+def moe_gmm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """x: [T, D] and dy: [T, F], grouped alike. Returns dw [E, D, F], the
+    gradient of ``moe_gmm_plain`` with respect to w (zeros for an empty
+    group)."""
+    E = group_sizes.shape[0]
+    dw = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=x.dtype, device=x.device)
+    for e, rows in _groups(group_sizes):
+        dw[e] = x[rows].T @ dy[rows]
+    return dw
+
+
+def _check(fn: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
     if t.device != device or t.dtype != torch.float32:
-        raise ValueError(
-            f"moe_gmm_cuda: {name} must be float32 on {device}, got {t.dtype} on {t.device}"
-        )
+        raise ValueError(f"{fn}: {name} must be float32 on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"moe_gmm_cuda: {name} has shape {tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"moe_gmm_cuda: {name} must be contiguous and 16-byte aligned")
+        raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+
+
+def _checked(fn: str, a: torch.Tensor, b: torch.Tensor, b_rank: int,
+             group_sizes: torch.Tensor) -> None:
+    """Raise unless ``a`` [T, .] and ``b`` (of ``b_rank`` dimensions) are
+    CUDA tensors and ``group_sizes`` an integer vector on their device; the
+    shapes are checked by the caller."""
+    device = a.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
+    if a.dim() != 2 or b.dim() != b_rank:
+        raise ValueError(f"{fn}: want a [T, .] matrix and a rank-{b_rank} tensor, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if group_sizes.device != device or group_sizes.dim() != 1 or group_sizes.is_floating_point():
+        raise ValueError(f"{fn}: group_sizes must be an integer vector on {device}")
+
+
+def _checked_dims(fn: str, T: int, D: int, F: int, E: int, group_sizes: torch.Tensor) -> None:
+    if D % 4 or F % 4:
+        raise ValueError(f"{fn}: D and F must be multiples of 4, got D={D} F={F}")
+    if group_sizes.shape != (E,):
+        raise ValueError(f"{fn}: group_sizes has shape {tuple(group_sizes.shape)}, expected ({E},)")
+
+
+def _offsets(group_sizes: torch.Tensor, T: int):
+    """The groups' running row ends cut at T and the running counts of
+    128-row tiles of the cut groups, int32, computed on the device so that
+    the launch never waits for them."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0).clamp_(max=T)
+    sizes = torch.diff(ends, prepend=ends.new_zeros(1))
+    tiles = torch.div(sizes + (ROW_TILE - 1), ROW_TILE, rounding_mode="floor")
+    return ends.to(torch.int32), torch.cumsum(tiles, 0).to(torch.int32)
+
+
+def _launch(name: str, counter: LaunchCounter, device: torch.device, *args) -> None:
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, name)
+    counter.add()
 
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    """The kernel; same contract as ``moe_gmm_plain``."""
-    device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"moe_gmm_cuda: tensors must be on a CUDA device, got {device}")
-    if x.dim() != 2 or w.dim() != 3:
-        raise ValueError(f"moe_gmm_cuda: want x [T, D] and w [E, D, F], got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    T, D = x.shape
-    E, _, F = w.shape
-    if D % 4 or F % 4:
-        raise ValueError(f"moe_gmm_cuda: D and F must be multiples of 4, got D={D} F={F}")
-    if -(-F // 128) > 65535:
-        raise ValueError(f"moe_gmm_cuda: F={F} is too wide for the grid")
-    _check("x", x, (T, D), device)
-    _check("w", w, (E, D, F), device)
-    if group_sizes.device != device or group_sizes.shape != (E,) or group_sizes.is_floating_point():
-        raise ValueError(f"moe_gmm_cuda: group_sizes must be an integer [{E}] tensor on {device}")
-    out = torch.zeros((T, F), dtype=torch.float32, device=device)
-    if T == 0:
-        return out
-    # Computed on the device, so the launch never waits for it.
-    sizes = group_sizes.to(torch.int32)
-    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
-    tile_ends = torch.cumsum(torch.div(sizes + (ROW_TILE - 1), ROW_TILE, rounding_mode="floor"),
-                             0, dtype=torch.int32)
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = lib.moe_gmm_launch(
-            x.data_ptr(), w.data_ptr(), ends.data_ptr(), tile_ends.data_ptr(), out.data_ptr(),
-            T, D, F, E, torch.cuda.current_stream(device).cuda_stream,
-        )
-    check(lib, rc, "moe_gmm")
-    MOE_GMM_LAUNCHES.add()
+    """The forward kernel; same contract as ``moe_gmm_plain``."""
+    fn = "moe_gmm_cuda"
+    _checked(fn, x, w, 3, group_sizes)
+    (T, _), (E, D, F) = x.shape, w.shape
+    _checked_dims(fn, T, D, F, E, group_sizes)
+    _check(fn, "x", x, (T, D), x.device)
+    _check(fn, "w", w, (E, D, F), x.device)
+    out = torch.empty((T, F), dtype=torch.float32, device=x.device)
+    if T:
+        ends, tile_ends = _offsets(group_sizes, T)
+        _launch("moe_gmm_launch", MOE_GMM_LAUNCHES, x.device, x.data_ptr(), w.data_ptr(),
+                ends.data_ptr(), tile_ends.data_ptr(), out.data_ptr(), T, D, F, E)
     return out
+
+
+def moe_gmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The dX kernel; same contract as ``moe_gmm_dx_plain``."""
+    fn = "moe_gmm_dx_cuda"
+    _checked(fn, dy, w, 3, group_sizes)
+    (T, _), (E, D, F) = dy.shape, w.shape
+    _checked_dims(fn, T, D, F, E, group_sizes)
+    _check(fn, "dy", dy, (T, F), dy.device)
+    _check(fn, "w", w, (E, D, F), dy.device)
+    dx = torch.empty((T, D), dtype=torch.float32, device=dy.device)
+    if T:
+        ends, tile_ends = _offsets(group_sizes, T)
+        _launch("moe_gmm_dx_launch", MOE_GMM_DX_LAUNCHES, dy.device, dy.data_ptr(), w.data_ptr(),
+                ends.data_ptr(), tile_ends.data_ptr(), dx.data_ptr(), T, D, F, E)
+    return dx
+
+
+def moe_gmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The dW kernel; same contract as ``moe_gmm_dw_plain``.  Each element
+    of dw is summed by one lane in a fixed order: the same from run to
+    run."""
+    fn = "moe_gmm_dw_cuda"
+    _checked(fn, x, dy, 2, group_sizes)
+    (T, D), F, E = x.shape, dy.shape[1], group_sizes.shape[0]
+    _checked_dims(fn, T, D, F, E, group_sizes)
+    _check(fn, "x", x, (T, D), x.device)
+    _check(fn, "dy", dy, (T, F), x.device)
+    dw = torch.empty((E, D, F), dtype=torch.float32, device=x.device)
+    if E:
+        ends, _ = _offsets(group_sizes, T)
+        _launch("moe_gmm_dw_launch", MOE_GMM_DW_LAUNCHES, x.device, x.data_ptr(), dy.data_ptr(),
+                ends.data_ptr(), dw.data_ptr(), T, D, F, E)
+    return dw

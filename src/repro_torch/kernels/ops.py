@@ -16,7 +16,14 @@ import torch
 from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels.moe_gmm import (
+    moe_gmm_cuda,
+    moe_gmm_dw_cuda,
+    moe_gmm_dw_plain,
+    moe_gmm_dx_cuda,
+    moe_gmm_dx_plain,
+    moe_gmm_plain,
+)
 from repro_torch.kernels.rwkv6 import rwkv6_cuda, rwkv6_plain
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
@@ -27,6 +34,8 @@ __all__ = [
     "fused_ppo_loss",
     "fused_vtrace",
     "moe_gmm",
+    "moe_gmm_dw",
+    "moe_gmm_dx",
     "rwkv6",
 ]
 
@@ -87,6 +96,24 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
     if x.is_cuda:
         return moe_gmm_cuda(x, w, group_sizes)
     return moe_gmm_plain(x, w, group_sizes)
+
+
+def moe_gmm_dx(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """``moe_gmm``'s gradient with respect to x, dy [T, F] x w[e]^T -> [T, D]
+    per group: the dX kernel for CUDA tensors, the loop over groups for CPU
+    tensors."""
+    if dy.is_cuda:
+        return moe_gmm_dx_cuda(dy, w, group_sizes)
+    return moe_gmm_dx_plain(dy, w, group_sizes)
+
+
+def moe_gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """``moe_gmm``'s gradient with respect to w, x_e^T dy_e over each
+    group's rows -> [E, D, F]: the dW kernel for CUDA tensors, the loop over
+    groups for CPU tensors."""
+    if x.is_cuda:
+        return moe_gmm_dw_cuda(x, dy, group_sizes)
+    return moe_gmm_dw_plain(x, dy, group_sizes)
 
 
 def fused_ppo_loss(

@@ -8,7 +8,9 @@ dispatch and combine with row gathers whose backwards are gathers too
 (``_PermuteRows``, ``_ReplicateRows``), and ``"scatter"`` with scatter-adds.
 The expert products go through ``GmmMatmul``, whose forward is
 ``ops.moe_gmm`` (the grouped-matmul kernel on the card, the loop over groups
-on the CPU) and whose backward is the reference's two batched products.
+on the CPU) and whose backward computes the reference's two batched
+products with ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw`` (the dX and dW
+kernels on the card).
 The reference sends an expert product to its kernel only where the TPU's
 tiling gate (``_gmm_ok``) allows and to an einsum elsewhere; the CUDA kernel
 takes any group size, so the port sends every one.
@@ -73,23 +75,32 @@ class _ReplicateRows(torch.autograd.Function):
 class GmmMatmul(torch.autograd.Function):
     """[B, E, C, K] x [E, K, N] -> [B, E, C, N] through ``ops.moe_gmm``: the
     dispatch buffer transposed to [E, B*C, K] is a grouped-rows layout with
-    E groups of B*C rows.  The backward is the reference's two batched
-    products (``repro/models/moe.py`` ``_gmm_matmul_bwd``)."""
+    E groups of B*C rows.  The backward computes the reference's two batched
+    products (``repro/models/moe.py`` ``_gmm_matmul_bwd``) in that layout,
+    through ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw``; it reads the grouped
+    rows, so the forward saves them and not ``xe``."""
 
     @staticmethod
     def forward(ctx, xe, w):
-        ctx.save_for_backward(xe, w)
         B, E, C, K = xe.shape
         xg = xe.transpose(0, 1).reshape(E * B * C, K)
         groups = torch.full((E,), B * C, dtype=torch.int32, device=xe.device)
+        ctx.save_for_backward(xg, w, groups)
+        ctx.dims = (B, E, C, xe.dtype)
         out = ops.moe_gmm(xg, w, groups)
         return out.reshape(E, B, C, w.shape[-1]).transpose(0, 1).to(xe.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        xe, w = ctx.saved_tensors
-        dxe = torch.einsum("becn,ekn->beck", dy, w).to(xe.dtype)
-        dw = torch.einsum("beck,becn->ekn", xe, dy).to(w.dtype)
+        xg, w, groups = ctx.saved_tensors
+        B, E, C, dtype = ctx.dims
+        dyg = dy.to(w.dtype).transpose(0, 1).reshape(E * B * C, -1).contiguous()
+        dxe = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ops.moe_gmm_dx(dyg, w, groups)
+            dxe = dx.reshape(E, B, C, -1).transpose(0, 1).to(dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ops.moe_gmm_dw(xg.to(w.dtype), dyg, groups)
         return dxe, dw
 
 

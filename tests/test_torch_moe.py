@@ -1,13 +1,15 @@
 """Parity of the port's MoE layer and grouped matmul with the JAX package on
 the CPU.
 
-The CUDA kernel (``csrc/moe_gmm.cu``) runs only on the GPU, where
-``chip_smoke.py`` holds it against the plain version; here the plain
-version (a loop over the groups) is held against the reference's Pallas
-kernel in interpret mode and its oracle ``ref.moe_gmm_ref``, ``GmmMatmul``'s
-gradients against the reference's custom VJP, and ``moe_apply`` (output, aux
-loss, gradients) against the reference's at the reduced Phi-3.5-MoE
-configuration in both dispatch modes, with carried weights.  Inputs are made
+The CUDA kernels (``csrc/moe_gmm.cu``: the forward, dX and dW) run only on
+the GPU, where ``chip_smoke.py`` holds them against their plain versions;
+here the plain versions (loops over the groups) are held against the
+reference's Pallas kernel in interpret mode, its oracle ``ref.moe_gmm_ref``
+and the oracle's VJP, ``GmmMatmul``'s gradients against the reference's
+custom VJP, and ``moe_apply`` (output, aux loss, gradients) against the
+reference's at the reduced Phi-3.5-MoE configuration in both dispatch modes,
+with carried weights.  The kernels' 3xTF32 arithmetic is emulated on the
+CPU at the path's contraction lengths.  Inputs are made
 with numpy from a seed; random float32 router inputs give no ties in the
 top-k, which the tests check, since ``torch.topk`` and ``lax.top_k`` may
 order equal probabilities differently.  Tolerance 1e-5 (abs and rel) in
@@ -28,11 +30,25 @@ from repro.kernels.ref import moe_gmm_ref
 from repro.models import moe as jax_moe
 from repro_torch.configs import reduced_config
 from repro_torch.interop import params_from_numpy
-from repro_torch.kernels import ops
-from repro_torch.kernels.moe_gmm import MOE_GMM_LAUNCHES, moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels import build, moe_gmm_variants, ops
+from repro_torch.kernels.moe_gmm import (
+    MOE_GMM_DW_LAUNCHES,
+    MOE_GMM_DX_LAUNCHES,
+    MOE_GMM_LAUNCHES,
+    ROW_TILE,
+    _offsets,
+    moe_gmm_cuda,
+    moe_gmm_dw_cuda,
+    moe_gmm_dw_plain,
+    moe_gmm_dx_cuda,
+    moe_gmm_dx_plain,
+    moe_gmm_plain,
+)
 from repro_torch.models import moe
+from test_torch_attention import _mm_1xtf32, _mm_3xtf32, _tf32, _tf32_toward_zero
 
 TOL = 1e-5
+GMM_TOL = 1e-4  # chip_smoke.py's tolerance for the grouped-matmul kernels
 
 
 def _close(got, want, tol=TOL, name=""):
@@ -130,3 +146,123 @@ def test_moe_gmm_wrapper_refuses_cpu_tensors_and_ops_dispatch_by_device():
     count = MOE_GMM_LAUNCHES.value
     torch.testing.assert_close(ops.moe_gmm(x, w, sizes), moe_gmm_plain(x, w, sizes), rtol=0, atol=0)
     assert MOE_GMM_LAUNCHES.value == count
+
+
+# Ragged groups with empty ones, summing to T (the reference's oracle gives
+# rows past the groups the last expert's weights, not zeros).
+RAGGED = [[5, 0, 7, 3], [0, 9, 0, 2, 4], [6, 6, 6]]
+
+
+@pytest.mark.parametrize("sizes", RAGGED)
+def test_moe_gmm_backward_plain_matches_reference_vjp(sizes):
+    D, F = 8, 12
+    rng = np.random.default_rng(len(sizes) + sum(sizes))
+    x = rng.standard_normal((sum(sizes), D)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), D, F)).astype(np.float32)
+    cot = rng.standard_normal((sum(sizes), F)).astype(np.float32)
+    gs = jnp.array(sizes)
+    _, vjp = jax.vjp(lambda a, b: moe_gmm_ref(a, b, gs), jnp.asarray(x), jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(cot))
+    t = torch.tensor(sizes)
+    _close(moe_gmm_dx_plain(torch.from_numpy(cot), torch.from_numpy(w), t), dx_j, name="dx")
+    dw = moe_gmm_dw_plain(torch.from_numpy(x), torch.from_numpy(cot), t)
+    _close(dw, dw_j, name="dw")
+    for e, size in enumerate(sizes):
+        if not size:
+            assert not dw[e].any(), f"dw of empty group {e} is not zero"
+
+
+def test_moe_gmm_backward_plain_matches_gmm_matmul_custom_vjp_in_grouped_layout():
+    """The grouped rows of the [B, E, C, K] buffer, as ``GmmMatmul`` hands
+    them to the dX and dW products, against the reference's custom VJP."""
+    B, E, C, K, N = 2, 3, 5, 8, 12
+    rng = np.random.default_rng(11)
+    xe = rng.standard_normal((B, E, C, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    cot = rng.standard_normal((B, E, C, N)).astype(np.float32)
+    _, vjp = jax.vjp(jax_moe._gmm_matmul, jnp.asarray(xe), jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(cot))
+
+    def grouped(a):
+        return torch.from_numpy(a).transpose(0, 1).reshape(E * B * C, a.shape[-1])
+
+    groups = torch.full((E,), B * C)
+    dx = moe_gmm_dx_plain(grouped(cot), torch.from_numpy(w), groups)
+    _close(dx.reshape(E, B, C, K).transpose(0, 1), dx_j, name="dxe")
+    _close(moe_gmm_dw_plain(grouped(xe), grouped(cot), groups), dw_j, name="dw")
+
+
+@pytest.mark.parametrize("overrun", [0, 1, 200])
+def test_moe_gmm_offsets_cut_groups_at_T_and_the_grid_covers_the_tail(overrun):
+    """``_offsets`` (row ends cut at T, running 128-row tile counts) and the
+    kernels' grid of ceil(T / 128) + E row tiles: the tiles past the last
+    group's are enough to write the zeros of the rows past it."""
+    rng = np.random.default_rng(overrun)
+    for _ in range(200):
+        sizes = rng.integers(0, 400, size=int(rng.integers(1, 9))).tolist()
+        T = max(0, sum(sizes) - overrun) if overrun else sum(sizes) + int(rng.integers(0, 500))
+        ends, tile_ends = _offsets(torch.tensor(sizes), T)
+        want_ends = np.minimum(np.cumsum(sizes), T)
+        np.testing.assert_array_equal(ends.numpy(), want_ends)
+        cut = np.diff(want_ends, prepend=0)
+        np.testing.assert_array_equal(tile_ends.numpy(), np.cumsum(-(-cut // ROW_TILE)))
+        assert ends.dtype == tile_ends.dtype == torch.int32
+        spare = -(-T // ROW_TILE) + len(sizes) - int(tile_ends[-1])
+        assert spare >= -(-(T - int(ends[-1])) // ROW_TILE), (sizes, T)
+
+
+@pytest.mark.parametrize("small", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("K", [4096, 6400])
+def test_3xtf32_grouped_product_keeps_gmm_tol_and_one_tf32_pass_does_not(K, small):
+    """The kernels' 3xTF32 arithmetic (``test_torch_attention``'s emulation)
+    over the Phi-3.5-MoE path's contractions of 4,096 and 6,400, in ragged
+    groups of a few rows, inputs N(0, 1) and weights N(0, 1/K) as the
+    experts': within GMM_TOL of float64, where one TF32 pass is not."""
+    sizes, N = [3, 0, 5], 16
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy(rng.standard_normal((sum(sizes), K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((len(sizes), K, N)) / np.sqrt(K)).astype(np.float32))
+
+    def grouped(mm):
+        out, start = torch.zeros((sum(sizes), N), dtype=torch.float64), 0
+        for e, size in enumerate(sizes):
+            out[start:start + size] = mm(x[start:start + size], w[e]).double()
+            start += size
+        return out
+
+    oracle = grouped(lambda a, b: a.double() @ b.double())
+    round_small = _tf32 if small == "nearest" else _tf32_toward_zero
+    three = grouped(lambda a, b: _mm_3xtf32(a, b, round_small))
+    one = grouped(_mm_1xtf32)
+    _close(three, oracle, tol=GMM_TOL, name=f"3xTF32, small rounded {small}")
+    assert not torch.allclose(one, oracle, atol=GMM_TOL, rtol=GMM_TOL), (
+        f"one TF32 pass came within GMM_TOL: {(one - oracle).abs().max().item():.2e}")
+
+
+def test_moe_gmm_backward_wrappers_refuse_cpu_tensors_and_ops_dispatch_by_device():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 8, 4)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((10, 4)).astype(np.float32))
+    sizes = torch.tensor([7, 3])
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm_dx_cuda(dy, w, sizes)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm_dw_cuda(x, dy, sizes)
+    counts = [c.value for c in (MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES)]
+    torch.testing.assert_close(ops.moe_gmm_dx(dy, w, sizes), moe_gmm_dx_plain(dy, w, sizes),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.moe_gmm_dw(x, dy, sizes), moe_gmm_dw_plain(x, dy, sizes),
+                               rtol=0, atol=0)
+    assert [c.value for c in (MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES)] == counts
+
+
+@pytest.mark.parametrize("name", sorted(moe_gmm_variants.VARIANTS))
+def test_moe_gmm_variants_edit_the_shipped_source(name):
+    """``python -m repro_torch.kernels.moe_gmm_variants`` builds each variant
+    by replacing text of ``csrc/moe_gmm.cu``: each text must be there once,
+    or the variant would not be the one its name says."""
+    text = (build.CSRC_DIR / "moe_gmm.cu").read_text()
+    for old, new in moe_gmm_variants.VARIANTS[name]:
+        assert text.count(old) == 1, old
+        assert new != old
