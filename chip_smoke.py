@@ -8,9 +8,10 @@ phase that fails, and then prints no result line):
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile every CUDA kernel of the port from ``csrc/`` (one nvcc per
-   source, all at once, sm_90a); each flash kernel's registers, spills,
-   shared memory and resident blocks per SM, and its count of TF32 tensor-core
-   instructions in the SASS (``cuobjdump``; none fails the phase);
+   source, all at once, sm_90a); each tensor-core kernel's (flash attention's
+   and the grouped matmul's) registers, spills, shared memory and resident
+   blocks per SM, and its count of TF32 tensor-core instructions in the SASS
+   (``cuobjdump``; none fails the phase);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version, bound and (for attention) the
    ``scaled_dot_product_attention`` yardstick: GAE at the LM path's
@@ -35,10 +36,16 @@ phase that fails, and then prints no result line):
    recurrence forward and backward (gradients of r, k, v, w, u and the start state against autograd
    through the plain loop, and bitwise equal across two runs) at the
    pretraining path's [2, 4096, 64, 64], a ragged T = 1000, with a start
-   state, and at narrow [4, 256, 8, 32] heads; the MoE grouped matmul at the
-   path's two products ([20480, 4096] x [16, 4096, 6400] and [20480, 6400] x
-   [16, 6400, 4096], beside ``torch.bmm``), ragged unequal groups, and a group
-   that is not a multiple of 64;
+   state, and at narrow [4, 256, 8, 32] heads; the MoE grouped matmul and
+   the dX and dW products of its backward (dW bitwise equal across two runs)
+   at the path's two products ([20480, 4096] x [16, 4096, 6400] and
+   [20480, 6400] x [16, 6400, 4096], beside ``torch.bmm`` and the einsums of
+   ``GmmMatmul``'s backward they replace), ragged unequal groups (an empty
+   one, groups summing past x's rows, rows past the last group), and a group
+   that is not a multiple of 64, each with the 3xTF32 and the fp32 bound;
+   each time of the Phi-3.5-MoE path's grouped-matmul and flash-backward
+   cases read by both clocks before and after the profiler, with the card's
+   SM clock, power and temperature beside them;
 4. learner parity: four PPO SGD steps on one CartPole batch on the card
    (kernels) and on the CPU (plain versions) from the same weights agree to
    1e-4;
@@ -420,8 +427,9 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kern
 FLASH_COLS = {32: (64, 32), 64: (64, 32), 128: (16, 16)}
 FLASH_ROWS = 64
 # The grouped-matmul kernels of moe_gmm.cu (forward, dX, dW) and, as its
-# kBM / kBN / kBK / kStages, their tiles: a K-major operand tile holds
-# [rows][GMM_BK + 4] floats, an MN-major one [GMM_BK][cols + 8].
+# kBM / kBN / kBK / kStages, their tiles: a staged K-major operand tile holds
+# [rows][GMM_BK + 4] floats, an MN-major one [GMM_BK][cols + 8], and B's
+# split big and small tiles GMM_TILE x GMM_BK floats each.
 GMM_KERNELS = {"gmm_rows_kernelILb0E": "gmm_rows_kernel<false>",
                "gmm_rows_kernelILb1E": "gmm_rows_kernel<true>", "gmm_dw_kernel": "gmm_dw_kernel"}
 GMM_TILE, GMM_BK, GMM_STAGES, GMM_THREADS = 128, 32, 4, 256
@@ -445,7 +453,7 @@ def _kernel_smem(name: str) -> tuple:
         mn_major = GMM_BK * (GMM_TILE + 8)
         tiles = {"gmm_rows_kernel<false>": k_major + mn_major,
                  "gmm_rows_kernel<true>": 2 * k_major, "gmm_dw_kernel": 2 * mn_major}[name]
-        return GMM_STAGES * tiles * 4, GMM_THREADS
+        return (GMM_STAGES * tiles + 2 * GMM_TILE * GMM_BK) * 4, GMM_THREADS
     kernel, D = name[:-1].split("<")
     fwd_cols, bwd_cols = FLASH_COLS[int(D)]
     if kernel == "flash_fwd_kernel":

@@ -83,35 +83,26 @@ def moe_gmm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tenso
     return dw
 
 
-def _check(fn: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{fn}: {name} must be float32 on {device}, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
-
-
-def _checked(fn: str, a: torch.Tensor, b: torch.Tensor, b_rank: int,
-             group_sizes: torch.Tensor) -> None:
-    """Raise unless ``a`` [T, .] and ``b`` (of ``b_rank`` dimensions) are
-    CUDA tensors and ``group_sizes`` an integer vector on their device; the
-    shapes are checked by the caller."""
-    device = a.device
+def _validate(fn: str, group_sizes: torch.Tensor, E: int, D: int, F: int, tensors: list) -> None:
+    """Raise unless every (name, tensor, shape) of ``tensors`` is a float32,
+    contiguous, 16-byte aligned CUDA tensor of that shape, all on one
+    device, D and F are multiples of 4, and ``group_sizes`` is an integer
+    [E] tensor on that device."""
+    device = tensors[0][1].device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    if a.dim() != 2 or b.dim() != b_rank:
-        raise ValueError(f"{fn}: want a [T, .] matrix and a rank-{b_rank} tensor, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
-    if group_sizes.device != device or group_sizes.dim() != 1 or group_sizes.is_floating_point():
-        raise ValueError(f"{fn}: group_sizes must be an integer vector on {device}")
-
-
-def _checked_dims(fn: str, T: int, D: int, F: int, E: int, group_sizes: torch.Tensor) -> None:
     if D % 4 or F % 4:
         raise ValueError(f"{fn}: D and F must be multiples of 4, got D={D} F={F}")
-    if group_sizes.shape != (E,):
-        raise ValueError(f"{fn}: group_sizes has shape {tuple(group_sizes.shape)}, expected ({E},)")
+    for name, t, shape in tensors:
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be float32 on {device}, "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+    if group_sizes.device != device or group_sizes.shape != (E,) or group_sizes.is_floating_point():
+        raise ValueError(f"{fn}: group_sizes must be an integer [{E}] tensor on {device}")
 
 
 def _offsets(group_sizes: torch.Tensor, T: int):
@@ -134,12 +125,11 @@ def _launch(name: str, counter: LaunchCounter, device: torch.device, *args) -> N
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """The forward kernel; same contract as ``moe_gmm_plain``."""
-    fn = "moe_gmm_cuda"
-    _checked(fn, x, w, 3, group_sizes)
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"moe_gmm_cuda: want x [T, D] and w [E, D, F], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
     (T, _), (E, D, F) = x.shape, w.shape
-    _checked_dims(fn, T, D, F, E, group_sizes)
-    _check(fn, "x", x, (T, D), x.device)
-    _check(fn, "w", w, (E, D, F), x.device)
+    _validate("moe_gmm_cuda", group_sizes, E, D, F, [("x", x, (T, D)), ("w", w, (E, D, F))])
     out = torch.empty((T, F), dtype=torch.float32, device=x.device)
     if T:
         ends, tile_ends = _offsets(group_sizes, T)
@@ -150,12 +140,11 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) ->
 
 def moe_gmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """The dX kernel; same contract as ``moe_gmm_dx_plain``."""
-    fn = "moe_gmm_dx_cuda"
-    _checked(fn, dy, w, 3, group_sizes)
+    if dy.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"moe_gmm_dx_cuda: want dy [T, F] and w [E, D, F], got "
+                         f"{tuple(dy.shape)} and {tuple(w.shape)}")
     (T, _), (E, D, F) = dy.shape, w.shape
-    _checked_dims(fn, T, D, F, E, group_sizes)
-    _check(fn, "dy", dy, (T, F), dy.device)
-    _check(fn, "w", w, (E, D, F), dy.device)
+    _validate("moe_gmm_dx_cuda", group_sizes, E, D, F, [("dy", dy, (T, F)), ("w", w, (E, D, F))])
     dx = torch.empty((T, D), dtype=torch.float32, device=dy.device)
     if T:
         ends, tile_ends = _offsets(group_sizes, T)
@@ -168,12 +157,11 @@ def moe_gmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor
     """The dW kernel; same contract as ``moe_gmm_dw_plain``.  Each element
     of dw is summed by one lane in a fixed order: the same from run to
     run."""
-    fn = "moe_gmm_dw_cuda"
-    _checked(fn, x, dy, 2, group_sizes)
+    if x.dim() != 2 or dy.dim() != 2 or group_sizes.dim() != 1:
+        raise ValueError(f"moe_gmm_dw_cuda: want x [T, D], dy [T, F] and group_sizes [E], got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)} and {tuple(group_sizes.shape)}")
     (T, D), F, E = x.shape, dy.shape[1], group_sizes.shape[0]
-    _checked_dims(fn, T, D, F, E, group_sizes)
-    _check(fn, "x", x, (T, D), x.device)
-    _check(fn, "dy", dy, (T, F), x.device)
+    _validate("moe_gmm_dw_cuda", group_sizes, E, D, F, [("x", x, (T, D)), ("dy", dy, (T, F))])
     dw = torch.empty((E, D, F), dtype=torch.float32, device=x.device)
     if E:
         ends, _ = _offsets(group_sizes, T)

@@ -1,23 +1,20 @@
 """Measure the design choices of the grouped-matmul kernels against the
 variants they were chosen over, on the GPU.
 
-``csrc/moe_gmm.cu`` multiplies in 3xTF32 on the tensor cores, sums each K
-tile of 32 in fresh accumulators before adding it to an fp32 running sum,
-and stages K tiles in a ring of 4 shared-memory buffers.  This script builds
-extra copies of the source, each changing one choice:
+``csrc/moe_gmm.cu`` multiplies in 3xTF32 with wgmma, sums each K tile of 32
+from zero before adding it to an fp32 running sum, and stages K tiles in a
+ring of 4 shared-memory buffers.  This script builds extra copies of the
+source, each changing one choice:
 
-* ``one_accumulator``: every product sums its whole contraction in one
-  tensor-core accumulator (no running sum);
+* ``one_accumulator``: every product sums its whole contraction in the
+  wgmma accumulator (no running sum);
 * ``stages3``: a ring of 3 stages;
-* ``bk64``: K tiles of 64 (so a running-sum fold every 64) in 3 stages;
-* ``warps16``: 16 warps of 32 x 32 (at most 128 registers a lane) in place
-  of 8 of 64 x 32;
 * ``one_tf32``: one TF32 product (big * big) instead of three, which the
   port's tolerance does not allow: the share of the time that the two
   extra products take;
-* ``mma_only``: the fragments are constants, so no shared-memory read or
-  split is left in the main loop, only its MMAs, copies and barriers: what
-  the tensor cores' ``mma.sync`` rate alone allows (wrong results);
+* ``products_only``: no split of B and constant A fragments, so only the
+  main loop's copies, barriers and products are left: what the tensor
+  cores' wgmma rate in this loop allows (wrong results);
 
 and runs each beside the shipped source on the Phi-3.5-MoE pretraining
 path's products: the forward, dX and dW at [20480, 4096] x [16, 4096, 6400]
@@ -55,24 +52,23 @@ from repro_torch.kernels.moe_gmm import (
     moe_gmm_plain,
 )
 
-MMA3 = """          mma_tf32(part[i][j], as[i], bb[j]);
-          mma_tf32(part[i][j], ab[i], bs[j]);
-          mma_tf32(part[i][j], ab[i], bb[j]);"""
-FOLD = "for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];"
+PRODUCTS = """      wgmma_tf32(part, as[s], big, s);
+      wgmma_tf32(part, ab[s], small, 1);
+      wgmma_tf32(part, ab[s], big, 1);"""
 # Each variant: (text in the source, its replacement) pairs.
 VARIANTS = {
     "shipped": [],
-    "one_accumulator": [(MMA3, MMA3.replace("part[i][j]", "acc[i][j]")),
-                        (FOLD, "for (int c = 0; c < 4; ++c) (void)part[i][j][c];")],
+    "one_accumulator": [
+        (PRODUCTS, PRODUCTS.replace("part, ", "acc, ").replace("big, s);", "big, 1);")),
+        ("for (int i = 0; i < 64; ++i) acc[i] += part[i];", "(void)0;"),
+    ],
     "stages3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
-    "bk64": [("constexpr int kBK = 32; ", "constexpr int kBK = 64; "),
-             ("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
-    "warps16": [("constexpr int kWarpsM = 2;", "constexpr int kWarpsM = 4;")],
-    "one_tf32": [(MMA3, "          mma_tf32(part[i][j], ab[i], bb[j]);")],
-    "mma_only": [("split(As[TA::at(wm + 16 * i + g + 8 * (c & 1), ks + t + 4 * (c >> 1))], ab[i][c],",
-                  "split(static_cast<float>(4 * i + c + ks), ab[i][c],"),
-                 ("split(Bs[TB::at(wn + 8 * j + g, ks + t + 4 * c)], bb[j][c], bs[j][c]);",
-                  "split(static_cast<float>(2 * j + c + ks), bb[j][c], bs[j][c]);")],
+    "one_tf32": [(PRODUCTS, "      wgmma_tf32(part, ab[s], big, s);")],
+    "products_only": [
+        ("for (int i = 0; i < kBN * kBK / 4 / kThreads; ++i) {", "for (int i = 0; i < 0; ++i) {"),
+        ("split(As[TA::at(row + 8 * (c & 1), 8 * s + t + 4 * (c >> 1))], ab[s][c], as[s][c]);",
+         "split(static_cast<float>(4 * s + c), ab[s][c], as[s][c]);"),
+    ],
 }
 GROUPS, ROWS = 16, 1280  # the path's experts and rows per expert
 SHAPES = (("forward", 4096, 6400), ("dx", 4096, 6400), ("dw", 4096, 6400), ("forward", 6400, 4096))
@@ -162,7 +158,8 @@ def _case(libs: dict, product: str, D: int, F: int) -> dict:
     fn_name, *tensors = launch
     ptrs = [t.data_ptr() for t in tensors]
     calls = {name: (lambda lib=lib, name=name: build.check(
-        lib, getattr(lib, fn_name)(*ptrs, T, D, F, GROUPS, stream), name)) for name, lib in libs.items()}
+        lib, getattr(lib, fn_name)(*ptrs, T, D, F, GROUPS, stream), name))
+        for name, lib in libs.items()}
     results = {}
     for name, call in calls.items():
         call()

@@ -94,14 +94,9 @@ class GmmMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         xg, w, groups = ctx.saved_tensors
         B, E, C, dtype = ctx.dims
-        dyg = dy.to(w.dtype).transpose(0, 1).reshape(E * B * C, -1).contiguous()
-        dxe = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = ops.moe_gmm_dx(dyg, w, groups)
-            dxe = dx.reshape(E, B, C, -1).transpose(0, 1).to(dtype)
-        if ctx.needs_input_grad[1]:
-            dw = ops.moe_gmm_dw(xg.to(w.dtype), dyg, groups)
-        return dxe, dw
+        dyg = dy.transpose(0, 1).reshape(E * B * C, -1).contiguous()
+        dxe = ops.moe_gmm_dx(dyg, w, groups).reshape(E, B, C, -1).transpose(0, 1)
+        return dxe.to(dtype), ops.moe_gmm_dw(xg, dyg, groups).to(w.dtype)
 
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
