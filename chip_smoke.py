@@ -9,9 +9,10 @@ phase that fails, and then prints no result line):
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile every CUDA kernel of the port from ``csrc/`` (one nvcc per
    source, all at once, sm_90a); each tensor-core kernel's (flash attention's
-   and the grouped matmul's) registers, spills, shared memory and resident
-   blocks per SM, and its count of TF32 tensor-core instructions in the SASS
-   (``cuobjdump``; none fails the phase);
+   and the grouped matmul's) and each RWKV-6 kernel's registers, spills,
+   shared memory and resident blocks per SM, and each tensor-core kernel's
+   count of TF32 tensor-core instructions in the SASS (``cuobjdump``; none
+   fails the phase; the RWKV-6 kernels run on the CUDA cores);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    and time kernel, plain version, bound and (for attention) the
    ``scaled_dot_product_attention`` yardstick: GAE at the LM path's
@@ -35,8 +36,12 @@ phase that fails, and then prints no result line):
    3xTF32 bound and the fp32 CUDA-core bound beside it; the RWKV-6
    recurrence forward and backward (gradients of r, k, v, w, u and the start state against autograd
    through the plain loop, and bitwise equal across two runs) at the
-   pretraining path's [2, 4096, 64, 64], a ragged T = 1000, with a start
-   state, and at narrow [4, 256, 8, 32] heads; the MoE grouped matmul and
+   pretraining path's [2, 4096, 64, 64] without and with a start state, a
+   ragged T = 1000, with a start state at [2, 300, 8, 64], at narrow
+   [4, 256, 8, 32] and [2, 512, 4, 16] heads, and with half the decays at
+   the model's clip extremes (exp(-e^2) and exp(-e^-8)); the path-shape case
+   read by both clocks before and after the profiler, with the card's SM
+   clock, power and temperature beside them; the MoE grouped matmul and
    the dX and dW products of its backward (dW bitwise equal across two runs)
    at the path's two products ([20480, 4096] x [16, 4096, 6400] and
    [20480, 6400] x [16, 6400, 4096], beside ``torch.bmm`` and the einsums of
@@ -433,14 +438,20 @@ FLASH_ROWS = 64
 GMM_KERNELS = {"gmm_rows_kernelILb0E": "gmm_rows_kernel<false>",
                "gmm_rows_kernelILb1E": "gmm_rows_kernel<true>", "gmm_dw_kernel": "gmm_dw_kernel"}
 GMM_TILE, GMM_BK, GMM_STAGES, GMM_THREADS = 128, 32, 4, 256
+# The RWKV-6 kernels of rwkv6.cu (CUDA cores) and, as its kTile / kSub /
+# kMarks, the forward's staged steps, the backward's sub-chunk steps and
+# its kept sub-chunk start states; a block has N * N / 8 threads.
+RWKV6_KERNELS = ("rwkv6_fwd_kernel", "rwkv6_bwd_kernel")
+RWKV6_TILE, RWKV6_SUB, RWKV6_MARKS = 32, 16, 4
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
 SM_REGISTERS = 65536
 
 
 def _kernel_name(symbol: str):
-    """``flash_fwd_kernel<128>`` or ``gmm_rows_kernel<false>`` from a mangled
-    kernel symbol of the flash or grouped-matmul sources, or None."""
-    m = re.search(r"(" + "|".join(FLASH_KERNELS) + r")ILi(\d+)E", symbol)
+    """``flash_fwd_kernel<128>``, ``rwkv6_bwd_kernel<64>`` or
+    ``gmm_rows_kernel<false>`` from a mangled kernel symbol of the flash,
+    RWKV-6 or grouped-matmul sources, or None."""
+    m = re.search(r"(" + "|".join(FLASH_KERNELS + RWKV6_KERNELS) + r")ILi(\d+)E", symbol)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
     return next((name for key, name in GMM_KERNELS.items() if key in symbol), None)
@@ -448,6 +459,16 @@ def _kernel_name(symbol: str):
 
 def _kernel_smem(name: str) -> tuple:
     """Dynamic shared memory bytes and threads of a block of ``name``."""
+    if name.startswith("rwkv6_"):
+        n = int(name[:-1].split("<")[1])
+        quads = n // 4
+        if name.startswith("rwkv6_fwd"):
+            floats = 2 * 4 * RWKV6_TILE * n + RWKV6_TILE * quads * n + 2 * RWKV6_TILE + n
+        else:
+            warps = n * n // 256
+            floats = (RWKV6_MARKS * n * n + 2 * 5 * RWKV6_SUB * n + RWKV6_SUB * warps * n
+                      + RWKV6_SUB * 3 * (n + 4) + 2 * 2 * RWKV6_SUB + n)
+        return floats * 4, n * n // 8
     if name.startswith("gmm_"):
         k_major = GMM_TILE * (GMM_BK + 4)
         mn_major = GMM_BK * (GMM_TILE + 8)
@@ -463,11 +484,12 @@ def _kernel_smem(name: str) -> tuple:
 
 
 def _kernel_usage(log: str, library: str) -> dict:
-    """Each flash and grouped-matmul kernel's registers and spills (``ptxas
-    -v``), dynamic shared memory, resident blocks per SM by registers and
-    shared memory, and, where ``cuobjdump`` is found, its count of TF32
-    ``HMMA``/``HGMMA`` instructions in the SASS (a kernel with none fails the
-    phase: its products would not be on the tensor cores)."""
+    """Each flash, grouped-matmul and RWKV-6 kernel's registers and spills
+    (``ptxas -v``), dynamic shared memory, resident blocks per SM by
+    registers and shared memory, and, where ``cuobjdump`` is found, its count
+    of TF32 ``HMMA``/``HGMMA`` instructions in the SASS (a flash or
+    grouped-matmul kernel with none fails the phase: its products would not
+    be on the tensor cores; the RWKV-6 kernels run on the CUDA cores)."""
     usage: dict = {}
     name = None
     for ln in log.splitlines():
@@ -491,8 +513,8 @@ def _kernel_usage(log: str, library: str) -> dict:
         regs_per_warp = -(-u.get("registers", 255) * 32 // 256) * 256
         u.update(smem_bytes=smem, blocks_per_sm=min(SM_REGISTERS // (threads // 32 * regs_per_warp),
                                                      SM_SMEM_BYTES // (smem + 1024), 16))
-    _require(len(usage) == 12, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head "
-                               "dims and 3 grouped-matmul kernels")
+    _require(len(usage) == 18, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head "
+                               "dims, 3 grouped-matmul kernels and 2 RWKV-6 kernels x 3 head sizes")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).exists():
         sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
@@ -502,12 +524,16 @@ def _kernel_usage(log: str, library: str) -> dict:
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 name = _kernel_name(m.group(1))
+                if name and name.startswith("rwkv6_"):
+                    name = None  # CUDA cores: no tensor-core count
                 if name:
                     usage[name].update(hmma=0, hmma_tf32=0)
             elif name and "MMA" in ln:
                 usage[name]["hmma"] += 1
                 usage[name]["hmma_tf32"] += "TF32" in ln
         for name, u in usage.items():
+            if name.startswith("rwkv6_"):
+                continue
             _require(u.get("hmma_tf32", 0) > 0,
                      f"{name}: no TF32 HMMA/HGMMA instruction in its SASS ({u.get('hmma')} MMA)")
     return usage
@@ -527,9 +553,13 @@ def phase_build() -> dict:
     print(f"build: {n_src} sources in {seconds:.2f} s -> {info['path']}")
     log = info["log"] or (build.BUILD_DIR / "build.log").read_text()  # "" when cached
     usage = _kernel_usage(log, info["path"])
-    for name, u in usage.items():
+    rwkv6 = {name: u for name, u in usage.items() if name.startswith("rwkv6_")}
+    tensor_core = {name: u for name, u in usage.items() if name not in rwkv6}
+    for name, u in tensor_core.items():
         print(f"tensor-core kernel {name}: {json.dumps(u)}")
-    return {"build_s": seconds, "tensor_core_kernels": usage}
+    for name, u in rwkv6.items():
+        print(f"CUDA-core kernel {name}: {json.dumps(u)}")
+    return {"build_s": seconds, "tensor_core_kernels": tensor_core, "rwkv6_kernels": rwkv6}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -881,22 +911,30 @@ def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     }
 
 
-def _rwkv6_inputs(B: int, T: int, H: int, N: int, seed: int, state: bool):
+def _rwkv6_inputs(B: int, T: int, H: int, N: int, seed: int, state: bool,
+                  clip_share: float = 0.0):
     """r, k, v ~ N(0, 0.25); decays from the model's own law at its
-    initial bias, w = exp(-exp(clip(-2 + 0.5 z, -8, 2))); u ~ N(0, 0.01);
-    a start state ~ N(0, 1) when asked for."""
+    initial bias, w = exp(-exp(clip(-2 + 0.5 z, -8, 2))), with a share
+    ``clip_share`` of them at the clip's extremes (half exp(-e^2) ~ 6.17e-4,
+    half exp(-e^-8) ~ 0.99966), which the initial bias almost never
+    reaches; u ~ N(0, 0.01); a start state ~ N(0, 1) when asked for."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     r, k, v = (0.5 * _randn(g, B, T, H, N) for _ in range(3))
-    w = torch.exp(-torch.exp(torch.clamp(-2.0 + 0.5 * _randn(g, B, T, H, N), -8.0, 2.0)))
+    logit = torch.clamp(-2.0 + 0.5 * _randn(g, B, T, H, N), -8.0, 2.0)
+    if clip_share:
+        z = torch.rand((B, T, H, N), generator=g, device="cuda")
+        logit = torch.where(z < clip_share / 2, 2.0, torch.where(z < clip_share, -8.0, logit))
+    w = torch.exp(-torch.exp(logit))
     u = 0.1 * _randn(g, H, N)
     s0 = _randn(g, B, H, N, N) if state else None
     return r, k, v, w, u, s0
 
 
 def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
-                chunk: int = 64, kernel_iters: int = 50, check_profiler: bool = False) -> dict:
+                chunk: int = 64, kernel_iters: int = 50, check_profiler: bool = False,
+                clip_share: float = 0.0, clocks: bool = False) -> dict:
     """Forward (out, final state) and the gradients of all inputs, with
     cotangents on the output and the final state, through the kernels'
     autograd.Function, against the plain loop in float64 (chunk-checkpointed,
@@ -906,16 +944,18 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     own du is 6.8e-4 away from the oracle in places, more than the
     tolerance (each case records the float32 loop's distance as
     ``plain_fp32_err``).  Times are of the float32 plain loop.  With
-    ``check_profiler``, also ``_profiler_records`` of the forward."""
+    ``check_profiler``, also ``_profiler_records`` of the forward; with
+    ``clocks``, the card's clocks beside each kernel reading."""
     import torch
 
     from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_cuda, rwkv6_fwd_cuda, rwkv6_plain
 
-    xs = _rwkv6_inputs(B, T, H, N, seed, state)
+    xs = _rwkv6_inputs(B, T, H, N, seed, state, clip_share)
     s0 = xs[5]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     cot_o, cot_s = _randn(g, B, T, H, N), _randn(g, B, H, N, N)
-    name = f"rwkv6[{B},{T},{H},{N}]" + (" with a start state" if state else "")
+    name = (f"rwkv6[{B},{T},{H},{N}]" + (" with a start state" if state else "")
+            + (f" with {clip_share} of the decays at the clip" if clip_share else ""))
 
     def grads(fn, dtype, **kw):
         ts = [x.to(dtype, copy=True).requires_grad_(True) for x in xs if x is not None]
@@ -948,7 +988,7 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
 
     _, _, ckpt = rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True)
     fwd_t = _timings(lambda: rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True), plain_fwd,
-                     plain_iters=1, kernel_iters=kernel_iters, plain_profile=False)
+                     plain_iters=1, kernel_iters=kernel_iters, plain_profile=False, clocks=clocks)
     if check_profiler:
         fwd_t["profiler_records"] = _profiler_records(
             lambda: rwkv6_fwd_cuda(r, k, v, w, u, s0, chunk, True))
@@ -956,7 +996,7 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     bwd_t = _timings(
         lambda: rwkv6_bwd_cuda(r, k, v, w, u, cot_o, ckpt, cot_s, chunk, state),
         lambda: torch.autograd.grad(plain_graph, plain_ts, (cot_o, cot_s), retain_graph=True),
-        plain_iters=1, kernel_iters=kernel_iters, plain_profile=False,
+        plain_iters=1, kernel_iters=kernel_iters, plain_profile=False, clocks=clocks,
     )
     del plain_graph, plain_ts, out_p, fin_p
 
@@ -973,7 +1013,8 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     fwd_bound = _bound_ms(fwd_bytes, 7 * B * T * H * N * N)
     bwd_bound = _bound_ms(bwd_bytes, 14 * B * T * H * N * N)
     shape = [B, T, H, N]
-    common = {"shape": shape, "state": state, "chunk": chunk, "library_ms": None}
+    common = {"shape": shape, "state": state, "chunk": chunk, "clip_share": clip_share,
+              "library_ms": None}
     return {
         "fwd": {**common, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
                 "bound_by": fwd_bound[1], "bytes": fwd_bytes, **fwd_t},
@@ -1180,10 +1221,14 @@ def phase_kernels() -> dict:
         *_narrow_heads(_flash_fwd_case, 27),
     ]
     rwkv6_cases = [
-        _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20, check_profiler=True),  # path shape
+        _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20, check_profiler=True,
+                    clocks=True),  # path shape
         _rwkv6_case(2, 1000, 64, 64, 51),  # ragged T
         _rwkv6_case(2, 300, 8, 64, 52, state=True),  # a start state
         _rwkv6_case(4, 256, 8, 32, 53, chunk=16),  # narrow heads
+        _rwkv6_case(*RWKV6_PATH_SHAPE, 54, state=True, kernel_iters=20),  # path shape, start state
+        _rwkv6_case(2, 512, 4, 16, 55),  # N = 16
+        _rwkv6_case(2, 1024, 8, 64, 56, clip_share=0.5),  # decays at the clip's extremes
     ]
     out["rwkv6_fwd"] = [c["fwd"] for c in rwkv6_cases]
     out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
@@ -1204,6 +1249,9 @@ def phase_kernels() -> dict:
                 f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){fp32_txt} "
                 f"records_lost={c['records_lost']}{lib_txt}"
             )
+            if c.get("clocks"):
+                print(f"  SM clock / power / temperature around its readings: "
+                      f"{[tuple(x.values()) for x in c['clocks']]}")
     return out
 
 

@@ -69,9 +69,9 @@ _SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
     # r, k, v, w, u, s0, o, s_out, ckpt, B, T, H, N, chunk, stream
     "rwkv6_fwd_launch": [_P] * 9 + [_I] * 5 + [_P],
-    # r, k, v, w, u, dout, ckpt, ds_final, scratch, dr, dk, dv, dw, du_part,
-    # ds0, B, T, H, N, chunk, stream
-    "rwkv6_bwd_launch": [_P] * 15 + [_I] * 5 + [_P],
+    # r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, B, T,
+    # H, N, chunk, stream
+    "rwkv6_bwd_launch": [_P] * 14 + [_I] * 5 + [_P],
     # x, w, ends, tile_ends, out, T, D, F, E, stream
     "moe_gmm_launch": [_P] * 5 + [_I] * 4 + [_P],
     # dy, w, ends, tile_ends, dx, T, D, F, E, stream

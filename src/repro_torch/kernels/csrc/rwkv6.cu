@@ -6,7 +6,7 @@
 // float32, in the reference's layout: r, k, v, w [B, T, H, N] (w the decay
 // in (0, 1]), u [H, N], states [B, H, N, N] (key x value).  From the start
 // state S_0 (zeros when none is given), for t = 1 .. T:
-//     o_t[j] = sum_i r_t[i] (S_{t-1}[i, j] + u[i] k_t[i] v_t[j])
+//     o_t[j] = sum_i r_t[i] S_{t-1}[i, j] + v_t[j] sum_i r_t[i] u[i] k_t[i]
 //     S_t[i, j] = w_t[i] S_{t-1}[i, j] + k_t[i] v_t[j]
 // and the final state S_T.  The backward takes dO (and the gradient G_T of
 // the final state, zero when absent) and walks t = T .. 1 with
@@ -19,222 +19,633 @@
 //     G_{t-1}[i, j] = w_t[i] G_t[i, j] + r_t[i] do_t[j]
 // ending with G_0, the gradient of the start state.
 //
-// Bound on the H100: neither bytes nor operations, but the dependent chain
-// in t.  At the LM path's [2, 4096, 64, 64] the training forward moves 5
-// streams of 134 MB and 134 MB of chunk-start states (about 0.24 ms at
-// 3.35 TB/s) and does 7 N^2 flops per (b, t, h), 15 GFLOP (0.22 ms at
-// 67 TFLOP/s); but each of the B * H = 128 (b, h)
-// pairs walks 4,096 steps that each depend on the step before, so one block
-// per pair on 128 of the 132 SMs runs some hundreds of cycles per step:
-// a latency floor near 1 ms that no layout of the same recurrence avoids.
+// What bounds it on the H100.  The recurrences are independent element by
+// element: S_t[i, j] and G_{t-1}[i, j] each depend on the step before only
+// through one FMA of their own, a chain of about 4 cycles a step (8 us over
+// the LM path's 4,096 steps).  Every sum over i or j (o, dr, dk, dv, dw, du)
+// is an output that feeds no later step.  So the recurrence has no latency
+// floor near 1 ms: the first layout of these kernels (one block of N = 64
+// threads per (b, h) pair, two warps on each of 128 SMs, each thread walking
+// a whole row or column of the state every step, the backward's states
+// written to device memory and read back, about 17 GB a call at
+// [2, 4096, 64, 64]) took 2.3 and 12.9 ms.  What is left is the work of one
+// SM per pair, since B * H = 128 pairs fill 128 of the 132 SMs: the
+// instructions each SM issues.  At [2, 4096, 64, 64] the bytes take 0.24 ms
+// (forward: 5 streams and the chunk-start states) and 0.45 ms (backward: 9
+// streams and the states) at 3.35 TB/s; the kernels issue about 40
+// (forward) and 150 (backward, recompute and forward pass included)
+// instructions per thread and step, 0.33 and 1.2 ms of issue slots at 1.98
+// GHz, plus what the dependent chains leave unhidden with 16 warps an SM
+// (see PERF.md for the measured times).
 //
-// Design:
-//   * Forward: one block of N threads per (h, b).  Thread j owns column j
-//     of the state, N floats in registers, for the whole sequence; so o_t[j]
-//     and the update need no exchange between threads.  The TPU kernel's
-//     sequential grid axis over T chunks becomes a loop inside the block
-//     over tiles of 32 steps: r, k, v, w of a tile are loaded once, with
-//     coalesced reads of the [B, T, H, N] rows at their strides (the Pallas
-//     wrapper's transposes to [B, H, T, N] and back are not needed), into
-//     shared memory, where every thread reads r_t[i], k_t[i], w_t[i] as a
-//     broadcast.  Any T; an optional start state (one more pointer).  When a
-//     gradient is wanted, the state at the start of every chunk of `chunk`
-//     steps is written to ckpt [B, H, ceil(T / chunk), N, N]: the
-//     counterpart of the reference's chunked remat (models/scan_utils.py).
-//   * Backward: one block of N threads per (h, b), thread i owning row i of
-//     G_t, so dr, dk, dw and du are sums inside a thread and only dv is a
-//     sum across threads (through a padded N x (N + 1) tile in shared
-//     memory, double-buffered: one barrier per step).  dw_t needs S_{t-1},
-//     produced going forward, beside G_t, produced going backward.  So the
-//     block walks the chunks in reverse; for each chunk it stages the
-//     chunk's r, k, v, w, dO in shared memory, recomputes the chunk's states
-//     forward from its saved start state into a per-block global scratch of
-//     chunk x N x N floats (each thread writes and later reads only its own
-//     row, so the scratch needs no barrier), then runs the reverse steps.
-//     S_{t-1} is never rebuilt as (S_t - k v) / w: w reaches 6e-4 (the
-//     decay clip of models/ssm.py), and the division would amplify rounding.
-//     du is summed with compensation, written per (b, h) and summed over b
-//     by the caller; there are no atomics, so gradients are the same from
-//     run to run.
+// Both kernels launch one block of N * N / 8 threads per (h, b) pair (512 at
+// N = 64), 8 state elements a thread, and stage r, k, v, w (and dO) a tile
+// ahead in shared memory with 4-byte cp.async (any alignment),
+// double-buffered, so the loads overlap the walk.  Sums over j stay inside a
+// warp; sums over i cross warps through shared memory, reduced once per tile
+// behind the tile's barrier.  Every sum has a fixed order.
+//
+//   * Forward: thread (q, c) owns the 4 x 2 tile of rows 4q .. 4q + 3 and
+//     columns 2c, 2c + 1 of the state, in registers for the whole sequence;
+//     the N / 2 threads of a row quad are consecutive lanes.  Per step it
+//     reads its rows' r, k, w as one broadcast float4 each and its columns'
+//     v as a float2, adds its rows' r_t[i] S_{t-1}[i, j] for its two columns
+//     and writes the two partial sums to a [tile step][quad][N] buffer;
+//     after the tile, o_t[j] is the sum over quads in order plus v_t[j]
+//     times sum_i r_t[i] u[i] k_t[i], that bonus taken once per step (by one
+//     warp per step, before the walk) instead of once per element.  Two
+//     barriers per tile of 32 steps, none per step; a full tile walks
+//     unrolled by 4 when checkpoints fall on tile starts.  When a gradient is
+//     wanted, the state at the start of every chunk of `chunk` steps is
+//     written to ckpt [B, H, ceil(T / chunk), N, N] straight from registers:
+//     each warp writes whole rows, so the stores are coalesced (the
+//     counterpart of the reference's chunked remat, models/scan_utils.py).
+//   * Backward: thread (p, c) owns the 2 x 4 tile of rows 2p, 2p + 1 and
+//     columns 4c .. 4c + 3 of G_t and of S_{t-1}; the N / 4 threads of a row
+//     pair are consecutive lanes, so a warp holds whole rows.  The chunks
+//     are walked in reverse.  dw_t needs S_{t-1}, produced going forward,
+//     beside G_t, produced going backward, so the states are rematerialised
+//     on chip, in two levels:
+//       1. from the chunk's saved start state (staged into shared memory by
+//          cp.async), walk the chunk forward once and keep the state at
+//          the start of each sub-chunk of kSub = 16 steps in shared memory
+//          (at most 4 states of N x N floats, 64 KB at N = 64);
+//       2. for each sub-chunk in reverse, recompute its states kReg = 8 at a
+//          time into registers (8 x 8 floats a thread) from its start state,
+//          then walk them back.
+//     The backward is a pipeline of such units (a forward pass over one
+//     sub-chunk, or the reverse walk of one), each staged one unit ahead,
+//     with two barriers per unit.  dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+//     starts as a product inside a thread.  Each step a thread's sums of dr,
+//     dk and dw over its 4 columns (6 values) are reduced over the row
+//     pair's N / 4 lanes by a butterfly that scatters as it sums (8
+//     shuffles at N = 64, each lane keeping one sum), and written to a
+//     [sub-chunk step][3][N] tile; its sums of dv over its 2 rows are
+//     reduced over the warp's row pairs the same way and go to a [sub-chunk
+//     step][warp][N] buffer.  do_t . v_t and sum_i r_t[i] u[i] k_t[i] are
+//     taken once per step before the walk.  After the sub-chunk, behind its
+//     barrier, dv is summed over the warps in order, the u terms are added,
+//     and dr, dk, dv, dw are written with coalesced stores.  S_{t-1} is
+//     never rebuilt as (S_t - k v) / w: w reaches 6.17e-4 (the decay clip of
+//     models/ssm.py), and the division would amplify rounding.  du is summed
+//     with compensation per (b, h), in reverse time, and summed over b by
+//     the caller; there are no atomics, so gradients are the same from run to
+//     run.
+// Loops over the slots of a register array take their trip counts from
+// template arguments: a loop left rolled over such an array puts it in local
+// memory (it made an earlier build of the backward three times slower).
 // Each kernel launches on the caller's stream and allocates nothing.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;      // forward: time steps staged in shared memory at once
-constexpr int kMaxChunk = 64;  // backward: steps per recomputed chunk
+constexpr int kMaxChunk = 64;               // steps per saved chunk-start state, at most
+constexpr int kTile = 32;                   // forward: steps staged at once
+constexpr int kSub = 16;                    // backward: steps per sub-chunk
+constexpr int kMarks = kMaxChunk / kSub;    // backward: sub-chunk start states kept per chunk
+constexpr int kReg = 8;                     // backward: states held in registers at once
 
 template <int N>
-__global__ void __launch_bounds__(N)
+struct Shape {
+  static constexpr int kThreads = N * N / 8;  // 8 elements of the state per thread
+  static constexpr int kWarps = kThreads / 32;
+  // Forward: a 4 x 2 tile per thread, the N / 2 threads of a row quad
+  // consecutive lanes.
+  static constexpr int kQuadLanes = N / 2;
+  static constexpr int kQuads = N / 4;
+  // Backward: a 2 x 4 tile per thread, the N / 4 threads of a row pair
+  // consecutive lanes; a warp holds 128 / N row pairs.
+  static constexpr int kPairLanes = N / 4;
+};
+
+// r, k or w of rows i .. i + 3 of a staged step (forward), the same for a
+// whole warp: one float4 load (as fast as four scalar ones, measured).
+__device__ __forceinline__ void rows4(const float* p, float (&x)[4]) {
+  const float4 y = *reinterpret_cast<const float4*>(p);
+  x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+}
+
+// One step of the recurrence on a thread's 2 x 4 tile (backward): S = w S +
+// k v, from step m of a staged tile.
+template <int N>
+__device__ __forceinline__ void advance(float (&dst)[2][4], const float (&src)[2][4], const float* bk,
+                                        const float* bw, const float* bv, int m, int i0, int j0) {
+  const float2 k2 = *reinterpret_cast<const float2*>(bk + m * N + i0);
+  const float2 w2 = *reinterpret_cast<const float2*>(bw + m * N + i0);
+  const float4 v4 = *reinterpret_cast<const float4*>(bv + m * N + j0);
+  const float kk[2] = {k2.x, k2.y}, ww[2] = {w2.x, w2.y}, vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dst[ri][c] = fmaf(ww[ri], src[ri][c], kk[ri] * vv[c]);
+}
+
+__device__ __forceinline__ void copy_tile(float (&dst)[2][4], const float (&src)[2][4]) {
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dst[ri][c] = src[ri][c];
+}
+
+// A thread's 2 x 4 tile of an N x N state in shared memory, and back.
+template <int N>
+__device__ __forceinline__ void load_tile(float (&S)[2][4], const float* src, int i0, int j0) {
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (i0 + ri) * N + j0);
+    S[ri][0] = x.x, S[ri][1] = x.y, S[ri][2] = x.z, S[ri][3] = x.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_tile(float* dst, const float (&S)[2][4], int i0, int j0) {
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+    *reinterpret_cast<float4*>(dst + (i0 + ri) * N + j0) =
+        make_float4(S[ri][0], S[ri][1], S[ri][2], S[ri][3]);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Stage steps [t0, t0 + L) of the streams picked by `mask` (bit a: src[a],
+// each [B, T, H, N] with its pair's step 0 at src[a]) into dst[a][kSteps][N].
+// Each thread copies a fixed set of elements: no loop to run at run time.
+template <int N, int kSteps, int kStreams>
+__device__ __forceinline__ void stage_tile(float* dst, const float* const (&src)[kStreams], int mask,
+                                           size_t step, int t0, int L) {
+  constexpr int kThreads = Shape<N>::kThreads;
+  static_assert(kSteps * N % kThreads == 0, "a tile splits evenly over the block");
+#pragma unroll
+  for (int e = 0; e < kSteps * N / kThreads; ++e) {
+    const int idx = threadIdx.x + e * kThreads, m = idx / N;
+    if (m < L) {
+      const size_t off = static_cast<size_t>(t0 + m) * step + idx % N;
+#pragma unroll
+      for (int a = 0; a < kStreams; ++a)
+        if (mask & (1 << a)) cp_async4(dst + a * kSteps * N + idx, src[a] + off);
+    }
+  }
+}
+
+// Sum over all 32 lanes of a warp, in a fixed order.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
+// Per step of a staged tile, one warp per step: sum_x a[s][x] * b[s][x]
+// (times c[x] when given) into out[s].
+template <int N>
+__device__ __forceinline__ void step_dots(float* out, const float* a, const float* b, const float* c,
+                                          int L) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int s = warp; s < L; s += Shape<N>::kWarps) {
+    float acc = 0.f;
+#pragma unroll
+    for (int x = lane; x < N; x += 32) {
+      acc += c != nullptr ? a[s * N + x] * c[x] * b[s * N + x] : a[s * N + x] * b[s * N + x];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) out[s] = acc;
+  }
+}
+
+// p ? a : b as one selp.  A plain select between two elements of an array
+// can be turned into a load from a computed index, which puts the array in
+// local memory.
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r) : "f"(a), "f"(b), "r"(static_cast<int>(p)));
+  return r;
+}
+
+// One level of a reduce-scatter over lanes: lanes whose bit kMask is set
+// keep the upper kHalf of their slots, the others the lower, each adding the
+// partner lane's copy; `base` gathers the first slot a lane keeps.  The trip
+// count is a template argument, so the loop unrolls and v stays in registers.
+template <int kHalf, int kMask, int kSize>
+__device__ __forceinline__ void halve(float (&v)[kSize], int lane, int& base) {
+  const bool upper = (lane & kMask) != 0;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) {
+    const float lo = v[k], hi = v[k + kHalf];
+    v[k] = select(upper, hi, lo) + __shfl_xor_sync(0xffffffffu, select(upper, lo, hi), kMask);
+  }
+  base += upper ? kHalf : 0;
+}
+
+// The backward's sums over j: v[0..7] summed over the N / 4 lanes of a row
+// pair (masks N / 8, N / 16, ...), each lane keeping slots v[0 .. kRowHeld)
+// from the returned slot on; at N = 64 lanes 2s and 2s + 1 both hold slot s.
+template <int N>
+constexpr int kRowHeld = N == 16 ? 2 : 1;
+
+template <int N>
+__device__ __forceinline__ int row_reduce(float (&v)[8], int lane) {
+  int base = 0;
+  halve<4, N / 8>(v, lane, base);
+  halve<2, N / 16>(v, lane, base);
+  if constexpr (N >= 32) halve<1, N / 32>(v, lane, base);
+  if constexpr (N == 64) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return base;
+}
+
+// The backward's sums over i inside a warp: v[0..3] (four columns) summed
+// over the warp's 128 / N row pairs (masks N / 4, N / 2, ...), each lane
+// keeping columns v[0 .. kColHeld) from the returned one on; at N = 16 lanes
+// l and l ^ 16 both hold the same column.
+template <int N>
+constexpr int kColHeld = N == 64 ? 2 : 1;
+
+template <int N>
+__device__ __forceinline__ int col_reduce(float (&v)[4], int lane) {
+  int base = 0;
+  halve<2, N / 4>(v, lane, base);
+  if constexpr (N <= 32) halve<1, N / 2>(v, lane, base);
+  if constexpr (N == 16) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
+  return base;
+}
+
+// ------------------------------------------------------------------ forward
+template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
     rwkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ w,
                      const float* __restrict__ u, const float* __restrict__ s0,
                      float* __restrict__ o, float* __restrict__ s_out,
                      float* __restrict__ ckpt, int T, int H, int chunk) {
-  __shared__ float sr[kTile][N], sk[kTile][N], sv[kTile][N], sw[kTile][N];
-  __shared__ float su[N];
-  const int h = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
-  const size_t step = static_cast<size_t>(H) * N;  // stride of one time step
-  const size_t base = static_cast<size_t>(b) * T * step + static_cast<size_t>(h) * N;
-  const size_t pair = static_cast<size_t>(b) * H + h;
-  const int nc = (T + chunk - 1) / chunk;
+  using Sh = Shape<N>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* buf = smem;                             // [2][4: r, k, v, w][kTile][N]
+  float* part = buf + 2 * 4 * kTile * N;         // [kTile][kQuads][N]: o's partial sums by quad
+  float* ruk = part + kTile * Sh::kQuads * N;    // [2][kTile]: sum_i r u k per step
+  float* su = ruk + 2 * kTile;                   // [N]
 
-  float S[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) S[i] = s0 != nullptr ? s0[pair * N * N + i * N + j] : 0.f;
-  su[j] = u[h * N + j];
-
-  for (int t0 = 0; t0 < T; t0 += kTile) {
-    const int L = min(kTile, T - t0);
-    __syncthreads();  // every thread is done with the previous tile
-#pragma unroll 8
-    for (int s = 0; s < L; ++s) {
-      const size_t off = base + static_cast<size_t>(t0 + s) * step + j;
-      sr[s][j] = r[off];
-      sk[s][j] = k[off];
-      sv[s][j] = v[off];
-      sw[s][j] = w[off];
-    }
-    __syncthreads();
-    for (int s = 0; s < L; ++s) {
-      const int t = t0 + s;
-      if (ckpt != nullptr && t % chunk == 0) {
-        float* c = ckpt + (pair * nc + t / chunk) * N * N + j;
-#pragma unroll
-        for (int i = 0; i < N; ++i) c[i * N] = S[i];
-      }
-      const float vj = sv[s][j];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four chains: the sum is a short dependent chain
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float kv = sk[s][i] * vj;
-        acc[i & 3] += sr[s][i] * (S[i] + su[i] * kv);
-        S[i] = sw[s][i] * S[i] + kv;
-      }
-      o[base + static_cast<size_t>(t) * step + j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) s_out[pair * N * N + i * N + j] = S[i];
-}
-
-template <int N>
-__global__ void __launch_bounds__(N)
-    rwkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ u, const float* __restrict__ dout,
-                     const float* __restrict__ ckpt, const float* __restrict__ ds_final,
-                     float* __restrict__ scratch, float* __restrict__ dr, float* __restrict__ dk,
-                     float* __restrict__ dv, float* __restrict__ dw, float* __restrict__ du_part,
-                     float* __restrict__ ds0, int T, int H, int chunk) {
-  extern __shared__ float smem[];
-  float* sr = smem;  // [chunk][N] each
-  float* sk = sr + chunk * N;
-  float* sv = sk + chunk * N;
-  float* sw = sv + chunk * N;
-  float* sdo = sw + chunk * N;
-  float* su = sdo + chunk * N;  // [N]
-  float* P = su + N;            // [2][N][N + 1]: G_t[i, j] k_t[i] at P[j * (N + 1) + i]
-
-  const int h = blockIdx.x, b = blockIdx.y, i = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int q = tid / Sh::kQuadLanes, i0 = 4 * q, j0 = 2 * (tid % Sh::kQuadLanes);
   const size_t step = static_cast<size_t>(H) * N;
   const size_t base = static_cast<size_t>(b) * T * step + static_cast<size_t>(h) * N;
   const size_t pair = static_cast<size_t>(b) * H + h;
   const int nc = (T + chunk - 1) / chunk;
-  float* scr = scratch + pair * chunk * N * N + i;  // S_{t-1}[i, j] at scr[(s * N + j) * N]
+  const int ntiles = (T + kTile - 1) / kTile;
+  const float* const streams[4] = {r + base, k + base, v + base, w + base};
+  // Checkpoints fall only on tile starts when a chunk is whole tiles long
+  // (the LM path's 64): then a full tile's walk has no branch in it.
+  const bool ck_at_tiles = ckpt == nullptr || chunk % kTile == 0;
 
-  su[i] = u[h * N + i];
-  const float ui = u[h * N + i];
-  float G[N];
+  for (int x = tid; x < N; x += Sh::kThreads) su[x] = u[h * N + x];
+  float S[4][2];
 #pragma unroll
-  for (int j = 0; j < N; ++j) G[j] = ds_final != nullptr ? ds_final[pair * N * N + i * N + j] : 0.f;
-  // du sums 4,096 steps per thread at the LM path's shape: compensated
-  // (Kahan) summation keeps its rounding near one ulp of the result, where a
-  // plain running sum of partial sums that wander far from the result
-  // would lose about 1e-4.
-  float du_acc = 0.f, du_err = 0.f;
-  int parity = 0;
-
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * chunk;
-    const int L = min(chunk, T - t0);
-    __syncthreads();  // every thread is done with the previous chunk's tiles
-    for (int s = 0; s < L; ++s) {
-      const size_t off = base + static_cast<size_t>(t0 + s) * step + i;
-      sr[s * N + i] = r[off];
-      sk[s * N + i] = k[off];
-      sv[s * N + i] = v[off];
-      sw[s * N + i] = w[off];
-      sdo[s * N + i] = dout[off];
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      S[ri][c] = s0 != nullptr ? s0[pair * N * N + (i0 + ri) * N + j0 + c] : 0.f;
+  auto save_state = [&](int t) {
+    float* dst = ckpt + (pair * nc + t / chunk) * N * N;
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri)
+      *reinterpret_cast<float2*>(dst + (i0 + ri) * N + j0) = make_float2(S[ri][0], S[ri][1]);
+  };
+  // o of a walked tile: its partial sums by quad in order, plus v times the bonus.
+  auto flush = [&](int t0, int L, const float* bv, const float* rk) {
+#pragma unroll
+    for (int e = 0; e < kTile * N / Sh::kThreads; ++e) {
+      const int idx = tid + e * Sh::kThreads, s = idx / N, x = idx % N;
+      if (s < L) {
+        float acc = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < Sh::kQuads; ++qq) acc += part[(s * Sh::kQuads + qq) * N + x];
+        o[base + static_cast<size_t>(t0 + s) * step + x] = fmaf(bv[idx], rk[s], acc);
+      }
     }
-    __syncthreads();
+  };
 
-    // The chunk's states S_{t-1}, row i, forward from its saved start state.
-    {
-      float S[N];
-      const float* cp = ckpt + (pair * nc + c) * N * N + static_cast<size_t>(i) * N;
+  stage_tile<N, kTile>(buf, streams, 0xf, step, 0, min(kTile, T));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  int next_ck = 0;  // the next step whose start state goes to ckpt
+  for (int n = 0; n < ntiles; ++n) {
+    const int p = n & 1, t0 = n * kTile, L = min(kTile, T - t0);
+    const float* cur = buf + p * 4 * kTile * N;
+    const float *br = cur, *bk = cur + kTile * N, *bv = cur + 2 * kTile * N,
+                *bw = cur + 3 * kTile * N;
+    if (n > 0) {
+      flush(t0 - kTile, kTile, buf + (p ^ 1) * 4 * kTile * N + 2 * kTile * N, ruk + (p ^ 1) * kTile);
+    }
+    step_dots<N>(ruk + p * kTile, br, bk, su, L);
+    __syncthreads();  // the bonus is in; the previous tile's buffers are free
+
+    if (n + 1 < ntiles) {
+      stage_tile<N, kTile>(buf + (p ^ 1) * 4 * kTile * N, streams, 0xf, step, t0 + kTile,
+                           min(kTile, T - t0 - kTile));
+      cp_async_commit();
+    }
+    auto walk = [&](int s) {
+      float rr[4], kk[4], ww[4];
+      rows4(br + s * N + i0, rr);
+      rows4(bk + s * N + i0, kk);
+      rows4(bw + s * N + i0, ww);
+      const float2 v2 = *reinterpret_cast<const float2*>(bv + s * N + j0);
+      const float vv[2] = {v2.x, v2.y};
+      float acc[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < N; ++j) S[j] = cp[j];
+      for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          acc[c] = fmaf(rr[ri], S[ri][c], acc[c]);
+          S[ri][c] = fmaf(ww[ri], S[ri][c], kk[ri] * vv[c]);
+        }
+      *reinterpret_cast<float2*>(part + (s * Sh::kQuads + q) * N + j0) = make_float2(acc[0], acc[1]);
+    };
+    if (ck_at_tiles && L == kTile) {
+      if (ckpt != nullptr && t0 == next_ck) {
+        save_state(t0);
+        next_ck += chunk;
+      }
+#pragma unroll 4
+      for (int s = 0; s < kTile; ++s) walk(s);
+    } else {
       for (int s = 0; s < L; ++s) {
-        float* dst = scr + static_cast<size_t>(s) * N * N;
-        const float ki = sk[s * N + i], wi = sw[s * N + i];
+        if (ckpt != nullptr && t0 + s == next_ck) {
+          save_state(t0 + s);
+          next_ck += chunk;
+        }
+        walk(s);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile is staged; this tile's partial sums are complete
+  }
+  {
+    const int p = (ntiles - 1) & 1, t0 = (ntiles - 1) * kTile;
+    flush(t0, T - t0, buf + p * 4 * kTile * N + 2 * kTile * N, ruk + p * kTile);
+  }
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          dst[j * N] = S[j];
-          const float kv = ki * sv[s * N + j];
-          S[j] = wi * S[j] + kv;
+  for (int ri = 0; ri < 4; ++ri)
+    *reinterpret_cast<float2*>(s_out + pair * N * N + (i0 + ri) * N + j0) =
+        make_float2(S[ri][0], S[ri][1]);
+}
+
+// ----------------------------------------------------------------- backward
+// One unit of the backward's pipeline: a forward pass over sub-chunk s of
+// chunk c that leaves the start state of sub-chunk s + 1 in shared memory
+// (fwd), or the reverse walk of sub-chunk s (!fwd).  For each chunk, from
+// the last: forward passes over sub-chunks 0 .. ns - 2, then the reverse
+// walks of ns - 1 .. 0.  `first` marks a chunk's first unit, whose staging
+// also brings the chunk's saved start state.
+struct Unit {
+  int c, s;
+  bool fwd, first;
+};
+
+__device__ __forceinline__ int n_sub(int c, int T, int chunk) {
+  return (min(chunk, T - c * chunk) + kSub - 1) / kSub;
+}
+
+__device__ __forceinline__ Unit chunk_start(int c, int T, int chunk) {
+  return n_sub(c, T, chunk) > 1 ? Unit{c, 0, true, true} : Unit{c, 0, false, true};
+}
+
+__device__ __forceinline__ bool next_unit(Unit& u, int T, int chunk) {
+  const int ns = n_sub(u.c, T, chunk);
+  if (u.fwd) {
+    u = u.s + 1 < ns - 1 ? Unit{u.c, u.s + 1, true, false} : Unit{u.c, ns - 1, false, false};
+    return true;
+  }
+  if (u.s > 0) {
+    u = Unit{u.c, u.s - 1, false, false};
+    return true;
+  }
+  if (u.c == 0) return false;
+  u = chunk_start(u.c - 1, T, chunk);
+  return true;
+}
+
+template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
+    rwkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ dout,
+                     const float* __restrict__ ckpt, const float* __restrict__ ds_final,
+                     float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dw, float* __restrict__ du_part,
+                     float* __restrict__ ds0, int T, int H, int chunk) {
+  using Sh = Shape<N>;
+  constexpr int kRes = N + 4;  // padded row of the dr / dk / dw tile
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* marks = smem;                            // [kMarks][N][N]: sub-chunk start states
+  float* buf = marks + kMarks * N * N;            // [2][5: r, k, v, w, dO][kSub][N]
+  float* dvp = buf + 2 * 5 * kSub * N;            // [kSub][kWarps][N]: dv's partial sums by warp
+  float* res = dvp + kSub * Sh::kWarps * N;       // [kSub][3: dr, dk, dw][kRes]
+  float* dots = res + kSub * 3 * kRes;            // [2][2: do . v, sum r u k][kSub]
+  float* su = dots + 2 * 2 * kSub;                // [N]
+
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int i0 = 2 * (tid / Sh::kPairLanes), j0 = 4 * (tid % Sh::kPairLanes);
+  const size_t step = static_cast<size_t>(H) * N;
+  const size_t base = static_cast<size_t>(b) * T * step + static_cast<size_t>(h) * N;
+  const size_t pair = static_cast<size_t>(b) * H + h;
+  const int nc = (T + chunk - 1) / chunk;
+  const float* const streams[5] = {r + base, k + base, v + base, w + base, dout + base};
+
+  for (int x = tid; x < N; x += Sh::kThreads) su[x] = u[h * N + x];
+  float G[2][4];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      G[ri][c] = ds_final != nullptr ? ds_final[pair * N * N + (i0 + ri) * N + j0 + c] : 0.f;
+  // du sums 4,096 steps per row at the LM path's shape: compensated (Kahan)
+  // summation keeps its rounding near one ulp of the result, where a plain
+  // running sum of partial sums that wander far from the result would lose
+  // about 1e-4.  Thread x < N owns du[x].
+  float du_acc = 0.f, du_err = 0.f;
+
+  // A unit's first step and its number of steps.
+  auto start = [&](const Unit& un) { return un.c * chunk + un.s * kSub; };
+  auto length = [&](const Unit& un) {
+    return min(kSub, min(chunk, T - un.c * chunk) - un.s * kSub);
+  };
+  // A unit's streams (a forward pass needs k, v, w only) and, for a chunk's
+  // first unit, the chunk's saved start state into marks[0].
+  auto stage = [&](const Unit& un, float* dst) {
+    stage_tile<N, kSub>(dst, streams, un.fwd ? 0xe : 0x1f, step, start(un), length(un));
+    if (un.first) {
+      const float* src = ckpt + (pair * nc + un.c) * N * N;
+#pragma unroll
+      for (int e = 0; e < N * N / Sh::kThreads; ++e) {
+        const int idx = tid + e * Sh::kThreads;
+        cp_async4(marks + idx, src + idx);
+      }
+    }
+    cp_async_commit();
+  };
+  // dr, dk, dv, dw of a walked sub-chunk, and its du terms.
+  auto flush = [&](const Unit& un, const float* st, const float* dd) {
+    const int ts = start(un), L = length(un);
+    const float *br = st, *bk = st + kSub * N, *bo = st + 4 * kSub * N;
+#pragma unroll
+    for (int e = 0; e < kSub * N / Sh::kThreads; ++e) {
+      const int idx = tid + e * Sh::kThreads, m = idx / N, x = idx % N;
+      if (m < L) {
+        float acc = 0.f;
+#pragma unroll
+        for (int wq = 0; wq < Sh::kWarps; ++wq) acc += dvp[(m * Sh::kWarps + wq) * N + x];
+        const float dov = dd[m], ux = su[x];
+        const size_t off = base + static_cast<size_t>(ts + m) * step + x;
+        dv[off] = fmaf(bo[idx], dd[kSub + m], acc);
+        dr[off] = fmaf(ux * bk[idx], dov, res[(m * 3 + 0) * kRes + x]);
+        dk[off] = fmaf(ux * br[idx], dov, res[(m * 3 + 1) * kRes + x]);
+        dw[off] = res[(m * 3 + 2) * kRes + x];
+      }
+    }
+    if (tid < N) {
+      for (int m = L - 1; m >= 0; --m) {
+        const float du_term = br[m * N + tid] * bk[m * N + tid] * dd[m] - du_err;
+        const float du_next = du_acc + du_term;
+        du_err = (du_next - du_acc) - du_term;
+        du_acc = du_next;
+      }
+    }
+  };
+
+  Unit cur = chunk_start(nc - 1, T, chunk);
+  stage(cur, buf);
+  cp_async_wait_all();
+  __syncthreads();
+
+  Unit prev{0, 0, true, false};
+  int n = 0;
+  for (;;) {
+    const int p = n & 1;
+    const float* st = buf + p * 5 * kSub * N;
+    const float *br = st, *bk = st + kSub * N, *bv = st + 2 * kSub * N, *bw = st + 3 * kSub * N,
+                *bo = st + 4 * kSub * N;
+    const int L = length(cur);
+    if (!prev.fwd) flush(prev, buf + (p ^ 1) * 5 * kSub * N, dots + (p ^ 1) * 2 * kSub);
+
+    if (!cur.fwd) {
+      step_dots<N>(dots + p * 2 * kSub, bo, bv, nullptr, L);
+      step_dots<N>(dots + p * 2 * kSub + kSub, br, bk, su, L);
+    }
+    // The unit's start state, read before the barrier: the staging that
+    // follows it may bring the next chunk's start state into marks[0].
+    float M[2][4];
+    load_tile<N>(M, marks + cur.s * N * N, i0, j0);
+    __syncthreads();  // the step dots are in; the previous unit's buffers are free
+
+    Unit nxt = cur;
+    const bool more = next_unit(nxt, T, chunk);
+    if (more) stage(nxt, buf + (p ^ 1) * 5 * kSub * N);
+
+    if (cur.fwd) {
+      for (int m = 0; m < L; ++m) advance<N>(M, M, bk, bw, bv, m, i0, j0);
+      store_tile<N>(marks + (cur.s + 1) * N * N, M, i0, j0);
+    } else {
+      // kReg steps at a time, from the last: S[m] is the state before the
+      // sub-chunk's step hs + m, recomputed from its start state.
+      for (int hs = (L - 1) / kReg * kReg; hs >= 0; hs -= kReg) {
+        float S[kReg][2][4];
+        copy_tile(S[0], M);
+        for (int m = 0; m < hs; ++m) advance<N>(S[0], S[0], bk, bw, bv, m, i0, j0);
+#pragma unroll
+        for (int m = 1; m < kReg; ++m)
+          if (hs + m < L) advance<N>(S[m], S[m - 1], bk, bw, bv, hs + m - 1, i0, j0);
+#pragma unroll
+        for (int m = kReg - 1; m >= 0; --m) {
+          const int ms = hs + m;  // the step within the sub-chunk
+          if (ms >= L) continue;
+          const float2 r2 = *reinterpret_cast<const float2*>(br + ms * N + i0);
+          const float2 k2 = *reinterpret_cast<const float2*>(bk + ms * N + i0);
+          const float2 w2 = *reinterpret_cast<const float2*>(bw + ms * N + i0);
+          const float4 v4 = *reinterpret_cast<const float4*>(bv + ms * N + j0);
+          const float4 o4 = *reinterpret_cast<const float4*>(bo + ms * N + j0);
+          const float rr[2] = {r2.x, r2.y}, kk[2] = {k2.x, k2.y}, ww[2] = {w2.x, w2.y},
+                      vv[4] = {v4.x, v4.y, v4.z, v4.w}, oo[4] = {o4.x, o4.y, o4.z, o4.w};
+          // dr, dk, dw of rows i0, i0 + 1 over this thread's 4 columns, in
+          // slot 2 q + row; dv of its columns over its 2 rows.
+          float sums[8], dvs[4];
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri) {
+            const float(&s4)[4] = S[m][ri];
+            const float(&g4)[4] = G[ri];
+            float a = oo[0] * s4[0], bb = g4[0] * vv[0], c = g4[0] * s4[0];
+#pragma unroll
+            for (int x = 1; x < 4; ++x) {
+              a = fmaf(oo[x], s4[x], a);
+              bb = fmaf(g4[x], vv[x], bb);
+              c = fmaf(g4[x], s4[x], c);
+            }
+            sums[ri] = a;
+            sums[2 + ri] = bb;
+            sums[4 + ri] = c;
+          }
+#pragma unroll
+          for (int x = 0; x < 4; ++x) dvs[x] = fmaf(G[1][x], kk[1], G[0][x] * kk[0]);
+#pragma unroll
+          for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) G[ri][x] = fmaf(ww[ri], G[ri][x], rr[ri] * oo[x]);
+          sums[6] = sums[7] = 0.f;
+          const int slot = row_reduce<N>(sums, lane);
+          const bool row_leader = N != 64 || (lane & 1) == 0;
+#pragma unroll
+          for (int x = 0; x < kRowHeld<N>; ++x) {
+            const int sl = slot + x;
+            if (row_leader && sl < 6) res[(ms * 3 + sl / 2) * kRes + i0 + sl % 2] = sums[x];
+          }
+          const int col = j0 + col_reduce<N>(dvs, lane);
+          float* dst = dvp + (ms * Sh::kWarps + warp) * N + col;
+          if constexpr (N == 64) {
+            *reinterpret_cast<float2*>(dst) = make_float2(dvs[0], dvs[1]);
+          } else if (N == 32 || lane < 16) {
+            *dst = dvs[0];
+          }
         }
       }
     }
+    cp_async_wait_all();
+    __syncthreads();  // the next unit is staged; this unit's sums are complete
 
-    for (int s = L - 1; s >= 0; --s) {
-      const float* ps = scr + static_cast<size_t>(s) * N * N;
-      const float* rs = sr + s * N;
-      const float* ks = sk + s * N;
-      const float* vs = sv + s * N;
-      const float* dos = sdo + s * N;
-      const float ri = rs[i], ki = ks[i], wi = sw[s * N + i];
-      float dov = 0.f, ruk = 0.f;  // do_t . v_t and sum_q r_t[q] u[q] k_t[q], the same in every thread
-#pragma unroll
-      for (int q = 0; q < N; ++q) {
-        dov += dos[q] * vs[q];
-        ruk += rs[q] * su[q] * ks[q];
-      }
-      float* Pc = P + parity * N * (N + 1);
-      float a = 0.f, bsum = 0.f, csum = 0.f;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float sij = ps[j * N];
-        const float gj = G[j];
-        const float doj = dos[j];
-        a += doj * sij;
-        bsum += gj * vs[j];
-        csum += gj * sij;
-        Pc[j * (N + 1) + i] = gj * ki;
-        G[j] = wi * gj + ri * doj;
-      }
-      const size_t off = base + static_cast<size_t>(t0 + s) * step + i;
-      dr[off] = a + ui * ki * dov;
-      dk[off] = bsum + ui * ri * dov;
-      dw[off] = csum;
-      const float du_term = ri * ki * dov - du_err;
-      const float du_next = du_acc + du_term;
-      du_err = (du_next - du_acc) - du_term;
-      du_acc = du_next;
-      __syncthreads();  // P of this step is complete
-      float dvi = 0.f;  // thread i sums column i of P: dv_t[i]
-#pragma unroll 8
-      for (int q = 0; q < N; ++q) dvi += Pc[i * (N + 1) + q];
-      dv[off] = dvi + dos[i] * ruk;
-      parity ^= 1;  // the next step writes the other buffer
-    }
+    prev = cur;
+    if (!more) break;
+    cur = nxt;
+    ++n;
   }
-  du_part[pair * N + i] = du_acc;
+  flush(prev, buf + (n & 1) * 5 * kSub * N, dots + (n & 1) * 2 * kSub);
+  if (tid < N) du_part[pair * N + tid] = du_acc;
   if (ds0 != nullptr) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) ds0[pair * N * N + static_cast<size_t>(i) * N + j] = G[j];
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ds0[pair * N * N + (i0 + ri) * N + j0 + c] = G[ri][c];
   }
+}
+
+// Dynamic shared memory of each kernel, in bytes.
+template <int N>
+constexpr size_t fwd_smem() {
+  return (2 * 4 * kTile * N + kTile * Shape<N>::kQuads * N + 2 * kTile + N) * sizeof(float);
+}
+
+template <int N>
+constexpr size_t bwd_smem() {
+  return (kMarks * N * N + 2 * 5 * kSub * N + kSub * Shape<N>::kWarps * N + kSub * 3 * (N + 4) +
+          2 * 2 * kSub + N) * sizeof(float);
 }
 
 bool bad_shape(int B, int T, int H, int N, int chunk) {
@@ -246,22 +657,28 @@ template <int N>
 cudaError_t fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
                 const float* s0, float* o, float* s_out, float* ckpt, int B, int T, int H,
                 int chunk, cudaStream_t st) {
-  rwkv6_fwd_kernel<N><<<dim3(H, B), N, 0, st>>>(r, k, v, w, u, s0, o, s_out, ckpt, T, H, chunk);
+  constexpr size_t smem = fwd_smem<N>();
+  cudaError_t err = cudaFuncSetAttribute(rwkv6_fwd_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  rwkv6_fwd_kernel<N><<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(r, k, v, w, u, s0, o, s_out,
+                                                                    ckpt, T, H, chunk);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t bwd(const float* r, const float* k, const float* v, const float* w, const float* u,
-                const float* dout, const float* ckpt, const float* ds_final, float* scratch,
-                float* dr, float* dk, float* dv, float* dw, float* du_part, float* ds0, int B,
-                int T, int H, int chunk, cudaStream_t st) {
-  const size_t smem = (5 * static_cast<size_t>(chunk) * N + N + 2 * N * (N + 1)) * sizeof(float);
+                const float* dout, const float* ckpt, const float* ds_final, float* dr, float* dk,
+                float* dv, float* dw, float* du_part, float* ds0, int B, int T, int H, int chunk,
+                cudaStream_t st) {
+  constexpr size_t smem = bwd_smem<N>();
   cudaError_t err = cudaFuncSetAttribute(rwkv6_bwd_kernel<N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  rwkv6_bwd_kernel<N><<<dim3(H, B), N, smem, st>>>(r, k, v, w, u, dout, ckpt, ds_final, scratch,
-                                                   dr, dk, dv, dw, du_part, ds0, T, H, chunk);
+  rwkv6_bwd_kernel<N><<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(
+      r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, T, H, chunk);
   return cudaGetLastError();
 }
 
@@ -292,15 +709,14 @@ extern "C" int rwkv6_fwd_launch(const void* r, const void* k, const void* v, con
 }
 
 // Backward: from r, k, v, w, u, dout, the forward's ckpt and the final
-// state's gradient ds_final (null: zeros), with `scratch` a
-// [B,H,chunk,N,N] buffer, write dr, dk, dv, dw [B,T,H,N], du_part [B,H,N]
-// (du summed over b by the caller) and, when ds0 is non-null, the start
-// state's gradient [B,H,N,N].
+// state's gradient ds_final (null: zeros), write dr, dk, dv, dw [B,T,H,N],
+// du_part [B,H,N] (du summed over b by the caller) and, when ds0 is
+// non-null, the start state's gradient [B,H,N,N].
 extern "C" int rwkv6_bwd_launch(const void* r, const void* k, const void* v, const void* w,
                                 const void* u, const void* dout, const void* ckpt,
-                                const void* ds_final, void* scratch, void* dr, void* dk,
-                                void* dv, void* dw, void* du_part, void* ds0, int B, int T, int H,
-                                int N, int chunk, void* stream) {
+                                const void* ds_final, void* dr, void* dk, void* dv, void* dw,
+                                void* du_part, void* ds0, int B, int T, int H, int N, int chunk,
+                                void* stream) {
   if (bad_shape(B, T, H, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* rp = static_cast<const float*>(r);
   const auto* kp = static_cast<const float*>(k);
@@ -310,7 +726,6 @@ extern "C" int rwkv6_bwd_launch(const void* r, const void* k, const void* v, con
   const auto* gp = static_cast<const float*>(dout);
   const auto* cp = static_cast<const float*>(ckpt);
   const auto* fp = static_cast<const float*>(ds_final);
-  auto* scr = static_cast<float*>(scratch);
   auto* drp = static_cast<float*>(dr);
   auto* dkp = static_cast<float*>(dk);
   auto* dvp = static_cast<float*>(dv);
@@ -320,13 +735,10 @@ extern "C" int rwkv6_bwd_launch(const void* r, const void* k, const void* v, con
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (N == 16)
-    err = bwd<16>(rp, kp, vp, wp, up, gp, cp, fp, scr, drp, dkp, dvp, dwp, dup, d0p, B, T, H,
-                  chunk, st);
+    err = bwd<16>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
   else if (N == 32)
-    err = bwd<32>(rp, kp, vp, wp, up, gp, cp, fp, scr, drp, dkp, dvp, dwp, dup, d0p, B, T, H,
-                  chunk, st);
+    err = bwd<32>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
   else
-    err = bwd<64>(rp, kp, vp, wp, up, gp, cp, fp, scr, drp, dkp, dvp, dwp, dup, d0p, B, T, H,
-                  chunk, st);
+    err = bwd<64>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
   return static_cast<int>(err);
 }

@@ -165,13 +165,12 @@ def rwkv6_bwd_cuda(
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device) if want_ds0 else None
-    scratch = torch.empty((B, H, chunk, N, N), dtype=torch.float32, device=r.device)
     lib = load_library()
     with torch.cuda.device(r.device):
         rc = lib.rwkv6_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             dout.data_ptr(), ckpt.data_ptr(),
-            ds_final.data_ptr() if ds_final is not None else None, scratch.data_ptr(),
+            ds_final.data_ptr() if ds_final is not None else None,
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
             ds0.data_ptr() if ds0 is not None else None, B, T, H, N, chunk,
             torch.cuda.current_stream(r.device).cuda_stream,
