@@ -23,9 +23,13 @@ phase that fails, and then prints no result line):
    the surrogate forward + autograd
    backward at [128, 151936] (the LM learner's vocabulary), CartPole's
    [256, 2], the APPO learner's [512, 2] and [65536, 18], with rows whose
-   ratio is exactly 1 and rows exactly on the clip boundary; decode attention at the RLHF path's [8, 1, 20, 128] x
-   W = 256 with a ragged per-lane mask, GQA 40/8 at W = 4096, an
-   all-invalid row (exact zeros) and a ragged W; flash attention forward at
+   ratio is exactly 1 and rows exactly on the clip boundary, the backward
+   fed the forward's saved row logsumexp and entropy and timed alone;
+   decode attention at the RLHF path's [8, 1, 20, 128] x
+   W = 256 with a ragged per-lane mask and with a wrapped ring-buffer mask,
+   GQA 40/8 at W = 4096, an all-invalid row (exact zeros) and a ragged W,
+   each bitwise equal across two calls, with the splits and grid the
+   wrapper chose; flash attention forward at
    the learner's [128, 256, 20, 128], the bootstrap's [256, 256, 20, 128],
    the prefill's sliding window, GQA 40/8 at S = 2048 with a 512 window and
    with a q_offset, a ragged S, and Phi-3.5-MoE's [2, 4096, 32/8, 128]; its
@@ -69,7 +73,9 @@ phase that fails, and then prints no result line):
    ``Algorithm.from_plan("ppo_lm")``, ``RLHF_ITERS`` ``train()`` iterations
    with KV-cache rollouts; counters zeroed just before and read just after
    and checked against the configuration, the decode-vs-forward logits gap,
-   peak memory, seconds per iteration and the device's idle share;
+   peak memory, seconds per iteration and the device's idle share, and the
+   device ms per decode step of the KV-cache rewrite beside the decode
+   attention kernel's, from a profile of one rollout;
 8. V-trace learner parity: one ``learn_on_batch`` (SGD, lr 1) of an IMPALA
    worker on a 512-row batch concatenated from 4 samples, on the card and
    on the CPU from the same weights, agrees to 1e-4;
@@ -101,6 +107,11 @@ phase that fails, and then prints no result line):
    profiled last step;
 14. main path 7: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
    layers.
+
+``decode_attention``'s launch count is one per wrapper call, which is one
+CUDA launch: the last block of each group merges the splits (the variant
+that merges them in a second kernel lives in ``kernels/decode_variants.py``
+and is never counted).
 
 Then one JSON line with every kernel's launches, error, times, bound and
 library time (at the first case's shape, and under ``cases_by_path`` at
@@ -709,15 +720,19 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
         lambda: surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps),
         plain_fwd, plain_iters=plain_iters,
     )
+    # The backward alone, fed the forward's saved row logsumexp and entropy.
+    _, _, ent, _, lse = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
     bwd_t = _timings(
-        lambda: surrogate_bwd_cuda(logits, actions, values, blp, adv, ret, *cots, clip_eps),
+        lambda: surrogate_bwd_cuda(logits, actions, values, blp, adv, ret, lse, ent, *cots,
+                                   clip_eps),
         lambda: torch.autograd.grad(plain_terms, xs, grad_outputs=cots, retain_graph=True),
         plain_iters=plain_iters,
     )
 
     row_in = 4 * 4 + 8  # four float [B] vectors and the int64 action
-    fwd_bytes = B * (4 * A + row_in) + B * 4 * 4
-    bwd_bytes = B * (4 * A + row_in + 4 * 4) + B * (4 * A + 4 * 4)
+    fwd_bytes = B * (4 * A + row_in) + B * 5 * 4  # pg, vf, ent, kl and lse out
+    # In: logits, the row inputs, the saved lse and ent, four cotangents.
+    bwd_bytes = B * (4 * A + row_in + 2 * 4 + 4 * 4) + B * (4 * A + 4 * 4)
     fwd_bound = _bound_ms(fwd_bytes, B * (6 * A + 20))
     bwd_bound = _bound_ms(bwd_bytes, B * (16 * A + 40))
     shape = [B, A]
@@ -762,13 +777,20 @@ def _randn(g, *shape):
 
 
 def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) -> dict:
-    """``mode``: "ragged" (per-lane [B, W] lengths in [1, W]), "empty_row"
-    (ragged, lane 1 has no valid slot and must give exact zeros) or
-    "shared" (one [W] mask)."""
+    """``mode``: "ragged" (per-lane [B, W] lengths in [1, W]), "ring" (a
+    wrapped ring buffer: lane b holds slots [start_b, start_b + len_b) mod W,
+    not a prefix), "empty_row" (ragged, lane 1 has no valid slot and must
+    give exact zeros) or "shared" (one [W] mask).  The kernel's output must
+    be bitwise equal across two calls."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+        decode_splits,
+        heads_per_block,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, kc, vc = _randn(g, B, 1, H, D), _randn(g, B, W, KV, D), _randn(g, B, W, KV, D)
@@ -778,22 +800,33 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) 
     else:
         lens = torch.randint(1, W + 1, (B,), generator=g, device="cuda")
         valid = pos[None] < lens[:, None]
+        if mode == "ring":
+            start = torch.randint(1, W, (B,), generator=g, device="cuda")
+            valid = (pos[None] - start[:, None]) % W < lens[:, None]
         if mode == "empty_row":
             valid[1] = False
     got = decode_attention_cuda(q, kc, vc, valid)
+    again = decode_attention_cuda(q, kc, vc, valid)
     want = decode_attention_plain(q, kc, vc, valid)
     torch.cuda.synchronize()
-    err = _close(f"decode_attention[{B},1,{H},{D}] W={W} {mode}", got, want)
+    name = f"decode_attention[{B},1,{H},{D}] W={W} {mode}"
+    err = _close(name, got, want)
+    _require(torch.equal(got, again), f"{name}: two calls differ (not bitwise repeatable)")
     if mode == "empty_row":
         _require(bool((got[1] == 0).all()), "decode_attention: an all-invalid row is not exactly 0")
+    g_ = H // KV
+    splits = decode_splits(B, KV, g_, D, W)
+    grid = [B, KV, -(-g_ // heads_per_block(g_)), splits]
+    print(f"  {name}: splits {splits}, grid (B, KV, head chunks, splits) {grid}, "
+          f"{math.prod(grid)} blocks")
     n_valid = int(valid.sum()) * (B if valid.dim() == 1 else 1)
     nbytes = (2 * B * H * D + 2 * n_valid * KV * D) * 4 + valid.numel()
     bound, by = _bound_ms(nbytes, 4 * H * D * n_valid)
     mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     out = {
-        "shape": [B, 1, H, KV, D, W], "mode": mode, "max_abs_err": err,
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "shape": [B, 1, H, KV, D, W], "mode": mode, "max_abs_err": err, "bitwise_repeatable": True,
+        "splits": splits, "grid": grid, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         **_timings(lambda: decode_attention_cuda(q, kc, vc, valid),
                    lambda: decode_attention_plain(q, kc, vc, valid), plain_iters=20),
     }
@@ -1197,6 +1230,7 @@ def phase_kernels() -> dict:
             _decode_case(8, 40, 8, 128, 4096, "ragged", 11),
             _decode_case(4, 20, 20, 128, d, "empty_row", 12),
             _decode_case(8, 40, 8, 128, 1000, "shared", 13),
+            _decode_case(8, 20, 20, 128, d, "ring", 14),
         ],
         "flash_attention_fwd": [
             _flash_fwd_case(128, d, d, 20, 20, 128, True, 0, 0, 20),   # learner
@@ -1478,6 +1512,43 @@ def _split_times(worker) -> dict:
     return {"rollout_s": t_roll, "bootstrap_s": t_boot, "sgd_step_s": t_learn}
 
 
+def _cache_update_profile(worker) -> dict:
+    """Device ms per decode step of the KV-cache rewrite, beside the decode
+    attention kernel's, from a profile of one rollout with shapes recorded.
+    Each decode step writes the new row into every layer's K and V cache by
+    a ``torch.where`` over the whole [B, W, KV, D] cache
+    (``models/layers.py``, ``decode_attention_step``), as the functional
+    reference does: the ``aten::where`` ops on a tensor of that shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    W = RLHF_ENV["ctx"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        torch.cuda._sleep(1000)  # the primer of _DeviceProfile
+        worker._vrollout()
+        torch.cuda.synchronize()
+    where_us, wheres = 0.0, 0
+    for e in prof.events():
+        if e.name == "aten::where" and any(len(x) == 4 and x[1] == W for x in e.input_shapes):
+            where_us += e.device_time_total
+            wheres += 1
+    attn_us, attn_records = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                "decode_attention_kernel" in e.key or "decode_combine_kernel" in e.key):
+            attn_us += e.self_device_time_total
+            attn_records += e.count
+    steps = wheres // (2 * RLHF_LAYERS)  # a K and a V update per layer and step
+    _require(steps > 0 and wheres == 2 * RLHF_LAYERS * steps,
+             f"cache update: {wheres} torch.where calls on the cache in one rollout")
+    return {"decode_steps": steps, "where_calls": wheres,
+            "cache_update_ms_per_step": where_us / 1e3 / steps,
+            "decode_attention_ms_per_step": attn_us / 1e3 / steps,
+            "decode_attention_records": attn_records}
+
+
 def phase_rlhf(counters: list) -> dict:
     import torch
 
@@ -1543,6 +1614,7 @@ def phase_rlhf(counters: list) -> dict:
                   f"logits| {scale:.3e}, limit {1e-4 * scale:.3e}")
             _require(gap <= 1e-4 * scale, f"decode-vs-forward gap {gap:.3e} > 1e-4 * {scale:.3e}")
             split = _split_times(lw)
+            cache = _cache_update_profile(lw)
     finally:
         workers.stop()
     busy_ms = sum(busy.values()) / 1e3
@@ -1564,10 +1636,14 @@ def phase_rlhf(counters: list) -> dict:
         f"{peak / 2**30:.2f} GiB; worker init {init_s:.2f} s; split {split}"
     )
     print(f"rlhf top device kernels (ms): {profiled['top_kernels_ms']}")
+    print(f"rlhf decode step (profile of one rollout, {cache['decode_steps']} steps): KV-cache "
+          f"update {cache['cache_update_ms_per_step']:.4f} ms per step "
+          f"({cache['where_calls']} torch.where calls), decode attention "
+          f"{cache['decode_attention_ms_per_step']:.4f} ms per step")
     print(f"rlhf main path: {iters} train() iterations in {total:.3f} s, launches {launches}")
     return {"iterations": rows, "seconds": total, "launches": launches, "profile": profiled,
             "expected_per_iter": per_iter, "peak_memory_bytes": peak, "init_s": init_s,
-            "parity_gap": gap, "max_abs_logit": scale, "split": split}
+            "parity_gap": gap, "max_abs_logit": scale, "split": split, "cache_update": cache}
 
 
 # ----------------------------------------------------------------- phase 8

@@ -55,13 +55,14 @@ _SIGNATURES = {
     "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # blp, tlp, r, v, d, last, vs, pg, T, B, gamma, rho_clip, c_clip, stream
     "vtrace_launch": [_P] * 8 + [_I, _I, _F, _F, _F, _P],
-    # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, B, A, lo, hi, stream
-    "ppo_surrogate_fwd_launch": [_P] * 10 + [_I, _I, _F, _F, _P],
-    # logits, actions, values, blp, adv, ret, gpg, gvf, gent, gkl,
+    # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, lse, B, A, lo, hi, stream
+    "ppo_surrogate_fwd_launch": [_P] * 11 + [_I, _I, _F, _F, _P],
+    # logits, actions, values, blp, adv, ret, lse, ent, gpg, gvf, gent, gkl,
     # dlogits, dv, dblp, dadv, dret, B, A, lo, hi, stream
-    "ppo_surrogate_bwd_launch": [_P] * 15 + [_I, _I, _F, _F, _P],
-    # q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream
-    "decode_attention_launch": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "ppo_surrogate_bwd_launch": [_P] * 17 + [_I, _I, _F, _F, _P],
+    # q, k, v, valid, out, work, tickets, B, W, H, KV, D, valid_row_stride,
+    # splits, scale, stream
+    "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset, scale, stream
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D, causal,

@@ -10,22 +10,44 @@
 //     scale * q . k (scale = 1/sqrt(D)); a row with no valid slot gives
 //     exact zeros (the reference's empty-cache rule, ref.py:121-123).
 //
-// Bound on the H100: memory.  A call reads the two caches once,
-// 2 * B * W * KV * D * 4 bytes (42 MB at the RLHF path's [8, 256, 20, 128]),
-// and does 4 * B * W * H * D flops, two orders of magnitude below the
-// card's fp32 rate; the least time is bytes / 3.35 TB/s.
+// Bound on the H100: memory.  A call reads the K and V rows of the valid
+// slots once, 2 * (valid slots) * KV * D * 4 bytes, and does
+// 4 * (valid slots) * H * D flops, two orders of magnitude below the card's
+// fp32 rate; the least time is bytes / 3.35 TB/s.  At [8, 256, 20, 128]
+// with chip_smoke.py's ragged lengths that is 18.9 MB, the count its bound
+// uses: the whole cache is 42 MB, but an invalid slot's rows are never read.
 //
-// Design: one block per (b, kv head, chunk of up to HEADS query heads of the
-// group).  The TPU kernel's sequential grid axis over W becomes a loop
-// inside the block: each of the 8 warps takes every 8th cache slot, reads
-// its K and V rows once as float4 per lane (a D = 128 row is one coalesced
-// 512-byte load per warp), and keeps the online-softmax state (m, l and the
-// [HEADS, D] accumulator) of every head of its chunk in registers, so each
-// cache row is read once for all the heads that share it.  Invalid slots
-// are skipped (the probabilities are masked, not only the scores), and any
-// W is taken, ragged or not.  The 8 warps' partial states are merged at the
-// end through shared memory.  A kernel launches on the caller's stream and
-// allocates nothing.
+// Design (flash-decoding): the grid is (B, KV, chunks of up to HEADS query
+// heads of a group, splits of the window W), flattened with the split
+// innermost.  The wrapper picks the number of splits from the shape so the
+// grid is one wave of the blocks an SM holds, 3 with one head and 2 with up
+// to eight (decode_attention.py::decode_splits).  A block of 8 warps walks
+// its split: warp w takes the split's slots w, w + 8, ...; it reads the mask
+// 32 of its slots at a time (one byte a lane, then a ballot, the next 32
+// read a step ahead) and walks only the valid ones, so an invalid slot's
+// bytes are never loaded and no load waits on a branch.  Each warp issues
+// the K and V rows of U valid slots (float4 a lane: a D = 128 row is one
+// coalesced 512-byte load per warp) before it uses any of them, and folds
+// them into the online-softmax state (m, l and the [HEADS, D] accumulator)
+// of every head of its chunk in registers, one rescale per U slots, the
+// chunk's queries read from shared memory; each cache row is read once for
+// all the heads that share it.  Registers are capped (__launch_bounds__)
+// for 3 blocks an SM with one head, 2 with up to eight.  The 8 warps'
+// states are merged through shared memory in warp order.  With one split
+// the block writes the output; otherwise it writes its state (acc, m, l) to
+// the workspace [B, KV, splits, g, D + 2], and the splits are merged in
+// split order by the last block of the group to finish (a __threadfence,
+// then an atomic ticket per group that this block resets to 0).  Every sum
+// runs in a fixed order, so a call is bitwise repeatable, and there are no
+// floating-point atomics.  A split with no valid slot carries m = -1e30,
+// l = 0; a row whose every l is 0 gives exact zeros.  A kernel launches on
+// the caller's stream and allocates nothing.
+//
+// kernels/decode_variants.py builds two variants from this source and times
+// them against it: the rows streamed through a per-warp cp.async ring of
+// shared-memory stages instead of registers, and the splits merged by a
+// second kernel instead of the last block (both were slower at every shape
+// it times; PERF.md has the numbers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,13 +56,8 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr int kMaxD = 256;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
@@ -51,76 +68,221 @@ __device__ __forceinline__ float4 axpby4(float4 acc, float alpha, float p, float
                      acc.w * alpha + p * v.w);
 }
 
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// Slots whose K and V rows a warp keeps in flight in registers,
+// and the blocks per SM its registers are capped for: fewer rows for a
+// wider state (heads x float4 chunks a lane of accumulators), so that the
+// grid of the RLHF path (320 blocks of one head) fits one wave on 132 SMs.
+__host__ __device__ constexpr int unroll_for(int heads, int chunks) {
+  return heads * chunks <= 8 ? 4 : 2;
+}
+
+__host__ __device__ constexpr int min_blocks(int heads, int chunks) {
+  return heads * chunks == 1 ? 3 : heads * chunks <= 8 ? 2 : 1;
+}
+
+// The valid slots of one warp, in order: candidate j is the slot kWarps * j
+// past `mask`, for j < n.  The mask is read 32 candidates at a time, one
+// byte a lane, the next 32 a step ahead.  Every call is warp-uniform.
+struct SlotCursor {
+  const uint8_t* mask;
+  int n;          // candidates
+  int j0;         // first candidate of `bits`
+  unsigned bits;  // valid candidates of j0 .. j0 + 31 not yet taken
+  bool ahead;     // this lane's candidate of the next 32
+
+  __device__ __forceinline__ void init(const uint8_t* m, int count, int lane) {
+    mask = m;
+    n = count;
+    j0 = 0;
+    const bool now = lane < n && mask[kWarps * lane];
+    ahead = 32 + lane < n && mask[kWarps * (32 + lane)];
+    bits = __ballot_sync(0xffffffffu, now);
+  }
+
+  // Offset in slots of the next valid slot past `mask`, or -1.
+  __device__ __forceinline__ int next(int lane) {
+    while (bits == 0) {
+      if (j0 + 32 >= n) return -1;
+      j0 += 32;
+      bits = __ballot_sync(0xffffffffu, ahead);
+      const int j = j0 + 32 + lane;
+      ahead = j < n && mask[kWarps * j];
+    }
+    const int bit = __ffs(bits) - 1;
+    bits &= bits - 1;
+    return kWarps * (j0 + bit);
+  }
+};
+
+// Fold U slots' rows (on[u] false: no slot) into the online state of the
+// chunk's heads: one rescale for the U slots.
+template <int HEADS, int CHUNKS, int U>
+__device__ __forceinline__ void fold(const float4 (*qs)[32 * CHUNKS], int lane,
+                                     const float4 (&kr)[U][CHUNKS], const float4 (&vr)[U][CHUNKS],
+                                     const bool (&on)[U], float4 (&acc)[HEADS][CHUNKS],
+                                     float (&m)[HEADS], float (&l)[HEADS], int nh, float scale) {
+#pragma unroll
+  for (int j = 0; j < HEADS; ++j) {
+    if (j >= nh) break;  // block-uniform
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      s[u] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) s[u] += dot4(qs[j][lane + 32 * c], kr[u][c]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+    }
+    float m_new = m[j];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      s[u] *= scale;
+      if (on[u]) m_new = fmaxf(m_new, s[u]);
+    }
+    const float alpha = expf(m[j] - m_new);
+    float lj = l[j] * alpha;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      acc[j][c] = make_float4(acc[j][c].x * alpha, acc[j][c].y * alpha, acc[j][c].z * alpha,
+                              acc[j][c].w * alpha);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = on[u] ? expf(s[u] - m_new) : 0.f;
+      lj += p;
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) acc[j][c] = axpby4(acc[j][c], 1.f, p, vr[u][c]);
+    }
+    l[j] = lj;
+    m[j] = m_new;
+  }
+}
+
+// Take U valid slots, load all their rows, then fold.
+template <int HEADS, int CHUNKS>
+__device__ __forceinline__ void walk_registers(SlotCursor& cur, const float* kb, const float* vb,
+                                               size_t slot_stride, int nchunk, int lane,
+                                               const float4 (*qs)[32 * CHUNKS],
+                                               float4 (&acc)[HEADS][CHUNKS], float (&m)[HEADS],
+                                               float (&l)[HEADS], int nh, float scale) {
+  constexpr int U = unroll_for(HEADS, CHUNKS);
+  for (;;) {
+    int slot[U];
+    bool on[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      slot[u] = cur.next(lane);
+      on[u] = slot[u] >= 0;
+    }
+    if (!on[0]) break;
+    float4 kr[U][CHUNKS], vr[U][CHUNKS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t off = static_cast<size_t>(on[u] ? slot[u] : 0) * slot_stride;
+      const float4* kw = reinterpret_cast<const float4*>(kb + off);
+      const float4* vw = reinterpret_cast<const float4*>(vb + off);
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) {
+        const int ci = lane + 32 * c;
+        const bool in = on[u] && ci < nchunk;
+        kr[u][c] = in ? kw[ci] : zero4();
+        vr[u][c] = in ? vw[ci] : zero4();
+      }
+    }
+    fold<HEADS, CHUNKS, U>(qs, lane, kr, vr, on, acc, m, l, nh, scale);
+    if (!on[U - 1]) break;
+  }
+}
+
+// Merge the splits' states of one group, in split order, into the output
+// rows of heads [head0, head0 + nh) of a group; work: [splits, g, D + 2].
+__device__ __forceinline__ void merge_splits(const float* work, float* out, int splits, int g,
+                                             int head0, int nh, int D) {
+  const int pairs = D / 2;
+  const size_t row = static_cast<size_t>(D) + 2;
+  for (int t = threadIdx.x; t < nh * pairs; t += blockDim.x) {
+    const int j = head0 + t / pairs;
+    const int c = t % pairs;
+    float mx = kNegInf;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, __ldcg(work + (s * g + j) * row + D));
+    float lt = 0.f;
+    float2 o = make_float2(0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float* w = work + (s * g + j) * row;
+      const float f = expf(__ldcg(w + D) - mx);
+      lt += __ldcg(w + D + 1) * f;
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(w) + c);
+      o.x += f * a.x;
+      o.y += f * a.y;
+    }
+    reinterpret_cast<float2*>(out + j * D)[c] =
+        lt > 0.f ? make_float2(o.x / lt, o.y / lt) : make_float2(0.f, 0.f);
+  }
+}
+
 // HEADS: query heads per block; CHUNKS: float4 chunks per lane (D <= 128 * CHUNKS).
 template <int HEADS, int CHUNKS>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
     decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const uint8_t* __restrict__ valid,
-                            float* __restrict__ out, int W, int H, int KV, int D, int g,
-                            int valid_row_stride, float scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int head0 = blockIdx.z * HEADS;  // first head of this chunk, within the group
+                            float* __restrict__ out, float* __restrict__ work,
+                            unsigned* __restrict__ tickets, int W, int H, int KV, int D,
+                            int valid_row_stride, int splits, int split_len, float scale) {
+  const int g = H / KV;
+  const int chunks = (g + HEADS - 1) / HEADS;
+  const int split = blockIdx.x % splits;
+  const int group = blockIdx.x / splits;  // (b * KV + kv head) * chunks + chunk
+  const int chunk = group % chunks;
+  const int pair = group / chunks;  // b * KV + kv head
+  const int kvh = pair % KV;
+  const int b = pair / KV;
+  const int head0 = chunk * HEADS;  // first head of this chunk, within the group
   const int nh = min(HEADS, g - head0);
   const int h0 = kvh * g + head0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nchunk = D / 4;
 
-  float4 qr[HEADS][CHUNKS];
+  // The chunk's queries in shared memory (zeros past D), read by every warp.
+  __shared__ float4 s_q[HEADS][32 * CHUNKS];
+  const float4* qb = reinterpret_cast<const float4*>(q + (static_cast<size_t>(b) * H + h0) * D);
+  for (int t = threadIdx.x; t < nh * 32 * CHUNKS; t += kThreads) {
+    const int j = t / (32 * CHUNKS);
+    const int ci = t % (32 * CHUNKS);
+    s_q[j][ci] = ci < nchunk ? qb[j * nchunk + ci] : zero4();
+  }
   float4 acc[HEADS][CHUNKS];
   float m[HEADS], l[HEADS];
-  const float* qb = q + (static_cast<size_t>(b) * H + h0) * D;
 #pragma unroll
   for (int j = 0; j < HEADS; ++j) {
     m[j] = kNegInf;
     l[j] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int ci = lane + 32 * c;
-      qr[j][c] = (j < nh && ci < nchunk) ? reinterpret_cast<const float4*>(qb + j * D)[ci]
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    for (int c = 0; c < CHUNKS; ++c) acc[j][c] = zero4();
   }
 
-  const uint8_t* vrow = valid + static_cast<size_t>(b) * valid_row_stride;
+  // This warp's candidates: slots w0 + warp + kWarps * j below w1.
+  const int w0 = split * split_len;
+  const int w1 = min(W, w0 + split_len);
+  const int n = w1 - w0 > warp ? (w1 - w0 - warp + kWarps - 1) / kWarps : 0;
   const size_t slot_stride = static_cast<size_t>(KV) * D;
-  const float* kb = k + (static_cast<size_t>(b) * W * KV + kvh) * D;
-  const float* vb = v + (static_cast<size_t>(b) * W * KV + kvh) * D;
-  for (int w = warp; w < W; w += kWarps) {
-    if (!vrow[w]) continue;  // warp-uniform: the slot's probability is 0
-    const float4* kw = reinterpret_cast<const float4*>(kb + w * slot_stride);
-    const float4* vw = reinterpret_cast<const float4*>(vb + w * slot_stride);
-    float4 kr[CHUNKS], vr[CHUNKS];
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int ci = lane + 32 * c;
-      const bool in = ci < nchunk;
-      kr[c] = in ? kw[ci] : make_float4(0.f, 0.f, 0.f, 0.f);
-      vr[c] = in ? vw[ci] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < HEADS; ++j) {
-      if (j >= nh) break;  // block-uniform
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) part += dot4(qr[j][c], kr[c]);
-      const float s = warp_sum(part) * scale;
-      const float m_new = fmaxf(m[j], s);
-      const float alpha = expf(m[j] - m_new);
-      const float p = expf(s - m_new);
-      l[j] = l[j] * alpha + p;
-#pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) acc[j][c] = axpby4(acc[j][c], alpha, p, vr[c]);
-      m[j] = m_new;
-    }
-  }
+  const size_t first = (static_cast<size_t>(b) * W + w0 + warp) * slot_stride + kvh * D;
+  SlotCursor cur;
+  cur.init(valid + static_cast<size_t>(b) * valid_row_stride + w0 + warp, n, lane);
+  __syncthreads();  // s_q
+  walk_registers<HEADS, CHUNKS>(cur, k + first, v + first, slot_stride, nchunk, lane, s_q, acc, m,
+                                l, nh, scale);
 
-  // Merge the warps' partial softmax states, one head at a time.
+  // Merge the warps' states in warp order, one head at a time.
   __shared__ float4 s_acc[kWarps][kMaxD / 4];
   __shared__ float s_m[kWarps], s_l[kWarps];
   float* ob = out + (static_cast<size_t>(b) * H + h0) * D;
+  float* wb = work + ((static_cast<size_t>(pair) * splits + split) * g + head0) * (D + 2);
 #pragma unroll
   for (int j = 0; j < HEADS; ++j) {
     if (j >= nh) break;
@@ -139,53 +301,88 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w]);
       float lt = 0.f;
-      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 o = zero4();
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         const float f = expf(s_m[w] - mx);
         lt += s_l[w] * f;
         o = axpby4(o, 1.f, f, s_acc[w][ci]);
       }
-      // l == 0 iff no slot was valid: attention over an empty cache is zeros.
-      const float4 res = lt > 0.f ? make_float4(o.x / lt, o.y / lt, o.z / lt, o.w / lt)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(ob + j * D)[ci] = res;
+      if (splits == 1) {
+        // l == 0 iff no slot was valid: attention over an empty cache is zeros.
+        reinterpret_cast<float4*>(ob + j * D)[ci] =
+            lt > 0.f ? make_float4(o.x / lt, o.y / lt, o.z / lt, o.w / lt) : zero4();
+      } else {
+        float2* wr = reinterpret_cast<float2*>(wb + j * (D + 2));
+        wr[2 * ci] = make_float2(o.x, o.y);
+        wr[2 * ci + 1] = make_float2(o.z, o.w);
+        if (ci == 0) wr[nchunk * 2] = make_float2(mx, lt);
+      }
     }
     __syncthreads();
   }
+  if (splits == 1) return;
+
+  // The last block of the group to finish merges every split's state.
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(tickets + group, 1u) == static_cast<unsigned>(splits - 1);
+    if (s_last) tickets[group] = 0u;  // every block of the group has taken its ticket
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  merge_splits(work + static_cast<size_t>(pair) * splits * g * (D + 2), out +
+               (static_cast<size_t>(b) * H + kvh * g) * D, splits, g, head0, nh, D);
 }
 
 template <int HEADS, int CHUNKS>
 cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t* valid,
-                   float* out, int B, int W, int H, int KV, int D, int valid_row_stride,
-                   float scale, cudaStream_t stream) {
+                   float* out, float* work, unsigned* tickets, int B, int W, int H, int KV, int D,
+                   int valid_row_stride, int splits, float scale, cudaStream_t stream) {
   const int g = H / KV;
-  const dim3 grid(B, KV, (g + HEADS - 1) / HEADS);
-  decode_attention_kernel<HEADS, CHUNKS><<<grid, kWarps * 32, 0, stream>>>(
-      q, k, v, valid, out, W, H, KV, D, g, valid_row_stride, scale);
+  const long long groups = static_cast<long long>(B) * KV * ((g + HEADS - 1) / HEADS);
+  if (groups * splits > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int split_len = (W + splits - 1) / splits;
+  decode_attention_kernel<HEADS, CHUNKS><<<static_cast<unsigned>(groups * splits), kThreads, 0,
+                                           stream>>>(q, k, v, valid, out, work, tickets, W, H, KV,
+                                                     D, valid_row_stride, splits, split_len, scale);
   return cudaGetLastError();
 }
 
 template <int CHUNKS>
 cudaError_t launch_heads(const float* q, const float* k, const float* v, const uint8_t* valid,
-                         float* out, int B, int W, int H, int KV, int D, int valid_row_stride,
-                         float scale, cudaStream_t stream) {
+                         float* out, float* work, unsigned* tickets, int B, int W, int H, int KV,
+                         int D, int valid_row_stride, int splits, float scale,
+                         cudaStream_t stream) {
   const int g = H / KV;
-  if (g == 1) return launch<1, CHUNKS>(q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream);
-  if (g == 2) return launch<2, CHUNKS>(q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream);
-  if (g <= 4) return launch<4, CHUNKS>(q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream);
-  return launch<8, CHUNKS>(q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, scale, stream);
+#define DECODE_LAUNCH(HEADS)                                                                    \
+  launch<HEADS, CHUNKS>(q, k, v, valid, out, work, tickets, B, W, H, KV, D, valid_row_stride, \
+                        splits, scale, stream)
+  if (g == 1) return DECODE_LAUNCH(1);
+  if (g == 2) return DECODE_LAUNCH(2);
+  if (g <= 4) return DECODE_LAUNCH(4);
+  return DECODE_LAUNCH(8);
+#undef DECODE_LAUNCH
 }
 
 }  // namespace
 
 // q [B,1,H,D], k/v [B,W,KV,D] float32, valid [B,W] uint8 (row stride 0 or
-// W), out [B,1,H,D].  Needs H % KV == 0, D % 4 == 0, 4 <= D <= 256 and
-// 16-byte-aligned tensors (the Python wrapper checks).
+// W), out [B,1,H,D]; with splits > 1, work [B,KV,splits,H/KV,D+2] float32
+// and tickets (one zeroed unsigned per group, at least B * H of them, left
+// zeroed).  Needs H % KV == 0, D % 4 == 0, 4 <= D <= 256, 1 <= splits <= W
+// and 16-byte-aligned q, k, v, out (the Python wrapper checks and picks the
+// splits: decode_attention.py::decode_splits; its heads_per_block mirrors
+// launch_heads).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* valid, void* out, int B, int W, int H, int KV,
-                                       int D, int valid_row_stride, float scale, void* stream) {
-  if (B <= 0 || W <= 0 || KV <= 0 || H % KV != 0 || D % 4 != 0 || D < 4 || D > kMaxD) {
+                                       const void* valid, void* out, void* work, void* tickets,
+                                       int B, int W, int H, int KV, int D, int valid_row_stride,
+                                       int splits, float scale, void* stream) {
+  if (B <= 0 || W <= 0 || KV <= 0 || H % KV != 0 || D % 4 != 0 || D < 4 || D > kMaxD ||
+      splits < 1 || splits > W || (splits > 1 && (work == nullptr || tickets == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* qp = static_cast<const float*>(q);
@@ -193,9 +390,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   const auto* vp = static_cast<const float*>(v);
   const auto* mp = static_cast<const uint8_t*>(valid);
   auto* op = static_cast<float*>(out);
+  auto* wp = static_cast<float*>(work);
+  auto* tp = static_cast<unsigned*>(tickets);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      D <= 128 ? launch_heads<1>(qp, kp, vp, mp, op, B, W, H, KV, D, valid_row_stride, scale, st)
-               : launch_heads<2>(qp, kp, vp, mp, op, B, W, H, KV, D, valid_row_stride, scale, st);
+      D <= 128
+          ? launch_heads<1>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
+                            scale, st)
+          : launch_heads<2>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
+                            scale, st);
   return static_cast<int>(err);
 }

@@ -16,33 +16,45 @@
 // The batch means and pg + vf_coef*vf - ent_coef*ent stay in the Python
 // wrapper, shared with the plain version.
 //
-// The backward takes the cotangents of the four per-row terms and returns
-// d logits [B, A] and d values, d blp, d adv, d ret [B].  It follows JAX's
-// subgradient rule for min/max exactly: at a tie each argument gets half
-// (the "balanced_eq" rule of _balanced in the TPU kernel).  This matters:
-// inside the clip band ratio*adv and clip(ratio)*adv are the same number,
-// so the min ties on most rows.
+// The forward also writes each row's logsumexp, lse [B], which the
+// autograd Function saves with ent for the backward.
+//
+// The backward takes the cotangents of the four per-row terms and the saved
+// lse and ent, and returns d logits [B, A] and d values, d blp, d adv,
+// d ret [B].  It follows JAX's subgradient rule for min/max exactly: at a
+// tie each argument gets half (the "balanced_eq" rule of _balanced in the
+// TPU kernel).  This matters: inside the clip band ratio*adv and
+// clip(ratio)*adv are the same number, so the min ties on most rows.
 //
 // Bound on the H100: memory.  Forward reads B*(A+5) floats-or-ints and
-// writes 4*B floats; backward reads B*(A+9) and writes B*(A+4); the
+// writes 5*B floats; backward reads B*(A+11) and writes B*(A+4); the
 // arithmetic is a few tens of flops and A+1 exps per row, far below the
 // card's rate, so the least time is bytes / 3.35 TB/s.
 //
 // Design, two variants chosen by A:
-//   * A < kRowsMinA (RL action spaces): one thread per row, two loops over A
-//     kept in registers (max, then the exp sum and the entropy); the TPU
-//     kernel's [A, 128] lane panels become one row per thread.  The [B]
-//     vectors are read coalesced; a thread reads its A logits contiguously,
-//     which for small A lands in the same or neighbouring cache lines as its
-//     warp's neighbours.
-//   * A >= kRowsMinA (a language model's vocabulary): one block of 1024
-//     threads per row.  Neighbouring threads read neighbouring logits, so
-//     every pass over the row is coalesced, and the max, the exp sum and
+//   * A < kRowsMinA (RL action spaces): the forward takes one thread per
+//     row and loops over A twice in registers (max, then the exp sum and
+//     the entropy); the TPU kernel's [A, 128] lane panels become one row per
+//     thread.  A thread reads its A logits contiguously, which for small A
+//     lands in the same or neighbouring cache lines as its warp's
+//     neighbours.  The backward forms one row's scalars per thread into
+//     shared memory, then its block writes d logits of its rows with
+//     neighbouring threads on neighbouring logits: one read and one write.
+//   * A >= kRowsMinA (a language model's vocabulary).  Forward: one block of
+//     1024 threads per row; neighbouring threads read neighbouring logits,
+//     so every pass over the row is coalesced, and the max, the exp sum and
 //     sum_j e_j (x_j - max) are tree-reduced (warp shuffles, then shared
-//     memory) instead of summed serially by one thread.  The entropy comes
-//     from the two sums, H = log s - t / s, and the backward's row sum of the
-//     log-softmax cotangent from H (sum_j p_j (lp_j + 1) = 1 - H), so the
-//     forward reads the row twice and the backward three times.
+//     memory).  The entropy comes from the two sums, H = log s - t / s, so
+//     the forward reads the row twice.  Backward: a map over [B, A] in
+//     blocks of kMapCols columns of one row, B x ceil(A / kMapCols) blocks,
+//     many waves over the SMs.  Each block forms its row's scalars (g_logp,
+//     and the row sum of the log-softmax cotangent from the saved entropy,
+//     sum_j p_j (lp_j + 1) = 1 - H) from lse, ent, row[action] and the [B]
+//     vectors, while its 128-bit loads of the logits are in flight (scalar
+//     loads for a row that is not 16-byte aligned, and for the tail), and
+//     writes d logits once: one read and one write of the logits, the
+//     bound's own traffic.  The block of column 0 writes the four [B]
+//     gradients.
 // Nothing is allocated; the kernels launch on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -81,7 +93,8 @@ __global__ void surrogate_fwd_kernel(const float* __restrict__ logits,
                                      const float* __restrict__ blp, const float* __restrict__ adv,
                                      const float* __restrict__ ret, float* __restrict__ pg,
                                      float* __restrict__ vf, float* __restrict__ ent,
-                                     float* __restrict__ kl, int B, int A, float lo, float hi) {
+                                     float* __restrict__ kl, float* __restrict__ lse, int B, int A,
+                                     float lo, float hi) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const float* row = logits + static_cast<size_t>(i) * A;
@@ -101,23 +114,36 @@ __global__ void surrogate_fwd_kernel(const float* __restrict__ logits,
   vf[i] = dv * dv;
   ent[i] = entropy;
   kl[i] = b - sm.logp;
+  lse[i] = sm.lse;
 }
 
-__global__ void surrogate_bwd_kernel(
-    const float* __restrict__ logits, const int64_t* __restrict__ actions,
-    const float* __restrict__ values, const float* __restrict__ blp,
-    const float* __restrict__ adv, const float* __restrict__ ret, const float* __restrict__ gpg,
-    const float* __restrict__ gvf, const float* __restrict__ gent,
-    const float* __restrict__ gkl, float* __restrict__ dlogits, float* __restrict__ dvalues,
-    float* __restrict__ dblp, float* __restrict__ dadv, float* __restrict__ dret, int B, int A,
-    float lo, float hi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const float* row = logits + static_cast<size_t>(i) * A;
-  const int64_t action = actions[i];
-  const RowSoftmax sm = row_softmax(row, A, action);
+// The row's scalars of the backward, from the saved lse and ent: the
+// cotangent of logp and the row sum of the log-softmax cotangent t_j =
+// [j == action] g_logp - g_ent p_j (lp_j + 1), which is g_logp [valid]
+// - g_ent (1 - H) since sum_j p_j = 1.  With `write`, also the four [B]
+// gradients of row i.
+struct RowCotangent {
+  float lse;
+  float g_logp;
+  float g_ent;
+  float t_sum;
+  int64_t action;
+};
+
+__device__ __forceinline__ RowCotangent row_cotangent(
+    int i, const float* __restrict__ row, int A, float lse, float ent,
+    const int64_t* __restrict__ actions, const float* __restrict__ values,
+    const float* __restrict__ blp, const float* __restrict__ adv, const float* __restrict__ ret,
+    const float* __restrict__ gpg, const float* __restrict__ gvf, const float* __restrict__ gent,
+    const float* __restrict__ gkl, float lo, float hi, bool write, float* __restrict__ dvalues,
+    float* __restrict__ dblp, float* __restrict__ dadv, float* __restrict__ dret) {
+  RowCotangent out;
+  out.action = actions[i];
+  out.lse = lse;
+  const bool valid = out.action >= 0 && out.action < A;
+  const float logp = valid ? row[out.action] - out.lse : 0.f;
   const float a = adv[i];
-  const float ratio = expf(sm.logp - blp[i]);
+  const float ratio = expf(logp - blp[i]);
   const float mx = fmaxf(ratio, lo);
   const float rc = fminf(mx, hi);  // == clip(ratio, lo, hi)
   const float u = ratio * a;
@@ -128,35 +154,60 @@ __global__ void surrogate_bwd_kernel(
   // d clip / d ratio through max-then-min, each with the balanced tie rule.
   const float dcl = balanced(ratio, mx, lo) * balanced(mx, rc, hi);
   const float g_pg = gpg[i];
-  const float g_ent = gent[i];
   const float g_kl = gkl[i];
   const float g_ratio = -g_pg * (du * a + dc * a * dcl);
-  const float g_logp = g_ratio * ratio - g_kl;
+  out.g_ent = gent[i];
+  out.g_logp = g_ratio * ratio - g_kl;
+  out.t_sum = (valid ? out.g_logp : 0.f) - out.g_ent * (1.f - ent);
+  if (write) {
+    const float dv = gvf[i] * 2.f * (values[i] - ret[i]);
+    dvalues[i] = dv;
+    dret[i] = -dv;
+    dblp[i] = -g_ratio * ratio + g_kl;
+    dadv[i] = -g_pg * (du * ratio + dc * rc);
+  }
+  return out;
+}
 
-  // Cotangent into lp_j: the action gather plus the entropy term
-  // dH/dlp_j = -p_j (lp_j + 1); then the log-softmax VJP t - p * sum(t).
-  float t_sum = 0.f;
-  for (int j = 0; j < A; ++j) {
-    const float lp = row[j] - sm.lse;
-    const float p = expf(lp);
-    const float t = (j == action ? g_logp : 0.f) - g_ent * p * (lp + 1.f);
-    t_sum += t;
-  }
-  float* drow = dlogits + static_cast<size_t>(i) * A;
-  for (int j = 0; j < A; ++j) {
-    const float lp = row[j] - sm.lse;
-    const float p = expf(lp);
-    const float t = (j == action ? g_logp : 0.f) - g_ent * p * (lp + 1.f);
-    drow[j] = t - p * t_sum;
-  }
-  const float dv = gvf[i] * 2.f * (values[i] - ret[i]);
-  dvalues[i] = dv;
-  dret[i] = -dv;
-  dblp[i] = -g_ratio * ratio + g_kl;
-  dadv[i] = -g_pg * (du * ratio + dc * rc);
+// d logits_j = t_j - p_j sum(t): the log-softmax VJP of the action gather
+// plus the entropy term dH/dlp_j = -p_j (lp_j + 1).
+__device__ __forceinline__ float dlogit(const RowCotangent& rc, float x, int j) {
+  const float lp = x - rc.lse;
+  const float p = expf(lp);
+  const float t = (j == rc.action ? rc.g_logp : 0.f) - rc.g_ent * p * (lp + 1.f);
+  return t - p * rc.t_sum;
 }
 
 constexpr int kThreads = 128;
+
+// One block per kThreads rows: a thread forms its row's scalars into shared
+// memory, then the block walks the rows' A * kThreads contiguous logits with
+// neighbouring threads on neighbouring logits.
+__global__ void __launch_bounds__(kThreads) surrogate_bwd_kernel(
+    const float* __restrict__ logits, const int64_t* __restrict__ actions,
+    const float* __restrict__ values, const float* __restrict__ blp,
+    const float* __restrict__ adv, const float* __restrict__ ret, const float* __restrict__ lse,
+    const float* __restrict__ ent, const float* __restrict__ gpg, const float* __restrict__ gvf,
+    const float* __restrict__ gent, const float* __restrict__ gkl, float* __restrict__ dlogits,
+    float* __restrict__ dvalues, float* __restrict__ dblp, float* __restrict__ dadv,
+    float* __restrict__ dret, int B, int A, float lo, float hi) {
+  __shared__ RowCotangent s_rc[kThreads];
+  const int r0 = blockIdx.x * kThreads;
+  const int i = r0 + threadIdx.x;
+  if (i < B) {
+    s_rc[threadIdx.x] =
+        row_cotangent(i, logits + static_cast<size_t>(i) * A, A, lse[i], ent[i], actions, values,
+                      blp, adv, ret, gpg, gvf, gent, gkl, lo, hi, true, dvalues, dblp, dadv, dret);
+  }
+  __syncthreads();
+  const size_t base = static_cast<size_t>(r0) * A;
+  const int n = min(kThreads, B - r0) * A;
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int r = e / A;
+    dlogits[base + e] = dlogit(s_rc[r], logits[base + e], e - r * A);
+  }
+}
+
 constexpr int kRowThreads = 1024;
 constexpr int kRowsMinA = 1024;
 
@@ -216,8 +267,8 @@ __global__ void __launch_bounds__(kRowThreads) surrogate_fwd_rows_kernel(
     const float* __restrict__ logits, const int64_t* __restrict__ actions,
     const float* __restrict__ values, const float* __restrict__ blp,
     const float* __restrict__ adv, const float* __restrict__ ret, float* __restrict__ pg,
-    float* __restrict__ vf, float* __restrict__ ent, float* __restrict__ kl, int A, float lo,
-    float hi) {
+    float* __restrict__ vf, float* __restrict__ ent, float* __restrict__ kl,
+    float* __restrict__ lse, int A, float lo, float hi) {
   __shared__ float scratch[32];
   const int i = blockIdx.x;
   const float* row = logits + static_cast<size_t>(i) * A;
@@ -234,61 +285,80 @@ __global__ void __launch_bounds__(kRowThreads) surrogate_fwd_rows_kernel(
   vf[i] = dv * dv;
   ent[i] = st.ent;
   kl[i] = b - logp;
+  lse[i] = st.lse;
 }
 
-__global__ void __launch_bounds__(kRowThreads) surrogate_bwd_rows_kernel(
+constexpr int kMapThreads = 256;
+constexpr int kMapVec = 4;  // float4 loads in flight per thread
+constexpr int kMapCols = kMapThreads * 4 * kMapVec;
+
+__global__ void __launch_bounds__(kMapThreads) surrogate_bwd_map_kernel(
     const float* __restrict__ logits, const int64_t* __restrict__ actions,
     const float* __restrict__ values, const float* __restrict__ blp,
-    const float* __restrict__ adv, const float* __restrict__ ret, const float* __restrict__ gpg,
-    const float* __restrict__ gvf, const float* __restrict__ gent,
-    const float* __restrict__ gkl, float* __restrict__ dlogits, float* __restrict__ dvalues,
-    float* __restrict__ dblp, float* __restrict__ dadv, float* __restrict__ dret, int A,
-    float lo, float hi) {
-  __shared__ float scratch[32];
+    const float* __restrict__ adv, const float* __restrict__ ret, const float* __restrict__ lse,
+    const float* __restrict__ ent, const float* __restrict__ gpg, const float* __restrict__ gvf,
+    const float* __restrict__ gent, const float* __restrict__ gkl, float* __restrict__ dlogits,
+    float* __restrict__ dvalues, float* __restrict__ dblp, float* __restrict__ dadv,
+    float* __restrict__ dret, int A, float lo, float hi) {
   const int i = blockIdx.x;
+  const int c0 = blockIdx.y * kMapCols;
+  const int cols = min(kMapCols, A - c0);
   const float* row = logits + static_cast<size_t>(i) * A;
-  const RowStats st = block_row_stats(row, A, scratch);
-  const int64_t action = actions[i];
-  const bool valid = action >= 0 && action < A;
-  const float logp = valid ? row[action] - st.lse : 0.f;
-  const float a = adv[i];
-  const float ratio = expf(logp - blp[i]);
-  const float mx = fmaxf(ratio, lo);
-  const float rc = fminf(mx, hi);
-  const float u = ratio * a;
-  const float c = rc * a;
-  const float mn = fminf(u, c);
-  const float du = balanced(u, mn, c);
-  const float dc = balanced(c, mn, u);
-  const float dcl = balanced(ratio, mx, lo) * balanced(mx, rc, hi);
-  const float g_pg = gpg[i];
-  const float g_ent = gent[i];
-  const float g_kl = gkl[i];
-  const float g_ratio = -g_pg * (du * a + dc * a * dcl);
-  const float g_logp = g_ratio * ratio - g_kl;
-  // sum_j t_j with t_j = [j == action] g_logp - g_ent p_j (lp_j + 1).
-  const float t_sum = (valid ? g_logp : 0.f) - g_ent * (1.f - st.ent);
   float* drow = dlogits + static_cast<size_t>(i) * A;
-  for (int j = threadIdx.x; j < A; j += kRowThreads) {
-    const float lp = row[j] - st.lse;
-    const float p = expf(lp);
-    const float t = (j == action ? g_logp : 0.f) - g_ent * p * (lp + 1.f);
-    drow[j] = t - p * t_sum;
+  const bool write = blockIdx.y == 0 && threadIdx.x == 0;
+  if (((reinterpret_cast<uintptr_t>(row) | reinterpret_cast<uintptr_t>(drow)) & 15) == 0) {
+    // Whole float4s of the block's columns; the loads go out before the
+    // row's scalars are formed.
+    const int vecs = cols / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(row + c0);
+    float4 x[kMapVec];
+#pragma unroll
+    for (int u = 0; u < kMapVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      x[u] = e < vecs ? x4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const RowCotangent rc = row_cotangent(i, row, A, lse[i], ent[i], actions, values, blp, adv,
+                                          ret, gpg, gvf, gent, gkl, lo, hi, write, dvalues, dblp,
+                                          dadv, dret);
+    float4* d4 = reinterpret_cast<float4*>(drow + c0);
+#pragma unroll
+    for (int u = 0; u < kMapVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      if (e < vecs) {
+        const int j = c0 + 4 * e;
+        d4[e] = make_float4(dlogit(rc, x[u].x, j), dlogit(rc, x[u].y, j + 1),
+                            dlogit(rc, x[u].z, j + 2), dlogit(rc, x[u].w, j + 3));
+      }
+    }
+    const int j = c0 + 4 * vecs + threadIdx.x;  // the last cols % 4 columns
+    if (j < c0 + cols) drow[j] = dlogit(rc, row[j], j);
+  } else {
+    float x[4 * kMapVec];
+#pragma unroll
+    for (int u = 0; u < 4 * kMapVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      x[u] = e < cols ? row[c0 + e] : 0.f;
+    }
+    const RowCotangent rc = row_cotangent(i, row, A, lse[i], ent[i], actions, values, blp, adv,
+                                          ret, gpg, gvf, gent, gkl, lo, hi, write, dvalues, dblp,
+                                          dadv, dret);
+#pragma unroll
+    for (int u = 0; u < 4 * kMapVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      if (e < cols) drow[c0 + e] = dlogit(rc, x[u], c0 + e);
+    }
   }
-  if (threadIdx.x != 0) return;
-  const float dv = gvf[i] * 2.f * (values[i] - ret[i]);
-  dvalues[i] = dv;
-  dret[i] = -dv;
-  dblp[i] = -g_ratio * ratio + g_kl;
-  dadv[i] = -g_pg * (du * ratio + dc * rc);
 }
 
 }  // namespace
 
+// logits [B, A] float32, actions [B] int64, values, blp, adv, ret [B]
+// float32; writes pg, vf, ent, kl and lse [B].
 extern "C" int ppo_surrogate_fwd_launch(const void* logits, const void* actions,
                                         const void* values, const void* blp, const void* adv,
                                         const void* ret, void* pg, void* vf, void* ent, void* kl,
-                                        int B, int A, float lo, float hi, void* stream) {
+                                        void* lse, int B, int A, float lo, float hi,
+                                        void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* lg = static_cast<const float*>(logits);
   const auto* ac = static_cast<const int64_t*>(actions);
@@ -300,22 +370,27 @@ extern "C" int ppo_surrogate_fwd_launch(const void* logits, const void* actions,
   auto* o_vf = static_cast<float*>(vf);
   auto* o_ent = static_cast<float*>(ent);
   auto* o_kl = static_cast<float*>(kl);
+  auto* o_lse = static_cast<float*>(lse);
   if (A >= kRowsMinA) {
     surrogate_fwd_rows_kernel<<<B, kRowThreads, 0, st>>>(lg, ac, va, bl, ad, re, o_pg, o_vf,
-                                                         o_ent, o_kl, A, lo, hi);
+                                                         o_ent, o_kl, o_lse, A, lo, hi);
   } else {
     surrogate_fwd_kernel<<<blocks_for(B), kThreads, 0, st>>>(lg, ac, va, bl, ad, re, o_pg, o_vf,
-                                                             o_ent, o_kl, B, A, lo, hi);
+                                                             o_ent, o_kl, o_lse, B, A, lo, hi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward's inputs, its saved lse and ent, and the cotangents of pg,
+// vf, ent, kl [B]; writes d logits [B, A] and d values, d blp, d adv,
+// d ret [B].
 extern "C" int ppo_surrogate_bwd_launch(const void* logits, const void* actions,
                                         const void* values, const void* blp, const void* adv,
-                                        const void* ret, const void* gpg, const void* gvf,
-                                        const void* gent, const void* gkl, void* dlogits,
-                                        void* dvalues, void* dblp, void* dadv, void* dret, int B,
-                                        int A, float lo, float hi, void* stream) {
+                                        const void* ret, const void* lse, const void* ent,
+                                        const void* gpg, const void* gvf, const void* gent,
+                                        const void* gkl, void* dlogits, void* dvalues, void* dblp,
+                                        void* dadv, void* dret, int B, int A, float lo, float hi,
+                                        void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* lg = static_cast<const float*>(logits);
   const auto* ac = static_cast<const int64_t*>(actions);
@@ -323,6 +398,8 @@ extern "C" int ppo_surrogate_bwd_launch(const void* logits, const void* actions,
   const auto* bl = static_cast<const float*>(blp);
   const auto* ad = static_cast<const float*>(adv);
   const auto* re = static_cast<const float*>(ret);
+  const auto* ls = static_cast<const float*>(lse);
+  const auto* en = static_cast<const float*>(ent);
   const auto* g1 = static_cast<const float*>(gpg);
   const auto* g2 = static_cast<const float*>(gvf);
   const auto* g3 = static_cast<const float*>(gent);
@@ -333,12 +410,13 @@ extern "C" int ppo_surrogate_bwd_launch(const void* logits, const void* actions,
   auto* d_a = static_cast<float*>(dadv);
   auto* d_r = static_cast<float*>(dret);
   if (A >= kRowsMinA) {
-    surrogate_bwd_rows_kernel<<<B, kRowThreads, 0, st>>>(lg, ac, va, bl, ad, re, g1, g2, g3, g4,
-                                                         d_lg, d_v, d_b, d_a, d_r, A, lo, hi);
+    const dim3 grid(B, (A + kMapCols - 1) / kMapCols);
+    surrogate_bwd_map_kernel<<<grid, kMapThreads, 0, st>>>(lg, ac, va, bl, ad, re, ls, en, g1, g2,
+                                                           g3, g4, d_lg, d_v, d_b, d_a, d_r, A,
+                                                           lo, hi);
   } else {
-    surrogate_bwd_kernel<<<blocks_for(B), kThreads, 0, st>>>(lg, ac, va, bl, ad, re, g1, g2, g3,
-                                                             g4, d_lg, d_v, d_b, d_a, d_r, B, A,
-                                                             lo, hi);
+    surrogate_bwd_kernel<<<blocks_for(B), kThreads, 0, st>>>(
+        lg, ac, va, bl, ad, re, ls, en, g1, g2, g3, g4, d_lg, d_v, d_b, d_a, d_r, B, A, lo, hi);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,19 +10,63 @@ contiguous on one CUDA device, with ``H % KV == 0`` and ``D`` a multiple of
 4 up to 256.  Anything else raises: CPU tensors take the plain version in
 ``repro_torch.kernels.ops.decode_attention``.  A row with no valid slot
 gives exact zeros on both paths.
+
+The kernel splits the window over blocks (flash-decoding): ``decode_splits``
+picks the number of splits from the shape, and with more than one the
+splits' softmax states go through a workspace ``[B, KV, splits, g, D + 2]``
+that each call allocates, and are merged in a fixed order.  The merge's
+tickets are kept zeroed per device and stream (``_tickets``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
 
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, load_library
 
-__all__ = ["decode_attention_cuda", "decode_attention_plain", "DECODE_ATTENTION_LAUNCHES"]
+__all__ = [
+    "decode_attention_cuda",
+    "decode_attention_plain",
+    "decode_splits",
+    "heads_per_block",
+    "resident_blocks",
+    "DECODE_ATTENTION_LAUNCHES",
+]
 
+# One count per wrapper call, one CUDA launch: the splits are merged inside it.
 DECODE_ATTENTION_LAUNCHES = LaunchCounter("decode_attention")
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MIN_SPLIT_SLOTS = 64  # a split is at least 8 slots for each of a block's 8 warps
+
+
+def heads_per_block(g: int) -> int:
+    """Query heads of a group that one block carries (``launch_heads`` in
+    ``csrc/decode_attention.cu``)."""
+    return 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+
+
+def resident_blocks(g: int, D: int) -> int:
+    """Blocks an SM holds at once: the kernel's registers are capped for 3
+    with one head of float4 accumulators a lane, 2 with up to eight
+    (``min_blocks`` in ``csrc/decode_attention.cu``)."""
+    width = heads_per_block(g) * (1 if D <= 128 else 2)
+    return 3 if width == 1 else 2 if width <= 8 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(B: int, KV: int, g: int, D: int, W: int) -> int:
+    """Number of splits of the window W: as many as one wave of resident
+    blocks on every SM holds (a second, partial wave would leave most SMs
+    idle while it runs), each split at least ``MIN_SPLIT_SLOTS`` slots long;
+    so 1 for a short window or a grid that already fills the card, and never
+    more than W."""
+    groups = B * KV * -(-g // heads_per_block(g))
+    return max(1, min(SMS * resident_blocks(g, D) // groups, W // MIN_SPLIT_SLOTS))
 
 
 def decode_attention_plain(
@@ -55,6 +99,21 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device)
         raise ValueError(f"decode_attention_cuda: {name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"decode_attention_cuda: {name} must be contiguous")
+
+
+_tickets_lock = threading.Lock()
+_tickets_by_stream: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The merge's zeroed tickets for one (device, stream), grown on demand:
+    launches on one stream run in order, and each leaves its tickets at 0."""
+    key = (device.index, stream)
+    with _tickets_lock:
+        tickets = _tickets_by_stream.get(key)
+        if tickets is None or tickets.numel() < n:
+            tickets = _tickets_by_stream[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return tickets
 
 
 def decode_attention_cuda(
@@ -91,12 +150,19 @@ def decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or W == 0:
         return out.zero_()
+    g = H // KV
+    splits = decode_splits(B, KV, g, D, W)
     lib = load_library()
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        work_ptr = tickets_ptr = None
+        if splits > 1:
+            work = torch.empty((B, KV, splits, g, D + 2), dtype=torch.float32, device=device)
+            work_ptr, tickets_ptr = work.data_ptr(), _tickets(device, stream, B * H).data_ptr()
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), B, W, H, KV, D, row_stride, 1.0 / math.sqrt(D),
-            torch.cuda.current_stream(device).cuda_stream,
+            out.data_ptr(), work_ptr, tickets_ptr, B, W, H, KV, D, row_stride, splits,
+            1.0 / math.sqrt(D), stream,
         )
     check(lib, rc, "decode_attention")
     DECODE_ATTENTION_LAUNCHES.add()

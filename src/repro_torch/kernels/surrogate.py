@@ -101,24 +101,25 @@ def surrogate_fwd_cuda(
     adv: torch.Tensor,
     ret: torch.Tensor,
     clip_eps: float,
-) -> Terms:
-    """Forward kernel launch: per-row (pg, vf, ent, kl)."""
+) -> Tuple[torch.Tensor, ...]:
+    """Forward kernel launch: per-row (pg, vf, ent, kl) and the row
+    logsumexp ``lse`` the backward takes."""
     B, A = _check_logits(logits)
     _check_rows(logits.device, B, actions=actions, values=values, blp=blp, adv=adv, ret=ret)
-    pg, vf, ent, kl = torch.empty((4, B), dtype=torch.float32, device=logits.device)
+    pg, vf, ent, kl, lse = torch.empty((5, B), dtype=torch.float32, device=logits.device)
     if B == 0:
-        return pg, vf, ent, kl
+        return pg, vf, ent, kl, lse
     lib = load_library()
     with torch.cuda.device(logits.device):
         rc = lib.ppo_surrogate_fwd_launch(
             logits.data_ptr(), actions.data_ptr(), values.data_ptr(), blp.data_ptr(),
             adv.data_ptr(), ret.data_ptr(), pg.data_ptr(), vf.data_ptr(), ent.data_ptr(),
-            kl.data_ptr(), B, A, 1.0 - clip_eps, 1.0 + clip_eps,
+            kl.data_ptr(), lse.data_ptr(), B, A, 1.0 - clip_eps, 1.0 + clip_eps,
             torch.cuda.current_stream(logits.device).cuda_stream,
         )
     check(lib, rc, "ppo_surrogate_fwd")
     SURROGATE_FWD_LAUNCHES.add()
-    return pg, vf, ent, kl
+    return pg, vf, ent, kl, lse
 
 
 def surrogate_bwd_cuda(
@@ -128,17 +129,20 @@ def surrogate_bwd_cuda(
     blp: torch.Tensor,
     adv: torch.Tensor,
     ret: torch.Tensor,
+    lse: torch.Tensor,
+    ent: torch.Tensor,
     gpg: torch.Tensor,
     gvf: torch.Tensor,
     gent: torch.Tensor,
     gkl: torch.Tensor,
     clip_eps: float,
 ) -> Tuple[torch.Tensor, ...]:
-    """Backward kernel launch: (d logits, d values, d blp, d adv, d ret)."""
+    """Backward kernel launch from the forward's saved row logsumexp ``lse``
+    and entropy ``ent``: (d logits, d values, d blp, d adv, d ret)."""
     B, A = _check_logits(logits)
     _check_rows(
         logits.device, B, actions=actions, values=values, blp=blp, adv=adv, ret=ret,
-        gpg=gpg, gvf=gvf, gent=gent, gkl=gkl,
+        lse=lse, ent=ent, gpg=gpg, gvf=gvf, gent=gent, gkl=gkl,
     )
     dlogits = torch.empty_like(logits)
     dv, dblp, dadv, dret = torch.empty((4, B), dtype=torch.float32, device=logits.device)
@@ -148,9 +152,9 @@ def surrogate_bwd_cuda(
     with torch.cuda.device(logits.device):
         rc = lib.ppo_surrogate_bwd_launch(
             logits.data_ptr(), actions.data_ptr(), values.data_ptr(), blp.data_ptr(),
-            adv.data_ptr(), ret.data_ptr(), gpg.data_ptr(), gvf.data_ptr(), gent.data_ptr(),
-            gkl.data_ptr(), dlogits.data_ptr(), dv.data_ptr(), dblp.data_ptr(),
-            dadv.data_ptr(), dret.data_ptr(), B, A, 1.0 - clip_eps, 1.0 + clip_eps,
+            adv.data_ptr(), ret.data_ptr(), lse.data_ptr(), ent.data_ptr(), gpg.data_ptr(),
+            gvf.data_ptr(), gent.data_ptr(), gkl.data_ptr(), dlogits.data_ptr(), dv.data_ptr(),
+            dblp.data_ptr(), dadv.data_ptr(), dret.data_ptr(), B, A, 1.0 - clip_eps, 1.0 + clip_eps,
             torch.cuda.current_stream(logits.device).cuda_stream,
         )
     check(lib, rc, "ppo_surrogate_bwd")
@@ -161,18 +165,20 @@ def surrogate_bwd_cuda(
 class SurrogateTerms(torch.autograd.Function):
     """Per-row surrogate terms with the hand-written backward kernel; the
     counterpart of the reference's ``jax.custom_vjp`` ``_surrogate_terms``.
-    Gradients flow to every float input; the int actions get none."""
+    The forward's row logsumexp and entropy are saved, so the backward reads
+    the logits once.  Gradients flow to every float input; the int actions
+    get none."""
 
     @staticmethod
     def forward(ctx, logits, values, blp, adv, ret, actions, clip_eps):
-        terms = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
-        ctx.save_for_backward(logits, actions, values, blp, adv, ret)
+        pg, vf, ent, kl, lse = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
+        ctx.save_for_backward(logits, actions, values, blp, adv, ret, lse, ent)
         ctx.clip_eps = clip_eps
-        return terms
+        return pg, vf, ent, kl
 
     @staticmethod
     def backward(ctx, gpg, gvf, gent, gkl):
-        logits, actions, values, blp, adv, ret = ctx.saved_tensors
+        logits, actions, values, blp, adv, ret, lse, ent = ctx.saved_tensors
 
         def _cot(g: Optional[torch.Tensor]) -> torch.Tensor:
             # Cotangents of a mean arrive as stride-0 expansions; the kernel
@@ -180,7 +186,7 @@ class SurrogateTerms(torch.autograd.Function):
             return torch.zeros_like(values) if g is None else g.contiguous()
 
         grads = surrogate_bwd_cuda(
-            logits, actions, values, blp, adv, ret,
+            logits, actions, values, blp, adv, ret, lse, ent,
             _cot(gpg), _cot(gvf), _cot(gent), _cot(gkl), ctx.clip_eps,
         )
         return (*grads, None, None)

@@ -18,11 +18,16 @@ import torch
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ref import chunked_attention, decode_attention_ref
-from repro_torch.kernels import build, flash_variants, ops
+from repro_torch.kernels import build, decode_variants, flash_variants, ops
 from repro_torch.kernels.decode_attention import (
     DECODE_ATTENTION_LAUNCHES,
+    MIN_SPLIT_SLOTS,
+    SMS,
     decode_attention_cuda,
     decode_attention_plain,
+    decode_splits,
+    heads_per_block,
+    resident_blocks,
 )
 from repro_torch.kernels.flash_attention import (
     FLASH_BWD_LAUNCHES,
@@ -146,6 +151,139 @@ def test_decode_plain_per_lane_mask_and_all_invalid_row():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# The CUDA kernel's order of arithmetic, emulated in float32: the window cut
+# into `splits` equal splits; in each, warp w of 8 walks the split's valid
+# slots w, w + 8, ... in groups of U (the kernel's rows in flight per warp),
+# one online-softmax rescale per group; the warps' states merged in warp
+# order, then the splits' in split order (a split with no valid slot carries
+# m = -1e30, l = 0).  Held against the Pallas kernel and the oracle, the
+# emulation shows that splitting and merging keep the reference's answer.
+WARPS = 8
+
+
+def _unroll(g: int) -> int:
+    """``unroll_for`` of ``csrc/decode_attention.cu`` for D <= 128."""
+    return 4 if heads_per_block(g) <= 4 else 2
+
+
+def _merge(states):
+    m = torch.stack([s[0] for s in states])  # [n, g]
+    mx = m.max(dim=0).values
+    f = torch.exp(m - mx)
+    lt = sum(s[1] * f[i] for i, s in enumerate(states))
+    acc = sum(s[2] * f[i][:, None] for i, s in enumerate(states))
+    return mx, lt, acc
+
+
+def _split_decode(q, kc, vc, valid, splits):
+    B, _, H, D = q.shape
+    W, KV = kc.shape[1], kc.shape[2]
+    g = H // KV
+    U = _unroll(g)
+    valid = valid if valid.dim() == 2 else valid[None].expand(B, W)
+    scale = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    split_len = -(-W // splits)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for kvh in range(KV):
+            qs = q[b, 0, kvh * g:(kvh + 1) * g]
+            split_states = []
+            for s in range(splits):
+                w0, w1 = s * split_len, min(W, (s + 1) * split_len)
+                warp_states = []
+                for warp in range(WARPS):
+                    slots = [w for w in range(w0 + warp, w1, WARPS) if valid[b, w]]
+                    m = torch.full((g,), -1e30)
+                    lt, acc = torch.zeros(g), torch.zeros(g, D)
+                    for i in range(0, len(slots), U):
+                        grp = slots[i:i + U]
+                        sc = (qs @ kc[b, grp, kvh].T) * scale
+                        m_new = torch.maximum(m, sc.max(dim=-1).values)
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(sc - m_new[:, None])
+                        lt = lt * alpha + p.sum(dim=-1)
+                        acc = acc * alpha[:, None] + p @ vc[b, grp, kvh]
+                        m = m_new
+                    warp_states.append((m, lt, acc))
+                split_states.append(_merge(warp_states))
+            _, lt, acc = _merge(split_states)
+            res = acc / torch.where(lt > 0, lt, 1.0)[:, None]
+            out[b, 0, kvh * g:(kvh + 1) * g] = torch.where((lt > 0)[:, None], res, 0.0)
+    return out
+
+
+SPLIT_W = 64
+
+
+def _split_masks(kind: str) -> np.ndarray:
+    """[2, 64] masks: "prefix" (ragged lengths), "ring" (a wrapped ring
+    buffer, not a prefix), "empty_split" (lane 0 valid only at both ends,
+    so every middle split is empty), "all_invalid" (lane 0 has no valid
+    slot and must give exact zeros)."""
+    pos = np.arange(SPLIT_W)
+    if kind == "prefix":
+        return pos[None, :] < np.array([40, 7])[:, None]
+    if kind == "ring":
+        start, length = np.array([50, 10]), np.array([30, 20])
+        return (pos[None, :] - start[:, None]) % SPLIT_W < length[:, None]
+    if kind == "empty_split":
+        return np.stack([(pos < 5) | (pos >= 60), (pos >= 20) & (pos < 30)])
+    assert kind == "all_invalid"
+    return np.stack([np.zeros(SPLIT_W, bool), pos < 33])
+
+
+_SPLIT_REF_CACHE: dict = {}
+
+
+def _split_case(H, KV, kind):
+    """Inputs of one case and the Pallas kernel's and the oracle's answers,
+    computed once for all the splits."""
+    key = (H, KV, kind)
+    if key not in _SPLIT_REF_CACHE:
+        q, kc, vc = _decode_inputs(2, SPLIT_W, H, KV, 16, seed=H + KV)
+        valid = _split_masks(kind)
+        args = [jnp.asarray(x) for x in (q, kc, vc, valid)]
+        _SPLIT_REF_CACHE[key] = ((q, kc, vc, valid),
+                                 np.asarray(decode_attention_pallas(*args, interpret=True)),
+                                 np.asarray(decode_attention_ref(*args)))
+    return _SPLIT_REF_CACHE[key]
+
+
+@pytest.mark.parametrize("kind", ["prefix", "ring", "empty_split", "all_invalid"])
+@pytest.mark.parametrize("H,KV", [(20, 20), (40, 8)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_decode_emulation_matches_pallas_and_reference(splits, H, KV, kind):
+    inputs, pallas, ref = _split_case(H, KV, kind)
+    got = _split_decode(*map(torch.from_numpy, inputs), splits)
+    _close(got, pallas, name="vs pallas")
+    _close(got, ref, name="vs ref")
+    if kind == "all_invalid":
+        np.testing.assert_array_equal(got[0].numpy(), 0.0)
+    if kind == "empty_split" and splits > 2:
+        split_len = -(-SPLIT_W // splits)
+        assert not inputs[3][0, split_len:2 * split_len].any()  # a split with no valid slot
+
+
+@pytest.mark.parametrize(
+    "B,KV,g,D,W",
+    [(8, 20, 1, 128, 256), (8, 8, 5, 128, 4096), (8, 8, 5, 128, 1000), (4, 20, 1, 128, 256),
+     (1, 1, 1, 128, 1), (1, 8, 4, 128, 32768), (64, 32, 1, 128, 2048), (2, 4, 8, 256, 100),
+     (3, 2, 3, 64, 65), (1, 2, 1, 256, 4096)],
+)
+def test_decode_splits_fill_one_wave_within_the_window(B, KV, g, D, W):
+    splits = decode_splits(B, KV, g, D, W)
+    assert 1 <= splits <= W
+    groups = B * KV * -(-g // heads_per_block(g))
+    capacity = SMS * resident_blocks(g, D)  # one wave of resident blocks
+    # The most splits that fit one wave, each at least MIN_SPLIT_SLOTS long.
+    assert splits == 1 or (groups * splits <= capacity and W // splits >= MIN_SPLIT_SLOTS)
+    assert groups * (splits + 1) > capacity or W // (splits + 1) < MIN_SPLIT_SLOTS
+    if (B, KV, g, D, W) == (8, 20, 1, 128, 256):  # the RLHF path: 2 splits, 320 blocks
+        assert (splits, groups * splits) == (2, 320)
+    if (B, KV, g, D, W) == (8, 8, 5, 128, 4096):  # GQA 40/8: 4 splits, 256 blocks
+        assert (splits, groups * splits) == (4, 256)
+
+
 # ------------------------------------------------------------------ wrappers
 def test_attention_wrappers_refuse_cpu_tensors_and_ops_dispatch_by_device():
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 8, 2, 2, 32, seed=1))
@@ -242,5 +380,16 @@ def test_flash_variants_edit_the_shipped_source(name):
     once, or the variant would not be the one its name says."""
     text = (build.CSRC_DIR / "flash_attention.cu").read_text()
     for old, new in flash_variants.VARIANTS[name]:
+        assert text.count(old) == 1, old
+        assert new != old
+
+
+@pytest.mark.parametrize("name", sorted(decode_variants.VARIANTS))
+def test_decode_variants_edit_the_shipped_source(name):
+    """``python -m repro_torch.kernels.decode_variants`` builds the ring and
+    two-launch variants by editing ``csrc/decode_attention.cu``: each text
+    it replaces must be there once."""
+    text = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    for old, new in decode_variants.VARIANTS[name]:
         assert text.count(old) == 1, old
         assert new != old

@@ -162,6 +162,112 @@ def test_surrogate_tie_rows_take_the_balanced_gradient():
         np.testing.assert_allclose(np.asarray(grads_j[2])[rows], want, rtol=1e-6)
 
 
+# The CUDA backward takes the forward's saved row logsumexp and entropy and
+# reads the logits once (csrc/surrogate.cu).  Its arithmetic, emulated in
+# float32 from those saved statistics as each forward variant forms them,
+# must match jax.grad of the oracle and of the Pallas kernel.
+ROWS_MIN_A = 1024  # kRowsMinA: one block per row from this width
+
+
+def _forward_stats(logits: np.ndarray):
+    """The forward kernels' lse and entropy: one thread per row below
+    ROWS_MIN_A (max, exp sum, then -sum p lp), the block reduction above it
+    (max, s = sum e, t = sum e (x - max); H = log s - t / s)."""
+    x = torch.from_numpy(logits)
+    m = x.max(dim=-1, keepdim=True).values
+    e = torch.exp(x - m)
+    s = e.sum(dim=-1)
+    lse = m[:, 0] + torch.log(s)
+    if x.shape[1] < ROWS_MIN_A:
+        lp = x - lse[:, None]
+        return lse, -(torch.exp(lp) * lp).sum(dim=-1)
+    return lse, torch.log(s) - (e * (x - m)).sum(dim=-1) / s
+
+
+def _balanced(x, z, y):
+    """d/dx of min/max(x, y) at its result z: 1 off a tie, 0.5 on one."""
+    return torch.where(x == z, torch.where(y == z, 0.5, 1.0), 0.0)
+
+
+def _surrogate_bwd_from_saved_stats(data, clip_eps, cots):
+    logits, actions, values, blp, adv, ret = map(torch.from_numpy, data)
+    gpg, gvf, gent, gkl = map(torch.from_numpy, cots)
+    B, A = logits.shape
+    lse, ent = _forward_stats(data[0])
+    valid = (actions >= 0) & (actions < A)
+    logp = torch.where(valid, logits[torch.arange(B), torch.where(valid, actions, 0)] - lse, 0.0)
+    lo, hi = torch.tensor(1 - clip_eps), torch.tensor(1 + clip_eps)
+    ratio = torch.exp(logp - blp)
+    mx = torch.maximum(ratio, lo)
+    rc = torch.minimum(mx, hi)
+    u, c = ratio * adv, rc * adv
+    mn = torch.minimum(u, c)
+    du, dc = _balanced(u, mn, c), _balanced(c, mn, u)
+    dcl = _balanced(ratio, mx, lo) * _balanced(mx, rc, hi)
+    g_ratio = -gpg * (du * adv + dc * adv * dcl)
+    g_logp = g_ratio * ratio - gkl
+    # The row sum of t_j from the saved entropy: sum_j p_j (lp_j + 1) = 1 - H.
+    t_sum = torch.where(valid, g_logp, 0.0) - gent * (1 - ent)
+    lp = logits - lse[:, None]
+    p = torch.exp(lp)
+    hit = torch.arange(A)[None] == actions[:, None]
+    t = torch.where(hit, g_logp[:, None], 0.0) - gent[:, None] * p * (lp + 1)
+    dv = gvf * 2 * (values - ret)
+    return (t - p * t_sum[:, None], dv, -g_ratio * ratio + gkl,
+            -gpg * (du * ratio + dc * rc), -dv)
+
+
+def _pallas(*a, **k):
+    return ppo_surrogate_pallas(*a, **k, interpret=True)
+
+
+# RL action spaces (2, 18) and a vocabulary-wide row (4099: past kRowsMinA,
+# with a ragged tail after the last whole 1024 and float4s).
+@pytest.mark.parametrize("B,A", [(64, 2), (64, 18), (16, 4099)])
+def test_surrogate_backward_from_saved_stats_matches_jax_grad(B, A):
+    clip_eps = 0.2
+    data = _surrogate_data(B, A, seed=A + 3, clip_eps=clip_eps)
+    cots = [np.random.default_rng(A + i).standard_normal(B).astype(np.float32) for i in range(4)]
+    got = _surrogate_bwd_from_saved_stats(data, clip_eps, cots)
+    for fn in (ppo_surrogate_ref, _pallas):
+        want = _jax_grads(fn, data, clip_eps, cots)
+        for name, t, j in zip(("logits", "values", "blp", "adv", "ret"), got, want):
+            _close(t, j, f"d{name}")
+
+
+def test_surrogate_backward_from_saved_stats_out_of_range_action():
+    """An action outside [0, A) gathers nothing: logp is 0 and no logit gets
+    the action's cotangent, as the Pallas kernel's one-hot contraction
+    gives."""
+    clip_eps = 0.2
+    logits, actions, *rest = _surrogate_data(32, 18, seed=9, clip_eps=clip_eps)
+    actions = actions.copy()
+    actions[20], actions[27] = 18, -1
+    data = (logits, actions, *rest)
+    cots = [np.random.default_rng(40 + i).standard_normal(32).astype(np.float32) for i in range(4)]
+    got = _surrogate_bwd_from_saved_stats(data, clip_eps, cots)
+    want = _jax_grads(_pallas, data, clip_eps, cots)
+    for name, t, j in zip(("logits", "values", "blp", "adv", "ret"), got, want):
+        _close(t, j, f"d{name}")
+
+
+def test_surrogate_backward_from_saved_stats_takes_the_balanced_gradient_on_ties():
+    """The tie rows of ``test_surrogate_tie_rows_take_the_balanced_gradient``:
+    exactly on a clip bound, d blp = 0.75 * adv * bound."""
+    B, A, clip_eps = 16, 2, 0.2
+    data = _surrogate_data(B, A, seed=7, clip_eps=clip_eps)
+    cots = [np.ones(B, np.float32), *(np.zeros(B, np.float32) for _ in range(3))]
+    got = _surrogate_bwd_from_saved_stats(data, clip_eps, cots)
+    adv = data[4]
+    n = B // 8
+    for rows, bound in ((slice(n, 2 * n), 1.0 + clip_eps), (slice(2 * n, 3 * n), 1.0 - clip_eps)):
+        np.testing.assert_allclose(got[2].numpy()[rows], 0.75 * adv[rows] * np.float32(bound),
+                                   rtol=1e-6)
+    for name, t, j in zip(("logits", "values", "blp", "adv", "ret"), got,
+                          _jax_grads(ppo_surrogate_ref, data, clip_eps, cots)):
+        _close(t, j, f"d{name}")
+
+
 def test_fused_ppo_loss_matches_reference_dispatch():
     from repro.kernels import ops as jax_ops
 
