@@ -13,18 +13,26 @@ phase that fails, and then prints no result line):
    shared memory and resident blocks per SM, and each tensor-core kernel's
    count of TF32 tensor-core instructions in the SASS (``cuobjdump``; none
    fails the phase; the RWKV-6 kernels run on the CUDA cores);
-3. kernels: hold each kernel against its plain PyTorch version on the card
-   and time kernel, plain version, bound and (for attention) the
-   ``scaled_dot_product_attention`` yardstick: GAE at the LM path's
-   [32, 8], CartPole's [64, 8], an APPO rollout's [32, 4], [128, 4096] and
-   a ragged [33, 1001]; V-trace at the IMPALA learner's
+3. kernels: first the device time of the library's empty kernel, the
+   launch floor under the latency-bound kernels; then hold each kernel
+   against its plain PyTorch version on the card and time kernel, plain
+   version, bound and (for attention) the
+   ``scaled_dot_product_attention`` yardstick: GAE (its scan order printed)
+   at the LM path's [32, 8], CartPole's [64, 8], an APPO rollout's [32, 4],
+   [128, 4096], a ragged [33, 1001], T = 1 at [1, 8] and [1000, 4] (eight
+   tiles), each bitwise equal across two calls; V-trace at the IMPALA learner's
    [32, 16] and the many-lane learner's [32, 512], at [128, 4096], a ragged
    [33, 1001], trailing dims [16, 8, 2], T = 1, and with clips 2.0 / 0.5;
    the surrogate forward + autograd
    backward at [128, 151936] (the LM learner's vocabulary), CartPole's
-   [256, 2], the APPO learner's [512, 2] and [65536, 18], with rows whose
-   ratio is exactly 1 and rows exactly on the clip boundary, the backward
-   fed the forward's saved row logsumexp and entropy and timed alone;
+   [256, 2], the APPO learner's [512, 2], [65536, 18], [16, 151937] (rows
+   not 16-byte aligned), [8, 1024] (one chunk a row) and [3, 4097], with
+   rows whose ratio is exactly 1 and rows exactly on the clip boundary, the
+   forward bitwise equal across two calls, its grid and chunks printed and,
+   at a vocabulary's width, ``torch.logsumexp`` over the same logits timed
+   beside it (``logsumexp_ms``: one read of the same bytes, not the same
+   function), the backward fed the forward's saved row logsumexp and
+   entropy and timed alone;
    decode attention at the RLHF path's [8, 1, 20, 128] x
    W = 256 with a ragged per-lane mask and with a wrapped ring-buffer mask,
    GQA 40/8 at W = 4096, an all-invalid row (exact zeros) and a ragged W,
@@ -494,19 +502,15 @@ def _kernel_smem(name: str) -> tuple:
     return (dq + 16 * bwd_cols if kernel == "flash_bwd_dkdv_kernel" else dq), 128
 
 
-def _kernel_usage(log: str, library: str) -> dict:
-    """Each flash, grouped-matmul and RWKV-6 kernel's registers and spills
-    (``ptxas -v``), dynamic shared memory, resident blocks per SM by
-    registers and shared memory, and, where ``cuobjdump`` is found, its count
-    of TF32 ``HMMA``/``HGMMA`` instructions in the SASS (a flash or
-    grouped-matmul kernel with none fails the phase: its products would not
-    be on the tensor cores; the RWKV-6 kernels run on the CUDA cores)."""
+def _ptxas_usage(log: str, namer) -> dict:
+    """Registers, stack and spills (``ptxas -v``) of each kernel to which
+    ``namer`` gives a name from its mangled symbol (None: left out)."""
     usage: dict = {}
     name = None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = _kernel_name(m.group(1))
+            name = namer(m.group(1))
             if name:
                 usage[name] = {}
             continue
@@ -519,6 +523,17 @@ def _kernel_usage(log: str, library: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def _kernel_usage(log: str, library: str) -> dict:
+    """Each flash, grouped-matmul and RWKV-6 kernel's registers and spills
+    (``ptxas -v``), dynamic shared memory, resident blocks per SM by
+    registers and shared memory, and, where ``cuobjdump`` is found, its count
+    of TF32 ``HMMA``/``HGMMA`` instructions in the SASS (a flash or
+    grouped-matmul kernel with none fails the phase: its products would not
+    be on the tensor cores; the RWKV-6 kernels run on the CUDA cores)."""
+    usage = _ptxas_usage(log, _kernel_name)
     for name, u in usage.items():
         smem, threads = _kernel_smem(name)
         regs_per_warp = -(-u.get("registers", 255) * 32 // 256) * 256
@@ -563,6 +578,10 @@ def phase_build() -> dict:
     n_src = len(list(build.CSRC_DIR.glob("*.cu")))
     print(f"build: {n_src} sources in {seconds:.2f} s -> {info['path']}")
     log = info["log"] or (build.BUILD_DIR / "build.log").read_text()  # "" when cached
+    memory_kernels = ("surrogate_fwd_map_kernel", "gae_kernel")
+    for name, u in _ptxas_usage(
+            log, lambda sym: next((n for n in memory_kernels if n in sym), None)).items():
+        print(f"memory-bound kernel {name}: {json.dumps(u)}")
     usage = _kernel_usage(log, info["path"])
     rwkv6 = {name: u for name, u in usage.items() if name.startswith("rwkv6_")}
     tensor_core = {name: u for name, u in usage.items() if name not in rwkv6}
@@ -574,7 +593,7 @@ def phase_build() -> dict:
 
 
 # ----------------------------------------------------------------- phase 3
-def _gae_case(T: int, B: int, seed: int) -> dict:
+def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
     import torch
 
     from repro_torch.kernels.advantages import gae_cuda
@@ -586,15 +605,19 @@ def _gae_case(T: int, B: int, seed: int) -> dict:
     d = (torch.rand((T, B), generator=g, device="cuda") < 0.1).float()
     last = torch.randn((B,), generator=g, device="cuda")
     adv_k, ret_k = gae_cuda(r, v, d, last, gamma=0.99, lam=0.95)
+    adv_2, ret_2 = gae_cuda(r, v, d, last, gamma=0.99, lam=0.95)
     adv_p, ret_p = gae(r, v, d, last, gamma=0.99, lam=0.95)
     torch.cuda.synchronize()
     err = max(_close(f"gae[{T},{B}] adv", adv_k, adv_p), _close(f"gae[{T},{B}] ret", ret_k, ret_p))
+    _require(torch.equal(adv_k, adv_2) and torch.equal(ret_k, ret_2),
+             f"gae[{T},{B}]: two calls differ (not bitwise repeatable)")
     nbytes = (5 * T * B + B) * 4
     bound, by = _bound_ms(nbytes, 8 * T * B)
     return {
-        "shape": [T, B], "max_abs_err": err, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-        "library_ms": None,
-        **_timings(lambda: gae_cuda(r, v, d, last), lambda: gae(r, v, d, last), plain_iters=20),
+        "shape": [T, B], "max_abs_err": err, "bitwise_repeatable": True, "bound_ms": bound,
+        "bound_by": by, "bytes": nbytes, "library_ms": None,
+        **_timings(lambda: gae_cuda(r, v, d, last), lambda: gae(r, v, d, last),
+                   plain_iters=plain_iters),
     }
 
 
@@ -678,6 +701,7 @@ def _surrogate_inputs(B: int, A: int, seed: int, clip_eps: float):
 def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iters: int = 50) -> dict:
     import torch
 
+    from repro_torch.kernels.build import load_library
     from repro_torch.kernels.surrogate import (
         ppo_surrogate_cuda,
         ppo_surrogate_plain,
@@ -720,8 +744,14 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
         lambda: surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps),
         plain_fwd, plain_iters=plain_iters,
     )
-    # The backward alone, fed the forward's saved row logsumexp and entropy.
-    _, _, ent, _, lse = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
+    # The backward alone, fed the forward's saved row logsumexp and entropy;
+    # the forward's five outputs must be bitwise equal across two calls.
+    first = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
+    again = surrogate_fwd_cuda(logits, actions, values, blp, adv, ret, clip_eps)
+    torch.cuda.synchronize()
+    _require(all(torch.equal(a, b) for a, b in zip(first, again)),
+             f"surrogate[{B},{A}] forward: two calls differ (not bitwise repeatable)")
+    _, _, ent, _, lse = first
     bwd_t = _timings(
         lambda: surrogate_bwd_cuda(logits, actions, values, blp, adv, ret, lse, ent, *cots,
                                    clip_eps),
@@ -736,9 +766,18 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
     fwd_bound = _bound_ms(fwd_bytes, B * (6 * A + 20))
     bwd_bound = _bound_ms(bwd_bytes, B * (16 * A + 40))
     shape = [B, A]
+    chunks = load_library().ppo_surrogate_fwd_chunks(A)
+    if chunks:
+        # torch.logsumexp reads the same logits once: a yardstick of the
+        # forward's bytes, not the same function (so not library_ms).
+        lse_t = _library(lambda: torch.logsumexp(logits, dim=-1))
+        fwd_t.update(logsumexp_ms=lse_t["library_ms"], logsumexp_call_ms=lse_t["library_call_ms"])
+        print(f"  surrogate[{B},{A}] forward: grid (B, chunks) [{B}, {chunks}], {B * chunks} "
+              f"blocks; torch.logsumexp {lse_t['library_ms']:.6f} ms")
     return {
-        "fwd": {"shape": shape, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
-                "bound_by": fwd_bound[1], "bytes": fwd_bytes, "library_ms": None, **fwd_t},
+        "fwd": {"shape": shape, "max_abs_err": fwd_err, "bitwise_repeatable": True,
+                "chunks": chunks, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                "bytes": fwd_bytes, "library_ms": None, **fwd_t},
         "bwd": {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0],
                 "bound_by": bwd_bound[1], "bytes": bwd_bytes, "library_ms": None, **bwd_t},
     }
@@ -1205,18 +1244,55 @@ def _narrow_heads(case, seed: int) -> list:
     ]
 
 
+def _gae_scan_order() -> str:
+    """The reverse-scan order ``csrc/gae.cu`` ships (its ``kWarpScan``)."""
+    from repro_torch.kernels import build
+
+    text = (build.CSRC_DIR / "gae.cu").read_text()
+    found = re.search(r"constexpr bool kWarpScan = (true|false);", text)
+    _require(found is not None, "gae.cu no longer states kWarpScan")
+    return "warp (affine maps scanned across a warp)" if found.group(1) == "true" else (
+        "serial (one thread per column, the reference's order)")
+
+
+def _launch_floor() -> dict:
+    """Device and event time of the library's empty kernel: the floor under
+    the latency-bound kernels (GAE, V-trace, the surrogate at RL widths)."""
+    import torch
+
+    from repro_torch.kernels.build import check, load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(lib, lib.empty_launch(stream), "empty_launch")
+
+    device_ms, lost = _device_ms(launch, iters=50)
+    out = {"device_ms": device_ms, "records_lost": lost, "call_ms": _time_ms(launch)}
+    print(f"launch floor (empty kernel): device_ms={device_ms} call_ms={out['call_ms']:.5f} "
+          f"records_lost={lost}")
+    return out
+
+
 def phase_kernels() -> dict:
     """Every kernel at its main paths' shapes and at large ones; the first
     case of each kernel is its path's shape (the RLHF path's, and the IMPALA
     learner's for V-trace)."""
+    print(f"  gae scan order: {_gae_scan_order()}")
     gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(32, 4, 7),
-                 _gae_case(128, 4096, 1), _gae_case(33, 1001, 2)]
+                 _gae_case(128, 4096, 1), _gae_case(33, 1001, 2), _gae_case(1, 8, 3),
+                 _gae_case(1000, 4, 9, plain_iters=3)]
     vtrace_cases = [_vtrace_case((32, 16), 40), _vtrace_case((32, 512), 41),
                     _vtrace_case((128, 4096), 42), _vtrace_case((33, 1001), 43),
                     _vtrace_case((16, 8, 2), 44), _vtrace_case((1, 64), 45),
                     _vtrace_case((32, 512), 46, rho_clip=2.0, c_clip=0.5)]
+    # [16, 151937]: rows not 16-byte aligned (scalar loads); [8, 1024]: one
+    # chunk a row; [3, 4097]: a one-column last chunk.
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
-                 _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4)]
+                 _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4),
+                 _surrogate_case(16, 151937, 12, plain_iters=10), _surrogate_case(8, 1024, 13),
+                 _surrogate_case(3, 4097, 14)]
     d = RLHF_ENV["ctx"]
     B, S, H, KV, D = PHI_ATTENTION
     _phi = (B, S, S, H, KV, D)
@@ -2152,6 +2228,7 @@ def main() -> int:
     try:
         record["device"] = phase_device()
         record["build"] = phase_build()
+        record["launch_floor"] = _launch_floor()
         record["kernels"] = phase_kernels()
         record["learner_parity"] = phase_learner_parity()
         record["main_path"] = phase_main_path(
@@ -2204,6 +2281,9 @@ def main() -> int:
             "library_backend": path_case.get("library_backend"), "shape": path_case["shape"],
             "call_ms": path_case["call_ms"], "plain_call_ms": path_case["plain_call_ms"],
             "library_call_ms": path_case.get("library_call_ms"),
+            "launch_floor_ms": record["launch_floor"]["device_ms"],
+            **{k: path_case[k] for k in ("logsumexp_ms", "logsumexp_call_ms") if k in path_case},
+            **({"scan_order": _gae_scan_order()} if name == "gae" else {}),
             "cases_by_path": cases_by_path,
         })
     if args.out:

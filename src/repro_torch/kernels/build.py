@@ -33,6 +33,7 @@ __all__ = [
     "build_info",
     "check",
     "load_library",
+    "zeroed_tickets",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -55,8 +56,11 @@ _SIGNATURES = {
     "gae_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # blp, tlp, r, v, d, last, vs, pg, T, B, gamma, rho_clip, c_clip, stream
     "vtrace_launch": [_P] * 8 + [_I, _I, _F, _F, _F, _P],
-    # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, lse, B, A, lo, hi, stream
-    "ppo_surrogate_fwd_launch": [_P] * 11 + [_I, _I, _F, _F, _P],
+    # logits, actions, values, blp, adv, ret, pg, vf, ent, kl, lse, work,
+    # tickets, B, A, lo, hi, stream
+    "ppo_surrogate_fwd_launch": [_P] * 13 + [_I, _I, _F, _F, _P],
+    # A -> chunks of a row in the forward's work buffer
+    "ppo_surrogate_fwd_chunks": [_I],
     # logits, actions, values, blp, adv, ret, lse, ent, gpg, gvf, gent, gkl,
     # dlogits, dv, dblp, dadv, dret, B, A, lo, hi, stream
     "ppo_surrogate_bwd_launch": [_P] * 17 + [_I, _I, _F, _F, _P],
@@ -79,6 +83,8 @@ _SIGNATURES = {
     "moe_gmm_dx_launch": [_P] * 5 + [_I] * 4 + [_P],
     # x, dy, ends, dw, T, D, F, E, stream
     "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # stream: an empty kernel, the shortest launch of the library
+    "empty_launch": [_P],
 }
 
 _lock = threading.Lock()
@@ -181,6 +187,25 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         text = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {rc} ({text})")
+
+
+_tickets_lock = threading.Lock()
+_tickets_by_stream: dict = {}
+
+
+def zeroed_tickets(device, stream: int, n: int):
+    """At least ``n`` zeroed int32 tickets for the kernels whose last block
+    to finish a group merges it (decode attention, the surrogate forward),
+    one buffer per (device, stream), grown on demand: launches on one stream
+    run in order, and each leaves its tickets at 0."""
+    import torch
+
+    key = (device.index, stream)
+    with _tickets_lock:
+        tickets = _tickets_by_stream.get(key)
+        if tickets is None or tickets.numel() < n:
+            tickets = _tickets_by_stream[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return tickets
 
 
 class LaunchCounter:

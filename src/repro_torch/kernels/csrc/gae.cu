@@ -10,38 +10,96 @@
 // Bound on the H100: memory.  The work is 3 reads and 2 writes of T*B floats
 // plus B floats of `last`, about 8 flops per element, so the least time is
 // bytes / 3.35 TB/s; the operation count is four orders of magnitude below
-// the card's rate.
+// the card's rate.  At the RL paths' [T <= 64, B <= 8] both bounds are
+// below 0.00001 ms, so what a call costs is its launch and its chain of
+// dependent latencies.
 //
-// Design: one thread per batch column, looping t = T-1 .. 0 with the
-// running advantage and the next value in registers: the TPU kernel's
-// sequential reverse scan over a VMEM panel becomes a loop inside the
-// thread, and its grid over 128-lane batch panels becomes the thread grid.
-// Row-major [T, B] makes the loads and stores of one time step contiguous
-// across the threads of a warp, so every access is coalesced.  No padding:
-// threads past B return, T >= 1 is any length.  Nothing is allocated; the
-// kernel launches on the caller's stream.
+// Design: the TPU kernel's VMEM panel becomes a panel in shared memory.
+// One block of kThreads threads takes kPanel columns and stages the panel
+// at once, coalesced (a row of the panel is contiguous in [T, B]): one
+// thread per element loads r_t, v_t, d_t and v_{t+1} together and stores
+// delta_t, the decay a_t = gamma * lam * (1 - d_t) and v_t; the reverse scan
+// acc_t = delta_t + a_t * acc_{t+1} runs in shared memory, with no global
+// round trip per step; then adv_t and ret_t = adv_t + v_t go back
+// coalesced.  A rollout longer than kTileT rows goes tile by tile from the
+// end, the scan's carry crossing from tile to tile.
+// The scan (reverse_scan.cuh) runs in kWarpScan's order:
+//   * true (shipped): a warp per column; each lane composes its contiguous
+//     piece of rows into an affine map acc -> add + mul * acc, a reverse
+//     scan of the maps across the warp (5 shuffle steps) gives each lane its
+//     incoming carry, and each lane walks its piece again.  This sums in
+//     another order than the reference (float32 rounding, within 1e-5);
+//   * false: one thread per column walks the tile's rows in the
+//     reference's order.
+// kernels/gae_variants.py times both beside the thread-per-column kernel
+// this design replaced (variants/gae_thread_per_column.cu): on an H100 the
+// warp order was 6-8 % faster at CartPole's [64, 8], within 3 % of the
+// serial one at [32, 8] and [32, 4], 5-6 % slower at [128, 4096] and 17 %
+// faster at [1000, 4] (PERF.md).
+// Any T >= 1 and B >= 1; the last panel may be partial.  Nothing is
+// allocated; the kernel launches on the caller's stream; sums run in a
+// fixed order, so calls are bitwise repeatable.
 
 #include <cuda_runtime.h>
 
+#include "reverse_scan.cuh"
+
 namespace {
 
-__global__ void gae_kernel(const float* __restrict__ r, const float* __restrict__ v,
-                           const float* __restrict__ d, const float* __restrict__ last,
-                           float* __restrict__ adv, float* __restrict__ ret, int T, int B,
-                           float gamma, float gamma_lam) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+constexpr int kThreads = 256;
+constexpr int kPanel = kThreads / 32;  // columns a block: a warp each in the warp scan
+constexpr int kTileT = 128;            // rows staged at once
+constexpr int kStride = kPanel + 1;    // padded panel row: a warp's pieces spread over banks
+constexpr bool kWarpScan = true;
+
+__global__ void __launch_bounds__(kThreads) gae_kernel(
+    const float* __restrict__ r, const float* __restrict__ v, const float* __restrict__ d,
+    const float* __restrict__ last, float* __restrict__ adv, float* __restrict__ ret, int T,
+    int B, float gamma, float gamma_lam) {
+  __shared__ float s_x[kTileT * kStride];  // delta, then adv
+  __shared__ float s_a[kTileT * kStride];  // the decay
+  __shared__ float s_v[kTileT * kStride];
+  const int b0 = blockIdx.x * kPanel;
+  const int P = min(kPanel, B - b0);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int scan_col = kWarpScan ? tid / 32 : tid;
   float carry = 0.f;
-  float next_v = last[b];
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t i = static_cast<size_t>(t) * B + b;
-    const float v_t = v[i];
-    const float nd = 1.f - d[i];
-    const float delta = r[i] + gamma * nd * next_v - v_t;
-    carry = delta + gamma_lam * nd * carry;
-    adv[i] = carry;
-    ret[i] = carry + v_t;
-    next_v = v_t;
+  for (int t0 = ((T - 1) / kTileT) * kTileT; t0 >= 0; t0 -= kTileT) {
+    const int rows = min(kTileT, T - t0);
+    // Stage the tile, one thread per element: delta and the decay from r,
+    // v, d and the next value (the row after, or `last`), all loaded at once.
+    for (int e = tid; e < rows * kPanel; e += kThreads) {
+      const int row = e / kPanel;
+      const int c = e % kPanel;
+      if (c < P) {
+        const int t = t0 + row;
+        const size_t g = static_cast<size_t>(t) * B + b0 + c;
+        const float v_t = v[g];
+        const float nv = t + 1 < T ? v[g + B] : last[b0 + c];
+        const float nd = 1.f - d[g];
+        const int k = row * kStride + c;
+        s_x[k] = r[g] + gamma * nd * nv - v_t;
+        s_a[k] = gamma_lam * nd;
+        s_v[k] = v_t;
+      }
+    }
+    __syncthreads();
+    if (scan_col < P) {
+      carry = kWarpScan ? reverse_scan_warp(s_x, s_a, rows, kStride, scan_col, carry)
+                        : reverse_scan_serial(s_x, s_a, rows, kStride, scan_col, carry);
+    }
+    __syncthreads();
+    for (int e = tid; e < rows * kPanel; e += kThreads) {
+      const int row = e / kPanel;
+      const int c = e % kPanel;
+      if (c < P) {
+        const size_t g = static_cast<size_t>(t0 + row) * B + b0 + c;
+        const float x = s_x[row * kStride + c];
+        adv[g] = x;
+        ret[g] = x + s_v[row * kStride + c];
+      }
+    }
+    __syncthreads();  // the next tile overwrites the panel
   }
 }
 
@@ -50,8 +108,7 @@ __global__ void gae_kernel(const float* __restrict__ r, const float* __restrict_
 extern "C" int gae_launch(const void* r, const void* v, const void* d, const void* last,
                           void* adv, void* ret, int T, int B, float gamma, float gamma_lam,
                           void* stream) {
-  constexpr int kThreads = 128;
-  const int blocks = (B + kThreads - 1) / kThreads;
+  const int blocks = (B + kPanel - 1) / kPanel;
   gae_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r), static_cast<const float*>(v), static_cast<const float*>(d),
       static_cast<const float*>(last), static_cast<float*>(adv), static_cast<float*>(ret), T, B,

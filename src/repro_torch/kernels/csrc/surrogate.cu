@@ -40,22 +40,31 @@
 //     neighbours.  The backward forms one row's scalars per thread into
 //     shared memory, then its block writes d logits of its rows with
 //     neighbouring threads on neighbouring logits: one read and one write.
-//   * A >= kRowsMinA (a language model's vocabulary).  Forward: one block of
-//     1024 threads per row; neighbouring threads read neighbouring logits,
-//     so every pass over the row is coalesced, and the max, the exp sum and
-//     sum_j e_j (x_j - max) are tree-reduced (warp shuffles, then shared
-//     memory).  The entropy comes from the two sums, H = log s - t / s, so
-//     the forward reads the row twice.  Backward: a map over [B, A] in
-//     blocks of kMapCols columns of one row, B x ceil(A / kMapCols) blocks,
-//     many waves over the SMs.  Each block forms its row's scalars (g_logp,
-//     and the row sum of the log-softmax cotangent from the saved entropy,
-//     sum_j p_j (lp_j + 1) = 1 - H) from lse, ent, row[action] and the [B]
-//     vectors, while its 128-bit loads of the logits are in flight (scalar
-//     loads for a row that is not 16-byte aligned, and for the tail), and
-//     writes d logits once: one read and one write of the logits, the
-//     bound's own traffic.  The block of column 0 writes the four [B]
-//     gradients.
-// Nothing is allocated; the kernels launch on the caller's stream.
+//   * A >= kRowsMinA (a language model's vocabulary): both directions tile
+//     [B, A] in chunks of kMapCols columns of one row, a block of
+//     kMapThreads threads each, B x ceil(A / kMapCols) blocks, many waves
+//     over the SMs, with kMapVec 128-bit loads in flight per thread (scalar
+//     loads for a row that is not 16-byte aligned, and for the tail).
+//     Forward: a block keeps its chunk in registers, reduces the chunk's
+//     max m_k across the block, and from the same registers forms
+//     s_k = sum_j e_j and t_k = sum_j e_j (x_j - m_k), e_j = exp(x_j - m_k):
+//     one read of the logits and one exp per logit (no online rescale,
+//     which made the pass compute-bound).  It writes (m_k, s_k, t_k) to a
+//     work buffer [B, chunks, 3] (and, in the chunk holding the action,
+//     that logit to a [B] tail of the buffer); the last block of the row,
+//     known by an atomic ticket that it resets, merges the partials in
+//     chunk order: m = max_k m_k, s = sum_k s_k f_k and
+//     t = sum_k f_k (t_k + s_k (m_k - m)), f_k = exp(m_k - m); then
+//     lse = m + log s and H = log s - t / s, and it writes the row's terms.
+//     One launch, no float atomics, bitwise repeatable.  Backward: each
+//     block forms its row's scalars (g_logp, and the row sum of the
+//     log-softmax cotangent from the saved entropy, sum_j p_j (lp_j + 1) =
+//     1 - H) from lse, ent, row[action] and the [B] vectors while its loads
+//     of the logits are in flight, and writes d logits once: one read and
+//     one write of the logits, the bound's own traffic.  The block of
+//     column 0 writes the four [B] gradients.
+// The wrapper allocates the forward's work buffer and keeps its tickets
+// zeroed; the kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,6 +96,24 @@ __device__ __forceinline__ float balanced(float x, float z, float y) {
   return x == z ? (y == z ? 0.5f : 1.f) : 0.f;
 }
 
+// Row i's terms from its logsumexp, entropy and the action's log-prob, and
+// its behaviour log-prob b, advantage a, value and return.
+__device__ __forceinline__ void write_row_terms(int i, float row_lse, float row_ent, float logp,
+                                                float b, float a, float value, float ret_i,
+                                                float* __restrict__ pg, float* __restrict__ vf,
+                                                float* __restrict__ ent, float* __restrict__ kl,
+                                                float* __restrict__ lse, float lo, float hi) {
+  const float ratio = expf(logp - b);
+  const float unclipped = ratio * a;
+  const float clipped = fminf(fmaxf(ratio, lo), hi) * a;
+  pg[i] = -fminf(unclipped, clipped);
+  const float dv = value - ret_i;
+  vf[i] = dv * dv;
+  ent[i] = row_ent;
+  kl[i] = b - logp;
+  lse[i] = row_lse;
+}
+
 __global__ void surrogate_fwd_kernel(const float* __restrict__ logits,
                                      const int64_t* __restrict__ actions,
                                      const float* __restrict__ values,
@@ -104,17 +131,8 @@ __global__ void surrogate_fwd_kernel(const float* __restrict__ logits,
     const float lp = row[j] - sm.lse;
     entropy -= expf(lp) * lp;
   }
-  const float b = blp[i];
-  const float a = adv[i];
-  const float ratio = expf(sm.logp - b);
-  const float unclipped = ratio * a;
-  const float clipped = fminf(fmaxf(ratio, lo), hi) * a;
-  pg[i] = -fminf(unclipped, clipped);
-  const float dv = values[i] - ret[i];
-  vf[i] = dv * dv;
-  ent[i] = entropy;
-  kl[i] = b - sm.logp;
-  lse[i] = sm.lse;
+  write_row_terms(i, sm.lse, entropy, sm.logp, blp[i], adv[i], values[i], ret[i], pg, vf, ent, kl,
+                  lse, lo, hi);
 }
 
 // The row's scalars of the backward, from the saved lse and ent: the
@@ -208,89 +226,232 @@ __global__ void __launch_bounds__(kThreads) surrogate_bwd_kernel(
   }
 }
 
-constexpr int kRowThreads = 1024;
 constexpr int kRowsMinA = 1024;
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
-// Block-wide reduction over kRowThreads threads; every thread gets the result.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* scratch) {
+constexpr int kMapThreads = 256;
+constexpr int kMapVec = 4;  // float4 loads in flight per thread
+constexpr int kMapCols = kMapThreads * 4 * kMapVec;
+constexpr int kMapWarps = kMapThreads / 32;
+// The forward's chunk: kFwdVec float4s a thread, kFwdCols columns a block
+// (the backward's kMapCols; kernels/surrogate_variants.py times others).
+constexpr int kFwdVec = kMapVec;
+constexpr int kFwdCols = kMapThreads * 4 * kFwdVec;
+
+// Chunks of a row in the forward's work buffer; 0 below kRowsMinA.
+inline int fwd_chunks(int A) { return A >= kRowsMinA ? (A + kFwdCols - 1) / kFwdCols : 0; }
+
+// Max over the block's kMapThreads threads; every thread gets it.  Each
+// call needs its own scratch[kMapWarps], or a barrier before reusing one.
+__device__ __forceinline__ float block_max(float x, float* scratch) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  __syncthreads();  // scratch is free (an earlier reduction may still read it)
-  if (lane == 0) scratch[warp] = x;
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = x;
   __syncthreads();
-  x = scratch[lane];  // kRowThreads / 32 == 32 partials
+  x = scratch[threadIdx.x % kMapWarps];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
+  for (int o = kMapWarps / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-struct RowStats {
-  float lse;  // logsumexp of the row
-  float ent;  // entropy of its softmax
-};
-
-// Two coalesced passes over one row: the max, then s = sum_j e_j and
-// t = sum_j e_j (x_j - max) with e_j = exp(x_j - max).
-__device__ __forceinline__ RowStats block_row_stats(const float* __restrict__ row, int A,
-                                                    float* scratch) {
-  float m = -INFINITY;
-  for (int j = threadIdx.x; j < A; j += kRowThreads) m = fmaxf(m, row[j]);
-  m = block_reduce<true>(m, scratch);
-  float s = 0.f, t = 0.f;
-  for (int j = threadIdx.x; j < A; j += kRowThreads) {
-    const float x = row[j] - m;
-    const float e = expf(x);
-    s += e;
-    t = fmaf(e, x, t);
+// Sums of s and t over the block, in a fixed order, to thread 0 (the other
+// threads get garbage).  scratch holds 2 * kMapWarps floats.
+__device__ __forceinline__ float2 block_sum2(float s, float t, float* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    t += __shfl_xor_sync(0xffffffffu, t, o);
   }
-  s = block_reduce<false>(s, scratch);
-  t = block_reduce<false>(t, scratch);
-  const float log_s = logf(s);
-  RowStats out;
-  out.lse = m + log_s;
-  out.ent = log_s - t / s;
+  if (threadIdx.x % 32 == 0) {
+    scratch[threadIdx.x / 32] = s;
+    scratch[kMapWarps + threadIdx.x / 32] = t;
+  }
+  __syncthreads();
+  float2 out = make_float2(0.f, 0.f);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kMapWarps; ++w) {
+      out.x += scratch[w];
+      out.y += scratch[kMapWarps + w];
+    }
+  }
   return out;
 }
 
-__global__ void __launch_bounds__(kRowThreads) surrogate_fwd_rows_kernel(
+// s += e and t += e (x - m), e = exp(x - m).
+__device__ __forceinline__ void exp_sums(float x, float m, float& s, float& t) {
+  const float d = x - m;
+  const float e = expf(d);
+  s += e;
+  t = fmaf(e, d, t);
+}
+
+// Shared memory of the forward's merge.
+struct MergeScratch {
+  float max[kMapWarps];
+  float a[kMapThreads];
+  float b[kMapThreads];
+};
+
+// Row i's statistics from its chunks' partials part[k] = (m_k, s_k, t_k):
+// m = max_k m_k, s = sum_k s_k f_k and t = sum_k f_k (t_k + s_k (m_k - m)),
+// f_k = exp(m_k - m), each sum in chunk order: thread j takes chunk j and
+// thread 0 adds the threads' terms in order.  (Past kMapThreads chunks,
+// thread j first merges a run of per chunks in order.)  Thread 0 then
+// writes the row's terms; act_logit is the action's logit, written by the
+// block whose chunk holds the action and read only when the action is in
+// [0, A).  Thread 0's loads of the row's inputs go out first, so they land
+// while the merge runs; the partials come from other blocks, so they are
+// read past L1 (__ldcg).
+__device__ __forceinline__ void merge_row(
+    int i, int A, int chunks, const float* part, const float* act_logit,
+    const int64_t* __restrict__ actions, const float* __restrict__ values,
+    const float* __restrict__ blp, const float* __restrict__ adv, const float* __restrict__ ret,
+    float* __restrict__ pg, float* __restrict__ vf, float* __restrict__ ent,
+    float* __restrict__ kl, float* __restrict__ lse, float lo, float hi, MergeScratch& sh) {
+  int64_t action = -1;
+  float x_act = 0.f, b = 0.f, a = 0.f, value = 0.f, ret_i = 0.f;
+  if (threadIdx.x == 0) {
+    action = actions[i];
+    x_act = __ldcg(act_logit);
+    b = blp[i];
+    a = adv[i];
+    value = values[i];
+    ret_i = ret[i];
+  }
+  const int per = (chunks + kMapThreads - 1) / kMapThreads;
+  const int k0 = min(chunks, static_cast<int>(threadIdx.x) * per);
+  const int k1 = min(chunks, k0 + per);
+  float mj = -INFINITY, sj = 0.f, tj = 0.f;
+  for (int k = k0; k < k1; ++k) {
+    const float mk = __ldcg(part + 3 * k);
+    const float sk = __ldcg(part + 3 * k + 1);
+    const float tk = __ldcg(part + 3 * k + 2);
+    if (k == k0) {
+      mj = mk;
+      sj = sk;
+      tj = tk;
+      continue;
+    }
+    const float m2 = fmaxf(mj, mk);
+    const float fj = expf(mj - m2);
+    const float fk = expf(mk - m2);
+    tj = fj * (tj + sj * (mj - m2)) + fk * (tk + sk * (mk - m2));
+    sj = sj * fj + sk * fk;
+    mj = m2;
+  }
+  const float m = block_max(mj, sh.max);
+  float sa = 0.f, sb = 0.f;
+  if (k0 < k1) {
+    const float d = mj - m;
+    const float f = expf(d);
+    sa = sj * f;
+    sb = f * (tj + sj * d);
+  }
+  sh.a[threadIdx.x] = sa;
+  sh.b[threadIdx.x] = sb;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float s = 0.f, t = 0.f;
+  for (int j = 0; j * per < chunks; ++j) {
+    s += sh.a[j];
+    t += sh.b[j];
+  }
+  const float log_s = logf(s);
+  const float row_lse = m + log_s;
+  const bool valid = action >= 0 && action < A;
+  write_row_terms(i, row_lse, log_s - t / s, valid ? x_act - row_lse : 0.f, b, a, value, ret_i, pg,
+                  vf, ent, kl, lse, lo, hi);
+}
+
+// Block (i, k) of the forward: chunk k of row i.  work holds the partials
+// [B, chunks, 3] and then each row's action logit [B]; tickets[i] counts
+// the row's finished chunks and is left at 0.
+__global__ void __launch_bounds__(kMapThreads) surrogate_fwd_map_kernel(
     const float* __restrict__ logits, const int64_t* __restrict__ actions,
     const float* __restrict__ values, const float* __restrict__ blp,
     const float* __restrict__ adv, const float* __restrict__ ret, float* __restrict__ pg,
     float* __restrict__ vf, float* __restrict__ ent, float* __restrict__ kl,
-    float* __restrict__ lse, int A, float lo, float hi) {
-  __shared__ float scratch[32];
-  const int i = blockIdx.x;
+    float* __restrict__ lse, float* __restrict__ work, unsigned* __restrict__ tickets, int A,
+    float lo, float hi) {
+  __shared__ float s_sum[2 * kMapWarps];
+  __shared__ MergeScratch s_merge;
+  __shared__ bool s_last;
+  const int i = blockIdx.x;  // the row
+  const int k = blockIdx.y;  // its chunk
+  const int B = gridDim.x;
+  const int chunks = gridDim.y;
+  const int c0 = k * kFwdCols;
+  const int cols = min(kFwdCols, A - c0);
   const float* row = logits + static_cast<size_t>(i) * A;
-  const RowStats st = block_row_stats(row, A, scratch);
-  if (threadIdx.x != 0) return;
-  const int64_t action = actions[i];
-  const bool valid = action >= 0 && action < A;
-  const float logp = valid ? row[action] - st.lse : 0.f;
-  const float b = blp[i];
-  const float a = adv[i];
-  const float ratio = expf(logp - b);
-  pg[i] = -fminf(ratio * a, fminf(fmaxf(ratio, lo), hi) * a);
-  const float dv = values[i] - ret[i];
-  vf[i] = dv * dv;
-  ent[i] = st.ent;
-  kl[i] = b - logp;
-  lse[i] = st.lse;
+  // Thread 0 of the block whose chunk holds the action keeps that logit.
+  const int64_t action = threadIdx.x == 0 ? actions[i] : -1;
+  const bool holds_action = action >= c0 && action < c0 + cols;
+  float x_act = 0.f;
+  float m = -INFINITY, s = 0.f, t = 0.f;
+  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+    const int vecs = cols / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(row + c0);
+    float4 x[kFwdVec];
+#pragma unroll
+    for (int u = 0; u < kFwdVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      x[u] = e < vecs ? x4[e] : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    }
+    const int j = 4 * vecs + threadIdx.x;  // the last cols % 4 columns
+    const float xt = j < cols ? row[c0 + j] : -INFINITY;
+    if (holds_action) x_act = row[action];
+#pragma unroll
+    for (int u = 0; u < kFwdVec; ++u) {
+      m = fmaxf(m, fmaxf(fmaxf(x[u].x, x[u].y), fmaxf(x[u].z, x[u].w)));
+    }
+    m = block_max(fmaxf(m, xt), s_merge.max);
+#pragma unroll
+    for (int u = 0; u < kFwdVec; ++u) {
+      if (threadIdx.x + u * kMapThreads < vecs) {
+        exp_sums(x[u].x, m, s, t);
+        exp_sums(x[u].y, m, s, t);
+        exp_sums(x[u].z, m, s, t);
+        exp_sums(x[u].w, m, s, t);
+      }
+    }
+    if (j < cols) exp_sums(xt, m, s, t);
+  } else {
+    float x[4 * kFwdVec];
+#pragma unroll
+    for (int u = 0; u < 4 * kFwdVec; ++u) {
+      const int e = threadIdx.x + u * kMapThreads;
+      x[u] = e < cols ? row[c0 + e] : -INFINITY;
+      m = fmaxf(m, x[u]);
+    }
+    if (holds_action) x_act = row[action];
+    m = block_max(m, s_merge.max);
+#pragma unroll
+    for (int u = 0; u < 4 * kFwdVec; ++u) {
+      if (threadIdx.x + u * kMapThreads < cols) exp_sums(x[u], m, s, t);
+    }
+  }
+  const float2 st = block_sum2(s, t, s_sum);
+  float* act_logit = work + static_cast<size_t>(B) * chunks * 3 + i;
+  if (threadIdx.x == 0) {
+    float* part = work + (static_cast<size_t>(i) * chunks + k) * 3;
+    part[0] = m;
+    part[1] = st.x;
+    part[2] = st.y;
+    if (holds_action) *act_logit = x_act;
+    // The last block of the row to finish merges; every block has taken its
+    // ticket once the count reaches chunks, so the last resets it.
+    __threadfence();
+    s_last = atomicAdd(tickets + i, 1u) == static_cast<unsigned>(chunks - 1);
+    if (s_last) tickets[i] = 0u;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  merge_row(i, A, chunks, work + static_cast<size_t>(i) * chunks * 3, act_logit, actions, values,
+            blp, adv, ret, pg, vf, ent, kl, lse, lo, hi, s_merge);
 }
-
-constexpr int kMapThreads = 256;
-constexpr int kMapVec = 4;  // float4 loads in flight per thread
-constexpr int kMapCols = kMapThreads * 4 * kMapVec;
 
 __global__ void __launch_bounds__(kMapThreads) surrogate_bwd_map_kernel(
     const float* __restrict__ logits, const int64_t* __restrict__ actions,
@@ -352,13 +513,19 @@ __global__ void __launch_bounds__(kMapThreads) surrogate_bwd_map_kernel(
 
 }  // namespace
 
+// Chunks of a row in the forward's work buffer at width A (0: the forward
+// takes no work buffer); the buffer holds B * (3 * chunks + 1) floats.
+extern "C" int ppo_surrogate_fwd_chunks(int A) { return fwd_chunks(A); }
+
 // logits [B, A] float32, actions [B] int64, values, blp, adv, ret [B]
-// float32; writes pg, vf, ent, kl and lse [B].
+// float32; writes pg, vf, ent, kl and lse [B].  From A = kRowsMinA, work is
+// B * (3 * chunks + 1) floats of scratch and tickets B zeroed unsigned ints,
+// left zeroed; below it both may be null.
 extern "C" int ppo_surrogate_fwd_launch(const void* logits, const void* actions,
                                         const void* values, const void* blp, const void* adv,
                                         const void* ret, void* pg, void* vf, void* ent, void* kl,
-                                        void* lse, int B, int A, float lo, float hi,
-                                        void* stream) {
+                                        void* lse, void* work, void* tickets, int B, int A,
+                                        float lo, float hi, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* lg = static_cast<const float*>(logits);
   const auto* ac = static_cast<const int64_t*>(actions);
@@ -371,9 +538,14 @@ extern "C" int ppo_surrogate_fwd_launch(const void* logits, const void* actions,
   auto* o_ent = static_cast<float*>(ent);
   auto* o_kl = static_cast<float*>(kl);
   auto* o_lse = static_cast<float*>(lse);
-  if (A >= kRowsMinA) {
-    surrogate_fwd_rows_kernel<<<B, kRowThreads, 0, st>>>(lg, ac, va, bl, ad, re, o_pg, o_vf,
-                                                         o_ent, o_kl, o_lse, A, lo, hi);
+  const int chunks = fwd_chunks(A);
+  if (chunks > 0) {
+    if (work == nullptr || tickets == nullptr || chunks > 65535) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    surrogate_fwd_map_kernel<<<dim3(B, chunks), kMapThreads, 0, st>>>(
+        lg, ac, va, bl, ad, re, o_pg, o_vf, o_ent, o_kl, o_lse, static_cast<float*>(work),
+        static_cast<unsigned*>(tickets), A, lo, hi);
   } else {
     surrogate_fwd_kernel<<<blocks_for(B), kThreads, 0, st>>>(lg, ac, va, bl, ad, re, o_pg, o_vf,
                                                              o_ent, o_kl, o_lse, B, A, lo, hi);

@@ -15,18 +15,17 @@ The kernel splits the window over blocks (flash-decoding): ``decode_splits``
 picks the number of splits from the shape, and with more than one the
 splits' softmax states go through a workspace ``[B, KV, splits, g, D + 2]``
 that each call allocates, and are merged in a fixed order.  The merge's
-tickets are kept zeroed per device and stream (``_tickets``).
+tickets are kept zeroed per device and stream (``build.zeroed_tickets``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import threading
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check, load_library
+from repro_torch.kernels.build import LaunchCounter, check, load_library, zeroed_tickets
 
 __all__ = [
     "decode_attention_cuda",
@@ -101,21 +100,6 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device)
         raise ValueError(f"decode_attention_cuda: {name} must be contiguous")
 
 
-_tickets_lock = threading.Lock()
-_tickets_by_stream: dict = {}
-
-
-def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The merge's zeroed tickets for one (device, stream), grown on demand:
-    launches on one stream run in order, and each leaves its tickets at 0."""
-    key = (device.index, stream)
-    with _tickets_lock:
-        tickets = _tickets_by_stream.get(key)
-        if tickets is None or tickets.numel() < n:
-            tickets = _tickets_by_stream[key] = torch.zeros(n, dtype=torch.int32, device=device)
-    return tickets
-
-
 def decode_attention_cuda(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, valid: torch.Tensor
 ) -> torch.Tensor:
@@ -158,7 +142,8 @@ def decode_attention_cuda(
         work_ptr = tickets_ptr = None
         if splits > 1:
             work = torch.empty((B, KV, splits, g, D + 2), dtype=torch.float32, device=device)
-            work_ptr, tickets_ptr = work.data_ptr(), _tickets(device, stream, B * H).data_ptr()
+            work_ptr = work.data_ptr()
+            tickets_ptr = zeroed_tickets(device, stream, B * H).data_ptr()
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
             out.data_ptr(), work_ptr, tickets_ptr, B, W, H, KV, D, row_stride, splits,

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check, load_library
+from repro_torch.kernels.build import LaunchCounter, check, load_library, zeroed_tickets
 
 __all__ = [
     "ppo_surrogate_cuda",
@@ -103,7 +103,9 @@ def surrogate_fwd_cuda(
     clip_eps: float,
 ) -> Tuple[torch.Tensor, ...]:
     """Forward kernel launch: per-row (pg, vf, ent, kl) and the row
-    logsumexp ``lse`` the backward takes."""
+    logsumexp ``lse`` the backward takes.  At a vocabulary's width each row
+    is split over blocks whose partial sums go through a work buffer that
+    each call allocates; the last block of a row merges them."""
     B, A = _check_logits(logits)
     _check_rows(logits.device, B, actions=actions, values=values, blp=blp, adv=adv, ret=ret)
     pg, vf, ent, kl, lse = torch.empty((5, B), dtype=torch.float32, device=logits.device)
@@ -111,11 +113,18 @@ def surrogate_fwd_cuda(
         return pg, vf, ent, kl, lse
     lib = load_library()
     with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        work_ptr = tickets_ptr = None
+        chunks = lib.ppo_surrogate_fwd_chunks(A)
+        if chunks:
+            work = torch.empty(B * (3 * chunks + 1), dtype=torch.float32, device=logits.device)
+            work_ptr = work.data_ptr()
+            tickets_ptr = zeroed_tickets(logits.device, stream, B).data_ptr()
         rc = lib.ppo_surrogate_fwd_launch(
             logits.data_ptr(), actions.data_ptr(), values.data_ptr(), blp.data_ptr(),
             adv.data_ptr(), ret.data_ptr(), pg.data_ptr(), vf.data_ptr(), ent.data_ptr(),
-            kl.data_ptr(), lse.data_ptr(), B, A, 1.0 - clip_eps, 1.0 + clip_eps,
-            torch.cuda.current_stream(logits.device).cuda_stream,
+            kl.data_ptr(), lse.data_ptr(), work_ptr, tickets_ptr, B, A, 1.0 - clip_eps,
+            1.0 + clip_eps, stream,
         )
     check(lib, rc, "ppo_surrogate_fwd")
     SURROGATE_FWD_LAUNCHES.add()

@@ -1,18 +1,19 @@
 // Backward designs of the PPO surrogate at vocabulary width that the map of
-// csrc/surrogate.cu replaced, built beside it (this file includes it) by
+// csrc/surrogate.cu replaced, built beside it (this file includes it through
+// surrogate_fwd_rows.cu, whose block reductions it shares) by
 // kernels/surrogate_variants.py and timed there; never part of the port's
 // library.  Both take one block of 1024 threads per row and recompute the
 // row's logsumexp and entropy from the logits instead of taking the
 // forward's saved lse and ent:
 //   * three_read (online = 0): a pass for the max, a pass for the exp sums
-//     (block_row_stats, as the forward), then the write pass: three reads
+//     (block_row_stats, as that file's forward), then the write pass: three reads
 //     and one write of the logits;
 //   * two_read (online = 1): one online pass, each thread carrying a
 //     running max m with s = sum_j e_j and t = sum_j e_j (x_j - m),
 //     e_j = exp(x_j - m), rescaled as m grows, merged across the block;
 //     then the write pass: two reads and one write.
 
-#include "../csrc/surrogate.cu"
+#include "surrogate_fwd_rows.cu"
 
 namespace {
 

@@ -64,6 +64,70 @@ def test_gae_trailing_dims_flatten_like_reference():
     _close(adv_t, adv_j)
 
 
+# The CUDA kernel (csrc/gae.cu) stages a panel of columns in shared memory,
+# kTileT rows at a time from the end, and scans each column in one of two
+# orders: one thread walking the rows in the reference's order, or a warp
+# whose lanes compose contiguous pieces of rows into affine maps, scan the
+# maps across the warp and walk their pieces again.  Both orders, emulated
+# in float32, must match the Pallas kernel and the JAX scan.
+GAE_TILE_T = 128  # kTileT
+
+
+def _gae_emulated(r, v, d, last, gamma, lam, warp):
+    f32 = np.float32
+    T, B = r.shape
+    nd = f32(1) - d
+    x = r + f32(gamma) * nd * np.concatenate([v[1:], last[None]]) - v
+    a = f32(gamma * lam) * nd
+    adv = np.empty_like(r)
+    carry = np.zeros(B, f32)
+    for t0 in range((T - 1) // GAE_TILE_T * GAE_TILE_T, -1, -GAE_TILE_T):
+        rows = min(GAE_TILE_T, T - t0)
+        xs, ak = x[t0: t0 + rows], a[t0: t0 + rows]
+        if not warp:
+            for row in reversed(range(rows)):
+                carry = xs[row] + ak[row] * carry
+                adv[t0 + row] = carry
+            continue
+        n = -(-rows // 32)
+        pieces = [(min(rows, lane * n), min(rows, lane * n + n)) for lane in range(32)]
+        mul, add = np.ones((32, B), f32), np.zeros((32, B), f32)
+        for lane, (lo, hi) in enumerate(pieces):
+            for row in reversed(range(lo, hi)):
+                add[lane] = xs[row] + ak[row] * add[lane]
+                mul[lane] = ak[row] * mul[lane]
+        o = 1
+        while o < 32:  # lane L takes lane L + o's map (Hillis-Steele, suffix)
+            add[: 32 - o], mul[: 32 - o] = (add[: 32 - o] + mul[: 32 - o] * add[o:],
+                                            mul[: 32 - o] * mul[o:])
+            o *= 2
+        acc_in = np.concatenate([add[1:] + mul[1:] * carry, carry[None]])
+        for lane, (lo, hi) in enumerate(pieces):
+            acc = acc_in[lane]
+            for row in reversed(range(lo, hi)):
+                acc = xs[row] + ak[row] * acc
+                adv[t0 + row] = acc
+        carry = adv[t0].copy()
+    return adv, adv + v
+
+
+# The existing cases, and T = 100 and 1,000 (eight tiles, the last ragged)
+# with dones.
+@pytest.mark.parametrize("warp", [False, True], ids=["serial", "warp"])
+@pytest.mark.parametrize("T,B", [(1, 5), (64, 8), (33, 130), (7, 257), (40, 1), (100, 4),
+                                 (1000, 3)])
+def test_gae_scan_orders_match_pallas_and_scan(T, B, warp):
+    r, v, d, last = _gae_data(T, B, seed=T * 1000 + B + 1)
+    assert d.any()
+    adv_e, ret_e = _gae_emulated(r, v, d, last, 0.97, 0.9, warp)
+    adv_k, ret_k = gae_pallas(*map(jnp.asarray, (r, v, d, last)), gamma=0.97, lam=0.9,
+                              interpret=True)
+    adv_s, ret_s = jax_gae(*map(jnp.asarray, (r, v, d, last)), gamma=0.97, lam=0.9)
+    for name, want in (("pallas", (adv_k, ret_k)), ("scan", (adv_s, ret_s))):
+        _close(adv_e, want[0], f"adv vs {name}")
+        _close(ret_e, want[1], f"ret vs {name}")
+
+
 # ----------------------------------------------------------- surrogate
 def _boundary_blp(bound):
     """A behaviour logp putting the ratio of a row whose logp is exactly 0
@@ -166,22 +230,95 @@ def test_surrogate_tie_rows_take_the_balanced_gradient():
 # reads the logits once (csrc/surrogate.cu).  Its arithmetic, emulated in
 # float32 from those saved statistics as each forward variant forms them,
 # must match jax.grad of the oracle and of the Pallas kernel.
-ROWS_MIN_A = 1024  # kRowsMinA: one block per row from this width
+ROWS_MIN_A = 1024  # kRowsMinA: the chunked forward from this width
+FWD_COLS = 4096  # kFwdCols: columns of a chunk
+
+
+def _chunked_stats(x: torch.Tensor):
+    """The chunked forward's row statistics: per chunk of FWD_COLS columns
+    its max m_k, s_k = sum e and t_k = sum e (x - m_k), e = exp(x - m_k);
+    merged in chunk order into m = max m_k, s = sum s_k f_k and
+    t = sum f_k (t_k + s_k (m_k - m)), f_k = exp(m_k - m).  (The kernel adds
+    chunks in this order while a row has at most 256 of them.)"""
+    parts = []
+    for c0 in range(0, x.shape[1], FWD_COLS):
+        xc = x[:, c0: c0 + FWD_COLS]
+        mk = xc.max(dim=-1).values
+        dk = xc - mk[:, None]
+        e = torch.exp(dk)
+        parts.append((mk, e.sum(dim=-1), (e * dk).sum(dim=-1)))
+    m = torch.stack([p[0] for p in parts]).max(dim=0).values
+    s, t = torch.zeros_like(m), torch.zeros_like(m)
+    for mk, sk, tk in parts:
+        dk = mk - m
+        f = torch.exp(dk)
+        s = s + sk * f
+        t = t + f * (tk + sk * dk)
+    return m, s, t
 
 
 def _forward_stats(logits: np.ndarray):
     """The forward kernels' lse and entropy: one thread per row below
-    ROWS_MIN_A (max, exp sum, then -sum p lp), the block reduction above it
-    (max, s = sum e, t = sum e (x - max); H = log s - t / s)."""
+    ROWS_MIN_A (max, exp sum, then -sum p lp), the chunked map above it
+    (H = log s - t / s from the merged chunk statistics)."""
     x = torch.from_numpy(logits)
-    m = x.max(dim=-1, keepdim=True).values
-    e = torch.exp(x - m)
-    s = e.sum(dim=-1)
-    lse = m[:, 0] + torch.log(s)
     if x.shape[1] < ROWS_MIN_A:
+        m = x.max(dim=-1, keepdim=True).values
+        lse = m[:, 0] + torch.log(torch.exp(x - m).sum(dim=-1))
         lp = x - lse[:, None]
         return lse, -(torch.exp(lp) * lp).sum(dim=-1)
-    return lse, torch.log(s) - (e * (x - m)).sum(dim=-1) / s
+    m, s, t = _chunked_stats(x)
+    return m + torch.log(s), torch.log(s) - t / s
+
+
+def _surrogate_fwd_emulated(data, clip_eps):
+    """The forward's terms (pg, vf, ent, kl) and lse from ``_forward_stats``,
+    as the kernels form them (the action's logit minus lse, 0 off range)."""
+    logits, actions, values, blp, adv, ret = map(torch.from_numpy, data)
+    B, A = logits.shape
+    lse, ent = _forward_stats(data[0])
+    valid = (actions >= 0) & (actions < A)
+    logp = torch.where(valid, logits[torch.arange(B), torch.where(valid, actions, 0)] - lse, 0.0)
+    ratio = torch.exp(logp - blp)
+    lo, hi = torch.tensor(1 - clip_eps), torch.tensor(1 + clip_eps)
+    pg = -torch.minimum(ratio * adv, torch.minimum(torch.maximum(ratio, lo), hi) * adv)
+    return (pg, torch.square(values - ret), ent, blp - logp), lse
+
+
+def _chunked_case(case):
+    """Inputs for the chunked forward: (16, 4099) has a ragged tail after
+    the last whole float4; (4, 8197) three chunks, the last of 5 columns;
+    the others at (8, 8197): a row's max in its last chunk, a row of equal
+    logits, a row whose first chunk lies 120 below the rest (its
+    exp(m_k - m) underflows to 0), and actions outside [0, A)."""
+    B, A = {"ragged_tail": (16, 4099), "three_chunks": (4, 8197)}.get(case, (8, 8197))
+    data = list(_surrogate_data(B, A, seed=B + A, clip_eps=0.2))
+    logits, actions = data[0], data[1]
+    if case == "max_in_last_chunk":
+        logits[3:, -2] = 9.0
+    elif case == "equal_logits":
+        logits[3:] = 0.75
+    elif case == "underflowing_chunk":
+        logits[3:, :FWD_COLS] -= 120.0
+    elif case == "action_out_of_range":
+        actions[3], actions[5] = A, -1
+    return tuple(data)
+
+
+@pytest.mark.parametrize("case", ["ragged_tail", "three_chunks", "max_in_last_chunk",
+                                  "equal_logits", "underflowing_chunk", "action_out_of_range"])
+def test_chunked_surrogate_forward_matches_pallas_and_ref(case):
+    data = _chunked_case(case)
+    if case == "underflowing_chunk":
+        parts_m = data[0][:, :FWD_COLS].max(axis=1)
+        assert (np.exp(parts_m[3:] - data[0].max(axis=1)[3:]) == 0).all()
+    terms, lse = _surrogate_fwd_emulated(data, 0.2)
+    _close(lse, jax.nn.logsumexp(jnp.asarray(data[0]), axis=-1), "lse")
+    # The oracle's gather is undefined off range (NaN past A, wrapping below
+    # 0); the Pallas kernel's one-hot contraction gives logp = 0 there.
+    for fn in (_pallas,) if case == "action_out_of_range" else (ppo_surrogate_ref, _pallas):
+        for name, t, j in zip(("pg", "vf", "ent", "kl"), terms, _jax_terms(fn, data, 0.2)):
+            _close(t, j, f"{name} vs {getattr(fn, '__name__', fn)}")
 
 
 def _balanced(x, z, y):
