@@ -1244,17 +1244,6 @@ def _narrow_heads(case, seed: int) -> list:
     ]
 
 
-def _gae_scan_order() -> str:
-    """The reverse-scan order ``csrc/gae.cu`` ships (its ``kWarpScan``)."""
-    from repro_torch.kernels import build
-
-    text = (build.CSRC_DIR / "gae.cu").read_text()
-    found = re.search(r"constexpr bool kWarpScan = (true|false);", text)
-    _require(found is not None, "gae.cu no longer states kWarpScan")
-    return "warp (affine maps scanned across a warp)" if found.group(1) == "true" else (
-        "serial (one thread per column, the reference's order)")
-
-
 def _launch_floor() -> dict:
     """Device and event time of the library's empty kernel: the floor under
     the latency-bound kernels (GAE, V-trace, the surrogate at RL widths)."""
@@ -1279,7 +1268,7 @@ def phase_kernels() -> dict:
     """Every kernel at its main paths' shapes and at large ones; the first
     case of each kernel is its path's shape (the RLHF path's, and the IMPALA
     learner's for V-trace)."""
-    print(f"  gae scan order: {_gae_scan_order()}")
+    print("  gae scan order: a warp per column (csrc/reverse_scan.cuh), the one gae.cu builds")
     gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(32, 4, 7),
                  _gae_case(128, 4096, 1), _gae_case(33, 1001, 2), _gae_case(1, 8, 3),
                  _gae_case(1000, 4, 9, plain_iters=3)]
@@ -2283,7 +2272,6 @@ def main() -> int:
             "library_call_ms": path_case.get("library_call_ms"),
             "launch_floor_ms": record["launch_floor"]["device_ms"],
             **{k: path_case[k] for k in ("logsumexp_ms", "logsumexp_call_ms") if k in path_case},
-            **({"scan_order": _gae_scan_order()} if name == "gae" else {}),
             "cases_by_path": cases_by_path,
         })
     if args.out:

@@ -23,19 +23,18 @@
 // round trip per step; then adv_t and ret_t = adv_t + v_t go back
 // coalesced.  A rollout longer than kTileT rows goes tile by tile from the
 // end, the scan's carry crossing from tile to tile.
-// The scan (reverse_scan.cuh) runs in kWarpScan's order:
-//   * true (shipped): a warp per column; each lane composes its contiguous
-//     piece of rows into an affine map acc -> add + mul * acc, a reverse
-//     scan of the maps across the warp (5 shuffle steps) gives each lane its
-//     incoming carry, and each lane walks its piece again.  This sums in
-//     another order than the reference (float32 rounding, within 1e-5);
-//   * false: one thread per column walks the tile's rows in the
-//     reference's order.
-// kernels/gae_variants.py times both beside the thread-per-column kernel
-// this design replaced (variants/gae_thread_per_column.cu): on an H100 the
-// warp order was 6-8 % faster at CartPole's [64, 8], within 3 % of the
-// serial one at [32, 8] and [32, 4], 5-6 % slower at [128, 4096] and 17 %
-// faster at [1000, 4] (PERF.md).
+// The scan (reverse_scan.cuh) gives each column a warp: each lane composes
+// its contiguous piece of rows into an affine map acc -> add + mul * acc, a
+// reverse scan of the maps across the warp (5 shuffle steps) gives each
+// lane its incoming carry, and each lane walks its piece again.  This sums
+// in another order than the reference (float32 rounding, within 1e-5).
+// kernels/gae_variants.py times it beside one thread per column walking the
+// staged rows in the reference's order (variants/gae_serial_scan.cu) and the
+// thread-per-column kernel this design replaced
+// (variants/gae_thread_per_column.cu): on an H100 the warp order was 6-8 %
+// faster than the serial one at CartPole's [64, 8], within 3 % at [32, 8]
+// and [32, 4], 5-6 % slower at [128, 4096] and 17 % faster at [1000, 4]
+// (PERF.md).
 // Any T >= 1 and B >= 1; the last panel may be partial.  Nothing is
 // allocated; the kernel launches on the caller's stream; sums run in a
 // fixed order, so calls are bitwise repeatable.
@@ -47,10 +46,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPanel = kThreads / 32;  // columns a block: a warp each in the warp scan
+constexpr int kPanel = kThreads / 32;  // columns a block: a warp each
 constexpr int kTileT = 128;            // rows staged at once
 constexpr int kStride = kPanel + 1;    // padded panel row: a warp's pieces spread over banks
-constexpr bool kWarpScan = true;
 
 __global__ void __launch_bounds__(kThreads) gae_kernel(
     const float* __restrict__ r, const float* __restrict__ v, const float* __restrict__ d,
@@ -62,7 +60,7 @@ __global__ void __launch_bounds__(kThreads) gae_kernel(
   const int b0 = blockIdx.x * kPanel;
   const int P = min(kPanel, B - b0);
   const int tid = static_cast<int>(threadIdx.x);
-  const int scan_col = kWarpScan ? tid / 32 : tid;
+  const int col = tid / 32;  // the column this thread's warp scans
   float carry = 0.f;
   for (int t0 = ((T - 1) / kTileT) * kTileT; t0 >= 0; t0 -= kTileT) {
     const int rows = min(kTileT, T - t0);
@@ -84,10 +82,7 @@ __global__ void __launch_bounds__(kThreads) gae_kernel(
       }
     }
     __syncthreads();
-    if (scan_col < P) {
-      carry = kWarpScan ? reverse_scan_warp(s_x, s_a, rows, kStride, scan_col, carry)
-                        : reverse_scan_serial(s_x, s_a, rows, kStride, scan_col, carry);
-    }
+    if (col < P) carry = reverse_scan_warp(s_x, s_a, rows, kStride, col, carry);
     __syncthreads();
     for (int e = tid; e < rows * kPanel; e += kThreads) {
       const int row = e / kPanel;

@@ -1,9 +1,9 @@
-// Reverse linear recurrences over a panel staged in shared memory, the scan
-// of the advantage kernels (gae.cu; V-trace's acc_t has the same form):
+// The reverse linear recurrence over a panel staged in shared memory, the
+// scan of the advantage kernels (gae.cu; V-trace's acc_t has the same form):
 //     acc_t = x_t + a_t * acc_{t+1},   t = rows - 1 .. 0,   acc_rows = carry,
 // down column c of a panel whose row t holds x_t and a_t at t * stride + c.
-// Each writes acc_t over x_t and returns acc_0, the carry into the rows
-// before the panel.  Both sum in a fixed order, so results are bitwise
+// It writes acc_t over x_t and returns acc_0, the carry into the rows
+// before the panel.  It sums in a fixed order, so results are bitwise
 // repeatable.
 
 #pragma once
@@ -11,31 +11,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-// One thread walks the column in the reference's order, 8 rows' loads
-// issued ahead of their steps.
-__device__ __forceinline__ float reverse_scan_serial(float* x, const float* a, int rows,
-                                                     int stride, int c, float carry) {
-  int row = rows - 1;
-  for (; row >= 7; row -= 8) {
-    float xs[8], as[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      xs[j] = x[(row - j) * stride + c];
-      as[j] = a[(row - j) * stride + c];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      carry = xs[j] + as[j] * carry;
-      x[(row - j) * stride + c] = carry;
-    }
-  }
-  for (; row >= 0; --row) {
-    carry = x[row * stride + c] + a[row * stride + c] * carry;
-    x[row * stride + c] = carry;
-  }
-  return carry;
-}
 
 // A whole warp walks the column (every lane calls this with the same
 // arguments; every lane gets acc_0).  Lane L takes the contiguous piece of

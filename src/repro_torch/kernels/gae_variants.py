@@ -1,14 +1,13 @@
 """Time the GAE kernel's scan orders on the GPU.
 
-``csrc/gae.cu`` stages a panel of columns in shared memory and runs the
-reverse scan there (``csrc/reverse_scan.cuh``) in the order its
-``kWarpScan`` names.  This script builds
+``csrc/gae.cu`` stages a panel of columns in shared memory and scans each
+column with a warp there (``csrc/reverse_scan.cuh``).  This script builds
 
-* ``serial``: the source with ``kWarpScan = false`` (one thread per column,
-  the reference's order);
-* ``warp``: the source with ``kWarpScan = true``, as it ships (a warp per
-  column, each lane's piece of rows composed into an affine map, the maps
-  scanned across the warp);
+* ``serial``: the same staging with one thread per column walking the rows
+  in the reference's order (``variants/gae_serial_scan.cu``);
+* ``warp``: ``csrc/gae.cu`` as it ships (a warp per column, each lane's
+  piece of rows composed into an affine map, the maps scanned across the
+  warp);
 * ``thread_per_column``: the kernel the panels replaced
   (``variants/gae_thread_per_column.cu``: one thread per column loading
   r, v and d from global memory at every step);
@@ -32,7 +31,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import subprocess
 from pathlib import Path
 
@@ -41,28 +39,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.rl.advantages import gae
 
-ORDER = re.compile(r"constexpr bool kWarpScan = (?:true|false);")
-VARIANTS = {"serial": "false", "warp": "true", "thread_per_column": None}
-OLD_SOURCE = Path(__file__).resolve().parent / "variants" / "gae_thread_per_column.cu"
+_VARIANT_DIR = Path(__file__).resolve().parent / "variants"
+# name -> (source, entry point); each entry point takes gae_launch's arguments.
+VARIANTS = {
+    "serial": (_VARIANT_DIR / "gae_serial_scan.cu", "gae_serial_scan_launch"),
+    "warp": (build.CSRC_DIR / "gae.cu", "gae_launch"),
+    "thread_per_column": (_VARIANT_DIR / "gae_thread_per_column.cu",
+                          "gae_thread_per_column_launch"),
+}
 SHAPES = ((64, 8), (32, 8), (32, 4), (128, 4096), (1000, 4))
 GAMMA, LAM = 0.99, 0.95
 TOL = 1e-5
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock: longer than enqueueing 200 calls
 
 
-def _build(name: str, warp) -> tuple:
+def _build(name: str, src: Path, entry: str) -> tuple:
     """The variant's library and its entry point (``gae_launch``'s arguments)."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = build.BUILD_DIR / f"libgae_{name}.so"
-    if warp is None:
-        src, entry = OLD_SOURCE, "gae_thread_per_column_launch"
-    else:
-        text, n = ORDER.subn(f"constexpr bool kWarpScan = {warp};",
-                             (build.CSRC_DIR / "gae.cu").read_text())
-        if n != 1:
-            raise RuntimeError("gae.cu no longer states kWarpScan once")
-        src, entry = build.BUILD_DIR / f"gae_{name}.cu", "gae_launch"
-        src.write_text(text)
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC_DIR}", "-shared", "-o", str(lib_path),
          str(src), str(build.CSRC_DIR / "errors.cu")],
@@ -140,7 +134,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    libs = {name: _build(name, warp) for name, warp in VARIANTS.items()}
+    libs = {name: _build(name, *spec) for name, spec in VARIANTS.items()}
     results = {}
     for T, B in SHAPES:
         results[f"[{T}, {B}]"] = res = _shape(libs, T, B)

@@ -20,7 +20,7 @@ from repro.kernels.advantages import gae_pallas
 from repro.kernels.ref import ppo_surrogate_ref
 from repro.kernels.surrogate import ppo_surrogate_pallas
 from repro.rl.advantages import gae as jax_gae
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, gae_variants, ops
 from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
@@ -65,11 +65,12 @@ def test_gae_trailing_dims_flatten_like_reference():
 
 
 # The CUDA kernel (csrc/gae.cu) stages a panel of columns in shared memory,
-# kTileT rows at a time from the end, and scans each column in one of two
-# orders: one thread walking the rows in the reference's order, or a warp
+# kTileT rows at a time from the end, and scans each column with a warp
 # whose lanes compose contiguous pieces of rows into affine maps, scan the
-# maps across the warp and walk their pieces again.  Both orders, emulated
-# in float32, must match the Pallas kernel and the JAX scan.
+# maps across the warp and walk their pieces again; its variant
+# (variants/gae_serial_scan.cu) has one thread walk the rows in the
+# reference's order.  Both orders, emulated in float32, must match the
+# Pallas kernel and the JAX scan.
 GAE_TILE_T = 128  # kTileT
 
 
@@ -449,6 +450,21 @@ def test_ctypes_signatures_match_the_cuda_sources():
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert found == {name: len(sig) for name, sig in build._SIGNATURES.items()}
     assert any(f.startswith("-gencode=arch=compute_90a,code=sm_90a") for f in build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("name", sorted(gae_variants.VARIANTS))
+def test_gae_variants_take_gae_launch_arguments(name):
+    """``python -m repro_torch.kernels.gae_variants`` binds every variant with
+    gae_launch's ctypes signature: each source defines its entry point with
+    gae_launch's parameter list."""
+    def params(src, entry):
+        found = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src.read_text())
+        assert found, f"{entry} not in {src.name}"
+        return [" ".join(p.split()[:-1]) for p in found.group(1).split(",")]
+
+    src, entry = gae_variants.VARIANTS[name]
+    assert params(src, entry) == params(build.CSRC_DIR / "gae.cu", "gae_launch")
+    assert len(params(src, entry)) == len(build._SIGNATURES["gae_launch"])
 
 
 def test_launch_counter_counts_under_threads():
