@@ -578,10 +578,15 @@ def phase_build() -> dict:
     n_src = len(list(build.CSRC_DIR.glob("*.cu")))
     print(f"build: {n_src} sources in {seconds:.2f} s -> {info['path']}")
     log = info["log"] or (build.BUILD_DIR / "build.log").read_text()  # "" when cached
-    memory_kernels = ("surrogate_fwd_map_kernel", "gae_kernel")
-    for name, u in _ptxas_usage(
-            log, lambda sym: next((n for n in memory_kernels if n in sym), None)).items():
+    memory_kernels = ("surrogate_fwd_map_kernel", "gae_kernel", "vtrace_kernel")
+    memory = _ptxas_usage(log, lambda sym: next((n for n in memory_kernels if n in sym), None))
+    for name, u in memory.items():
         print(f"memory-bound kernel {name}: {json.dumps(u)}")
+    _require(sorted(memory) == sorted(memory_kernels), f"ptxas reported {sorted(memory)}, want "
+                                                       f"{sorted(memory_kernels)}")
+    for name, u in memory.items():
+        _require(u.get("stack", 1) == 0 and u.get("spill_stores", 1) == 0,
+                 f"{name}: a stack frame or spills ({u}): a register array in local memory")
     usage = _kernel_usage(log, info["path"])
     rwkv6 = {name: u for name, u in usage.items() if name.startswith("rwkv6_")}
     tensor_core = {name: u for name, u in usage.items() if name not in rwkv6}
@@ -589,7 +594,8 @@ def phase_build() -> dict:
         print(f"tensor-core kernel {name}: {json.dumps(u)}")
     for name, u in rwkv6.items():
         print(f"CUDA-core kernel {name}: {json.dumps(u)}")
-    return {"build_s": seconds, "tensor_core_kernels": tensor_core, "rwkv6_kernels": rwkv6}
+    return {"build_s": seconds, "tensor_core_kernels": tensor_core, "rwkv6_kernels": rwkv6,
+            "memory_kernels": memory}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -621,10 +627,12 @@ def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
     }
 
 
-def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float = 1.0) -> dict:
+def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float = 1.0,
+                 plain_iters: int = 20) -> dict:
     """V-trace kernel against its plain loop on time-major ``shape``: about
     10 % dones, log-ratios spread so rho lands below and above the clips,
-    and every fifth element with target == behaviour log-prob exactly."""
+    and every fifth element with target == behaviour log-prob exactly; two
+    calls must agree bitwise."""
     import torch
 
     from repro_torch.kernels.advantages import vtrace_cuda
@@ -643,18 +651,22 @@ def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float =
              f"vtrace{list(shape)}: rho does not straddle the clips")
     kw = dict(gamma=0.99, rho_clip=rho_clip, c_clip=c_clip)
     vs_k, pg_k = vtrace_cuda(blp, tlp, r, v, d, last, **kw)
+    vs_2, pg_2 = vtrace_cuda(blp, tlp, r, v, d, last, **kw)
     vs_p, pg_p = vtrace(blp, tlp, r, v, d, last, **kw)
     torch.cuda.synchronize()
     name = f"vtrace{list(shape)} clips {rho_clip}/{c_clip}"
     err = max(_close(f"{name} vs", vs_k, vs_p), _close(f"{name} pg_adv", pg_k, pg_p))
+    _require(torch.equal(vs_k, vs_2) and torch.equal(pg_k, pg_2),
+             f"{name}: two calls differ (not bitwise repeatable)")
     T, B = shape[0], math.prod(shape[1:])
     nbytes = (5 * T * B + B) * 4 + 2 * T * B * 4  # six inputs read, two outputs written
     bound, by = _bound_ms(nbytes, 20 * T * B)
     return {
         "shape": list(shape), "rho_clip": rho_clip, "c_clip": c_clip, "max_abs_err": err,
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None,
+        "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "library_ms": None,
         **_timings(lambda: vtrace_cuda(blp, tlp, r, v, d, last, **kw),
-                   lambda: vtrace(blp, tlp, r, v, d, last, **kw), plain_iters=20),
+                   lambda: vtrace(blp, tlp, r, v, d, last, **kw), plain_iters=plain_iters),
     }
 
 
@@ -1272,10 +1284,16 @@ def phase_kernels() -> dict:
     gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(32, 4, 7),
                  _gae_case(128, 4096, 1), _gae_case(33, 1001, 2), _gae_case(1, 8, 3),
                  _gae_case(1000, 4, 9, plain_iters=3)]
+    print("  vtrace scan order: a warp per column (csrc/reverse_scan.cuh), the one vtrace.cu "
+          "builds")
+    # [129, 8]: a tile boundary (row 127's v_{t+1} and vs_{t+1} from the later tile);
+    # c_clip 1.5: decays above 1 in the warp's composed maps.
     vtrace_cases = [_vtrace_case((32, 16), 40), _vtrace_case((32, 512), 41),
                     _vtrace_case((128, 4096), 42), _vtrace_case((33, 1001), 43),
                     _vtrace_case((16, 8, 2), 44), _vtrace_case((1, 64), 45),
-                    _vtrace_case((32, 512), 46, rho_clip=2.0, c_clip=0.5)]
+                    _vtrace_case((32, 512), 46, rho_clip=2.0, c_clip=0.5),
+                    _vtrace_case((129, 8), 47), _vtrace_case((1000, 4), 48, plain_iters=3),
+                    _vtrace_case((1000, 4), 49, c_clip=1.5, plain_iters=3)]
     # [16, 151937]: rows not 16-byte aligned (scalar loads); [8, 1024]: one
     # chunk a row; [3, 4097]: a one-column last chunk.
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
@@ -1908,12 +1926,18 @@ def phase_async(name: str, counters: list) -> dict:
     ours = {k[:60]: v / 1e3 for k, v in busy.items()
             if any(n in k for n in ("vtrace_kernel", "gae_kernel", "surrogate_"))}
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    # The device's copies (V-trace's loss makes five [T, N] time-major
+    # copies and one [N] bootstrap copy a learner step around its kernel):
+    # ms and records by name, to set beside the port's kernels.
+    copies = {k[:100]: {"ms": v / 1e3, "records": prof.records[k]} for k, v in busy.items()
+              if "copy" in k.lower()}
     iters = [r["seconds"] for r in rows]
     profiled = {
         "window_s": window, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (window * 1e3),
         "learner_steps": window_steps, "steps_trained": window_trained,
-        "port_kernels_ms": ours, "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+        "port_kernels_ms": ours, "copy_kernels": copies,
+        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
     }
     # Where the time goes, over the unprofiled iterations after the first:
     # the learner thread's learn_on_batch time and the rollout threads'
@@ -1933,6 +1957,7 @@ def phase_async(name: str, counters: list) -> dict:
     print(f"{name} profile: window {window:.3f} s, device busy {busy_ms:.2f} ms, idle share "
           f"{profiled['idle_share']:.4f}, {window_steps} learner steps, {window_trained} steps "
           f"trained; port kernels {ours}")
+    print(f"{name} profile copies: {copies}")
     print(f"{name} top device kernels (ms): {profiled['top_kernels_ms']}")
     print(f"{name} split: {json.dumps(split)}")
     print(f"{name} main path: {len(rows)} train() iterations in {total:.3f} s (mean "

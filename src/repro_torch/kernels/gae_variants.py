@@ -53,10 +53,12 @@ TOL = 1e-5
 SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock: longer than enqueueing 200 calls
 
 
-def _build(name: str, src: Path, entry: str) -> tuple:
-    """The variant's library and its entry point (``gae_launch``'s arguments)."""
+def build_variant(name: str, src: Path, entry: str, like: str = "gae_launch") -> tuple:
+    """The variant's library and its entry point, which takes the arguments
+    of the library's entry point ``like``; prints ptxas's registers, stack
+    and spills of its kernels."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = build.BUILD_DIR / f"libgae_{name}.so"
+    lib_path = build.BUILD_DIR / f"lib{like.removesuffix('_launch')}_{name}.so"
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC_DIR}", "-shared", "-o", str(lib_path),
          str(src), str(build.CSRC_DIR / "errors.cu")],
@@ -64,16 +66,19 @@ def _build(name: str, src: Path, entry: str) -> tuple:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    for ln in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in ln or "spill" in ln:
+            print(f"{name} ptxas: {ln.strip()}")
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, entry)
-    fn.argtypes = build._SIGNATURES["gae_launch"]
+    fn.argtypes = build._SIGNATURES[like]
     fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _ms(fn, iters: int = 200) -> float:
+def queued_ms(fn, iters: int = 200) -> float:
     """Milliseconds per call by CUDA events, the calls queued behind a spin
     kernel so that they run back to back on the device."""
     for _ in range(10):
@@ -121,7 +126,7 @@ def _shape(libs: dict, T: int, B: int) -> dict:
         runs[name] = launch
     for order in (list(runs), list(runs)[::-1]):
         for name in order:
-            out[name]["ms"].append(_ms(runs[name]))
+            out[name]["ms"].append(queued_ms(runs[name]))
     return out
 
 
@@ -134,7 +139,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    libs = {name: _build(name, *spec) for name, spec in VARIANTS.items()}
+    libs = {name: build_variant(name, *spec) for name, spec in VARIANTS.items()}
     results = {}
     for T, B in SHAPES:
         results[f"[{T}, {B}]"] = res = _shape(libs, T, B)

@@ -8,6 +8,7 @@ kernel-vs-oracle gate, in float32.  The CUDA kernels themselves run only on
 a GPU: ``chip_smoke.py`` holds them against these plain versions there.
 """
 
+import functools
 import re
 
 import jax
@@ -16,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.advantages import gae_pallas
+from repro.kernels.advantages import gae_pallas, vtrace_pallas
 from repro.kernels.ref import ppo_surrogate_ref
 from repro.kernels.surrogate import ppo_surrogate_pallas
 from repro.rl.advantages import gae as jax_gae
-from repro_torch.kernels import build, gae_variants, ops
+from repro.rl.advantages import vtrace as jax_vtrace
+from repro_torch.kernels import build, gae_variants, ops, vtrace_variants
 from repro_torch.kernels.advantages import gae_cuda, vtrace_cuda
 from repro_torch.kernels.surrogate import ppo_surrogate_cuda, ppo_surrogate_plain
 
@@ -64,51 +66,63 @@ def test_gae_trailing_dims_flatten_like_reference():
     _close(adv_t, adv_j)
 
 
-# The CUDA kernel (csrc/gae.cu) stages a panel of columns in shared memory,
-# kTileT rows at a time from the end, and scans each column with a warp
-# whose lanes compose contiguous pieces of rows into affine maps, scan the
-# maps across the warp and walk their pieces again; its variant
-# (variants/gae_serial_scan.cu) has one thread walk the rows in the
+# The CUDA kernels (csrc/gae.cu, csrc/vtrace.cu) stage a panel of columns in
+# shared memory, kTileT rows at a time from the end, and scan each column
+# with a warp whose lanes compose contiguous pieces of rows into affine
+# maps, scan the maps across the warp and walk their pieces again
+# (csrc/reverse_scan.cuh); their variants (variants/gae_serial_scan.cu,
+# variants/vtrace_serial_scan.cu) have one thread walk the rows in the
 # reference's order.  Both orders, emulated in float32, must match the
-# Pallas kernel and the JAX scan.
-GAE_TILE_T = 128  # kTileT
+# Pallas kernels and the JAX scans.
+TILE_T = 128  # kTileT
+
+
+def _tiles(T):
+    """The kernels' tiles of rows, from the end."""
+    return [slice(t0, min(T, t0 + TILE_T)) for t0 in range((T - 1) // TILE_T * TILE_T, -1, -TILE_T)]
+
+
+def _scan_tile_emulated(x, a, carry, warp):
+    """acc_t = x_t + a_t * acc_{t+1} over one tile's rows, acc_rows = carry,
+    in the warp's order or the serial one."""
+    rows = x.shape[0]
+    acc = np.empty_like(x)
+    if not warp:
+        for row in reversed(range(rows)):
+            carry = x[row] + a[row] * carry
+            acc[row] = carry
+        return acc
+    n = -(-rows // 32)
+    pieces = [(min(rows, lane * n), min(rows, lane * n + n)) for lane in range(32)]
+    mul, add = np.ones((32,) + carry.shape, np.float32), np.zeros((32,) + carry.shape, np.float32)
+    for lane, (lo, hi) in enumerate(pieces):
+        for row in reversed(range(lo, hi)):
+            add[lane] = x[row] + a[row] * add[lane]
+            mul[lane] = a[row] * mul[lane]
+    o = 1
+    while o < 32:  # lane L takes lane L + o's map (Hillis-Steele, suffix)
+        add[: 32 - o], mul[: 32 - o] = (add[: 32 - o] + mul[: 32 - o] * add[o:],
+                                        mul[: 32 - o] * mul[o:])
+        o *= 2
+    acc_in = np.concatenate([add[1:] + mul[1:] * carry, carry[None]])
+    for lane, (lo, hi) in enumerate(pieces):
+        c = acc_in[lane]
+        for row in reversed(range(lo, hi)):
+            c = x[row] + a[row] * c
+            acc[row] = c
+    return acc
 
 
 def _gae_emulated(r, v, d, last, gamma, lam, warp):
     f32 = np.float32
-    T, B = r.shape
     nd = f32(1) - d
     x = r + f32(gamma) * nd * np.concatenate([v[1:], last[None]]) - v
     a = f32(gamma * lam) * nd
     adv = np.empty_like(r)
-    carry = np.zeros(B, f32)
-    for t0 in range((T - 1) // GAE_TILE_T * GAE_TILE_T, -1, -GAE_TILE_T):
-        rows = min(GAE_TILE_T, T - t0)
-        xs, ak = x[t0: t0 + rows], a[t0: t0 + rows]
-        if not warp:
-            for row in reversed(range(rows)):
-                carry = xs[row] + ak[row] * carry
-                adv[t0 + row] = carry
-            continue
-        n = -(-rows // 32)
-        pieces = [(min(rows, lane * n), min(rows, lane * n + n)) for lane in range(32)]
-        mul, add = np.ones((32, B), f32), np.zeros((32, B), f32)
-        for lane, (lo, hi) in enumerate(pieces):
-            for row in reversed(range(lo, hi)):
-                add[lane] = xs[row] + ak[row] * add[lane]
-                mul[lane] = ak[row] * mul[lane]
-        o = 1
-        while o < 32:  # lane L takes lane L + o's map (Hillis-Steele, suffix)
-            add[: 32 - o], mul[: 32 - o] = (add[: 32 - o] + mul[: 32 - o] * add[o:],
-                                            mul[: 32 - o] * mul[o:])
-            o *= 2
-        acc_in = np.concatenate([add[1:] + mul[1:] * carry, carry[None]])
-        for lane, (lo, hi) in enumerate(pieces):
-            acc = acc_in[lane]
-            for row in reversed(range(lo, hi)):
-                acc = xs[row] + ak[row] * acc
-                adv[t0 + row] = acc
-        carry = adv[t0].copy()
+    carry = np.zeros_like(last)
+    for tile in _tiles(r.shape[0]):
+        adv[tile] = _scan_tile_emulated(x[tile], a[tile], carry, warp)
+        carry = adv[tile][0]
     return adv, adv + v
 
 
@@ -127,6 +141,81 @@ def test_gae_scan_orders_match_pallas_and_scan(T, B, warp):
     for name, want in (("pallas", (adv_k, ret_k)), ("scan", (adv_s, ret_s))):
         _close(adv_e, want[0], f"adv vs {name}")
         _close(ret_e, want[1], f"ret vs {name}")
+
+
+# ----------------------------------------------------------- V-trace
+def _vtrace_data(shape, seed):
+    """Time-major inputs with about 10 % dones and log-ratios spread so rho
+    lands below and above the clips (every fifth exactly 1)."""
+    rng = np.random.default_rng(seed)
+    blp = (-np.abs(rng.standard_normal(shape)) - 0.1).astype(np.float32)
+    tlp = (blp + 0.8 * rng.standard_normal(shape)).astype(np.float32)
+    flat_t, flat_b = tlp.reshape(-1), blp.reshape(-1)
+    flat_t[::5] = flat_b[::5]
+    flat_t[1], flat_t[2] = flat_b[1] + 1.5, flat_b[2] - 1.5  # rho ~ 4.5 and ~ 0.22
+    r, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    d = (rng.random(shape) < 0.1).astype(np.float32)
+    last = rng.standard_normal(shape[1:]).astype(np.float32)
+    return blp, tlp, r, v, d, last
+
+
+# vtrace.cu forms delta_t and the decay a_t = disc_t * c_t while staging,
+# scans them as GAE does, then writes vs_t = acc_t + v_t and pg_t from
+# vs_{t+1} in one pass, vs of the later tile's first row (`last` for the
+# latest tile) crossing tiles beside the scan's carry.
+def _vtrace_emulated(blp, tlp, r, v, d, last, gamma, rho_clip, c_clip, warp):
+    f32 = np.float32
+    T = r.shape[0]
+    blp, tlp, r, v, d = (x.reshape(T, -1) for x in (blp, tlp, r, v, d))
+    last = last.reshape(-1)
+    rho = np.exp(tlp - blp)
+    crho = np.minimum(f32(rho_clip), rho)
+    disc = f32(gamma) * (f32(1) - d)
+    x = crho * (r + disc * np.concatenate([v[1:], last[None]]) - v)
+    a = disc * np.minimum(f32(c_clip), rho)
+    vs, pg = np.empty_like(r), np.empty_like(r)
+    carry, next_vs = np.zeros_like(last), last
+    for tile in _tiles(T):
+        acc = _scan_tile_emulated(x[tile], a[tile], carry, warp)
+        vs[tile] = acc + v[tile]
+        nvs = np.concatenate([vs[tile][1:], next_vs[None]])
+        pg[tile] = crho[tile] * (r[tile] + disc[tile] * nvs - v[tile])
+        carry, next_vs = acc[0], vs[tile][0]
+    return vs, pg
+
+
+@functools.lru_cache(maxsize=None)
+def _vtrace_references(shape, rho_clip, c_clip):
+    """The inputs, then (vs, pg_adv) of the Pallas kernel (interpret mode)
+    and of the JAX scan, made once for both scan orders."""
+    data = _vtrace_data(shape, seed=sum(shape) * 11 + int(4 * rho_clip) + int(4 * c_clip))
+    kw = dict(gamma=0.97, rho_clip=rho_clip, c_clip=c_clip)
+    want_k = vtrace_pallas(*map(jnp.asarray, data), **kw, interpret=True)
+    want_s = jax_vtrace(*map(jnp.asarray, data), **kw)
+    return data, {"pallas": want_k, "scan": want_s}
+
+
+# The IMPALA paths' [32, 16] and [32, 512]; T = 1; a ragged [33, 7]; one
+# whole tile [128, 3]; [129, 8], whose row 127's v_{t+1} and vs_{t+1} come
+# from the later tile; eight tiles, the last ragged, at T = 1,000; trailing
+# dims flattened.  Clips 1/1 and 2/0.5, and c_clip 1.5 (decays above 1) at
+# T = 1,000.
+VTRACE_SHAPES = [(32, 16), (32, 512), (1, 5), (33, 7), (128, 3), (129, 8), (1000, 3), (16, 4, 2)]
+
+
+@pytest.mark.parametrize("warp", [False, True], ids=["serial", "warp"])
+@pytest.mark.parametrize("shape,rho_clip,c_clip",
+                         [(s, 1.0, 1.0) for s in VTRACE_SHAPES]
+                         + [(s, 2.0, 0.5) for s in VTRACE_SHAPES] + [((1000, 3), 1.0, 1.5)])
+def test_vtrace_scan_orders_match_pallas_and_scan(shape, rho_clip, c_clip, warp):
+    data, wants = _vtrace_references(shape, rho_clip, c_clip)
+    rhos = np.exp(data[1] - data[0])
+    assert (rhos < min(rho_clip, c_clip)).any() and (rhos > max(rho_clip, c_clip)).any()
+    assert data[4].any() or shape[0] == 1  # dones, but at T = 1 (5 elements)
+    vs_e, pg_e = _vtrace_emulated(*data, 0.97, rho_clip, c_clip, warp)
+    for name, want in wants.items():
+        _close(vs_e, np.asarray(want[0]).reshape(vs_e.shape), f"vs vs {name}")
+        _close(pg_e, np.asarray(want[1]).reshape(pg_e.shape), f"pg_adv vs {name}")
 
 
 # ----------------------------------------------------------- surrogate
@@ -452,19 +541,32 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert any(f.startswith("-gencode=arch=compute_90a,code=sm_90a") for f in build.NVCC_FLAGS)
 
 
+def _launch_params(src, entry):
+    """The parameter types of the C entry point ``entry`` in ``src``."""
+    found = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src.read_text())
+    assert found, f"{entry} not in {src.name}"
+    return [" ".join(p.split()[:-1]) for p in found.group(1).split(",")]
+
+
 @pytest.mark.parametrize("name", sorted(gae_variants.VARIANTS))
 def test_gae_variants_take_gae_launch_arguments(name):
     """``python -m repro_torch.kernels.gae_variants`` binds every variant with
     gae_launch's ctypes signature: each source defines its entry point with
     gae_launch's parameter list."""
-    def params(src, entry):
-        found = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src.read_text())
-        assert found, f"{entry} not in {src.name}"
-        return [" ".join(p.split()[:-1]) for p in found.group(1).split(",")]
-
     src, entry = gae_variants.VARIANTS[name]
-    assert params(src, entry) == params(build.CSRC_DIR / "gae.cu", "gae_launch")
-    assert len(params(src, entry)) == len(build._SIGNATURES["gae_launch"])
+    assert _launch_params(src, entry) == _launch_params(build.CSRC_DIR / "gae.cu", "gae_launch")
+    assert len(_launch_params(src, entry)) == len(build._SIGNATURES["gae_launch"])
+
+
+@pytest.mark.parametrize("name", sorted(vtrace_variants.VARIANTS))
+def test_vtrace_variants_take_vtrace_launch_arguments(name):
+    """``python -m repro_torch.kernels.vtrace_variants`` binds every variant
+    with vtrace_launch's ctypes signature: each source defines its entry
+    point with vtrace_launch's parameter list."""
+    src, entry = vtrace_variants.VARIANTS[name]
+    want = _launch_params(build.CSRC_DIR / "vtrace.cu", "vtrace_launch")
+    assert _launch_params(src, entry) == want
+    assert len(want) == len(build._SIGNATURES["vtrace_launch"])
 
 
 def test_launch_counter_counts_under_threads():
