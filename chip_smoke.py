@@ -100,12 +100,41 @@ phase that fails, and then prints no result line):
    per rollout the workers ran);
 11. main path 5: IMPALA with many lanes: ``VectorizedRolloutWorker``s with
    256 lanes, 2 workers x 32 steps, 16,384-row train batch;
-12. pretraining learner parity: one ``learn_on_batch`` (SGD, lr 1) of the
+12. main path 6: A2C (``Algorithm.from_plan("a2c")``) at
+   ``examples/quickstart.py``'s workers (2 'pg' workers, 4 CartPole envs x
+   32 steps), after ``AverageGradients`` over two CUDA gradient trees from
+   the thread backend's actors is checked exact: 6 ``train()`` iterations
+   under a deadline, the last one profiled, result keys and counters as on
+   the reference, every worker on the learner's weights after the
+   broadcast, GAE launched exactly once a gradient (iterations x workers)
+   and no other kernel;
+13. main path 7: A3C on the same workers: GAE launched at least once an
+   applied gradient, and at most once more a worker (gradients in flight);
+14. off-policy learner parity: 8 ``learn_on_batch`` steps (SGD, lr 0.01) of
+   a DQN and of a SAC learner on one replayed batch on the card and on the
+   CPU from the same online and target weights (SAC with the same two
+   noises a step injected) agree to 1e-4, ``td_error`` as host numpy;
+15. main path 8: DQN (``build_dqn``) at ``benchmarks/common.py``'s workers
+   (2 workers, 4 envs x 16 steps, epsilon 0.2) with one replay buffer at
+   ``examples/apex_dqn.py``'s settings (50,000 rows, batches of 64, 1,000
+   rows before learning, prioritized), until the target network has synced
+   twice; the buffer sampled and priorities updated, no kernel launched;
+16. main path 9: Ape-X (``build_apex``) at ``examples/apex_dqn.py``'s
+   configuration (3 workers on an epsilon ladder, 2 replay actors, target
+   sync every 2,000 rows) until its learner thread has taken 40 steps, the
+   thread checked alive after every ``train()``, a profiled window of at
+   least 1 s, then ``stop()`` joins it and no thread of the flow is left;
+17. main path 10: SAC (``build_sac``) on Pendulum (2 workers, 4 envs x 16
+   steps, polyak 0.01) until the target has synced 8 times, losses finite;
+18. flowcheck: ``audit_plans(device="cuda")`` over the port's 9 plans on
+   CUDA workers: no error, and ``apex``, ``appo`` and ``impala`` each give
+   exactly the reference's ``["unbounded-queue"]``;
+19. pretraining learner parity: one ``learn_on_batch`` (SGD, lr 1) of the
    LM pretraining learner at the reduced configuration of RWKV-6 and of
    Phi-3.5-MoE (float32), on the card and on the CPU from the same weights,
    agrees to 1e-4, after checking that every token routes to the same
    experts on both devices;
-13. main path 6: LM pretraining (``launch/train.py``: ``make_pretrain`` ->
+20. main path 11: LM pretraining (``launch/train.py``: ``make_pretrain`` ->
    ``build_lm_flow`` -> ``Algorithm.from_plan``) of RWKV-6 7B at its
    published widths cut to 2 layers, 4 ``train()`` steps of 2 x 4,096
    tokens under a deadline, launches read per step and checked against the
@@ -113,7 +142,7 @@ phase that fails, and then prints no result line):
    ln V + sigma^2 / 2 (uniform tokens under the initial logits), peak
    memory, seconds per step, tokens per second and the idle share of the
    profiled last step;
-14. main path 7: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
+21. main path 12: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
    layers.
 
 ``decode_attention``'s launch count is one per wrapper call, which is one
@@ -212,7 +241,8 @@ GMM_TOL = 1e-4
 # The shape each main path gives each kernel, where phase 3 checks it (a
 # list of shapes where one path gives a kernel several).
 PATH_SHAPES = {
-    "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4]},
+    "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4], "a2c": [32, 4],
+            "a3c": [32, 4]},
     "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
     "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
     "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
@@ -225,6 +255,35 @@ PATH_SHAPES = {
        for name in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw")},
 }
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
+# The gradient paths (A2C, A3C) at examples/quickstart.py's workers: 2 'pg'
+# workers of 4 CartPole envs x 32 steps.
+GRADIENT_CONFIG = dict(num_workers=2, num_envs=4, rollout_len=32, iters=6)
+GRADIENT_INFO_KEYS = {"loss", "batch_count"}
+GRADIENT_COUNTERS = {"num_steps_sampled", "num_steps_trained"}
+GRADIENT_PATHS = ("a2c", "a3c")
+GRADIENT_DEADLINE_S = 120  # per gradient path
+# The replay paths: DQN at benchmarks/common.py's workers with one buffer at
+# examples/apex_dqn.py's settings, Ape-X at examples/apex_dqn.py's
+# configuration, SAC on Pendulum at tests/test_plans.py's workers and buffer.
+APEX_REPLAY = dict(capacity=50_000, sample_batch_size=64, learning_starts=1000, prioritized=True)
+REPLAY_PATHS = {
+    "dqn": dict(num_workers=2, num_envs=4, rollout_len=16, replay=APEX_REPLAY, replay_actors=1,
+                plan={}, min_target_updates=2),
+    "apex": dict(num_workers=3, num_envs=4, rollout_len=16, replay=APEX_REPLAY, replay_actors=2,
+                 plan=dict(target_update_freq=2000), min_steps=40),
+    "sac": dict(num_workers=2, num_envs=4, rollout_len=16, replay_actors=1, plan={},
+                replay=dict(capacity=4096, sample_batch_size=16, learning_starts=32),
+                min_target_updates=8),
+}
+REPLAY_DEADLINE_S = 120  # per replay path
+DQN_INFO_KEYS = {"loss", "td_error", "mean_q"}
+SAC_INFO_KEYS = {"loss", "td_error", "critic_loss", "actor_loss"}
+REPLAY_COUNTERS = {"num_steps_sampled", "num_steps_trained", "num_target_updates",
+                   "num_bytes_moved", "num_samples_dropped"}
+# Recorded only once a producer finds a bounded window full.
+TIMING_COUNTERS = {"num_credit_stalls", "credit_stall_time_s"}
+OFFPOLICY_PARITY_STEPS = 8
+OFFPOLICY_PARITY_LR = 0.01
 ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
 
 
@@ -1971,7 +2030,353 @@ def phase_async(name: str, counters: list) -> dict:
             "rollouts_received": received, "profile": profiled, "split": split}
 
 
-# ------------------------------------------------------------ phase 12
+# ------------------------------------------------------------ phases 12-13
+def _pg_worker(index: int, device: str):
+    """A worker of the gradient paths: ``examples/quickstart.py``'s CartPole
+    actor-critic with the 'pg' loss."""
+    from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker
+
+    cfg = GRADIENT_CONFIG
+    return RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="pg", num_envs=cfg["num_envs"],
+                         rollout_len=cfg["rollout_len"], seed=0, worker_index=index, device=device)
+
+
+def _profiled_train(algo, check, min_s: float = 0.0) -> tuple:
+    """Whole ``train()`` calls under the profiler, one or as many as last
+    ``min_s``: (last result, wall s, device busy ms, port kernels' ms by
+    name)."""
+    import torch
+
+    prof = _DeviceProfile()
+    prof.start()
+    t0 = time.perf_counter()
+    while True:
+        result = algo.train()
+        check(result)
+        if time.perf_counter() - t0 >= min_s:
+            break
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    busy = prof.stop()
+    ours = {k[:60]: v / 1e3 for k, v in busy.items()
+            if any(n in k for n in ("vtrace_kernel", "gae_kernel", "surrogate_"))}
+    return result, dt, sum(busy.values()) / 1e3, ours
+
+
+def _check_averaged_gradients(workers) -> None:
+    """``AverageGradients`` over two CUDA gradient trees from the thread
+    backend's actors: CUDA tensors out, equal to the mean taken here."""
+    import torch
+
+    from repro_torch.core.operators import AverageGradients
+    from repro_torch.tree import tree_leaves
+
+    actors = list(workers.remote_workers())
+    items = [a.sync("compute_gradients", a.sync("sample")) for a in actors]
+    avg, info = AverageGradients()(items)
+    leaves = tree_leaves(avg)
+    _require(all(g.is_cuda for g in leaves), "averaged gradients left the card")
+    want = [sum(gs) / len(gs) for gs in zip(*(tree_leaves(g) for g, _ in items))]
+    err = max(float((a - b).abs().max()) for a, b in zip(leaves, want))
+    _require(err == 0.0, f"averaged gradients differ from their mean by {err:.3e}")
+    _require(info["batch_count"] == sum(i["batch_count"] for _, i in items),
+             f"averaged info {info}")
+
+
+def phase_gradient_plan(name: str, counters: list) -> dict:
+    """A2C (synchronous: gather, average, apply, broadcast) or A3C (each
+    worker's gradients applied as they come) through
+    ``Algorithm.from_plan``; the 'pg' workers end every rollout in GAE."""
+    import torch
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.tree import tree_leaves
+
+    cfg, iters = GRADIENT_CONFIG, GRADIENT_CONFIG["iters"]
+    rows_per_grad = cfg["num_envs"] * cfg["rollout_len"]
+    workers = WorkerSet.create(lambda i: _pg_worker(i, "cuda"), cfg["num_workers"])
+    if name == "a2c":
+        _check_averaged_gradients(workers)
+    rows = []
+
+    def check(result):
+        _require(set(result) == RESULT_KEYS, f"{name}: result keys {sorted(result)}")
+        _require(set(result["info"]) == GRADIENT_INFO_KEYS, f"{name}: info {result['info']}")
+        _require(set(result["counters"]) == GRADIENT_COUNTERS,
+                 f"{name}: counters {sorted(result['counters'])}")
+        _require(math.isfinite(result["info"]["loss"]), f"{name}: loss {result['info']}")
+
+    algo = Algorithm.from_plan(name, workers)
+    try:
+        with _deadline(GRADIENT_DEADLINE_S, name):
+            for c in counters:
+                c.reset()
+            t_all = time.perf_counter()
+            for i in range(iters - 1):
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                rows.append({"iter": i, "seconds": time.perf_counter() - t0,
+                             "loss": result["info"]["loss"]})
+                check(result)
+            result, dt, busy_ms, ours = _profiled_train(algo, check)
+            rows.append({"iter": iters - 1, "seconds": dt, "loss": result["info"]["loss"]})
+            total = time.perf_counter() - t_all
+            if name == "a2c":  # the broadcast leaves every worker on the learner's weights
+                local = tree_leaves(params_to_numpy(workers.local_worker().get_weights()))
+                for actor in workers.remote_workers():
+                    remote = tree_leaves(params_to_numpy(actor.sync("get_weights")))
+                    _require(all((a == b).all() for a, b in zip(local, remote)),
+                             "a2c: a worker's weights differ from the learner's")
+    finally:
+        algo.stop()
+    launches = {c.name: c.value for c in counters}
+    ctr = result["counters"]
+    applied = ctr["num_steps_trained"] // rows_per_grad
+    _require(ctr["num_steps_sampled"] == ctr["num_steps_trained"], f"{name}: counters {ctr}")
+    others = {k: v for k, v in launches.items() if k != "gae"}
+    _require(not any(others.values()), f"{name}: launches {launches}")
+    if name == "a2c":
+        expect = iters * cfg["num_workers"]
+        _require(applied == expect and launches["gae"] == expect,
+                 f"a2c: launches {launches}, {applied} gradients applied, expected {expect}")
+    else:
+        _require(applied >= iters and applied <= launches["gae"] <= applied + cfg["num_workers"],
+                 f"a3c: launches {launches} for {applied} gradients applied")
+    warm = [r["seconds"] for r in rows[1:-1]]
+    profile = {"wall_ms": dt * 1e3, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / (dt * 1e3), "port_kernels_ms": ours}
+    print(f"{name} main path: {iters} train() iterations in {total:.3f} s (unprofiled mean "
+          f"{sum(warm) / len(warm):.4f} s), {applied} gradients applied, launches {launches}; "
+          f"profiled iteration {dt * 1e3:.1f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{profile['idle_share']:.4f}, port kernels {ours}"
+          + ("; AverageGradients over CUDA trees exact" if name == "a2c" else ""))
+    return {"iterations": rows, "seconds": total, "unprofiled_mean_s": sum(warm) / len(warm),
+            "launches": launches, "gradients_applied": applied, "profile": profile}
+
+
+# ----------------------------------------------------------------- phase 14
+def _dqn_worker(index: int, device: str, optimizer=None, epsilon: float = 0.2):
+    """``benchmarks/common.py``'s DQN worker on CartPole."""
+    from repro_torch.rl import CartPole, DQNPolicy, RolloutWorker
+
+    cfg = REPLAY_PATHS["dqn"]
+    kw = {"optimizer": optimizer} if optimizer is not None else {}
+    return RolloutWorker(CartPole(), DQNPolicy(4, 2), algo="dqn", num_envs=cfg["num_envs"],
+                         rollout_len=cfg["rollout_len"], seed=13, worker_index=index,
+                         epsilon=epsilon, device=device, **kw)
+
+
+def _sac_worker(index: int, device: str, optimizer=None):
+    """``tests/test_plans.py``'s SAC worker on Pendulum."""
+    from repro_torch.rl import Pendulum, RolloutWorker, SACPolicy
+
+    cfg = REPLAY_PATHS["sac"]
+    kw = {"optimizer": optimizer} if optimizer is not None else {}
+    return RolloutWorker(Pendulum(), SACPolicy(3, 1), algo="sac", num_envs=cfg["num_envs"],
+                         rollout_len=cfg["rollout_len"], seed=5, worker_index=index,
+                         target_polyak=0.01, device=device, **kw)
+
+
+def phase_offpolicy_learner_parity() -> dict:
+    """DQN and SAC learners on the card and on the CPU from the same online
+    and target weights, fed the same replayed batch (and, for SAC, the same
+    two noises a step, injected) for ``OFFPOLICY_PARITY_STEPS`` steps of SGD:
+    weights agree within ``LEARNER_TOL``, and stats within it absolute below
+    1 and relative above (SAC's critic loss is of order 1e2, where float32
+    carries about 1e-5 absolute)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.optim import sgd
+    from repro_torch.rl import ReplayBuffer
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for algo, make in (("dqn", _dqn_worker), ("sac", _sac_worker)):
+        gpu, cpu = (make(0, dev, optimizer=sgd(OFFPOLICY_PARITY_LR)) for dev in ("cuda", "cpu"))
+        cpu.set_weights(params_to_numpy(gpu.get_weights()))
+        cpu.target_params = params_from_numpy(params_to_numpy(gpu.target_params))
+        rb = ReplayBuffer(capacity=4096, sample_batch_size=64, learning_starts=64, seed=0)
+        for _ in range(2):
+            rb.add_batch(gpu.sample())
+        batch = rb.replay()
+        if algo == "sac":  # the same noises on both devices, two a step
+            rng = np.random.default_rng(0)
+            noises = [rng.standard_normal((batch.count, 1)).astype(np.float32)
+                      for _ in range(2 * OFFPOLICY_PARITY_STEPS)]
+            for w in (gpu, cpu):
+                it = iter(noises)
+                w.policy.noise = lambda obs, gen, it=it: torch.from_numpy(next(it)).to(obs.device)
+        stat_err = stat_abs = 0.0
+        for _ in range(OFFPOLICY_PARITY_STEPS):
+            info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+            _require(isinstance(info_g["td_error"], np.ndarray),
+                     f"{algo}: td_error is {type(info_g['td_error'])}, not host numpy")
+            for k in info_g:
+                diff = np.abs(np.asarray(info_g[k]) - info_c[k])
+                stat_abs = max(stat_abs, float(diff.max()))
+                stat_err = max(stat_err, float((diff / np.maximum(1.0, np.abs(info_c[k]))).max()))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(
+            tree_leaves(params_to_numpy(gpu.get_weights())),
+            tree_leaves(params_to_numpy(cpu.get_weights()))))
+        target_err = max(float(np.abs(a - b).max()) for a, b in zip(
+            tree_leaves(params_to_numpy(gpu.target_params)),
+            tree_leaves(params_to_numpy(cpu.target_params))))
+        _require(max(err, target_err) <= LEARNER_TOL,
+                 f"{algo} learner parity: card vs CPU weights differ by {err:.3e} "
+                 f"(target {target_err:.3e})")
+        _require(stat_err <= LEARNER_TOL, f"{algo} learner parity: stats differ by {stat_err:.3e}")
+        print(f"{algo} learner parity: {OFFPOLICY_PARITY_STEPS} learn_on_batch steps (SGD, lr "
+              f"{OFFPOLICY_PARITY_LR}) on one replayed batch of {batch.count} rows, card vs CPU "
+              f"max weight err {err:.3e}, target err {target_err:.3e}, max stat err "
+              f"{stat_err:.3e} (relative above 1; tol {LEARNER_TOL}; absolute {stat_abs:.3e}); "
+              "td_error as host numpy")
+        out[algo] = {"weight_err": err, "target_err": target_err, "stat_err": stat_err,
+                     "stat_abs_err": stat_abs, "rows": batch.count}
+    return out
+
+
+# ------------------------------------------------------------ phases 15-17
+def _apex_worker(index: int, device: str):
+    """``examples/apex_dqn.py``'s worker: its epsilon ladder over the
+    workers."""
+    from repro_torch.rl import CartPole, DQNPolicy, RolloutWorker
+
+    cfg = REPLAY_PATHS["apex"]
+    return RolloutWorker(CartPole(), DQNPolicy(4, 2), algo="dqn", num_envs=cfg["num_envs"],
+                         rollout_len=cfg["rollout_len"], seed=0, worker_index=index,
+                         epsilon=0.4 ** (1 + index), device=device)
+
+
+def phase_replay_plan(name: str, counters: list) -> dict:
+    """DQN, Ape-X or SAC through ``Algorithm.from_plan`` with replay actors,
+    ``train()`` under a deadline until the path has trained (Ape-X: until
+    its learner thread has taken ``min_steps`` steps), then ``stop()`` and
+    no thread of the flow left alive.  None of these paths launches a kernel
+    of the port: their losses are small MLP products and elementwise work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.actor import create_colocated
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.rl import ReplayBuffer
+
+    cfg = REPLAY_PATHS[name]
+    make = {"dqn": _dqn_worker, "apex": _apex_worker, "sac": _sac_worker}[name]
+    threads_before = set(threading.enumerate())
+    t_init = time.perf_counter()
+    workers = WorkerSet.create(lambda i: make(i, "cuda"), cfg["num_workers"])
+    replay = create_colocated(lambda: ReplayBuffer(**cfg["replay"]), cfg["replay_actors"])
+    algo = Algorithm.from_plan(name, workers, replay, **cfg["plan"])
+    init_s = time.perf_counter() - t_init
+    learner = algo.resources.get("learner")
+    info_keys = SAC_INFO_KEYS if name == "sac" else DQN_INFO_KEYS
+    rows = []
+
+    def check(result):
+        _require(set(result) == RESULT_KEYS, f"{name}: result keys {sorted(result)}")
+        info = result["info"]
+        if info:  # Ape-X's is empty until the learner's first result is drained
+            _require(set(info) == info_keys, f"{name}: info keys {sorted(info)}")
+            _require(isinstance(info["td_error"], np.ndarray), f"{name}: td_error not numpy")
+            _require(all(math.isfinite(v) for k, v in info.items() if k != "td_error")
+                     and np.isfinite(info["td_error"]).all(), f"{name}: non-finite stats")
+        if learner is not None:
+            _require(learner.is_alive(), f"{name}: the learner thread died")
+
+    def done(result) -> bool:
+        ctr = result["counters"]
+        if learner is not None:
+            return learner.num_steps >= cfg["min_steps"]
+        return ctr.get("num_target_updates", 0) >= cfg["min_target_updates"]
+
+    try:
+        with _deadline(REPLAY_DEADLINE_S, name):
+            for c in counters:
+                c.reset()
+            t_all = time.perf_counter()
+            result = {"counters": {}}
+            while not done(result):
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                rows.append({"iter": len(rows), "seconds": time.perf_counter() - t0,
+                             "steps_trained": result["counters"].get("num_steps_trained", 0)})
+                check(result)
+            total = time.perf_counter() - t_all
+            # Ape-X's train() returns as each learner result is drained:
+            # its window spans ASYNC_PROFILE_S, as on the other async paths.
+            result, dt, busy_ms, ours = _profiled_train(
+                algo, check, ASYNC_PROFILE_S if learner is not None else 0.0)
+            stats = [a.sync("stats") for a in replay]
+            prios = [a.sync("get_state")["priorities"] for a in replay]
+    finally:
+        algo.stop()
+    left = [t.name for t in threading.enumerate() if t not in threads_before and t.is_alive()
+            and not isinstance(t, threading._DummyThread)]
+    _require(not left, f"{name}: threads of the flow alive after stop(): {left}")
+    if learner is not None:
+        _require(not learner.is_alive(), f"{name}: the learner thread is alive after stop()")
+    ctr = result["counters"]
+    launches = {c.name: c.value for c in counters}
+    _require(not any(launches.values()), f"{name}: launches {launches}, expected none")
+    _require(ctr["num_steps_trained"] > 0, f"{name}: nothing trained: {ctr}")
+    names = {k for k in ctr if not k.startswith("bytes_moved/")} - TIMING_COUNTERS
+    _require(names <= REPLAY_COUNTERS, f"{name}: counters {sorted(ctr)}")
+    sampled = sum(s["sampled"] for s in stats)
+    _require(sampled > 0, f"{name}: the replay buffers sampled nothing: {stats}")
+    # UpdateReplayPriorities moved priorities off the buffer's max-priority
+    # default (1.0 at insertion) for the rows it trained on.
+    updated = sum(int((p[:s["size"]] != p[:s["size"]].max()).sum()) for p, s in zip(prios, stats))
+    _require(updated > 0, f"{name}: no replay priority was updated")
+    if name != "apex":
+        _require(ctr.get("num_target_updates", 0) >= cfg["min_target_updates"],
+                 f"{name}: target updates {ctr}")
+    profile = {"window_ms": dt * 1e3, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / (dt * 1e3), "port_kernels_ms": ours}
+    mean = sum(r["seconds"] for r in rows[1:]) / max(len(rows) - 1, 1)
+    print(f"{name} main path: {len(rows)} train() iterations in {total:.3f} s (mean after the "
+          f"first {mean:.4f} s, init {init_s:.2f} s), steps trained {ctr['num_steps_trained']}, "
+          f"target updates {ctr.get('num_target_updates', 0)}"
+          + (f", learner steps {learner.num_steps}" if learner is not None else "")
+          + f"; replay {stats}, {updated} priorities updated; launches {launches}; profiled "
+          f"window {dt * 1e3:.1f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{profile['idle_share']:.4f}; no flow thread alive after stop()")
+    return {"iterations": rows, "seconds": total, "init_s": init_s, "mean_s": mean,
+            "launches": launches, "counters": ctr, "replay": stats,
+            "priorities_updated": updated, "profile": profile,
+            "learner_steps": learner.num_steps if learner is not None else None}
+
+
+# ----------------------------------------------------------------- phase 18
+def phase_flowcheck() -> dict:
+    """The flowcheck audit of the port's plans on CUDA workers: no error,
+    and the three pinned warns of the reference."""
+    from repro_torch.flow import PLAN_BUILDERS
+    from repro_torch.flow.analysis import audit_plans
+
+    t0 = time.perf_counter()
+    results = audit_plans(device="cuda")
+    _require(set(results) == set(PLAN_BUILDERS) and len(results) == 9,
+             f"flowcheck: audited {sorted(results)}")
+    errors = {n: [d.format() for d in ds if d.is_error] for n, ds in results.items()
+              if any(d.is_error for d in ds)}
+    _require(not errors, f"flowcheck: errors {errors}")
+    for plan in ("apex", "appo", "impala"):
+        _require([d.rule for d in results[plan]] == ["unbounded-queue"],
+                 f"flowcheck: {plan} gives {[d.rule for d in results[plan]]}")
+    warns = {n: [d.rule for d in ds] for n, ds in results.items() if ds}
+    print(f"flowcheck: {len(results)} plans on CUDA workers, 0 errors, diagnostics {warns} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return {"plans": sorted(results), "diagnostics": warns}
+
+
+# ------------------------------------------------------------ phase 19
 def _record_routing(fn):
     """Run ``fn`` while recording the experts every MoE layer routes to."""
     from repro_torch.models import moe as moe_mod
@@ -2045,7 +2450,7 @@ def phase_pretrain_parity() -> dict:
     return out
 
 
-# --------------------------------------------------------- phases 13-14
+# --------------------------------------------------------- phases 20-21
 def _pretrain_expected(cfg) -> dict:
     """Launches per train() step implied by the configuration: each layer's
     forward once (no remat) and its backward once; an MoE layer runs three
@@ -2259,6 +2664,14 @@ def main() -> int:
                 name, [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
                        SURROGATE_BWD_LAUNCHES]
             )
+        rl_counters = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
+                       SURROGATE_BWD_LAUNCHES]
+        for name in GRADIENT_PATHS:
+            record[name] = phase_gradient_plan(name, rl_counters)
+        record["offpolicy_learner_parity"] = phase_offpolicy_learner_parity()
+        for name in REPLAY_PATHS:
+            record[name] = phase_replay_plan(name, rl_counters)
+        record["flowcheck"] = phase_flowcheck()
         record["pretrain_parity"] = phase_pretrain_parity()
         for name in PRETRAIN_PATHS:
             record[name] = phase_pretrain(name, every_counter)
@@ -2269,6 +2682,7 @@ def main() -> int:
     kernels = []
     paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
+             **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
              **{name: record[name]["launches"] for name in PRETRAIN_PATHS}}
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first

@@ -1,6 +1,7 @@
-"""repro_torch.flow: the dataflow-graph IR and the Algorithm runtime
-(PyTorch port; ``build_ppo``, ``build_ppo_lm``, ``build_impala`` and
-``build_appo`` are the plans ported so far).
+"""repro_torch.flow: the dataflow-graph IR, the Algorithm runtime and the
+flowcheck analyzer (PyTorch port; nine of the reference's twelve plans:
+``a2c``, ``a3c``, ``ppo``, ``ppo_lm``, ``dqn``, ``apex``, ``sac``, ``impala``
+and ``appo``).
 
     from repro_torch.flow import Algorithm
 
@@ -10,7 +11,7 @@
 """
 
 from repro_torch.flow.algorithm import Algorithm
-from repro_torch.flow.analysis import Diagnostic, FlowAnalysisError, Severity
+from repro_torch.flow.analysis import Diagnostic, FlowAnalysisError, Severity, analyze
 from repro_torch.flow.compile import (
     CompiledFlow,
     FlowRuntime,
@@ -21,10 +22,15 @@ from repro_torch.flow.compile import (
 from repro_torch.flow.plans import (
     PLAN_BUILDERS,
     REPLAY_PLANS,
+    build_a2c,
+    build_a3c,
+    build_apex,
     build_appo,
+    build_dqn,
     build_impala,
     build_ppo,
     build_ppo_lm,
+    build_sac,
 )
 from repro_torch.flow.spec import (
     FlowSpec,
@@ -51,10 +57,16 @@ __all__ = [
     "Severity",
     "StageSpec",
     "Stream",
+    "analyze",
+    "build_a2c",
+    "build_a3c",
+    "build_apex",
     "build_appo",
+    "build_dqn",
     "build_impala",
     "build_ppo",
     "build_ppo_lm",
+    "build_sac",
     "compose_stages",
     "fuse_for_each",
     "partition_flowspec",

@@ -16,9 +16,10 @@ Side effects are deferred: constructing the Algorithm compiles the graph but
 starts nothing; the first ``train()`` starts learner threads; ``stop()``
 joins them — after it returns, no flow-owned threads are alive.
 
-The PyTorch port registers the ``"ppo"``, ``"ppo_lm"``, ``"impala"`` and
-``"appo"`` plans; ``check``, ``explain``,
-``save`` and ``restore`` of the JAX package are not ported yet.
+The PyTorch port registers nine plans (``"a2c"``, ``"a3c"``, ``"ppo"``,
+``"ppo_lm"``, ``"dqn"``, ``"apex"``, ``"sac"``, ``"impala"``, ``"appo"``);
+``explain``, ``save`` and ``restore`` of the JAX package are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Union
 
 from repro_torch.core.iterators import LocalIterator
+from repro_torch.flow.analysis.diagnostics import sort_diagnostics
 from repro_torch.flow.compile import CompiledFlow
 from repro_torch.flow.plans import PLAN_BUILDERS, REPLAY_PLANS
 from repro_torch.flow.spec import FlowSpec
@@ -67,8 +69,8 @@ class Algorithm:
 
         ``plan`` is a registered name (``"ppo"``, ``"apex"``, ...), a builder
         callable returning a ``FlowSpec``, or an already-built ``FlowSpec``.
-        ``strict=True`` would gate compilation on the static analyzer; it
-        raises ``NotImplementedError`` until the flowcheck engine is ported.
+        ``strict=True`` gates compilation on the static analyzer
+        (``FlowAnalysisError`` on any error-severity diagnostic).
         """
         if isinstance(plan, FlowSpec):
             if plan_kwargs:
@@ -132,6 +134,18 @@ class Algorithm:
     def resources(self) -> Dict[str, Any]:
         """Deferred runtime resources by name (e.g. learner threads)."""
         return self._compiled.runtime.resources
+
+    def check(self) -> List[Any]:
+        """Static analysis of this algorithm's plan (``FlowSpec.check``).
+
+        Returns the combined diagnostic list: the analyzer's findings over
+        the *source* spec (pre-fusion, so node ids match what the builder
+        created) plus anything the lowering fallbacks recorded while this
+        flow compiled.  Empty list = clean.
+        """
+        return sort_diagnostics(
+            list(self._compiled.source_spec.check()) + list(self._compiled.diagnostics)
+        )
 
     def to_dot(self, with_metrics: bool = False) -> str:
         """DOT rendering of the plan; ``with_metrics=True`` labels data-plane

@@ -4,7 +4,7 @@ A ``Diagnostic`` is one finding about a ``FlowSpec``: which rule fired, how
 bad it is, which node/edge it anchors to, and — always — a fix hint.  The
 same vocabulary is used by
 
-  * the static pass (``repro.flow.analysis.analyze`` / ``FlowSpec.check()``; not ported yet),
+  * the static pass (``repro_torch.flow.analysis.analyze`` / ``FlowSpec.check()``),
     which inspects the graph before anything is constructed, and
   * the lowering fallbacks in ``repro_torch.flow.compile`` (``CompiledFlow
     .diagnostics``), which previously degraded semantics behind warn-once

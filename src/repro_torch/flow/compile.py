@@ -226,10 +226,11 @@ class CompiledFlow:
     def __init__(self, spec: FlowSpec, fuse: bool = True, strict: bool = False):
         spec.validate()
         if strict:
-            raise NotImplementedError(
-                "strict=True needs the flowcheck analyzer (flow/analysis/engine.py, "
-                "rules.py), which is not ported to repro_torch yet"
-            )
+            from repro_torch.flow.analysis.engine import analyze
+
+            static = analyze(spec)
+            if any(d.is_error for d in static):
+                raise FlowAnalysisError(static, flow=spec.name)
         self.source_spec = spec
         self.spec = fuse_for_each(spec) if fuse else spec
         self.diagnostics: List[Diagnostic] = []

@@ -3,29 +3,80 @@
 Each ``build_*`` function assembles a ``FlowSpec`` — the graph the paper
 draws in Figures 9–12, as a value you can inspect (``to_dot()``), optimize
 (stage fusion), and lower (``compile()``); ``repro_torch.flow.Algorithm``
-is the run-facade.  The port carries ``build_ppo`` (Fig 10b), its
-language-model variant ``build_ppo_lm``, and the asynchronous learner-thread
-pipelines ``build_impala`` (Fig 11) and ``build_appo``; the other builders
-of ``repro/flow/plans.py`` follow their workers and buffers.
+is the run-facade.  The port carries nine of the reference's twelve plans:
+``build_a3c`` (Fig 9a) and ``build_a2c``, ``build_ppo`` (Fig 10b) and its
+language-model variant ``build_ppo_lm``, the replay plans ``build_dqn``,
+``build_apex`` (Listing A3) and ``build_sac``, and the asynchronous
+learner-thread pipelines ``build_impala`` (Fig 11) and ``build_appo``.
+MAML, MBPO and the multi-agent composition follow their workers.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+from repro_torch.core.actor import ActorPool
 from repro_torch.core.metrics import STEPS_TRAINED_COUNTER, get_metrics
-from repro_torch.core.operators import ConcatBatches, StandardizeFields, TrainOneStep
+from repro_torch.core.operators import (
+    ApplyGradients,
+    AverageGradients,
+    ConcatBatches,
+    StandardizeFields,
+    StoreToReplayBuffer,
+    TrainOneStep,
+    UpdateReplayPriorities,
+    UpdateTargetNetwork,
+    UpdateWorkerWeights,
+)
 from repro_torch.core.workers import WorkerSet
 from repro_torch.flow.spec import FlowSpec, pure
 
 __all__ = [
     "PLAN_BUILDERS",
     "REPLAY_PLANS",
+    "build_a2c",
+    "build_a3c",
+    "build_apex",
     "build_appo",
+    "build_dqn",
     "build_impala",
     "build_ppo",
     "build_ppo_lm",
+    "build_sac",
 ]
+
+
+# --------------------------------------------------------------------- A3C
+def build_a3c(workers: WorkerSet, num_async: int = 1) -> FlowSpec:
+    """Figure 9a: async per-worker gradients applied centrally."""
+    spec = FlowSpec("a3c")
+    grads = spec.par_gradients(workers).gather_async(num_async=num_async)
+    apply_op = grads.for_each(ApplyGradients(workers, update_all=False))
+    spec.set_output(apply_op.report(workers))
+    return spec
+
+
+# --------------------------------------------------------------------- A2C
+def build_a2c(
+    workers: WorkerSet,
+    vector: int = 0,
+    inference: str = None,
+) -> FlowSpec:
+    """Synchronous A3C: barrier-gather gradients, average, apply, broadcast.
+
+    ``vector=N`` runs each gradient worker's sampling through the
+    vectorized rollout engine (N lanes, one batched dispatch per step);
+    ``inference='server'`` is not ported and raises at lowering.
+    """
+    spec = FlowSpec("a2c")
+    grads = spec.par_gradients(
+        workers, vector=vector or None, inference=inference
+    ).batch_across_shards()
+    apply_op = grads.for_each(AverageGradients()).for_each(
+        ApplyGradients(workers, update_all=True)
+    )
+    spec.set_output(apply_op.report(workers))
+    return spec
 
 
 # --------------------------------------------------------------------- PPO
@@ -139,6 +190,111 @@ def build_ppo_lm(
     return spec
 
 
+# --------------------------------------------------------------------- DQN
+def build_dqn(
+    workers: WorkerSet,
+    replay_actors: ActorPool,
+    target_update_freq: int = 500,
+    store_weight: int = 1,
+    replay_weight: int = 1,
+    name: str = "dqn",
+) -> FlowSpec:
+    """Store/replay sub-flows composed round-robin (rate-limited 1:1)."""
+    spec = FlowSpec(name)
+    store_op = spec.rollouts(workers, mode="bulk_sync").for_each(
+        StoreToReplayBuffer(replay_actors)
+    )
+
+    # Train on replayed batches, then push new priorities back to the source
+    # replay actor (fine-grained message passing).
+    train = TrainOneStep(workers)
+
+    @pure
+    def _train_keeping_actor(pair):
+        batch, actor = pair
+        return train(batch), actor
+
+    replay_op = (
+        spec.replay(replay_actors)
+        .zip_with_source_actor()
+        .for_each(_train_keeping_actor, label="TrainOneStep")
+        .for_each(UpdateReplayPriorities())
+        .for_each(UpdateTargetNetwork(workers, target_update_freq))
+    )
+    merged = spec.concurrently(
+        [store_op, replay_op],
+        mode="round_robin",
+        output_indexes=[1],
+        round_robin_weights=[store_weight, replay_weight],
+    )
+    spec.set_output(merged.report(workers))
+    return spec
+
+
+# -------------------------------------------------------------------- Ape-X
+def build_apex(
+    workers: WorkerSet,
+    replay_actors: ActorPool,
+    target_update_freq: int = 2500,
+    max_weight_sync_delay: int = 400,
+    num_async_rollouts: int = 2,
+    num_async_replay: int = 4,
+    block_on_enqueue: bool = True,
+    enqueue_policy: str = None,
+    replay_credits: int = None,
+) -> FlowSpec:
+    """Listing A3: three concurrent sub-flows around a learner thread.
+
+    The learner thread is a *deferred resource*: declared here, constructed
+    at compile time, started on the first pull, joined on ``stop()``.
+
+    Backpressure knobs (data plane): ``enqueue_policy`` sets the
+    learner-feed overflow policy directly ("block" | "drop_newest" |
+    "drop_oldest"); ``block_on_enqueue=False`` remains as shorthand for the
+    paper's lossy feed ("drop_newest": when the learner falls behind,
+    batches are dropped and counted as ``num_samples_dropped`` in train()
+    results instead of backpressuring the replay sub-flow).
+    ``replay_credits`` caps the replay gather's total in-flight window.
+    """
+    spec = FlowSpec("apex")
+    learner = spec.learner_thread(workers)
+
+    # (1) rollouts -> replay actors; fine-grained weight refresh.
+    store_op = (
+        spec.rollouts(workers, mode="async", num_async=num_async_rollouts)
+        .for_each(StoreToReplayBuffer(replay_actors))
+        .zip_with_source_actor()
+        .for_each(UpdateWorkerWeights(workers, max_weight_sync_delay))
+    )
+
+    # (2) replayed batches -> learner in-queue (credit-bounded gather).
+    replay_op = (
+        spec.replay(replay_actors, num_async=num_async_replay, credits=replay_credits)
+        .zip_with_source_actor()
+        .enqueue(learner, block=block_on_enqueue, policy=enqueue_policy)
+    )
+
+    # (3) learner out-queue -> priority updates + target sync + metrics.
+    @pure
+    def _record(item):
+        actor, batch, info = item
+        get_metrics().counters[STEPS_TRAINED_COUNTER] += batch.count
+        return ((batch, info), actor)
+
+    update_op = (
+        spec.dequeue(learner)
+        .for_each(_record, label="CountTrained")
+        .for_each(UpdateReplayPriorities())
+        .for_each(UpdateTargetNetwork(workers, target_update_freq))
+    )
+
+    merged = spec.concurrently(
+        [store_op, replay_op, update_op], mode="async", output_indexes=[2]
+    )
+    spec.set_output(merged.report(workers))
+    return spec
+
+
 # ------------------------------------------------------------------- IMPALA
 def build_impala(
     workers: WorkerSet,
@@ -222,12 +378,36 @@ def build_appo(
     )
 
 
+# ---------------------------------------------------------------------- SAC
+def build_sac(
+    workers: WorkerSet,
+    replay_actors: ActorPool,
+    target_update_freq: int = 1,
+    store_weight: int = 1,
+    replay_weight: int = 1,
+) -> FlowSpec:
+    """Off-policy continuous control: same dataflow shape as DQN."""
+    return build_dqn(
+        workers,
+        replay_actors,
+        target_update_freq=target_update_freq,
+        store_weight=store_weight,
+        replay_weight=replay_weight,
+        name="sac",
+    )
+
+
 PLAN_BUILDERS: Dict[str, Any] = {
+    "a3c": build_a3c,
+    "a2c": build_a2c,
     "ppo": build_ppo,
     "ppo_lm": build_ppo_lm,
+    "dqn": build_dqn,
+    "apex": build_apex,
     "impala": build_impala,
+    "sac": build_sac,
     "appo": build_appo,
 }
 
-# No replay plan is ported yet (DQN/Ape-X/SAC/MBPO wait for rl/replay.py).
-REPLAY_PLANS: frozenset = frozenset()
+# Plans whose builders take (workers, replay_actors, ...).
+REPLAY_PLANS = frozenset({"dqn", "apex", "sac"})

@@ -666,19 +666,16 @@ class FlowSpec:
     def check(self, rules: Any = None) -> List[Any]:
         """Static analysis (flowcheck): run the rule set, return diagnostics.
 
-        Not ported yet: the rule engine waits for a later slice, so this
-        raises ``NotImplementedError``.  In the JAX package, unlike
-        ``validate()`` — which raises on the three structural
+        Unlike ``validate()`` — which raises on the three structural
         invariants lowering cannot survive — ``check()`` never raises on
         account of the graph: it returns the full ``Diagnostic`` list
         (credit deadlocks, unbounded queues, annotations that cannot lower,
         ... — see ``docs/flowcheck.md``), sorted errors-first.  Gate on it
         with ``compile(strict=True)`` or ``scripts/flowcheck.py``.
         """
-        raise NotImplementedError(
-            "flowcheck (flow/analysis/engine.py, rules.py) is not ported to "
-            "repro_torch yet"
-        )
+        from repro_torch.flow.analysis.engine import analyze
+
+        return analyze(self, rules=rules)
 
     def _referenced_resources(self) -> List[str]:
         return [
@@ -706,8 +703,8 @@ class FlowSpec:
     def compile(self, fuse: bool = True, strict: bool = False) -> Any:
         """Lower onto the iterator runtime; see ``repro_torch.flow.compile``.
 
-        ``strict=True`` would run ``check()`` first; it raises
-        ``NotImplementedError`` until the flowcheck engine is ported."""
+        ``strict=True`` runs ``check()`` first and refuses to build anything
+        when the graph carries error-severity diagnostics."""
         from repro_torch.flow.compile import CompiledFlow
 
         return CompiledFlow(self, fuse=fuse, strict=strict)

@@ -1,7 +1,24 @@
 from repro_torch.rl.advantages import discounted_returns, gae, vtrace
-from repro_torch.rl.env import CartPole, CartPoleState, Env, VectorEnv, VectorEnvState, VectorStep
+from repro_torch.rl.env import (
+    CartPole,
+    CartPoleState,
+    Env,
+    Pendulum,
+    StubEnv,
+    VectorEnv,
+    VectorEnvState,
+    VectorStep,
+)
 from repro_torch.rl.lm_policy import LMTokenPolicy
-from repro_torch.rl.policy import ActorCriticPolicy, mlp_apply, mlp_init
+from repro_torch.rl.policy import (
+    ActorCriticPolicy,
+    DQNPolicy,
+    DummyPolicy,
+    SACPolicy,
+    mlp_apply,
+    mlp_init,
+)
+from repro_torch.rl.replay import ReplayBuffer
 from repro_torch.rl.rollout_worker import (
     EPS_STRIDE,
     MAX_LANES,

@@ -22,7 +22,24 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Env", "CartPole", "CartPoleState", "VectorEnv", "VectorEnvState", "VectorStep"]
+__all__ = [
+    "Env",
+    "CartPole",
+    "CartPoleState",
+    "Pendulum",
+    "PendulumState",
+    "StubEnv",
+    "StubEnvState",
+    "VectorEnv",
+    "VectorEnvState",
+    "VectorStep",
+]
+
+
+def _where_done(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where(done, a, b)`` with the ``[N]`` mask reshaped to the
+    field's rank, so a field with trailing dims takes whole rows."""
+    return torch.where(done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
 class Env:
@@ -52,7 +69,7 @@ class Env:
         new, obs, reward, terminated, truncated = self.step_raw(state, action)
         done = terminated | truncated
         reset_st, reset_obs = self.reset(action.shape[0], generator, action.device)
-        out = type(new)(*(torch.where(done, a, b) for a, b in zip(reset_st, new)))
+        out = type(new)(*(_where_done(done, a, b) for a, b in zip(reset_st, new)))
         obs = torch.where(done[:, None], reset_obs, obs)
         return out, obs, reward, done
 
@@ -116,6 +133,99 @@ class CartPole(Env):
         truncated = (new.t >= self.max_steps) & ~terminated
         reward = torch.ones_like(new.x)
         return new, self._obs(new), reward, terminated, truncated
+
+
+class PendulumState(NamedTuple):
+    theta: torch.Tensor
+    theta_dot: torch.Tensor
+    t: torch.Tensor  # int32 step count
+
+
+class Pendulum(Env):
+    """Pendulum-v1 (continuous torque) for SAC-style continuous control;
+    actions are ``[N, action_dim]`` floats in [-1, 1], scaled to the torque."""
+
+    obs_dim = 3
+    num_actions = -1
+    action_dim = 1
+    max_steps = 200
+    max_speed = 8.0
+    max_torque = 2.0
+    dt = 0.05
+    g = 10.0
+    m = 1.0
+    length = 1.0
+
+    def reset(
+        self, num_envs: int, generator: torch.Generator, device: Any
+    ) -> Tuple[PendulumState, torch.Tensor]:
+        theta = torch.rand((num_envs,), generator=generator, device=device) * (2 * math.pi) - math.pi
+        theta_dot = torch.rand((num_envs,), generator=generator, device=device) * 2.0 - 1.0
+        t = torch.zeros((num_envs,), dtype=torch.int32, device=device)
+        st = PendulumState(theta, theta_dot, t)
+        return st, self._obs(st)
+
+    @staticmethod
+    def _obs(st: PendulumState) -> torch.Tensor:
+        return torch.stack([torch.cos(st.theta), torch.sin(st.theta), st.theta_dot], dim=-1)
+
+    def step_raw(self, st: PendulumState, action: torch.Tensor):
+        u = torch.clamp(
+            action.reshape(st.theta.shape).to(st.theta.dtype) * self.max_torque,
+            -self.max_torque,
+            self.max_torque,
+        )
+        # A floor modulo, as jnp's %: torch.fmod would keep the dividend's sign.
+        th = torch.remainder(st.theta + math.pi, 2 * math.pi) - math.pi
+        cost = th**2 + 0.1 * st.theta_dot**2 + 0.001 * u**2
+        new_dot = st.theta_dot + (
+            3 * self.g / (2 * self.length) * torch.sin(st.theta)
+            + 3.0 / (self.m * self.length**2) * u
+        ) * self.dt
+        new_dot = torch.clamp(new_dot, -self.max_speed, self.max_speed)
+        new = PendulumState(st.theta + new_dot * self.dt, new_dot, st.t + 1)
+        truncated = new.t >= self.max_steps  # the pendulum never terminates
+        return new, self._obs(new), -cost, torch.zeros_like(truncated), truncated
+
+
+class StubEnvState(NamedTuple):
+    x: torch.Tensor  # [N, obs_dim]
+    t: torch.Tensor  # [N] int32 step count
+
+
+class StubEnv(Env):
+    """Deterministic stub environment for tests and rollout benchmarks.
+
+    All dynamics are elementwise (no reductions, no matmuls), so a lane is
+    bit-identical to the same lane stepped alone.  Episodes terminate when
+    ``x[0]`` drifts out of bounds and truncate at ``max_steps``; the
+    terminated/truncated split makes it the reference env for bootstrap
+    handling.
+    """
+
+    obs_dim = 4
+    num_actions = 2
+
+    def __init__(self, max_steps: int = 16, drift: float = 0.3, threshold: float = 4.0):
+        self.max_steps = max_steps
+        self.drift = drift
+        self.threshold = threshold
+
+    def reset(
+        self, num_envs: int, generator: torch.Generator, device: Any
+    ) -> Tuple[StubEnvState, torch.Tensor]:
+        x = torch.rand((num_envs, self.obs_dim), generator=generator, device=device) - 0.5
+        st = StubEnvState(x, torch.zeros((num_envs,), dtype=torch.int32, device=device))
+        return st, st.x
+
+    def step_raw(self, st: StubEnvState, action: torch.Tensor):
+        direction = torch.where(action == 1, 1.0, -1.0).to(st.x.dtype)
+        x = st.x * 0.95 + direction[:, None] * self.drift
+        new = StubEnvState(x, st.t + 1)
+        terminated = torch.abs(x[:, 0]) > self.threshold
+        truncated = (new.t >= self.max_steps) & ~terminated
+        reward = 1.0 + 0.1 * torch.tanh(x[:, 0])
+        return new, new.x, reward, terminated, truncated
 
 
 # --------------------------------------------------------------- VectorEnv
@@ -190,12 +300,7 @@ class VectorEnv:
         new_env, next_obs, reward, terminated, truncated = self.env.step_raw(state.env_state, actions)
         done = terminated | truncated
         reset_env, reset_obs = self.env.reset(self.num_envs, state.rng, state.obs.device)
-        env_state = type(new_env)(
-            *(
-                torch.where(done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-                for a, b in zip(reset_env, new_env)
-            )
-        )
+        env_state = type(new_env)(*(_where_done(done, a, b) for a, b in zip(reset_env, new_env)))
         obs = torch.where(done[:, None], reset_obs, next_obs)
         new_ret = state.ep_return + reward
         out = VectorStep(

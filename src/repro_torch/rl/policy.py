@@ -18,7 +18,7 @@ from repro_torch.kernels.ops import fused_ppo_loss, fused_vtrace
 
 PyTree = Any
 
-__all__ = ["mlp_init", "mlp_apply", "ActorCriticPolicy"]
+__all__ = ["mlp_init", "mlp_apply", "ActorCriticPolicy", "DQNPolicy", "SACPolicy", "DummyPolicy"]
 
 
 # ------------------------------------------------------------------ MLP base
@@ -47,7 +47,7 @@ def mlp_apply(params: PyTree, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ Actor-critic
 class ActorCriticPolicy:
     """Discrete actor-critic with selectable loss: 'pg' (A2C/A3C), 'ppo',
-    'vtrace' (IMPALA)."""
+    'vtrace' (IMPALA).  DQN and SAC have policies of their own."""
 
     def __init__(
         self,
@@ -63,7 +63,8 @@ class ActorCriticPolicy:
     ):
         if loss_kind not in ("pg", "ppo", "vtrace"):
             raise NotImplementedError(
-                f"loss_kind={loss_kind!r}: the policy has the 'pg', 'ppo' and 'vtrace' losses"
+                f"loss_kind={loss_kind!r}: the policy has the 'pg', 'ppo' and 'vtrace' losses "
+                "(DQN and SAC have DQNPolicy and SACPolicy)"
             )
         self.obs_dim = obs_dim
         self.num_actions = num_actions
@@ -177,3 +178,187 @@ class ActorCriticPolicy:
         ent = torch.mean(entropy)
         loss = pg + self.vf_coef * vf - self.ent_coef * ent
         return loss, {"pg_loss": pg, "vf_loss": vf, "entropy": ent}
+
+
+# ----------------------------------------------------------------- DQN
+class DQNPolicy:
+    """Double DQN with target network and Huber TD loss."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        num_actions: int,
+        hidden: Sequence[int] = (64, 64),
+        gamma: float = 0.99,
+    ):
+        self.obs_dim = obs_dim
+        self.num_actions = num_actions
+        self.hidden = tuple(hidden)
+        self.gamma = gamma
+
+    def init_params(self, generator: torch.Generator) -> PyTree:
+        q = mlp_init(generator, (self.obs_dim, *self.hidden, self.num_actions), scale_last=1.0)
+        return {"q": q}
+
+    def q_values(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(params["q"], obs)
+
+    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator, epsilon: float):
+        """Epsilon-greedy over a batch ``[N, obs_dim]``; returns (action,
+        zeros, max Q, Q)."""
+        q = self.q_values(params, obs)
+        greedy = torch.argmax(q, dim=-1)
+        random_a = torch.randint(
+            0, self.num_actions, greedy.shape, generator=generator, device=q.device
+        )
+        explore = torch.rand(greedy.shape, generator=generator, device=q.device) < epsilon
+        action = torch.where(explore, random_a, greedy)
+        value = torch.max(q, dim=-1).values
+        return action, torch.zeros_like(value), value, q
+
+    def compute_actions(
+        self, params: PyTree, obs: torch.Tensor, generator: torch.Generator, epsilon: float
+    ):
+        return self.act(params, obs, generator, epsilon)
+
+    def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
+        return torch.max(self.q_values(params, obs), dim=-1).values
+
+    def loss(
+        self, params: PyTree, target_params: PyTree, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict]:
+        q = self.q_values(params, batch["obs"])
+        q_sa = q.gather(-1, batch["actions"].long()[:, None])[:, 0]
+        # Double-DQN target: online argmax, target evaluation; stop-gradient.
+        with torch.no_grad():
+            next_a = torch.argmax(self.q_values(params, batch["next_obs"]), dim=-1)
+            next_q_target = self.q_values(target_params, batch["next_obs"])
+            next_q = next_q_target.gather(-1, next_a[:, None])[:, 0]
+            target = batch["rewards"] + self.gamma * (1.0 - batch["dones"]) * next_q
+        td = q_sa - target
+        weights = batch["weights"] if "weights" in batch else torch.ones_like(td)
+        huber = torch.where(torch.abs(td) < 1.0, 0.5 * td**2, torch.abs(td) - 0.5)
+        loss = torch.mean(weights * huber)
+        return loss, {"td_error": td, "mean_q": torch.mean(q_sa)}
+
+
+# ----------------------------------------------------------------- SAC
+class SACPolicy:
+    """Continuous SAC: squashed Gaussian actor + twin Q critics.
+
+    ``loss`` draws the two standard-normal noises (the critic's on
+    ``next_obs``, the actor's on ``obs``) from a generator and hands them to
+    ``loss_with_noise``, the deterministic core.  As in the reference, the
+    critic target (``next_logp`` from the online actor included) is
+    stop-gradient, while the actor loss does send gradient into ``q1``/``q2``.
+    """
+
+    def __init__(
+        self,
+        obs_dim: int,
+        action_dim: int,
+        hidden: Sequence[int] = (64, 64),
+        gamma: float = 0.99,
+        alpha: float = 0.2,
+    ):
+        self.obs_dim = obs_dim
+        self.action_dim = action_dim
+        self.hidden = tuple(hidden)
+        self.gamma = gamma
+        self.alpha = alpha
+
+    def init_params(self, generator: torch.Generator) -> PyTree:
+        q_sizes = (self.obs_dim + self.action_dim, *self.hidden, 1)
+        return {
+            "pi": mlp_init(generator, (self.obs_dim, *self.hidden, 2 * self.action_dim)),
+            "q1": mlp_init(generator, q_sizes, scale_last=1.0),
+            "q2": mlp_init(generator, q_sizes, scale_last=1.0),
+        }
+
+    def _pi(self, params: PyTree, obs: torch.Tensor, eps: torch.Tensor):
+        out = mlp_apply(params["pi"], obs)
+        mu, log_std = torch.chunk(out, 2, dim=-1)
+        log_std = torch.clamp(log_std, -20, 2)
+        std = torch.exp(log_std)
+        action = torch.tanh(mu + std * eps)
+        logp = torch.sum(
+            -0.5 * (eps**2 + 2 * log_std + math.log(2 * math.pi))
+            - torch.log(1 - action**2 + 1e-6),
+            dim=-1,
+        )
+        return action, logp
+
+    def noise(self, obs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """Standard-normal noise of the actor's output shape for ``obs``."""
+        shape = tuple(obs.shape[:-1]) + (self.action_dim,)
+        return torch.randn(shape, generator=generator, device=obs.device)
+
+    def _q(self, q_params: PyTree, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(q_params, torch.cat([obs, act], dim=-1))[..., 0]
+
+    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        action, logp = self._pi(params, obs, self.noise(obs, generator))
+        value = self._q(params["q1"], obs, action)
+        return action, logp, value, action
+
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        return self.act(params, obs, generator)
+
+    def critic_loss(self, params, target_params, batch, eps):
+        with torch.no_grad():
+            next_a, next_logp = self._pi(params, batch["next_obs"], eps)
+            tq1 = self._q(target_params["q1"], batch["next_obs"], next_a)
+            tq2 = self._q(target_params["q2"], batch["next_obs"], next_a)
+            target_v = torch.minimum(tq1, tq2) - self.alpha * next_logp
+            target = batch["rewards"] + self.gamma * (1.0 - batch["dones"]) * target_v
+        actions = batch["actions"]
+        if actions.dim() == 1:
+            actions = actions[:, None]
+        q1 = self._q(params["q1"], batch["obs"], actions)
+        q2 = self._q(params["q2"], batch["obs"], actions)
+        td = q1 - target
+        return torch.mean((q1 - target) ** 2) + torch.mean((q2 - target) ** 2), td
+
+    def actor_loss(self, params, batch, eps):
+        a, logp = self._pi(params, batch["obs"], eps)
+        q = torch.minimum(
+            self._q(params["q1"], batch["obs"], a), self._q(params["q2"], batch["obs"], a)
+        )
+        return torch.mean(self.alpha * logp - q)
+
+    def loss_with_noise(self, params, target_params, batch, eps_critic, eps_actor):
+        closs, td = self.critic_loss(params, target_params, batch, eps_critic)
+        aloss = self.actor_loss(params, batch, eps_actor)
+        return closs + aloss, {"td_error": td, "critic_loss": closs, "actor_loss": aloss}
+
+    def loss(self, params, target_params, batch, generator: torch.Generator):
+        eps_critic = self.noise(batch["next_obs"], generator)
+        eps_actor = self.noise(batch["obs"], generator)
+        return self.loss_with_noise(params, target_params, batch, eps_critic, eps_actor)
+
+
+# --------------------------------------------------------------- Dummy
+class DummyPolicy:
+    """One trainable scalar: the paper's sampling-microbenchmark policy."""
+
+    def __init__(self, obs_dim: int = 4, num_actions: int = 2):
+        self.obs_dim = obs_dim
+        self.num_actions = num_actions
+
+    def init_params(self, generator: torch.Generator) -> PyTree:
+        return {"theta": torch.zeros((1,), device=generator.device)}
+
+    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        shape = tuple(obs.shape[:-1])
+        action = torch.randint(0, self.num_actions, shape, generator=generator, device=obs.device)
+        zeros = torch.zeros(shape, device=obs.device)
+        return action, zeros, zeros, zeros
+
+    def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(tuple(obs.shape[:-1]), device=obs.device)
+
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        return self.act(params, obs, generator)
+
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
+        return torch.sum(params["theta"] ** 2), {}

@@ -1,19 +1,22 @@
 """RolloutWorker: the actor target of the dataflow plans (PyTorch port of
 ``repro/rl/rollout_worker.py``).
 
-Owns a batched env, a policy, its parameters and optimizer state, and a
+Owns a batched env, a policy, its parameters (plus target parameters for
+the off-policy ``dqn`` and ``sac``) and optimizer state, and a
 ``torch.Generator``, all on one device.  Where the reference compiles the
 T-step rollout into one ``lax.scan``, the port runs it as a loop of eager
 batched steps on the device and ends it with the GAE kernel (``pg`` and
-``ppo``; ``vtrace`` workers compute no advantages); the learner step is
-autograd through the surrogate or V-trace kernels plus the hand-written
-optimizer.
+``ppo``; ``vtrace``, ``dqn`` and ``sac`` workers compute no advantages); the
+learner step is autograd through the surrogate or V-trace kernels (or the
+plain DQN and SAC losses) plus the hand-written optimizer.
 The dataflow layer composes workers through the same protocol as the
 reference (sample / get_weights / set_weights / compute_gradients /
-apply_gradients / learn_on_batch / episode_stats / get_state / set_state).
+apply_gradients / learn_on_batch / update_target / episode_stats /
+get_state / set_state).
 
 Weights cross workers by value: ``get_weights`` returns detached clones and
-``set_weights`` copies into the worker's own tensors.  The reference can
+``set_weights`` copies into the worker's own tensors; ``update_target``
+clones, so the target network never tracks the online one.  The reference can
 share one weights object between workers because JAX arrays are immutable;
 here a shared tensor would let one worker see another's update mid-rollout.
 The learner step never updates in place either: the optimizer builds new
@@ -48,6 +51,8 @@ from repro_torch.tree import tree_leaves, tree_map
 PyTree = Any
 
 __all__ = ["RolloutWorker", "VectorizedRolloutWorker", "assemble_fragments", "MAX_LANES", "EPS_STRIDE"]
+
+ALGOS = ("pg", "ppo", "vtrace", "dqn", "sac")
 
 # Episode-id layout: eps_id = (worker_index * MAX_LANES + lane) * EPS_STRIDE
 # + per-lane episode counter.  int64 gives ~2^43 worker-lanes' headroom.
@@ -111,20 +116,20 @@ class RolloutWorker:
         self,
         env: Env,
         policy: Any,
-        algo: str = "pg",  # pg | ppo | vtrace
+        algo: str = "pg",  # pg | ppo | vtrace | dqn | sac
         num_envs: int = 4,
         rollout_len: int = 64,
         optimizer: Optional[Optimizer] = None,
         gamma: float = 0.99,
         lam: float = 0.95,
+        epsilon: float = 0.1,
+        target_polyak: float = 0.0,  # 0 -> hard target copy
         seed: int = 0,
         worker_index: int = 0,
         device: Any = "cuda",
     ):
-        if algo not in ("pg", "ppo", "vtrace"):
-            raise NotImplementedError(
-                f"algo={algo!r}: the port's RolloutWorker runs 'pg', 'ppo' and 'vtrace'"
-            )
+        if algo not in ALGOS:
+            raise ValueError(f"algo={algo!r}: the RolloutWorker runs {', '.join(ALGOS)}")
         self.env = env
         self.policy = policy
         self.algo = algo
@@ -132,12 +137,15 @@ class RolloutWorker:
         self.rollout_len = rollout_len
         self.gamma = gamma
         self.lam = lam
+        self.epsilon = epsilon
+        self.target_polyak = target_polyak
         self.worker_index = worker_index
         self.device = _resolve_device(device)
 
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed * 10007 + worker_index)
         self.params = policy.init_params(self._gen)
+        self.update_target()
         self.optimizer = optimizer or adam(3e-4)
         self.opt_state = self.optimizer.init(self.params)
 
@@ -151,12 +159,17 @@ class RolloutWorker:
         self._ep_returns = torch.zeros((self.num_envs,), dtype=torch.float32, device=self.device)
 
     # --------------------------------------------------------------- rollout
+    def _act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        if self.algo == "dqn":
+            return self.policy.act(params, obs, generator, self.epsilon)
+        return self.policy.act(params, obs, generator)
+
     @torch.no_grad()
     def _rollout(self) -> Dict[str, torch.Tensor]:
         params, env_state, obs, ep_ret = self.params, self.env_state, self.obs, self._ep_returns
         steps = []
         for _ in range(self.rollout_len):
-            action, logp, value, _ = self.policy.act(params, obs, self._gen)
+            action, logp, value, _ = self._act(params, obs, self._gen)
             env_state, next_obs, reward, done = self.env.step(env_state, action, self._gen)
             new_ret = ep_ret + reward
             completed = torch.where(done, new_ret, 0.0)
@@ -188,7 +201,13 @@ class RolloutWorker:
         completed = cols.pop("completed").cpu().numpy()
         for r in completed[completed != 0.0]:
             self._completed.append(float(r))
-        return _to_numpy_batch(cols)
+        return _to_numpy_batch(self._drop_off_policy_columns(cols))
+
+    def _drop_off_policy_columns(self, cols: Dict[str, Any]) -> Dict[str, Any]:
+        """DQN and SAC batches carry no behaviour log-probs or values."""
+        if self.algo in ("dqn", "sac"):
+            cols = {k: v for k, v in cols.items() if k not in ("logp", "values")}
+        return cols
 
     # ----------------------------------------------------------------- learn
     # Host-side metadata columns that never enter the loss.
@@ -201,13 +220,20 @@ class RolloutWorker:
             if k not in self._HOST_COLUMNS
         }
 
-    def _loss_for(self, params: PyTree, batch: Dict[str, torch.Tensor]):
+    def _loss_for(self, params: PyTree, target_params: PyTree, batch: Dict[str, torch.Tensor]):
+        """The policy's loss; ``target_params`` (no grad) enter the DQN and
+        SAC losses, and SAC draws its two noises from the worker's
+        generator."""
+        if self.algo == "dqn":
+            return self.policy.loss(params, target_params, batch)
+        if self.algo == "sac":
+            return self.policy.loss(params, target_params, batch, self._gen)
         return self.policy.loss(params, batch)
 
     def _grads(self, batch: Dict[str, torch.Tensor]):
         with torch.enable_grad():
             params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
-            loss, aux = self._loss_for(params, batch)
+            loss, aux = self._loss_for(params, self.target_params, batch)
             leaves = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
         it = iter(leaves)
 
@@ -220,14 +246,29 @@ class RolloutWorker:
 
     @staticmethod
     def _info(loss: torch.Tensor, aux: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        # One device-to-host copy for every scalar of the step.
-        values = torch.stack([loss, *aux.values()]).tolist()
-        return dict(zip(["loss", *aux], values))
+        """Stats as host values: every scalar through one device-to-host
+        copy as a float, each per-row statistic (DQN's and SAC's
+        ``td_error``) as a numpy array."""
+        scalars = iter(torch.stack([loss, *(v for v in aux.values() if v.dim() == 0)]).tolist())
+        info = {"loss": next(scalars)}
+        for name, v in aux.items():
+            info[name] = next(scalars) if v.dim() == 0 else v.cpu().numpy()
+        return info
 
     def learn_on_batch(self, batch: SampleBatch, policy_id: Optional[str] = None) -> Dict[str, Any]:
         grads, loss, aux = self._grads(self._device_batch(batch))
         self.params, self.opt_state = self.optimizer.apply(self.params, grads, self.opt_state)
+        self._post_update()
         return self._info(loss, aux)
+
+    def _post_update(self) -> None:
+        """Per-update side effects beyond the optimizer step: SAC tracks its
+        target network by polyak averaging (new tensors, never in place)."""
+        if self.algo == "sac" and self.target_polyak > 0:
+            tau = self.target_polyak
+            self.target_params = tree_map(
+                lambda t, p: (1 - tau) * t + tau * p.detach(), self.target_params, self.params
+            )
 
     def compute_gradients(self, batch: SampleBatch) -> Tuple[PyTree, Dict[str, Any]]:
         grads, loss, _ = self._grads(self._device_batch(batch))
@@ -249,6 +290,12 @@ class RolloutWorker:
             p.copy_(w if isinstance(w, torch.Tensor) else torch.from_numpy(np.array(w)))
 
         tree_map(_copy, self.params, weights)
+
+    def update_target(self) -> None:
+        """Hard target sync: the target network becomes a copy of the
+        online weights (a clone: later updates of the online net, in place or
+        not, leave it unchanged)."""
+        self.target_params = tree_map(lambda p: p.detach().clone(), self.params)
 
     def episode_stats(self) -> Dict[str, float]:
         if not self._completed:
@@ -399,6 +446,11 @@ class VectorizedRolloutWorker(RolloutWorker):
         return {"vector": self.num_envs, "inference": self.inference, "decode": self.decode}
 
     # --------------------------------------------------------------- rollout
+    def _compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+        if self.algo == "dqn":
+            return self.policy.compute_actions(params, obs, generator, self.epsilon)
+        return self.policy.compute_actions(params, obs, generator)
+
     @torch.no_grad()
     def _vrollout(self) -> Dict[str, torch.Tensor]:
         params, vstate, lstate = self.params, self.vstate, self.lane_state
@@ -410,7 +462,7 @@ class VectorizedRolloutWorker(RolloutWorker):
                     params, obs, self.act_rng, lstate
                 )
             else:
-                action, logp, value, _ = self.policy.compute_actions(params, obs, self.act_rng)
+                action, logp, value, _ = self._compute_actions(params, obs, self.act_rng)
             vstate, out = self.venv.step(vstate, action)
             steps.append({
                 "obs": obs,
@@ -454,7 +506,7 @@ class VectorizedRolloutWorker(RolloutWorker):
     def sample(self) -> SampleBatch:
         cols = self._postprocess_cols(self.params, self._vrollout())
         self._record_completed(_host(cols.pop("completed")))
-        return assemble_fragments(cols, self._lane_base)
+        return assemble_fragments(self._drop_off_policy_columns(cols), self._lane_base)
 
     # ------------------------------------------------------------ durability
     def get_state(self) -> Dict[str, Any]:

@@ -28,7 +28,15 @@ from repro.rl.rollout_worker import RolloutWorker as JaxWorker
 from repro_torch.core.operators import StandardizeFields, TrainOneStep
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.optim import adam, sgd
-from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker, SampleBatch
+from repro_torch.rl import (
+    ActorCriticPolicy,
+    CartPole,
+    DQNPolicy,
+    Pendulum,
+    RolloutWorker,
+    SACPolicy,
+    SampleBatch,
+)
 from repro_torch.rl.env import CartPoleState
 from repro_torch.tree import tree_leaves
 
@@ -346,9 +354,7 @@ def _unported(what):
 
     workers = WorkerSet.create(lambda i: _cpu_worker(i), 1)
     try:
-        if what == "strict":
-            Algorithm.from_plan("ppo", workers, strict=True, **SMALL_PPO)
-        elif what == "inference_server":
+        if what == "inference_server":
             Algorithm.from_plan("ppo", workers, inference="server", **SMALL_PPO)
         elif what == "sharded_learner":
             with Algorithm.from_plan("ppo", workers, num_learners=2, **SMALL_PPO) as algo:
@@ -361,21 +367,48 @@ def _unported(what):
         workers.stop()
 
 
+def _strict_compiles_ppo_and_refuses_errors():
+    """The flowcheck analyzer is ported: ``strict=True`` compiles PPO
+    cleanly and refuses a spec that carries an error diagnostic."""
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm, FlowAnalysisError, FlowSpec
+
+    workers = WorkerSet.create(lambda i: _cpu_worker(i), 1)
+    try:
+        with Algorithm.from_plan(
+            "ppo", workers, strict=True, own_workers=False, **SMALL_PPO
+        ) as algo:
+            assert algo.check() == []
+            assert algo.train()["counters"]["num_steps_trained"] > 0
+        spec = FlowSpec("strict-error")
+        spec.set_output(spec.rollouts(workers).for_each(lambda b: b).annotate(credits=3))
+        with pytest.raises(FlowAnalysisError):
+            Algorithm.from_plan(spec, workers, strict=True, own_workers=False)
+    finally:
+        workers.stop()
+
+
 @pytest.mark.parametrize(
     "what", ["strict", "inference_server", "sharded_learner", "process_backend", "transport"]
 )
 def test_unported_paths_raise_instead_of_falling_back(what):
+    if what == "strict":  # ported since: the case holds what strict=True does now
+        _strict_compiles_ppo_and_refuses_errors()
+        return
     with pytest.raises(NotImplementedError):
         _unported(what)
 
 
 def test_unported_losses_and_algos_raise():
+    """The DQN and SAC workers are ported and construct; the actor-critic
+    policy still has no DQN loss (DQNPolicy has)."""
     with pytest.raises(NotImplementedError):
         ActorCriticPolicy(4, 2, loss_kind="dqn")
-    with pytest.raises(NotImplementedError):
-        RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="sac", device="cpu")
-    with pytest.raises(NotImplementedError):
-        RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="dqn", device="cpu")
+    sac = RolloutWorker(Pendulum(), SACPolicy(3, 1), algo="sac", device="cpu")
+    dqn = RolloutWorker(CartPole(), DQNPolicy(4, 2), algo="dqn", device="cpu")
+    assert (sac.algo, dqn.algo) == ("sac", "dqn")
+    with pytest.raises(ValueError):
+        RolloutWorker(CartPole(), ActorCriticPolicy(4, 2), algo="maml", device="cpu")
 
 
 # --------------------------------------------------------------- imports
