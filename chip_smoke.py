@@ -19,13 +19,15 @@ phase that fails, and then prints no result line):
    version, bound and (for attention) the
    ``scaled_dot_product_attention`` yardstick: GAE (its scan order printed)
    at the LM path's [32, 8], CartPole's [64, 8], an APPO rollout's [32, 4],
-   [128, 4096], a ragged [33, 1001], T = 1 at [1, 8] and [1000, 4] (eight
-   tiles), each bitwise equal across two calls; V-trace at the IMPALA learner's
+   [128, 4096], a ragged [33, 1001], T = 1 at [1, 8], [1000, 4] (eight
+   tiles), MAML's [16, 2], the multi-agent [16, 4] and MBPO's synthetic
+   [8, 128], each bitwise equal across two calls; V-trace at the IMPALA learner's
    [32, 16] and the many-lane learner's [32, 512], at [128, 4096], a ragged
    [33, 1001], trailing dims [16, 8, 2], T = 1, and with clips 2.0 / 0.5;
    the surrogate forward + autograd
    backward at [128, 151936] (the LM learner's vocabulary), CartPole's
-   [256, 2], the APPO learner's [512, 2], [65536, 18], [16, 151937] (rows
+   [256, 2], the APPO learner's [512, 2], the multi-agent PPO branch's
+   [128, 2], [65536, 18], [16, 151937] (rows
    not 16-byte aligned), [8, 1024] (one chunk a row) and [3, 4097], with
    rows whose ratio is exactly 1 and rows exactly on the clip boundary, the
    forward bitwise equal across two calls, its grid and chunks printed and,
@@ -126,7 +128,7 @@ phase that fails, and then prints no result line):
    least 1 s, then ``stop()`` joins it and no thread of the flow is left;
 17. main path 10: SAC (``build_sac``) on Pendulum (2 workers, 4 envs x 16
    steps, polyak 0.01) until the target has synced 8 times, losses finite;
-18. flowcheck: ``audit_plans(device="cuda")`` over the port's 9 plans on
+18. flowcheck: ``audit_plans(device="cuda")`` over the port's 12 plans on
    CUDA workers: no error, and ``apex``, ``appo`` and ``impala`` each give
    exactly the reference's ``["unbounded-queue"]``;
 19. pretraining learner parity: one ``learn_on_batch`` (SGD, lr 1) of the
@@ -143,7 +145,43 @@ phase that fails, and then prints no result line):
    memory, seconds per step, tokens per second and the idle share of the
    profiled last step;
 21. main path 12: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
-   layers.
+   layers;
+22. plan learner parity, card vs CPU from the same weights: the
+   multi-agent worker's ``learn_on_batch`` for ``"ppo_policy"`` (the
+   surrogate kernels at [128, 2]) and ``"dqn_policy"`` (a replayed batch),
+   8 SGD steps each, and the model-based worker's ``train_dynamics`` over
+   both ensemble members, 8 steps: weights and stats within 1e-4 (stats
+   absolute below 1, relative above); the synthetic rollout's core on
+   injected actions at [8, 128], each step's columns within 1e-5, its
+   advantages and returns (the GAE kernel on the card) within 1e-5 of the
+   plain loop on the card's own columns and within 1e-4 of the CPU's;
+23. main path 13: MAML (``build_maml``) at ``tests/test_plans.py``'s pg
+   workers (2 remote, 2 envs x 16 steps, one inner step): 6 ``train()``
+   iterations under a deadline, every remote worker on the meta weights
+   after each, GAE launched twice a worker an iteration and no other kernel;
+24. main path 14: MBPO (``build_mbpo``) at ``examples/mbpo_model_based.py``'s
+   workers (4 envs x 32 steps, an ensemble of 2, synthetic rollouts of 8
+   steps from 128 replayed states) and replay (256-row batches after 512
+   rows, uniform, ``model_train_weight`` 2): GAE launched once a real and
+   once a synthetic rollout, read from the counters, ``dyn_losses`` finite;
+25. main path 15: the PPO+DQN composition (``build_multi_agent_ppo_dqn``)
+   at ``benchmarks/common.py``'s multi-agent workers (2 workers, 4 CartPole
+   agents, 2 a policy, 16 steps) with ``benchmarks/bench_multiagent.py``'s
+   plan (PPO batches of 128, target sync every 500 rows, replay batches of
+   32 after 64 rows): GAE once a rollout at [16, 4], the surrogate forward
+   and backward once a PPO step, PPO info keyed by policy id, DQN's
+   ``td_error`` host numpy, the replay filled; each of phases 23-25 reports
+   the first iteration apart, the mean after it, the idle share of a
+   profiled window and no flow thread alive after ``stop()``, and reads
+   all 12 launch counters;
+26. Fig 12 on the card, printed and not gated: PPO-only, DQN-only and
+   composed iterations per second on the multi-agent workers, and the
+   composed pair rate's fraction of 1 / (1 / r_ppo + 1 / r_dqn), as
+   ``benchmarks/bench_multiagent.py`` computes it;
+27. Fig 13b on the card, printed and not gated: steps trained per second of
+   ``build_a3c`` and of the hand-written ``rl/lowlevel.py`` ``a3c_lowlevel``
+   on ``benchmarks/common.py``'s pg workers, as
+   ``benchmarks/bench_async_opt.py`` computes it.
 
 ``decode_attention``'s launch count is one per wrapper call, which is one
 CUDA launch: the last block of each group merges the splits (the variant
@@ -163,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import re
@@ -242,10 +281,13 @@ GMM_TOL = 1e-4
 # list of shapes where one path gives a kernel several).
 PATH_SHAPES = {
     "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4], "a2c": [32, 4],
-            "a3c": [32, 4]},
+            "a3c": [32, 4], "maml": [16, 2], "mbpo": [[32, 4], [8, 128]],
+            "multi_agent_ppo_dqn": [16, 4]},
     "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
-    "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
-    "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2]},
+    "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
+                          "multi_agent_ppo_dqn": [128, 2]},
+    "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
+                          "multi_agent_ppo_dqn": [128, 2]},
     "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
     "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
     "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
@@ -285,6 +327,33 @@ TIMING_COUNTERS = {"num_credit_stalls", "credit_stall_time_s"}
 OFFPOLICY_PARITY_STEPS = 8
 OFFPOLICY_PARITY_LR = 0.01
 ASYNC_PROFILE_S = 1.0  # the profiled window of train() calls lasts at least this
+# The last three plans at their reference drivers' configurations: MAML at
+# tests/test_plans.py's pg workers (2 remote, 2 envs x 16 steps, one inner
+# step), MBPO at examples/mbpo_model_based.py's workers and replay, and the
+# PPO+DQN composition at benchmarks/common.py's multi-agent workers (2
+# workers, 4 agents, 16 steps) with benchmarks/bench_multiagent.py's plan and
+# replay.
+PLAN_PATHS = {
+    "maml": dict(num_workers=2, num_envs=2, rollout_len=16, plan=dict(inner_steps=1), iters=6),
+    "mbpo": dict(num_workers=2, num_envs=4, rollout_len=32, ensemble_size=2, synth_rollout_len=8,
+                 synth_batch=128, plan=dict(model_train_weight=2), iters=6,
+                 replay=dict(capacity=20000, sample_batch_size=256, learning_starts=512,
+                             prioritized=False)),
+    "multi_agent_ppo_dqn": dict(num_workers=2, num_agents=4, rollout_len=16, iters=12,
+                                plan=dict(ppo_batch_size=128, dqn_target_update_freq=500),
+                                replay=dict(capacity=20000, sample_batch_size=32,
+                                            learning_starts=64)),
+}
+MA_MAPPING = {0: "ppo_policy", 1: "ppo_policy", 2: "dqn_policy", 3: "dqn_policy"}
+PG_INFO_KEYS = {"loss", "pg_loss", "vf_loss", "entropy"}
+# The composition's PPO info is keyed by policy id and its DQN info carries
+# td_error beside the loss; both are checked with those taken off.
+PLAN_INFO_KEYS = {"maml": PG_INFO_KEYS, "mbpo": PG_INFO_KEYS, "multi_agent_ppo_dqn": {"loss"}}
+PLAN_COUNTERS = {"num_steps_sampled", "num_steps_trained", "num_target_updates",
+                 "num_bytes_moved"}
+PLAN_DEADLINE_S = 120  # per plan path
+COMPOSITION_ITERS = 20  # benchmarks/bench_multiagent.py's run(iters=20)
+ASYNC_OPT_ITERS = 40  # benchmarks/bench_async_opt.py's run(iters=40)
 
 
 class PhaseError(RuntimeError):
@@ -1340,9 +1409,12 @@ def phase_kernels() -> dict:
     case of each kernel is its path's shape (the RLHF path's, and the IMPALA
     learner's for V-trace)."""
     print("  gae scan order: a warp per column (csrc/reverse_scan.cuh), the one gae.cu builds")
+    # [16, 2]: MAML's rollouts; [16, 4]: the multi-agent rollouts; [8, 128]:
+    # MBPO's synthetic rollouts ([32, 4], its real ones, is APPO's).
     gae_cases = [_gae_case(32, 8, 5), _gae_case(64, 8, 0), _gae_case(32, 4, 7),
                  _gae_case(128, 4096, 1), _gae_case(33, 1001, 2), _gae_case(1, 8, 3),
-                 _gae_case(1000, 4, 9, plain_iters=3)]
+                 _gae_case(1000, 4, 9, plain_iters=3), _gae_case(16, 2, 15), _gae_case(16, 4, 16),
+                 _gae_case(8, 128, 17)]
     print("  vtrace scan order: a warp per column (csrc/reverse_scan.cuh), the one vtrace.cu "
           "builds")
     # [129, 8]: a tile boundary (row 127's v_{t+1} and vs_{t+1} from the later tile);
@@ -1354,11 +1426,12 @@ def phase_kernels() -> dict:
                     _vtrace_case((129, 8), 47), _vtrace_case((1000, 4), 48, plain_iters=3),
                     _vtrace_case((1000, 4), 49, c_clip=1.5, plain_iters=3)]
     # [16, 151937]: rows not 16-byte aligned (scalar loads); [8, 1024]: one
-    # chunk a row; [3, 4097]: a one-column last chunk.
+    # chunk a row; [3, 4097]: a one-column last chunk; [128, 2]: the
+    # multi-agent PPO branch.
     sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
                  _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4),
                  _surrogate_case(16, 151937, 12, plain_iters=10), _surrogate_case(8, 1024, 13),
-                 _surrogate_case(3, 4097, 14)]
+                 _surrogate_case(3, 4097, 14), _surrogate_case(128, 2, 18)]
     d = RLHF_ENV["ctx"]
     B, S, H, KV, D = PHI_ATTENTION
     _phi = (B, S, S, H, KV, D)
@@ -2180,6 +2253,31 @@ def _sac_worker(index: int, device: str, optimizer=None):
                          target_polyak=0.01, device=device, **kw)
 
 
+def _stat_err(info_g: dict, info_c: dict) -> tuple:
+    """The largest difference between two learners' stats (scalars or
+    per-row arrays), relative where the CPU's value is above 1 in magnitude
+    and absolute below, and the largest absolute difference."""
+    import numpy as np
+
+    scaled = absolute = 0.0
+    for k in info_g:
+        diff = np.abs(np.asarray(info_g[k]) - info_c[k])
+        absolute = max(absolute, float(diff.max()))
+        scaled = max(scaled, float((diff / np.maximum(1.0, np.abs(info_c[k]))).max()))
+    return scaled, absolute
+
+
+def _tree_err(a, b) -> float:
+    """The largest absolute difference between two weight trees."""
+    import numpy as np
+
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.tree import tree_leaves
+
+    return max(float(np.abs(x - y).max())
+               for x, y in zip(tree_leaves(params_to_numpy(a)), tree_leaves(params_to_numpy(b))))
+
+
 def phase_offpolicy_learner_parity() -> dict:
     """DQN and SAC learners on the card and on the CPU from the same online
     and target weights, fed the same replayed batch (and, for SAC, the same
@@ -2193,7 +2291,6 @@ def phase_offpolicy_learner_parity() -> dict:
     from repro_torch.interop import params_from_numpy, params_to_numpy
     from repro_torch.optim import sgd
     from repro_torch.rl import ReplayBuffer
-    from repro_torch.tree import tree_leaves
 
     out = {}
     for algo, make in (("dqn", _dqn_worker), ("sac", _sac_worker)):
@@ -2216,16 +2313,10 @@ def phase_offpolicy_learner_parity() -> dict:
             info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
             _require(isinstance(info_g["td_error"], np.ndarray),
                      f"{algo}: td_error is {type(info_g['td_error'])}, not host numpy")
-            for k in info_g:
-                diff = np.abs(np.asarray(info_g[k]) - info_c[k])
-                stat_abs = max(stat_abs, float(diff.max()))
-                stat_err = max(stat_err, float((diff / np.maximum(1.0, np.abs(info_c[k]))).max()))
-        err = max(float(np.abs(a - b).max()) for a, b in zip(
-            tree_leaves(params_to_numpy(gpu.get_weights())),
-            tree_leaves(params_to_numpy(cpu.get_weights()))))
-        target_err = max(float(np.abs(a - b).max()) for a, b in zip(
-            tree_leaves(params_to_numpy(gpu.target_params)),
-            tree_leaves(params_to_numpy(cpu.target_params))))
+            scaled, absolute = _stat_err(info_g, info_c)
+            stat_err, stat_abs = max(stat_err, scaled), max(stat_abs, absolute)
+        err = _tree_err(gpu.params, cpu.params)
+        target_err = _tree_err(gpu.target_params, cpu.target_params)
         _require(max(err, target_err) <= LEARNER_TOL,
                  f"{algo} learner parity: card vs CPU weights differ by {err:.3e} "
                  f"(target {target_err:.3e})")
@@ -2362,7 +2453,7 @@ def phase_flowcheck() -> dict:
 
     t0 = time.perf_counter()
     results = audit_plans(device="cuda")
-    _require(set(results) == set(PLAN_BUILDERS) and len(results) == 9,
+    _require(set(results) == set(PLAN_BUILDERS) and len(results) == 12,
              f"flowcheck: audited {sorted(results)}")
     errors = {n: [d.format() for d in ds if d.is_error] for n, ds in results.items()
               if any(d.is_error for d in ds)}
@@ -2492,8 +2583,6 @@ def phase_pretrain(name: str, counters: list) -> dict:
     the configuration's widths cut to 2 layers, ``steps`` train() calls
     under a deadline, the last one profiled.  Launches are read per step and
     must be exactly what the configuration implies, every other kernel 0."""
-    import gc
-
     import torch
 
     from repro_torch.flow import Algorithm
@@ -2583,6 +2672,427 @@ def phase_pretrain(name: str, counters: list) -> dict:
             "expected_per_step": expect, "peak_memory_bytes": peak, "profile": profiled}
 
 
+# ------------------------------------------------------------ phases 22-27
+def _maml_worker(index: int, device: str):
+    """``tests/test_plans.py``'s pg worker (``pg_ws``), the MAML path's."""
+    from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker
+
+    cfg = PLAN_PATHS["maml"]
+    policy = ActorCriticPolicy(4, 2, loss_kind="pg", rollout_len=cfg["rollout_len"])
+    return RolloutWorker(CartPole(), policy, algo="pg", num_envs=cfg["num_envs"],
+                         rollout_len=cfg["rollout_len"], seed=3, worker_index=index, device=device)
+
+
+def _mbpo_worker(index: int, device: str):
+    """``examples/mbpo_model_based.py``'s worker: a dynamics ensemble of two,
+    synthetic rollouts of 8 steps from 128 replayed states."""
+    from repro_torch.rl import ActorCriticPolicy, CartPole, ModelBasedWorker
+
+    cfg = PLAN_PATHS["mbpo"]
+    return ModelBasedWorker(
+        CartPole(), ActorCriticPolicy(4, 2, loss_kind="pg"), algo="pg", num_envs=cfg["num_envs"],
+        rollout_len=cfg["rollout_len"], seed=0, worker_index=index,
+        ensemble_size=cfg["ensemble_size"], synth_rollout_len=cfg["synth_rollout_len"],
+        synth_batch=cfg["synth_batch"], device=device,
+    )
+
+
+def _multiagent_worker(index: int, device: str, optimizer=None):
+    """``benchmarks/common.py``'s multi-agent worker: agents 0-1 act for a
+    PPO policy, agents 2-3 for a DQN policy."""
+    from repro_torch.rl import (
+        ActorCriticPolicy,
+        DQNPolicy,
+        MultiAgentCartPole,
+        MultiAgentRolloutWorker,
+    )
+
+    kw = {"optimizer": optimizer} if optimizer is not None else {}
+    specs = {"ppo_policy": {"policy": ActorCriticPolicy(4, 2, loss_kind="ppo"), "algo": "ppo", **kw},
+             "dqn_policy": {"policy": DQNPolicy(4, 2), "algo": "dqn", **kw}}
+    cfg = PLAN_PATHS["multi_agent_ppo_dqn"]
+    return MultiAgentRolloutWorker(
+        MultiAgentCartPole(cfg["num_agents"], MA_MAPPING), specs, MA_MAPPING,
+        rollout_len=cfg["rollout_len"], seed=17, worker_index=index, device=device,
+    )
+
+
+def phase_plan_learner_parity() -> dict:
+    """Card against CPU from the same weights on the same batches: the
+    multi-agent worker's ``learn_on_batch`` for each policy id
+    (``OFFPOLICY_PARITY_STEPS`` SGD steps at ``OFFPOLICY_PARITY_LR``; the PPO
+    policy's loss on the surrogate kernels at [128, 2]), the model-based
+    worker's ``train_dynamics`` over both ensemble members (the same, SGD in
+    place of its Adam, whose first steps are lr * sign(g)), weights and stats
+    within ``LEARNER_TOL`` (stats absolute below 1, relative above); then its
+    synthetic rollout's deterministic core on injected actions, each step's
+    columns within ``TOL``, and its advantages and returns (the GAE kernel
+    at [8, 128] on the card) within ``TOL`` of the plain loop on the card's
+    own columns and within ``LEARNER_TOL`` of the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.operators import StandardizeFields
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.optim import sgd
+    from repro_torch.rl import MultiAgentBatch, ReplayBuffer
+    from repro_torch.rl.advantages import gae as plain_gae
+
+    out = {}
+    gpu, cpu = (_multiagent_worker(0, dev, optimizer=sgd(OFFPOLICY_PARITY_LR))
+                for dev in ("cuda", "cpu"))
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    cpu.target_params = params_from_numpy(params_to_numpy(gpu.target_params))
+    samples = [gpu.sample() for _ in range(4)]
+    ppo = StandardizeFields(["advantages"])(MultiAgentBatch.concat_samples(samples))
+    rb = ReplayBuffer(capacity=4096, sample_batch_size=32, learning_starts=32, seed=0)
+    for s in samples:
+        rb.add_batch(s.policy_batches["dqn_policy"])
+    batches = {"ppo_policy": ppo.policy_batches["ppo_policy"], "dqn_policy": rb.replay()}
+    for pid, batch in batches.items():
+        stat_err = stat_abs = 0.0
+        for _ in range(OFFPOLICY_PARITY_STEPS):
+            info_g = gpu.learn_on_batch(batch, policy_id=pid)
+            info_c = cpu.learn_on_batch(batch, policy_id=pid)
+            if pid == "dqn_policy":
+                _require(isinstance(info_g["td_error"], np.ndarray),
+                         f"multi-agent {pid}: td_error is {type(info_g['td_error'])}, not numpy")
+            scaled, absolute = _stat_err(info_g, info_c)
+            stat_err, stat_abs = max(stat_err, scaled), max(stat_abs, absolute)
+        err = _tree_err(gpu.params[pid], cpu.params[pid])
+        _require(err <= LEARNER_TOL, f"multi-agent {pid} learner parity: weights differ by {err:.3e}")
+        _require(stat_err <= LEARNER_TOL,
+                 f"multi-agent {pid} learner parity: stats differ by {stat_err:.3e}")
+        print(f"multi-agent {pid} learner parity: {OFFPOLICY_PARITY_STEPS} learn_on_batch steps "
+              f"(SGD, lr {OFFPOLICY_PARITY_LR}) on {batch.count} rows, card vs CPU max weight err "
+              f"{err:.3e}, max stat err {stat_err:.3e} (absolute {stat_abs:.3e}; tol {LEARNER_TOL})")
+        out[pid] = {"weight_err": err, "stat_err": stat_err, "stat_abs_err": stat_abs,
+                    "rows": batch.count}
+
+    cfg = PLAN_PATHS["mbpo"]
+    gpu, cpu = (_mbpo_worker(0, dev) for dev in ("cuda", "cpu"))
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    for w in (gpu, cpu):
+        w.dyn_opt = sgd(OFFPOLICY_PARITY_LR)
+    cpu.dyn_params = [params_from_numpy(params_to_numpy(p)) for p in gpu.dyn_params]
+    for w in (gpu, cpu):
+        w.dyn_opt_states = [w.dyn_opt.init(p) for p in w.dyn_params]
+    rb = ReplayBuffer(capacity=4096, sample_batch_size=cfg["replay"]["sample_batch_size"],
+                      learning_starts=256, prioritized=False, seed=0)
+    for _ in range(2):
+        rb.add_batch(gpu.sample())
+    batch = rb.replay()
+    stat_err = stat_abs = 0.0
+    for _ in range(OFFPOLICY_PARITY_STEPS):
+        info_g, info_c = gpu.train_dynamics(batch), cpu.train_dynamics(batch)
+        for a, b in zip(gpu.dyn_losses, cpu.dyn_losses):
+            scaled, absolute = _stat_err({"l": a}, {"l": b})
+            stat_err, stat_abs = max(stat_err, scaled), max(stat_abs, absolute)
+    err = max(_tree_err(g, c) for g, c in zip(gpu.dyn_params, cpu.dyn_params))
+    _require(err <= LEARNER_TOL and stat_err <= LEARNER_TOL,
+             f"train_dynamics parity: weights differ by {err:.3e}, losses by {stat_err:.3e}")
+    print(f"train_dynamics parity: {OFFPOLICY_PARITY_STEPS} steps of both members (SGD, lr "
+          f"{OFFPOLICY_PARITY_LR}) on {batch.count} replayed rows, card vs CPU max weight err "
+          f"{err:.3e}, max loss err {stat_err:.3e} (tol {LEARNER_TOL})")
+    out["train_dynamics"] = {"weight_err": err, "stat_err": stat_err, "stat_abs_err": stat_abs}
+
+    # The synthetic core on the same weights, start rows and actions.
+    cpu.dyn_params = [params_from_numpy(params_to_numpy(p)) for p in gpu.dyn_params]
+    T, N, member = cfg["synth_rollout_len"], cfg["synth_batch"], 1
+    start = batch["obs"][:N]
+    actions = np.random.default_rng(0).integers(0, 2, (T, N))
+    cols = {}
+    for w in (gpu, cpu):
+        acts = torch.as_tensor(actions, device=w.device)
+        cols[w.device.type] = w.synth_rollout(
+            w.params, w.dyn_params[member], torch.as_tensor(start, device=w.device),
+            lambda t, logits, acts=acts: acts[t])
+    card = {k: v.cpu() for k, v in cols["cuda"].items()}
+    errs = {k: _close(f"synthetic rollout {k}", card[k], cols["cpu"][k])
+            for k in ("obs", "next_obs", "rewards", "logp", "values")}
+    # The GAE kernel against the plain loop on the card's own columns and
+    # bootstrap; card against CPU, each advantage sums up to 8 discounted
+    # steps of per-step differences held to TOL above, so it is held to the
+    # learner's tolerance.
+    last_value = gpu.policy.value(gpu.params, cols["cuda"]["next_obs"][-1]).cpu()
+    adv_p, ret_p = plain_gae(card["rewards"], card["values"], card["dones"], last_value,
+                             gpu.gamma, gpu.lam)
+    for k, want in (("advantages", adv_p), ("returns", ret_p)):
+        errs[k] = _close(f"synthetic rollout {k}, GAE kernel vs plain", card[k], want)
+        errs[k + "_card_vs_cpu"] = _close(f"synthetic rollout {k}, card vs CPU", card[k],
+                                          cols["cpu"][k], LEARNER_TOL)
+    print(f"synthetic rollout core parity: [{T}, {N}] on injected actions, member {member}, card "
+          f"vs CPU max abs err {json.dumps(errs)} (tol {TOL}; the GAE kernel's advantages and "
+          f"returns against the plain loop on the card's columns, card vs CPU {LEARNER_TOL})")
+    out["synth_rollout"] = errs
+    return out
+
+
+def phase_plan_path(name: str, counters: list) -> dict:
+    """MAML, MBPO or the PPO+DQN composition through ``Algorithm.from_plan``
+    on CUDA workers (thread backend), ``iters`` ``train()`` calls under a
+    deadline, the first reported apart (the actor threads' first CUDA
+    work), then one profiled (the composition's: as many as last
+    ``ASYNC_PROFILE_S``, since its iterations are PPO or DQN steps);
+    then ``stop()`` and no thread of the flow left alive.  Launches are read
+    against what the path ran: MAML samples twice a remote worker an
+    iteration; MBPO ends each real rollout and each synthetic rollout in
+    GAE; the composition ends each rollout in GAE and takes one surrogate
+    forward and backward a PPO step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.actor import create_colocated
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.rl import ReplayBuffer
+    from repro_torch.tree import tree_leaves
+
+    cfg = PLAN_PATHS[name]
+    make = {"maml": _maml_worker, "mbpo": _mbpo_worker,
+            "multi_agent_ppo_dqn": _multiagent_worker}[name]
+    threads_before = set(threading.enumerate())
+    t_init = time.perf_counter()
+    workers = WorkerSet.create(lambda i: make(i, "cuda"), cfg["num_workers"])
+    replay = (create_colocated(lambda: ReplayBuffer(**cfg["replay"]), 1) if "replay" in cfg
+              else None)
+    algo = Algorithm.from_plan(name, workers, *([replay] if replay else []), **cfg["plan"])
+    init_s = time.perf_counter() - t_init
+    steps = {"train": 0, "ppo": 0, "dqn": 0}
+
+    def check(result):
+        steps["train"] += 1
+        _require(set(result) == RESULT_KEYS, f"{name}: result keys {sorted(result)}")
+        info = result["info"]
+        if name == "multi_agent_ppo_dqn":
+            if "ppo_policy" in info:  # the PPO branch's info is keyed by policy id
+                steps["ppo"] += 1
+                info = info["ppo_policy"]
+            else:
+                steps["dqn"] += 1
+                _require(isinstance(info["td_error"], np.ndarray)
+                         and np.isfinite(info["td_error"]).all(), f"{name}: td_error {info}")
+                info = {k: v for k, v in info.items() if k != "td_error"}
+        _require(set(info) == PLAN_INFO_KEYS[name], f"{name}: info keys {sorted(info)}")
+        _require(all(math.isfinite(v) for v in info.values()), f"{name}: non-finite stats {info}")
+
+    rows = []
+    try:
+        with _deadline(PLAN_DEADLINE_S, name):
+            for c in counters:
+                c.reset()
+            for i in range(cfg["iters"] - 1):
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                rows.append({"iter": i, "seconds": time.perf_counter() - t0})
+                check(result)
+            before = steps["train"]
+            result, dt, busy_ms, ours = _profiled_train(
+                algo, check, ASYNC_PROFILE_S if name == "multi_agent_ppo_dqn" else 0.0)
+            window_trains = steps["train"] - before
+            launches = {c.name: c.value for c in counters}
+            ctr = result["counters"]
+            extra = {}
+            if name == "maml":  # the broadcast left every worker on the meta weights
+                local = tree_leaves(params_to_numpy(workers.local_worker().get_weights()))
+                for actor in workers.remote_workers():
+                    remote = tree_leaves(params_to_numpy(actor.sync("get_weights")))
+                    _require(all((a == b).all() for a, b in zip(local, remote)),
+                             "maml: a worker's weights differ from the meta weights")
+            if name == "mbpo":
+                extra["dyn_losses"] = list(workers.local_worker().dyn_losses)
+            if replay is not None:
+                extra["replay"] = [a.sync("stats") for a in replay]
+    finally:
+        algo.stop()
+    left = [t.name for t in threading.enumerate() if t not in threads_before and t.is_alive()
+            and not isinstance(t, threading._DummyThread)]
+    _require(not left, f"{name}: threads of the flow alive after stop(): {left}")
+    _require(ctr["num_steps_trained"] > 0, f"{name}: nothing trained: {ctr}")
+    names = {k for k in ctr if not k.startswith("bytes_moved/")} - TIMING_COUNTERS
+    _require(names <= PLAN_COUNTERS, f"{name}: counters {sorted(ctr)}")
+
+    expect = {c.name: 0 for c in counters}
+    if name == "maml":
+        # Each iteration samples twice a remote worker (before and after its
+        # inner adaptation), and trains on the post-adaptation rows.
+        iters = steps["train"]
+        expect["gae"] = 2 * cfg["num_workers"] * iters
+        _require(ctr["num_steps_trained"] == iters * cfg["num_workers"] * cfg["num_envs"]
+                 * cfg["rollout_len"], f"maml: counters {ctr} after {iters} iterations")
+    elif name == "mbpo":
+        real = ctr["num_steps_sampled"] // (cfg["num_envs"] * cfg["rollout_len"])
+        synthetic = ctr["num_steps_trained"] // (cfg["synth_batch"] * cfg["synth_rollout_len"])
+        expect["gae"] = real + synthetic
+        _require(synthetic == steps["train"], f"mbpo: {synthetic} synthetic batches in "
+                                              f"{steps['train']} iterations")
+        losses = extra["dyn_losses"]
+        _require(len(losses) == cfg["ensemble_size"] and all(math.isfinite(v) for v in losses),
+                 f"mbpo: dyn_losses {losses}")
+    else:
+        rollouts = ctr["num_steps_sampled"] // (cfg["num_agents"] * cfg["rollout_len"])
+        expect.update(gae=rollouts, ppo_surrogate_fwd=steps["ppo"], ppo_surrogate_bwd=steps["ppo"])
+        _require(steps["ppo"] > 0 and steps["dqn"] > 0
+                 and steps["ppo"] + steps["dqn"] == steps["train"], f"{name}: steps {steps}")
+        _require(ctr["num_steps_trained"] == steps["ppo"] * cfg["plan"]["ppo_batch_size"]
+                 + steps["dqn"] * cfg["replay"]["sample_batch_size"],
+                 f"{name}: counters {ctr} for {steps} training steps")
+        _require(sum(s["added"] for s in extra["replay"]) > 0, f"{name}: replay {extra['replay']}")
+    _require(launches == expect, f"{name}: launches {launches}, expected {expect}")
+    first, after = rows[0]["seconds"], [r["seconds"] for r in rows[1:]]
+    mean = sum(after) / len(after)
+    profile = {"window_ms": dt * 1e3, "train_calls": window_trains, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / (dt * 1e3), "port_kernels_ms": ours}
+    print(f"{name} main path: {steps['train']} train() iterations (first {first:.4f} s, mean of "
+          f"the next {len(after)} {mean:.4f} s, init {init_s:.2f} s; then {window_trains} under the "
+          f"profiler), counters "
+          f"{ {k: v for k, v in ctr.items() if not k.startswith('bytes_moved/')} }"
+          + (f", PPO/DQN steps {steps}" if name == "multi_agent_ppo_dqn" else "")
+          + (f", dyn_losses {extra['dyn_losses']}" if name == "mbpo" else "")
+          + (f", replay {extra['replay']}" if replay is not None else "")
+          + f"; launches {launches} (expected from the counters); profiled window "
+          f"{dt * 1e3:.1f} ms, device busy {busy_ms:.3f} ms, idle share {profile['idle_share']:.4f}, "
+          f"port kernels {ours}; no flow thread alive after stop()")
+    return {"iterations": rows, "init_s": init_s, "first_s": first, "mean_s": mean,
+            "launches": launches, "counters": ctr, "profile": profile, "steps": steps, **extra}
+
+
+def _iters_per_s(it, iters: int, warmup: int = 12) -> float:
+    """``benchmarks/bench_multiagent.py``'s rate: pulls per second after
+    ``warmup`` pulls (until every branch has run)."""
+    import torch
+
+    src = iter(it)
+    for _ in range(warmup):
+        next(src)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        next(src)
+    torch.cuda.synchronize()
+    return iters / (time.perf_counter() - t0)
+
+
+def phase_composition() -> dict:
+    """Fig 12 on the card, as ``benchmarks/bench_multiagent.py`` computes it:
+    PPO-only and DQN-only sub-flows on the multi-agent workers, then the
+    composed plan; the composed (PPO, DQN) pair rate against the ideal of
+    time-sharing one driver, 1 / (1 / r_ppo + 1 / r_dqn).  Printed, not
+    gated."""
+    from repro_torch.core.actor import create_colocated
+    from repro_torch.core.concurrency import Concurrently
+    from repro_torch.core.operators import (
+        ConcatBatches,
+        ParallelRollouts,
+        Replay,
+        SelectExperiences,
+        StandardizeFields,
+        StoreToReplayBuffer,
+        TrainOneStep,
+        UpdateReplayPriorities,
+        UpdateTargetNetwork,
+    )
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.rl import ReplayBuffer, SampleBatch
+
+    cfg = PLAN_PATHS["multi_agent_ppo_dqn"]
+    iters = COMPOSITION_ITERS
+
+    def workers():
+        return WorkerSet.create(lambda i: _multiagent_worker(i, "cuda"), cfg["num_workers"])
+
+    def replay():
+        return create_colocated(lambda: ReplayBuffer(**cfg["replay"]), 1)
+
+    ws = workers()
+    try:
+        ppo = (ParallelRollouts(ws, mode="bulk_sync")
+               .for_each(SelectExperiences(["ppo_policy"]))
+               .for_each(ConcatBatches(cfg["plan"]["ppo_batch_size"]))
+               .for_each(StandardizeFields(["advantages"]))
+               .for_each(TrainOneStep(ws, policies=["ppo_policy"])))
+        r_ppo = _iters_per_s(ppo, iters)
+    finally:
+        ws.stop()
+
+    ws, rp = workers(), replay()
+    try:
+        def _flat(b):
+            sel = SelectExperiences(["dqn_policy"])(b)
+            return SampleBatch.concat_samples(list(sel.policy_batches.values()))
+
+        store = ParallelRollouts(ws, mode="bulk_sync").for_each(_flat).for_each(
+            StoreToReplayBuffer(rp))
+        train = TrainOneStep(ws, policies=["dqn_policy"])
+
+        def _train(pair):
+            b, actor = pair
+            return train(b), actor
+
+        replay_op = (Replay(rp).zip_with_source_actor().for_each(_train)
+                     .for_each(UpdateReplayPriorities())
+                     .for_each(UpdateTargetNetwork(ws, cfg["plan"]["dqn_target_update_freq"])))
+        r_dqn = _iters_per_s(Concurrently([store, replay_op], mode="round_robin",
+                                          output_indexes=[1]), iters)
+    finally:
+        ws.stop()
+        rp.stop()
+
+    with Algorithm.from_plan("multi_agent_ppo_dqn", workers(), replay(), **cfg["plan"]) as algo:
+        r_comb = _iters_per_s(algo, iters)
+    ideal_pairs = 1.0 / (1.0 / r_ppo + 1.0 / r_dqn)
+    pairs = r_comb / 2.0
+    out = {"ppo_iters_per_s": r_ppo, "dqn_iters_per_s": r_dqn, "combined_pairs_per_s": pairs,
+           "amdahl_ideal_pairs_per_s": ideal_pairs, "frac_of_ideal": pairs / ideal_pairs,
+           "iters": iters}
+    print(f"composition (Fig 12, bench_multiagent's arithmetic; not gated): PPO-only "
+          f"{r_ppo:.2f} iters/s, DQN-only {r_dqn:.2f} iters/s, composed {pairs:.2f} pairs/s "
+          f"against the ideal {ideal_pairs:.2f}: fraction {pairs / ideal_pairs:.3f}")
+    return out
+
+
+def phase_async_opt() -> dict:
+    """Fig 13b on the card, as ``benchmarks/bench_async_opt.py`` computes it:
+    steps trained per second of ``build_a3c`` through ``Algorithm.train()``
+    and of the hand-written ``a3c_lowlevel`` loop on the same workers
+    (``benchmarks/common.py``'s 2 pg workers), one warm-up iteration each.
+    Printed, not gated."""
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.rl import ActorCriticPolicy, CartPole, RolloutWorker
+    from repro_torch.rl.lowlevel import a3c_lowlevel
+
+    iters = ASYNC_OPT_ITERS
+
+    def workers():
+        return WorkerSet.create(lambda i: RolloutWorker(
+            CartPole(), ActorCriticPolicy(4, 2, loss_kind="pg", rollout_len=32), algo="pg",
+            num_envs=4, rollout_len=32, seed=11, worker_index=i, device="cuda"), 2)
+
+    with Algorithm.from_plan("a3c", workers()) as algo:
+        algo.train()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            res = algo.train()
+        flow = res["counters"]["num_steps_trained"] / (time.perf_counter() - t0)
+    ws = workers()
+    try:
+        it = a3c_lowlevel(ws)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            res = next(it)
+        low = res["counters"]["num_steps_trained"] / (time.perf_counter() - t0)
+    finally:
+        ws.stop()
+    print(f"async optimization (Fig 13b, bench_async_opt's arithmetic; not gated): build_a3c "
+          f"{flow:.1f} steps/s, a3c_lowlevel {low:.1f} steps/s, flow / lowlevel {flow / low:.3f}")
+    return {"flow_steps_per_s": flow, "lowlevel_steps_per_s": low, "flow_vs_lowlevel": flow / low,
+            "iters": iters}
+
+
 # ------------------------------------------------------------------- main
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
@@ -2658,6 +3168,13 @@ def main() -> int:
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
              DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES]
         )
+        # The RLHF path peaks at about 74 GiB, and PyTorch's allocator keeps
+        # it cached; a later phase's new actor thread creates its cuBLAS
+        # handle outside that cache, and on an H100 it once failed there
+        # (CUBLAS_STATUS_ALLOC_FAILED).  Release the cache, as the
+        # pretraining phases do around themselves.
+        gc.collect()
+        torch.cuda.empty_cache()
         record["vtrace_learner_parity"] = phase_vtrace_learner_parity()
         for name in ASYNC_PATHS:
             record[name] = phase_async(
@@ -2675,6 +3192,11 @@ def main() -> int:
         record["pretrain_parity"] = phase_pretrain_parity()
         for name in PRETRAIN_PATHS:
             record[name] = phase_pretrain(name, every_counter)
+        record["plan_learner_parity"] = phase_plan_learner_parity()
+        for name in PLAN_PATHS:
+            record[name] = phase_plan_path(name, every_counter)
+        record["composition"] = phase_composition()
+        record["async_opt"] = phase_async_opt()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2683,7 +3205,8 @@ def main() -> int:
     paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
-             **{name: record[name]["launches"] for name in PRETRAIN_PATHS}}
+             **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
+             **{name: record[name]["launches"] for name in PLAN_PATHS}}
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}

@@ -1,7 +1,7 @@
 """repro_torch.flow: the dataflow-graph IR, the Algorithm runtime and the
-flowcheck analyzer (PyTorch port; nine of the reference's twelve plans:
-``a2c``, ``a3c``, ``ppo``, ``ppo_lm``, ``dqn``, ``apex``, ``sac``, ``impala``
-and ``appo``).
+flowcheck analyzer (PyTorch port; all twelve of the reference's plans:
+``a2c``, ``a3c``, ``ppo``, ``ppo_lm``, ``dqn``, ``apex``, ``sac``, ``impala``,
+``appo``, ``maml``, ``mbpo`` and ``multi_agent_ppo_dqn``).
 
     from repro_torch.flow import Algorithm
 
@@ -28,6 +28,9 @@ from repro_torch.flow.plans import (
     build_appo,
     build_dqn,
     build_impala,
+    build_maml,
+    build_mbpo,
+    build_multi_agent_ppo_dqn,
     build_ppo,
     build_ppo_lm,
     build_sac,
@@ -64,6 +67,9 @@ __all__ = [
     "build_appo",
     "build_dqn",
     "build_impala",
+    "build_maml",
+    "build_mbpo",
+    "build_multi_agent_ppo_dqn",
     "build_ppo",
     "build_ppo_lm",
     "build_sac",

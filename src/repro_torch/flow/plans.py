@@ -3,17 +3,21 @@
 Each ``build_*`` function assembles a ``FlowSpec`` — the graph the paper
 draws in Figures 9–12, as a value you can inspect (``to_dot()``), optimize
 (stage fusion), and lower (``compile()``); ``repro_torch.flow.Algorithm``
-is the run-facade.  The port carries nine of the reference's twelve plans:
+is the run-facade.  The port carries all twelve of the reference's plans:
 ``build_a3c`` (Fig 9a) and ``build_a2c``, ``build_ppo`` (Fig 10b) and its
 language-model variant ``build_ppo_lm``, the replay plans ``build_dqn``,
-``build_apex`` (Listing A3) and ``build_sac``, and the asynchronous
-learner-thread pipelines ``build_impala`` (Fig 11) and ``build_appo``.
-MAML, MBPO and the multi-agent composition follow their workers.
+``build_apex`` (Listing A3) and ``build_sac``, the asynchronous
+learner-thread pipelines ``build_impala`` (Fig 11) and ``build_appo``,
+``build_maml`` (Fig A2), ``build_mbpo`` (§2.2) and the multi-agent
+composition ``build_multi_agent_ppo_dqn`` (Figs 11-12).
+
+``rl/lowlevel.py`` keeps the hand-written low-level versions these builders
+are counted against (Table 2) and timed against (Fig 13).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 from repro_torch.core.actor import ActorPool
 from repro_torch.core.metrics import STEPS_TRAINED_COUNTER, get_metrics
@@ -21,6 +25,7 @@ from repro_torch.core.operators import (
     ApplyGradients,
     AverageGradients,
     ConcatBatches,
+    SelectExperiences,
     StandardizeFields,
     StoreToReplayBuffer,
     TrainOneStep,
@@ -40,6 +45,9 @@ __all__ = [
     "build_appo",
     "build_dqn",
     "build_impala",
+    "build_maml",
+    "build_mbpo",
+    "build_multi_agent_ppo_dqn",
     "build_ppo",
     "build_ppo_lm",
     "build_sac",
@@ -397,6 +405,135 @@ def build_sac(
     )
 
 
+# --------------------------------------------------------------------- MAML
+def build_maml(workers: WorkerSet, inner_steps: int = 1) -> FlowSpec:
+    """Figure A2: nested optimization — inner adaptation on workers, meta
+    update on the driver, broadcast."""
+    spec = FlowSpec("maml")
+
+    def _inner_adaptation(w: Any) -> Any:
+        pre = w.sample()
+        for _ in range(inner_steps):
+            w.inner_adapt(pre)
+        post = w.sample()
+        return {"pre": pre, "post": post}
+
+    rollouts = spec.par_source(workers.remote_workers(), _inner_adaptation, name="MAMLInner")
+    meta = TrainOneStep(workers)
+
+    @pure
+    def _meta_update(items: Sequence[Dict[str, Any]]) -> Any:
+        from repro_torch.rl.sample_batch import SampleBatch
+
+        batch = SampleBatch.concat_samples([d["post"] for d in items])
+        out = meta(batch)
+        # TrainOneStep already broadcast new weights; workers reset inner state.
+        for f in workers.remote_workers().broadcast("reset_inner"):
+            f.result()
+        return out
+
+    train_op = rollouts.batch_across_shards().for_each(_meta_update, label="MetaUpdate")
+    spec.set_output(train_op.report(workers))
+    return spec
+
+
+# --------------------------------------------------------------------- MBPO
+def build_mbpo(
+    workers: WorkerSet,
+    replay_actors: ActorPool,
+    model_train_weight: int = 1,
+    policy_train_weight: int = 1,
+) -> FlowSpec:
+    """Model-based RL as three concurrent sub-flows (paper §2.2):
+
+      (1) real rollouts -> replay buffer
+      (2) replayed real batches -> supervised dynamics-model training
+      (3) replayed states -> synthetic rollouts through the learned model
+          -> policy TrainOneStep
+    """
+    spec = FlowSpec("mbpo")
+    lw = workers.local_worker()
+    store_op = spec.rollouts(workers, mode="bulk_sync").for_each(
+        StoreToReplayBuffer(replay_actors)
+    )
+
+    model_op = spec.replay(replay_actors).for_each(
+        pure(lambda b: lw.train_dynamics(b)), label="TrainDynamicsModel"
+    )
+
+    policy_op = (
+        spec.replay(replay_actors)
+        .for_each(pure(lambda b: lw.synthesize(b)), label="SynthesizeRollouts")
+        .for_each(TrainOneStep(workers))
+    )
+
+    merged = spec.concurrently(
+        [store_op, model_op, policy_op],
+        mode="round_robin",
+        output_indexes=[2],
+        round_robin_weights=[1, model_train_weight, policy_train_weight],
+    )
+    spec.set_output(merged.report(workers))
+    return spec
+
+
+# ------------------------------------------------- Multi-agent composition
+def build_multi_agent_ppo_dqn(
+    workers: WorkerSet,
+    replay_actors: ActorPool,
+    ppo_policies: Sequence[str] = ("ppo_policy",),
+    dqn_policies: Sequence[str] = ("dqn_policy",),
+    ppo_batch_size: int = 1024,
+    dqn_target_update_freq: int = 500,
+) -> FlowSpec:
+    """Figure 11/12: one environment, PPO trains some policies, DQN others.
+
+    The rollout stream is duplicated; each branch selects its policies and
+    runs its own training dataflow; the union composes them.
+    """
+    spec = FlowSpec("multi_agent_ppo_dqn")
+    ppo_rollouts, dqn_rollouts = spec.rollouts(workers, mode="bulk_sync").duplicate(2)
+
+    ppo_op = (
+        ppo_rollouts.for_each(SelectExperiences(ppo_policies), label="SelectExperiences(ppo)")
+        .for_each(ConcatBatches(ppo_batch_size), label=f"ConcatBatches({ppo_batch_size})")
+        .for_each(StandardizeFields(["advantages"]))
+        .for_each(TrainOneStep(workers, policies=ppo_policies), label="TrainOneStep(ppo)")
+    )
+
+    @pure
+    def _select_dqn(batch):
+        selected = SelectExperiences(dqn_policies)(batch)
+        # Replay stores flat SampleBatches; all dqn policies share the buffer.
+        from repro_torch.rl.sample_batch import SampleBatch
+
+        return SampleBatch.concat_samples(list(selected.policy_batches.values()))
+
+    store_op = dqn_rollouts.for_each(_select_dqn, label="SelectExperiences(dqn)").for_each(
+        StoreToReplayBuffer(replay_actors)
+    )
+    train_dqn = TrainOneStep(workers, policies=dqn_policies)
+
+    @pure
+    def _train_keeping_actor(pair):
+        batch, actor = pair
+        return train_dqn(batch), actor
+
+    dqn_op = (
+        spec.replay(replay_actors)
+        .zip_with_source_actor()
+        .for_each(_train_keeping_actor, label="TrainOneStep(dqn)")
+        .for_each(UpdateReplayPriorities())
+        .for_each(UpdateTargetNetwork(workers, dqn_target_update_freq))
+    )
+
+    merged = spec.concurrently(
+        [ppo_op, store_op, dqn_op], mode="round_robin", output_indexes=[0, 2]
+    )
+    spec.set_output(merged.report(workers))
+    return spec
+
+
 PLAN_BUILDERS: Dict[str, Any] = {
     "a3c": build_a3c,
     "a2c": build_a2c,
@@ -406,8 +543,11 @@ PLAN_BUILDERS: Dict[str, Any] = {
     "apex": build_apex,
     "impala": build_impala,
     "sac": build_sac,
+    "maml": build_maml,
     "appo": build_appo,
+    "mbpo": build_mbpo,
+    "multi_agent_ppo_dqn": build_multi_agent_ppo_dqn,
 }
 
 # Plans whose builders take (workers, replay_actors, ...).
-REPLAY_PLANS = frozenset({"dqn", "apex", "sac"})
+REPLAY_PLANS = frozenset({"dqn", "apex", "sac", "mbpo", "multi_agent_ppo_dqn"})

@@ -3,6 +3,7 @@ from repro_torch.rl.env import (
     CartPole,
     CartPoleState,
     Env,
+    MultiAgentCartPole,
     Pendulum,
     StubEnv,
     VectorEnv,
@@ -10,6 +11,7 @@ from repro_torch.rl.env import (
     VectorStep,
 )
 from repro_torch.rl.lm_policy import LMTokenPolicy
+from repro_torch.rl.model_based import ModelBasedWorker
 from repro_torch.rl.policy import (
     ActorCriticPolicy,
     DQNPolicy,
@@ -22,6 +24,7 @@ from repro_torch.rl.replay import ReplayBuffer
 from repro_torch.rl.rollout_worker import (
     EPS_STRIDE,
     MAX_LANES,
+    MultiAgentRolloutWorker,
     RolloutWorker,
     VectorizedRolloutWorker,
     assemble_fragments,

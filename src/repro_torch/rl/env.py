@@ -12,12 +12,14 @@ comes from an explicit ``torch.Generator`` on the env's device.
 ``VectorEnv`` wraps an env for the vectorized rollout engine: auto-reset,
 the true pre-reset successor obs, the terminated/truncated split, and
 per-lane episode accounting, with a checkpointable state.
+``MultiAgentCartPole`` is one env of ``num_agents`` CartPole agents, each
+mapped to a policy id.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ __all__ = [
     "Env",
     "CartPole",
     "CartPoleState",
+    "MultiAgentCartPole",
     "Pendulum",
     "PendulumState",
     "StubEnv",
@@ -357,3 +360,29 @@ class VectorEnv:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"VectorEnv({type(self.env).__name__}, num_envs={self.num_envs})"
+
+
+class MultiAgentCartPole:
+    """N independent CartPole agents in one logical env (paper Fig 11/14:
+    'multi-agent Atari with four agents per policy' analogue): the batched
+    CartPole with one lane per agent.
+
+    ``policy_mapping`` assigns each agent index to a policy id; rollout
+    workers return a MultiAgentBatch keyed by policy id.
+    """
+
+    def __init__(self, num_agents: int, policy_mapping: Dict[int, str]):
+        self.base = CartPole()
+        self.num_agents = num_agents
+        self.policy_mapping = dict(policy_mapping)
+        self.obs_dim = self.base.obs_dim
+        self.num_actions = self.base.num_actions
+
+    def reset(self, generator: torch.Generator, device: Any) -> Tuple[CartPoleState, torch.Tensor]:
+        return self.base.reset(self.num_agents, generator, device)  # obs: [A, obs_dim]
+
+    def step_raw(self, st: CartPoleState, actions: torch.Tensor):
+        return self.base.step_raw(st, actions)
+
+    def step(self, st: CartPoleState, actions: torch.Tensor, generator: torch.Generator):
+        return self.base.step(st, actions, generator)

@@ -28,7 +28,9 @@ tensors and rebinds ``self.params``, so a ``get_weights`` on another thread
 one batched policy dispatch per step, per-episode fragments with globally
 unique ``eps_id`` labels, truncation-aware GAE, and the cached-decode path
 (``decode="cache"``) that carries an LM's per-lane KV cache through the
-rollout.
+rollout.  ``MultiAgentRolloutWorker`` steps one env of several agents, each
+mapped to a policy of its own (the PPO+DQN composition), and returns a
+``MultiAgentBatch``.
 
 The workers run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with ``device="cuda"`` and no CUDA device they raise.
@@ -37,7 +39,7 @@ The workers run on the GPU unless the caller asks for the CPU
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,12 +47,19 @@ import torch
 from repro_torch.kernels.ops import fused_gae as gae
 from repro_torch.optim import Optimizer, adam
 from repro_torch.rl.env import Env, VectorEnv
-from repro_torch.rl.sample_batch import SampleBatch
+from repro_torch.rl.sample_batch import MultiAgentBatch, SampleBatch
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["RolloutWorker", "VectorizedRolloutWorker", "assemble_fragments", "MAX_LANES", "EPS_STRIDE"]
+__all__ = [
+    "RolloutWorker",
+    "MultiAgentRolloutWorker",
+    "VectorizedRolloutWorker",
+    "assemble_fragments",
+    "MAX_LANES",
+    "EPS_STRIDE",
+]
 
 ALGOS = ("pg", "ppo", "vtrace", "dqn", "sac")
 
@@ -100,15 +109,57 @@ def assemble_fragments(cols: Dict[str, Any], lane_base: np.ndarray) -> SampleBat
     return batch
 
 
-def _resolve_device(device: Any) -> torch.device:
+def _resolve_device(device: Any, worker: str) -> torch.device:
     """The worker's device; a CUDA request without a CUDA device raises."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "RolloutWorker(device='cuda'): no CUDA device is available; pass "
+            f"{worker}(device='cuda'): no CUDA device is available; pass "
             "device='cpu' to run on the CPU"
         )
     return device
+
+
+def _value_and_grad(loss_fn: Callable[[PyTree], Tuple[torch.Tensor, Dict]], params: PyTree):
+    """``(grads, loss, aux)`` of ``loss_fn(params) -> (loss, aux)`` by
+    autograd, all detached; a leaf the loss does not reach gets zeros."""
+    with torch.enable_grad():
+        tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, aux = loss_fn(tracked)
+        leaves = torch.autograd.grad(loss, tree_leaves(tracked), allow_unused=True)
+    it = iter(leaves)
+
+    def _grad_or_zeros(p: torch.Tensor) -> torch.Tensor:
+        g = next(it)  # tree_map visits leaves in tree_leaves order
+        return torch.zeros_like(p) if g is None else g
+
+    grads = tree_map(_grad_or_zeros, tracked)
+    return grads, loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+# Host-side metadata columns that never enter a loss.
+_HOST_COLUMNS = frozenset({"batch_indices", "eps_id"})
+
+
+def _device_batch(batch: SampleBatch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if k not in _HOST_COLUMNS}
+
+
+def _episode_stats(completed: deque) -> Dict[str, float]:
+    if not completed:
+        return {"episode_reward_mean": float("nan"), "episodes": 0}
+    return {"episode_reward_mean": float(np.mean(completed)), "episodes": len(completed)}
+
+
+@torch.no_grad()
+def _copy_into(params: PyTree, weights: PyTree) -> None:
+    """Copy ``weights`` (tensors, or numpy arrays as ``interop`` gives them)
+    into the tensors of ``params``, which stay the worker's own."""
+
+    def _copy(p: torch.Tensor, w: Any) -> None:
+        p.copy_(w if isinstance(w, torch.Tensor) else torch.from_numpy(np.array(w)))
+
+    tree_map(_copy, params, weights)
 
 
 class RolloutWorker:
@@ -140,7 +191,7 @@ class RolloutWorker:
         self.epsilon = epsilon
         self.target_polyak = target_polyak
         self.worker_index = worker_index
-        self.device = _resolve_device(device)
+        self.device = _resolve_device(device, type(self).__name__)
 
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed * 10007 + worker_index)
@@ -203,6 +254,10 @@ class RolloutWorker:
             self._completed.append(float(r))
         return _to_numpy_batch(self._drop_off_policy_columns(cols))
 
+    def sample_with_count(self) -> Tuple[SampleBatch, int]:
+        b = self.sample()
+        return b, b.count
+
     def _drop_off_policy_columns(self, cols: Dict[str, Any]) -> Dict[str, Any]:
         """DQN and SAC batches carry no behaviour log-probs or values."""
         if self.algo in ("dqn", "sac"):
@@ -210,16 +265,6 @@ class RolloutWorker:
         return cols
 
     # ----------------------------------------------------------------- learn
-    # Host-side metadata columns that never enter the loss.
-    _HOST_COLUMNS = frozenset({"batch_indices", "eps_id"})
-
-    def _device_batch(self, batch: SampleBatch) -> Dict[str, torch.Tensor]:
-        return {
-            k: torch.as_tensor(v, device=self.device)
-            for k, v in batch.items()
-            if k not in self._HOST_COLUMNS
-        }
-
     def _loss_for(self, params: PyTree, target_params: PyTree, batch: Dict[str, torch.Tensor]):
         """The policy's loss; ``target_params`` (no grad) enter the DQN and
         SAC losses, and SAC draws its two noises from the worker's
@@ -231,18 +276,7 @@ class RolloutWorker:
         return self.policy.loss(params, batch)
 
     def _grads(self, batch: Dict[str, torch.Tensor]):
-        with torch.enable_grad():
-            params = tree_map(lambda p: p.detach().requires_grad_(True), self.params)
-            loss, aux = self._loss_for(params, self.target_params, batch)
-            leaves = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
-        it = iter(leaves)
-
-        def _grad_or_zeros(p: torch.Tensor) -> torch.Tensor:
-            g = next(it)  # tree_map visits leaves in tree_leaves order
-            return torch.zeros_like(p) if g is None else g
-
-        grads = tree_map(_grad_or_zeros, params)
-        return grads, loss.detach(), {k: v.detach() for k, v in aux.items()}
+        return _value_and_grad(lambda p: self._loss_for(p, self.target_params, batch), self.params)
 
     @staticmethod
     def _info(loss: torch.Tensor, aux: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -256,7 +290,7 @@ class RolloutWorker:
         return info
 
     def learn_on_batch(self, batch: SampleBatch, policy_id: Optional[str] = None) -> Dict[str, Any]:
-        grads, loss, aux = self._grads(self._device_batch(batch))
+        grads, loss, aux = self._grads(_device_batch(batch, self.device))
         self.params, self.opt_state = self.optimizer.apply(self.params, grads, self.opt_state)
         self._post_update()
         return self._info(loss, aux)
@@ -271,7 +305,7 @@ class RolloutWorker:
             )
 
     def compute_gradients(self, batch: SampleBatch) -> Tuple[PyTree, Dict[str, Any]]:
-        grads, loss, _ = self._grads(self._device_batch(batch))
+        grads, loss, _ = self._grads(_device_batch(batch, self.device))
         return grads, {"loss": float(loss), "batch_count": batch.count}
 
     def apply_gradients(self, grads: PyTree) -> None:
@@ -281,15 +315,10 @@ class RolloutWorker:
     def get_weights(self) -> PyTree:
         return tree_map(lambda p: p.detach().clone(), self.params)
 
-    @torch.no_grad()
     def set_weights(self, weights: PyTree) -> None:
         """Copy ``weights`` (tensors, or numpy arrays as ``interop`` gives
         them) into this worker's own parameter tensors."""
-
-        def _copy(p: torch.Tensor, w: Any) -> None:
-            p.copy_(w if isinstance(w, torch.Tensor) else torch.from_numpy(np.array(w)))
-
-        tree_map(_copy, self.params, weights)
+        _copy_into(self.params, weights)
 
     def update_target(self) -> None:
         """Hard target sync: the target network becomes a copy of the
@@ -298,12 +327,7 @@ class RolloutWorker:
         self.target_params = tree_map(lambda p: p.detach().clone(), self.params)
 
     def episode_stats(self) -> Dict[str, float]:
-        if not self._completed:
-            return {"episode_reward_mean": float("nan"), "episodes": 0}
-        return {
-            "episode_reward_mean": float(np.mean(self._completed)),
-            "episodes": len(self._completed),
-        }
+        return _episode_stats(self._completed)
 
     # ------------------------------------------------------------ durability
     def get_state(self) -> Dict[str, Any]:
@@ -325,6 +349,17 @@ class RolloutWorker:
         self.obs = torch.as_tensor(state["obs"], device=self.device)
         self._ep_returns = torch.as_tensor(state["ep_returns"], device=self.device)
         self._completed = deque(state["completed"], maxlen=100)
+
+    # --------------------------------------------------------------- MAML
+    def inner_adapt(self, batch: SampleBatch) -> None:
+        """One inner-loop PG step on worker-local params (first-order MAML)."""
+        self.learn_on_batch(batch)
+
+    def reset_inner(self) -> None:
+        # Nothing to undo: TrainOneStep's broadcast just copied the meta
+        # weights into this worker's own tensors (``set_weights``), over the
+        # weights its inner adaptation rebound.
+        pass
 
 
 def _child_generator(parent: torch.Generator, device: torch.device) -> torch.Generator:
@@ -547,3 +582,175 @@ class VectorizedRolloutWorker(RolloutWorker):
         # Only the server inference path drops fragments; it is not ported.
         stats["fragments_dropped"] = 0.0
         return stats
+
+
+class MultiAgentRolloutWorker:
+    """Multi-policy rollouts for the PPO+DQN composition (paper §5.3).
+
+    Each agent index is mapped to a policy id; per-policy experiences are
+    returned as a ``MultiAgentBatch``.  Policies may use different
+    algorithms (PPO and DQN here), which is exactly the composition the
+    paper enables.  Each rollout ends in one GAE over all agents' ``[T, A]``
+    columns (the GAE kernel on the card), bootstrapped from zero as in the
+    reference, before the columns are split per policy; DQN policies' batches
+    drop ``logp``, ``values``, ``advantages`` and ``returns``.
+
+    Weights cross workers by value, as ``RolloutWorker``'s do: ``get_weights``
+    returns detached clones per policy id and ``set_weights`` copies each
+    given policy's weights into this worker's own tensors (the reference
+    updates its dict with the caller's arrays, which a torch tensor changed in
+    place would turn into a shared weight).
+    """
+
+    def __init__(
+        self,
+        env: Any,  # MultiAgentCartPole
+        policy_specs: Dict[str, Dict[str, Any]],
+        agent_to_policy: Dict[int, str],
+        rollout_len: int = 32,
+        gamma: float = 0.99,
+        lam: float = 0.95,
+        epsilon: float = 0.1,
+        seed: int = 0,
+        worker_index: int = 0,
+        device: Any = "cuda",
+    ):
+        self.env = env
+        self.rollout_len = rollout_len
+        self.gamma = gamma
+        self.lam = lam
+        self.epsilon = epsilon
+        self.agent_to_policy = dict(agent_to_policy)
+        self.worker_index = worker_index
+        self.device = _resolve_device(device, type(self).__name__)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed * 7919 + worker_index)
+
+        self.policies: Dict[str, Any] = {}
+        self.params: Dict[str, PyTree] = {}
+        self.target_params: Dict[str, PyTree] = {}
+        self.optimizers: Dict[str, Optimizer] = {}
+        self.opt_states: Dict[str, PyTree] = {}
+        self.algos: Dict[str, str] = {}
+        for pid, spec in policy_specs.items():  # params drawn in the specs' order
+            self.policies[pid] = spec["policy"]
+            self.algos[pid] = spec.get("algo", "ppo")
+            self.params[pid] = spec["policy"].init_params(self._gen)
+            self.target_params[pid] = tree_map(lambda p: p.detach().clone(), self.params[pid])
+            self.optimizers[pid] = spec.get("optimizer") or adam(3e-4)
+            self.opt_states[pid] = self.optimizers[pid].init(self.params[pid])
+        # Agents grouped by policy, as index tensors on the device.
+        self._agents = {
+            pid: torch.tensor(
+                [a for a, p in self.agent_to_policy.items() if p == pid],
+                dtype=torch.int64, device=self.device,
+            )
+            for pid in self.policies
+        }
+
+        self.env_state, self.obs = env.reset(self._gen, self.device)
+        self._ep_returns = torch.zeros((env.num_agents,), dtype=torch.float32, device=self.device)
+        self._completed: deque = deque(maxlen=100)
+
+    # --------------------------------------------------------------- rollout
+    @torch.no_grad()
+    def _rollout(self) -> Dict[str, torch.Tensor]:
+        A, dev = self.env.num_agents, self.device
+        env_state, obs, ep_ret = self.env_state, self.obs, self._ep_returns
+        steps = []
+        for _ in range(self.rollout_len):
+            actions = torch.zeros((A,), dtype=torch.int64, device=dev)
+            logps = torch.zeros((A,), dtype=torch.float32, device=dev)
+            values = torch.zeros((A,), dtype=torch.float32, device=dev)
+            for pid, pol in self.policies.items():
+                idx = self._agents[pid]
+                o = obs.index_select(0, idx)
+                if self.algos[pid] == "dqn":
+                    a, lp, v, _ = pol.act(self.params[pid], o, self._gen, self.epsilon)
+                else:
+                    a, lp, v, _ = pol.act(self.params[pid], o, self._gen)
+                actions.index_copy_(0, idx, a)
+                logps.index_copy_(0, idx, lp)
+                values.index_copy_(0, idx, v)
+            env_state, next_obs, reward, done = self.env.step(env_state, actions, self._gen)
+            new_ret = ep_ret + reward
+            completed = torch.where(done, new_ret, 0.0)
+            ep_ret = torch.where(done, 0.0, new_ret)
+            steps.append({
+                "obs": obs,
+                "actions": actions,
+                "rewards": reward,
+                "dones": done.float(),
+                "logp": logps,
+                "values": values,
+                "next_obs": next_obs,
+                "completed": completed,
+            })
+            obs = next_obs
+        cols = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+        # The reference bootstraps every agent from zero, not from the value
+        # of its last observation; the port reproduces it.
+        adv, ret = gae(
+            cols["rewards"], cols["values"], cols["dones"], torch.zeros_like(ep_ret),
+            self.gamma, self.lam,
+        )
+        cols["advantages"] = adv
+        cols["returns"] = ret
+        self.env_state, self.obs, self._ep_returns = env_state, obs, ep_ret
+        return cols
+
+    _DQN_DROPPED = frozenset({"logp", "values", "advantages", "returns"})
+
+    def sample(self) -> MultiAgentBatch:
+        cols = self._rollout()
+        completed = cols.pop("completed").cpu().numpy()
+        for r in completed[completed != 0.0]:
+            self._completed.append(float(r))
+        # Split per policy: columns are [T, A, ...].
+        batches = {}
+        for pid in self.policies:
+            idx = self._agents[pid]
+            drop = self._DQN_DROPPED if self.algos[pid] == "dqn" else ()
+            batches[pid] = _to_numpy_batch(
+                {k: v.index_select(1, idx) for k, v in cols.items() if k not in drop}
+            )
+        return MultiAgentBatch(batches)
+
+    # ----------------------------------------------------------------- learn
+    def learn_on_batch(self, batch: SampleBatch, policy_id: str = "ppo_policy") -> Dict[str, Any]:
+        """One update of ``policy_id``: its loss (DQN against its target
+        weights), autograd and its optimizer.  Returns the loss as a float
+        and, for DQN, the per-row ``td_error`` as a numpy array."""
+        dev = _device_batch(batch, self.device)
+        pol = self.policies[policy_id]
+        if self.algos[policy_id] == "dqn":
+            target = self.target_params[policy_id]
+            loss_fn = lambda p: pol.loss(p, target, dev)  # noqa: E731
+        else:
+            loss_fn = lambda p: pol.loss(p, dev)  # noqa: E731
+        grads, loss, aux = _value_and_grad(loss_fn, self.params[policy_id])
+        self.params[policy_id], self.opt_states[policy_id] = self.optimizers[policy_id].apply(
+            self.params[policy_id], grads, self.opt_states[policy_id]
+        )
+        info: Dict[str, Any] = {"loss": float(loss)}
+        if "td_error" in aux:
+            info["td_error"] = aux["td_error"].cpu().numpy()
+        return info
+
+    def update_target(self) -> None:
+        for pid in self.policies:
+            if self.algos[pid] == "dqn":
+                self.target_params[pid] = tree_map(lambda p: p.detach().clone(), self.params[pid])
+
+    # ------------------------------------------------------------- messaging
+    def get_weights(self) -> Dict[str, PyTree]:
+        return {pid: tree_map(lambda p: p.detach().clone(), w) for pid, w in self.params.items()}
+
+    def set_weights(self, weights: Dict[str, PyTree]) -> None:
+        """Copy each given policy's weights into this worker's own tensors;
+        policies not given keep theirs."""
+        for pid, w in weights.items():
+            _copy_into(self.params[pid], w)
+
+    def episode_stats(self) -> Dict[str, float]:
+        return _episode_stats(self._completed)

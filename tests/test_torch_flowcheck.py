@@ -10,7 +10,7 @@ compared without their texts: ``resource-oversubscription`` counts CUDA
 cards (one CPU device without a card) and names ``CUDA_VISIBLE_DEVICES``,
 and ``determinism-hazard`` flags torch's global generator where the
 reference exempts ``jax.random``.  A parametrised parity holds the port's
-audit of its nine plans (on CPU workers) to the reference's audit of the
+audit of its twelve plans (on CPU workers) to the reference's audit of the
 same plans.
 """
 
@@ -35,7 +35,9 @@ from repro_torch.flow.analysis import (
     analyze,
     audit_plans,
 )
-from repro_torch.flow.plans import PLAN_BUILDERS
+from repro.flow.plans import PLAN_BUILDERS as REF_PLAN_BUILDERS
+from repro.flow.plans import REPLAY_PLANS as REF_REPLAY_PLANS
+from repro_torch.flow.plans import PLAN_BUILDERS, REPLAY_PLANS
 from repro_torch.flow.spec import FlowSpec
 
 PORT = types.SimpleNamespace(
@@ -709,8 +711,13 @@ def ref_audit():
     return ref_analysis.audit_plans(plans=sorted(PLAN_BUILDERS))
 
 
+def test_plan_catalog_is_the_reference_catalog():
+    assert set(PLAN_BUILDERS) == set(REF_PLAN_BUILDERS)
+    assert REPLAY_PLANS == REF_REPLAY_PLANS
+
+
 def test_all_ported_plans_are_error_clean(port_audit):
-    assert set(port_audit) == set(PLAN_BUILDERS) and len(PLAN_BUILDERS) == 9
+    assert set(port_audit) == set(PLAN_BUILDERS) and len(PLAN_BUILDERS) == 12
     errors = {
         name: [d.format() for d in ds if d.is_error]
         for name, ds in port_audit.items()
