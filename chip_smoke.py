@@ -181,7 +181,44 @@ phase that fails, and then prints no result line):
 27. Fig 13b on the card, printed and not gated: steps trained per second of
    ``build_a3c`` and of the hand-written ``rl/lowlevel.py`` ``a3c_lowlevel``
    on ``benchmarks/common.py``'s pg workers, as
-   ``benchmarks/bench_async_opt.py`` computes it.
+   ``benchmarks/bench_async_opt.py`` computes it;
+28. keys: ``repro_torch.prng``'s splits, fold-ins, bits, uniforms and
+   ``randint`` for 4,096 lane keys bitwise equal on the card and the CPU,
+   ``categorical`` on identical logits picking identical actions at
+   [4096, 2] and PPO-LM's [8, 151936], and keyed token sampling at that
+   width timed beside the one-generator ``torch.multinomial`` it replaced;
+29. serving: ``launch/serve.py``'s ``build_serving_tier`` on the card for
+   the stateless, ac and ssm policies at 1 and 3 replicas, warmed by
+   ``warm_replicas``, then ``open_loop_load`` at the CLI's defaults (200
+   req/s, 200 requests, 8 lanes, 2 clients): req/s, lane steps/s, p50, p99
+   and mean latency; ``benchmarks/bench_serve.py``'s four properties, each
+   failing the phase (bit parity of the 3-replica stateless tier with one
+   local dispatch, sticky pins through the SSM soak, 1 of 3 replicas killed
+   under ``drop_shard`` dropping only in-flight requests and the tier healed
+   to 2, p99 <= 100 x p50 + 50 ms); and the ac and ssm tiers at 3 replicas
+   against one whole-batch dispatch (actions equal, log-probs and values
+   within 1e-5, whether bitwise printed);
+30. Mamba parity: ``SSMStatePolicy`` card vs CPU from the same weights and
+   keys over 16 decode steps of 64 lanes: a step from the same state within
+   1e-5, each device's own carried state within 1e-4 after 16 steps,
+   actions equal throughout;
+31. transformer learner parity: one ``learn_on_batch`` (SGD, lr 1) of a
+   ``TransformerPolicy`` PPO learner on 512 rows, card vs CPU, within 1e-4;
+32. main path 16: PPO with ``TransformerPolicy`` (d_model 64, 2 layers, 4
+   tokens) on CartPole and ``inference="server"``: 2 workers of 8 lanes, 3
+   replicas behind the sticky router, 5 ``train()`` iterations under a
+   deadline, the last profiled; every launch count checked exactly against
+   the routers' dispatches, the rollouts and the SGD steps (flash forward a
+   layer for each dispatch, bootstrap and SGD step, flash backward a layer
+   and the surrogate forward and backward for each SGD step, GAE for each
+   rollout, every other kernel 0).
+
+Phase 3 also holds flash attention at that path's shapes, [B, 4, 2/2, 32]
+for B = 8 and 16 (serve dispatches), 128 (the learner, forward and
+backward) and 256 (the GAE bootstrap), beside SDPA and the launch floor; and
+phase 7 prints PPO-LM's seconds per iteration with per-lane keyed sampling.
+A profiler session that records no device time is retried up to 3 times
+before a case reports CUDA events (``ms_from``).
 
 ``decode_attention``'s launch count is one per wrapper call, which is one
 CUDA launch: the last block of each group merges the splits (the variant
@@ -204,6 +241,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -282,14 +320,16 @@ GMM_TOL = 1e-4
 PATH_SHAPES = {
     "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4], "a2c": [32, 4],
             "a3c": [32, 4], "maml": [16, 2], "mbpo": [[32, 4], [8, 128]],
-            "multi_agent_ppo_dqn": [16, 4]},
+            "multi_agent_ppo_dqn": [16, 4], "ppo_transformer_server": [32, 8]},
     "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
     "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
-                          "multi_agent_ppo_dqn": [128, 2]},
+                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2]},
     "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
-                          "multi_agent_ppo_dqn": [128, 2]},
-    "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
-    "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION)},
+                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2]},
+    "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
+                            "ppo_transformer_server": [[b, 4, 2, 2, 32] for b in (8, 16, 128, 256)]},
+    "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
+                            "ppo_transformer_server": [128, 4, 2, 2, 32]},
     "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     **{name: {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
@@ -354,6 +394,26 @@ PLAN_COUNTERS = {"num_steps_sampled", "num_steps_trained", "num_target_updates",
 PLAN_DEADLINE_S = 120  # per plan path
 COMPOSITION_ITERS = 20  # benchmarks/bench_multiagent.py's run(iters=20)
 ASYNC_OPT_ITERS = 40  # benchmarks/bench_async_opt.py's run(iters=40)
+# The serving slice.  KEY_LANES lane keys for the card-vs-CPU bit check; the
+# serve CLI's load defaults (launch/serve.py) for every tier; Mamba's parity
+# over MAMBA_STEPS carried decode steps; and PPO with TransformerPolicy at its
+# defaults (d_model 64, 2 layers, 4 tokens: 2 heads of 32) behind 3 replicas.
+KEY_LANES = 4096
+SERVE_LOAD = dict(rate_hz=200.0, num_requests=200, lanes_per_request=8, num_clients=2, seed=0)
+SERVE_TIERS = [(p, r) for p in ("stateless", "ac", "ssm") for r in (1, 3)]
+SERVE_PARITY_STEPS = 8
+MAMBA_LANES = 64
+MAMBA_STEPS = 16
+TF_SERVE = dict(num_workers=2, num_envs=8, rollout_len=32, replicas=3, train_batch_size=512,
+                num_sgd_iter=1, sgd_minibatch_size=128, iters=5)
+TF_LAYERS = 2
+TF_ATTENTION = (4, 2, 32)  # tokens, heads (= KV heads), head dim of the trunk
+# The flash kernel's batch on that path: a serve dispatch's padded rows (8,
+# or 16 when both workers' requests meet in one dispatch), the learner's
+# minibatch and the GAE bootstrap's T x N rows.
+TF_FLASH_FWD_B = (8, 16, 128, 256)
+TF_FLASH_BWD_B = 128
+TF_SERVE_DEADLINE_S = 180
 
 
 class PhaseError(RuntimeError):
@@ -482,6 +542,21 @@ def _device_ms(fn, iters: int = 50) -> tuple:
     return (total_us / 1e3 if total_us > 0 else None), lost
 
 
+PROFILE_RETRIES = 3  # new profiler sessions for a case whose session recorded nothing
+
+
+def _device_ms_retried(fn, iters: int) -> tuple:
+    """``_device_ms``, with up to ``PROFILE_RETRIES`` new sessions when a
+    session returns no device record at all (on an H100 one such session
+    once left a case with only its CUDA-event time): (ms or None, records
+    lost, sessions retried)."""
+    for retries in range(PROFILE_RETRIES + 1):
+        ms, lost = _device_ms(fn, iters=iters)
+        if ms is not None:
+            break
+    return ms, lost, retries
+
+
 def _smi_sample() -> dict:
     """The card's SM clock (MHz), power draw (W) and temperature (C) now."""
     smi = subprocess.run(
@@ -502,19 +577,23 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     ("profiler" or "cuda_events").  Kernels of tens of milliseconds take a
     smaller ``kernel_iters``; a plain version of tens of thousands of
     launches is not profiled (``plain_profile``), its trace alone would take
-    minutes.  With ``clocks``, the card's SM clock, power draw and
-    temperature before and after each of the kernel's three readings."""
+    minutes.  A profiler session that records no device time is retried
+    (``_device_ms_retried``; ``profile_retries`` counts the new sessions)
+    before the event time stands in.  With ``clocks``, the card's SM clock,
+    power draw and temperature before and after each of the kernel's three
+    readings."""
     samples = [_smi_sample()] if clocks else []
     t = {"call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters))}
     samples += [_smi_sample()] if clocks else []
-    t["device_ms"], t["records_lost"] = _device_ms(kernel, iters=min(50, kernel_iters))
+    t["device_ms"], t["records_lost"], t["profile_retries"] = _device_ms_retried(
+        kernel, min(50, kernel_iters))
     samples += [_smi_sample()] if clocks else []
     t["call_ms_after"] = _time_ms(kernel, iters=kernel_iters, warmup=0)
     if clocks:
         t["clocks"] = samples + [_smi_sample()]
     t["plain_call_ms"] = _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1)
-    t["plain_device_ms"], t["plain_records_lost"] = (
-        _device_ms(plain, iters=plain_iters) if plain_profile else (None, None))
+    t["plain_device_ms"], t["plain_records_lost"], t["plain_profile_retries"] = (
+        _device_ms_retried(plain, plain_iters) if plain_profile else (None, None, 0))
     for key, device, call in (("ms", "device_ms", "call_ms"),
                               ("plain_ms", "plain_device_ms", "plain_call_ms")):
         profiled = t[device] is not None
@@ -928,9 +1007,13 @@ def _library(fn, iters: int = 20) -> dict:
     (``library_ms``, the clock of the kernels' ``ms``), its ms per call on
     the stream (CUDA events, ``library_call_ms``, beside the kernels'
     ``call_ms``), and which SDPA backend it took, read from the names of
-    its kernels."""
-    kernels, lost = _per_call(fn, iters)
-    total_us = sum(kernels.values())
+    its kernels.  A session that records nothing is retried, as in
+    ``_device_ms_retried``."""
+    for retries in range(PROFILE_RETRIES + 1):
+        kernels, lost = _per_call(fn, iters)
+        total_us = sum(kernels.values())
+        if total_us > 0:
+            break
     names = " ".join(kernels).lower()
     backend = next(
         (b for key, b in (("flash", "flash"), ("fmha", "efficient"), ("cutlass", "efficient"),
@@ -944,6 +1027,7 @@ def _library(fn, iters: int = 20) -> dict:
         "library_ms_from": "profiler" if total_us > 0 else "cuda_events",
         "library_call_ms": call_ms,
         "library_records_lost": lost,
+        "library_profile_retries": retries,
         "library_backend": backend,
         "library_kernels": [k[:60] for k in top],
     }
@@ -1469,6 +1553,12 @@ def phase_kernels() -> dict:
         _flash_fwd_case(*_phi, True, 0, 0, 26, kernel_iters=20),
         *_narrow_heads(_flash_fwd_case, 27),
     ]
+    # TransformerPolicy's trunk on the server-inference PPO path.
+    S, H, D = TF_ATTENTION
+    out["flash_attention_fwd"] += [_flash_fwd_case(b, S, S, H, H, D, True, 0, 0, 60 + i)
+                                   for i, b in enumerate(TF_FLASH_FWD_B)]
+    out["flash_attention_bwd"].append(
+        _flash_bwd_case(TF_FLASH_BWD_B, S, S, H, H, D, True, 0, 0, 64))
     rwkv6_cases = [
         _rwkv6_case(*RWKV6_PATH_SHAPE, 50, kernel_iters=20, check_profiler=True,
                     clocks=True),  # path shape
@@ -1497,6 +1587,9 @@ def phase_kernels() -> dict:
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
                 f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}){fp32_txt} "
                 f"records_lost={c['records_lost']}{lib_txt}"
+                + (f" profile_retries={c['profile_retries']}/{c['plain_profile_retries']}"
+                   if c['profile_retries'] or c['plain_profile_retries'] else "")
+                + (f" ms_from={c['ms_from']}" if c['ms_from'] != "profiler" else "")
             )
             if c.get("clocks"):
                 print(f"  SM clock / power / temperature around its readings: "
@@ -1855,7 +1948,9 @@ def phase_rlhf(counters: list) -> dict:
           f"update {cache['cache_update_ms_per_step']:.4f} ms per step "
           f"({cache['where_calls']} torch.where calls), decode attention "
           f"{cache['decode_attention_ms_per_step']:.4f} ms per step")
-    print(f"rlhf main path: {iters} train() iterations in {total:.3f} s, launches {launches}")
+    print(f"rlhf main path: {iters} train() iterations in {total:.3f} s, launches {launches}; "
+          f"seconds per iteration with per-lane keyed token sampling "
+          f"{[round(r['seconds'], 3) for r in rows]} (PR 22, one generator a worker: 5.43-5.65 s)")
     return {"iterations": rows, "seconds": total, "launches": launches, "profile": profiled,
             "expected_per_iter": per_iter, "peak_memory_bytes": peak, "init_s": init_s,
             "parity_gap": gap, "max_abs_logit": scale, "split": split, "cache_update": cache}
@@ -2132,7 +2227,7 @@ def _profiled_train(algo, check, min_s: float = 0.0) -> tuple:
     dt = time.perf_counter() - t0
     busy = prof.stop()
     ours = {k[:60]: v / 1e3 for k, v in busy.items()
-            if any(n in k for n in ("vtrace_kernel", "gae_kernel", "surrogate_"))}
+            if any(n in k for n in ("vtrace_kernel", "gae_kernel", "surrogate_", "flash_"))}
     return result, dt, sum(busy.values()) / 1e3, ours
 
 
@@ -3094,6 +3189,392 @@ def phase_async_opt() -> dict:
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------------- phase 28
+def phase_keys() -> dict:
+    """Per-lane threefry keys (``repro_torch.prng``): for ``KEY_LANES`` lane
+    keys, the splits, fold-ins, bits, uniforms and ``randint`` draws on the
+    card equal the CPU's bit for bit, and ``categorical`` on identical
+    logits picks identical actions (CartPole's two actions and the PPO-LM
+    vocabulary); the per-step cost of keyed token sampling at PPO-LM's
+    [8, 151936] is timed beside the one-generator ``torch.multinomial`` it
+    replaced."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.qwen15_4b import CONFIG as QWEN
+
+    vocab = QWEN.vocab_size
+    keys_c = prng.split(prng.key(23), KEY_LANES)
+    keys_g = prng.split(prng.key(23, "cuda"), KEY_LANES)
+    _require(torch.equal(keys_g.cpu(), keys_c), "prng: split(key) differs between card and CPU")
+    lanes = torch.arange(KEY_LANES)
+    draws = {
+        "split": lambda k, d: prng.split(k, 2),
+        "fold_in": lambda k, d: prng.fold_in(k[0], lanes.to(d)),
+        "random_bits": lambda k, d: prng.random_bits(k, (8,)),
+        "uniform": lambda k, d: prng.uniform(k, (8,)),
+        "randint": lambda k, d: prng.randint(k, (), 0, 5),
+    }
+    for name, draw in draws.items():
+        _require(torch.equal(draw(keys_g, "cuda").cpu(), draw(keys_c, "cpu")),
+                 f"prng: {name} differs between card and CPU")
+    gen = torch.Generator().manual_seed(24)
+    out = {"lanes": KEY_LANES, "bitwise": sorted(draws)}
+    for width, rows in ((2, KEY_LANES), (vocab, 8)):
+        logits = torch.randn((rows, width), generator=gen)
+        a_c = prng.categorical(keys_c[:rows], logits)
+        a_g = prng.categorical(keys_g[:rows], logits.cuda())
+        _require(torch.equal(a_g.cpu(), a_c), f"prng: categorical actions differ at [{rows}, {width}]")
+        gumbel_err = _max_err(prng.gumbel(keys_g[:rows], (width,)).cpu(),
+                              prng.gumbel(keys_c[:rows], (width,)))
+        out[f"categorical_{rows}x{width}"] = {"actions_equal": True, "gumbel_max_abs_err": gumbel_err}
+    logits = torch.randn((8, vocab), generator=gen).cuda()
+    keys8 = keys_g[:8]
+    sampler = torch.Generator(device="cuda").manual_seed(0)
+    out["lm_sampling_ms"] = {
+        "keyed_categorical": _time_ms(lambda: prng.categorical(keys8, logits), iters=50),
+        "generator_multinomial": _time_ms(
+            lambda: torch.multinomial(torch.softmax(logits, -1), 1, generator=sampler), iters=50),
+    }
+    print(f"keys: {KEY_LANES} lane keys, {', '.join(sorted(draws))} bitwise equal card vs CPU; "
+          f"categorical actions equal at [{KEY_LANES}, 2] and [8, {vocab}] (gumbel max abs "
+          f"err {out[f'categorical_8x{vocab}']['gumbel_max_abs_err']:.3e}); PPO-LM token "
+          f"sampling per decode step at [8, {vocab}]: keyed "
+          f"{out['lm_sampling_ms']['keyed_categorical']:.4f} ms, one-generator multinomial "
+          f"{out['lm_sampling_ms']['generator_multinomial']:.4f} ms (CUDA events)")
+    return out
+
+
+# ------------------------------------------------------------- phase 29
+def _three_clients_vs_whole(policy: str) -> dict:
+    """Three clients, each with 8 lanes of its own, act concurrently through
+    a 3-replica tier (``build_serving_tier``, sticky for the SSM) for
+    ``SERVE_PARITY_STEPS`` steps; one replica with the same weights serves
+    all 24 lanes as one batch a step from the same obs and keys.  Actions
+    equal, log-probs and values within ``TOL``; whether bitwise is
+    reported, not required (a replica's batch has another size than the
+    whole batch, and cuBLAS may round a row differently at another size)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_serving_tier
+
+    lanes_per, clients = SERVE_LOAD["lanes_per_request"], 3
+    n = lanes_per * clients
+    router, actors = build_serving_tier(policy=policy, replicas=3, seed=7, device="cuda")
+    _, (whole,) = build_serving_tier(policy=policy, replicas=1, seed=7, supervised=False,
+                                     device="cuda")
+    whole.set_weights(actors[0].sync("get_weights"))
+    rng = np.random.RandomState(11)
+    lanes = np.arange(n)
+    max_diff, bitwise = 0.0, True
+    try:
+        for step in range(SERVE_PARITY_STEPS):
+            obs = rng.randn(n, 4).astype(np.float32)
+            keys = rng.randint(0, 2**31, size=(n, 2)).astype(np.uint32)
+            got = [None] * clients
+            barrier = threading.Barrier(clients)
+
+            def client(c):
+                sl = slice(c * lanes_per, (c + 1) * lanes_per)
+                barrier.wait()
+                got[c] = router.compute_actions(obs[sl], keys[sl], lanes[sl])
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            want = whole.compute_actions(obs, keys, lanes if whole.stateful else None)
+            for j, w in enumerate(want):
+                g = np.concatenate([r[j] for r in got])
+                if j == 0:
+                    _require(np.array_equal(g, w), f"serving {policy}: 3-replica actions differ "
+                                                   f"from the whole batch at step {step}")
+                    continue
+                diff = float(np.abs(g - w).max())
+                max_diff = max(max_diff, diff)
+                bitwise = bitwise and np.array_equal(g, w)
+                _require(np.allclose(g, w, atol=TOL, rtol=TOL),
+                         f"serving {policy}: 3-replica logp/values differ from the whole batch "
+                         f"by {diff:.3e} at step {step}")
+        spread = [a.sync("stats")["num_requests"] for a in actors]
+    finally:
+        router.stop()
+    return {"steps": SERVE_PARITY_STEPS, "max_abs_diff": max_diff, "bitwise": bitwise,
+            "requests_per_replica": spread}
+
+
+def phase_serving() -> dict:
+    """The serving tier on the card (``launch/serve.py``): each policy
+    (stateless, ac, ssm) at 1 and 3 replicas, warmed by ``warm_replicas``
+    (every replica thread's first CUDA and cuBLAS work outside the window),
+    then ``open_loop_load`` at the CLI's defaults; and
+    ``benchmarks/bench_serve.py``'s four properties, each failing the
+    phase: the 3-replica stateless tier bitwise equal to one local dispatch,
+    sticky pins held through the 3-replica SSM soak, a kill of 1 of 3
+    replicas under ``drop_shard`` dropping only in-flight requests and the
+    tier healed to 2, and the 3-replica stateless soak's p99 <= 100 * p50 +
+    50 ms with no drops.  Then the ac and ssm tiers at 3 replicas against
+    one whole-batch dispatch (``_three_clients_vs_whole``)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_serving_tier, open_loop_load, warm_replicas
+    from repro_torch.rl import DummyPolicy, InferenceActor
+
+    load = SERVE_LOAD
+    lanes_n = load["lanes_per_request"] * load["num_clients"]
+    tiers, props = {}, {}
+    for policy, replicas in SERVE_TIERS:
+        router, actors = build_serving_tier(policy=policy, replicas=replicas, seed=7,
+                                            device="cuda")
+        try:
+            t0 = time.perf_counter()
+            warm_replicas(router, lanes_n=lanes_n)
+            warm_s = time.perf_counter() - t0
+            res = open_loop_load(router, **load)
+            if (policy, replicas) == ("ssm", 3):
+                per_rep = [a.sync("stats")["num_lane_states"] for a in actors]
+                stats = router.stats()
+                props["sticky_pinning_ok"] = (sum(per_rep) == stats["num_pinned_lanes"] == lanes_n
+                                              and stats["num_lane_repins"] == 0
+                                              and stats["sticky"] is True)
+            dispatches = [a.sync("stats")["num_dispatches"] for a in actors]
+        finally:
+            router.stop()
+        _require(res["requests_ok"] == load["num_requests"] and res["requests_dropped"] == 0,
+                 f"serving {policy} x{replicas}: {res}")
+        tag = f"{policy}_r{replicas}"
+        tiers[tag] = {**res, "warm_s": warm_s, "dispatches": dispatches}
+        print(f"serving {tag}: {res['rps']:.1f} req/s, {res['lane_steps_per_s']:.1f} lane steps/s, "
+              f"latency p50 {res['latency_p50_s'] * 1e3:.3f} ms p99 "
+              f"{res['latency_p99_s'] * 1e3:.3f} ms mean {res['latency_mean_s'] * 1e3:.3f} ms "
+              f"(offered {load['rate_hz']:.0f} req/s x {load['num_requests']}, "
+              f"{load['lanes_per_request']} lanes, {load['num_clients']} clients; warm "
+              f"{warm_s:.2f} s; dispatches per replica {dispatches})")
+    tail = tiers["stateless_r3"]
+    props["latency_tail_ok"] = (tail["latency_p99_s"] <= 100.0 * tail["latency_p50_s"] + 0.050
+                                and tail["requests_dropped"] == 0)
+    # Bit parity: the 3-replica stateless tier against one local dispatch.
+    rng = np.random.RandomState(7)
+    obs = rng.randn(load["lanes_per_request"], 4).astype(np.float32)
+    keys = rng.randint(0, 2**31, size=(load["lanes_per_request"], 2)).astype(np.uint32)
+    ref = InferenceActor(lambda: DummyPolicy(4, 2), seed=7, device="cuda").compute_actions(obs, keys)
+    router, _ = build_serving_tier(policy="stateless", replicas=3, seed=7, device="cuda")
+    try:
+        warm_replicas(router, lanes_n=lanes_n)
+        got = router.compute_actions(obs, keys)
+    finally:
+        router.stop()
+    props["bit_parity_ok"] = all(np.array_equal(a, b) for a, b in zip(ref, got))
+    # Kill 1 of 3 replicas mid-load under drop_shard.
+    router, actors = build_serving_tier(policy="stateless", replicas=3,
+                                        failure_policy="drop_shard", seed=7, device="cuda")
+    try:
+        warm_replicas(router, lanes_n=lanes_n)
+
+        def kill_one():
+            time.sleep(0.4 * load["num_requests"] / load["rate_hz"])
+            actors[0].kill()
+
+        killer = threading.Thread(target=kill_one)
+        killer.start()
+        res = open_loop_load(router, **load, on_failure="recover")
+        killer.join()
+        router.recover()  # a kill between dispatches trips nothing: heal explicitly
+        stats = router.stats()
+        props["replica_kill_recovery_ok"] = (
+            stats["num_replicas_dropped"] == 1 and len(stats["replicas"]) == 2
+            and res["requests_ok"] + res["requests_dropped"] == load["num_requests"]
+            and res["requests_ok"] > 0)
+        kill = {"requests_ok": res["requests_ok"], "requests_dropped": res["requests_dropped"],
+                "replicas_after": len(stats["replicas"])}
+    finally:
+        router.stop()
+    print(f"serving properties (benchmarks/bench_serve.py): {props}; the kill dropped "
+          f"{kill['requests_dropped']} in-flight request(s), {kill['requests_ok']} served, "
+          f"{kill['replicas_after']} replicas after; tail p99 {tail['latency_p99_s'] * 1e3:.3f} "
+          f"ms <= 100 x p50 {tail['latency_p50_s'] * 1e3:.3f} ms + 50 ms")
+    _require(all(props.values()) and len(props) == 4, f"serving properties {props}")
+    whole = {policy: _three_clients_vs_whole(policy) for policy in ("ac", "ssm")}
+    for policy, w in whole.items():
+        print(f"serving {policy} x3 vs one whole-batch dispatch, {w['steps']} steps of 3 clients x "
+              f"8 lanes: actions equal, max |logp/value diff| {w['max_abs_diff']:.3e} (tol {TOL}), "
+              f"bitwise {w['bitwise']}; requests per replica {w['requests_per_replica']}")
+    return {"tiers": tiers, "properties": props, "kill": kill, "vs_whole_batch": whole}
+
+
+# ------------------------------------------------------------- phase 30
+def phase_mamba_parity() -> dict:
+    """``SSMStatePolicy`` (Mamba) on the card against the CPU from the same
+    weights and lane keys, ``MAMBA_STEPS`` decode steps of ``MAMBA_LANES``
+    lanes: each step from the CPU's state, actions equal and log-probs,
+    values and the new state within ``TOL``; each device carrying its own
+    state, actions equal every step and everything within
+    ``LEARNER_TOL`` after the last."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.rl import SSMStatePolicy, VectorEnv
+    from repro_torch.tree import tree_leaves, tree_map
+
+    pol = SSMStatePolicy(4, 2)
+    params_c = pol.init_params(torch.Generator().manual_seed(0))
+    params_g = tree_map(lambda x: x.cuda(), params_c)
+    s_c, s_g = pol.init_lane_state(MAMBA_LANES), pol.init_lane_state(MAMBA_LANES, "cuda")
+    chain = prng.split(prng.key(5), MAMBA_LANES)
+    gen = torch.Generator().manual_seed(6)
+    step_err, carried = 0.0, {}
+
+    def errs(a, b):
+        return max(_max_err(x.cpu(), y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    with torch.no_grad():
+        for t in range(MAMBA_STEPS):
+            chain, keys = VectorEnv._split_lanes(chain)
+            obs = torch.randn((MAMBA_LANES, 4), generator=gen)
+            a_c, lp_c, v_c, s_c_next = pol.compute_actions_stateful(params_c, obs, keys, s_c)
+            a_1, lp_1, v_1, s_1 = pol.compute_actions_stateful(
+                params_g, obs.cuda(), keys.cuda(), tree_map(lambda x: x.cuda(), s_c))
+            _require(torch.equal(a_1.cpu(), a_c), f"mamba: actions differ at step {t}")
+            err = errs([lp_1, v_1, s_1], [lp_c, v_c, s_c_next])
+            _require(err <= TOL, f"mamba: step {t} from the CPU's state differs by {err:.3e}")
+            step_err = max(step_err, err)
+            a_g, lp_g, v_g, s_g = pol.compute_actions_stateful(params_g, obs.cuda(), keys.cuda(), s_g)
+            _require(torch.equal(a_g.cpu(), a_c), f"mamba: carried actions differ at step {t}")
+            carried = {"logp_value": errs([lp_g, v_g], [lp_c, v_c]),
+                       "state": errs(s_g, s_c_next)}
+            s_c = s_c_next
+    _require(max(carried.values()) <= LEARNER_TOL,
+             f"mamba: after {MAMBA_STEPS} carried steps card vs CPU differ by {carried}")
+    print(f"mamba parity: SSMStatePolicy, {MAMBA_LANES} lanes x {MAMBA_STEPS} steps, actions equal; "
+          f"a step from the same state max err {step_err:.3e} (tol {TOL}); carried "
+          f"{MAMBA_STEPS} steps: logp/value {carried['logp_value']:.3e}, state "
+          f"{carried['state']:.3e} (tol {LEARNER_TOL})")
+    return {"step_err": step_err, "carried": carried}
+
+
+# ------------------------------------------------------------- phase 31
+def _tf_worker(index: int, device: str, optimizer=None):
+    """A worker of the server-inference path: ``TransformerPolicy`` at its
+    defaults (d_model 64, 2 layers, 4 tokens: 2 heads of 32) on CartPole,
+    the vectorized engine."""
+    from repro_torch.rl import CartPole, TransformerPolicy, VectorizedRolloutWorker
+
+    cfg = TF_SERVE
+    return VectorizedRolloutWorker(CartPole(), TransformerPolicy(4, 2), algo="ppo",
+                                   num_envs=cfg["num_envs"], rollout_len=cfg["rollout_len"],
+                                   seed=0, worker_index=index, device=device, optimizer=optimizer)
+
+
+def phase_transformer_learner_parity() -> dict:
+    """One ``learn_on_batch`` (SGD, lr 1: the weight difference is the
+    gradient difference) of a ``TransformerPolicy`` PPO learner on two
+    samples' rows, on the card (flash forward and backward, the surrogate
+    kernels) and on the CPU (plain versions) from the same weights: within
+    ``LEARNER_TOL``.  Adam's first step, lr * sign(g), would turn the tiny
+    gradients of ``pos`` into full-size steps of either sign."""
+    from repro_torch.core.operators import StandardizeFields
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.optim import sgd
+    from repro_torch.rl import SampleBatch
+
+    gpu, cpu = _tf_worker(0, "cuda", sgd(1.0)), _tf_worker(0, "cpu", sgd(1.0))
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    batch = StandardizeFields(["advantages"])(SampleBatch.concat_samples([gpu.sample(), gpu.sample()]))
+    info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+    err = _tree_err(gpu.get_weights(), cpu.get_weights())
+    stat_err, stat_abs = _stat_err(info_g, info_c)
+    _require(err <= LEARNER_TOL and stat_err <= LEARNER_TOL,
+             f"transformer learner parity: weights {err:.3e}, stats {stat_err:.3e}")
+    print(f"transformer learner parity: one SGD step on {batch.count} rows, card vs CPU max weight "
+          f"err {err:.3e}, stat err {stat_err:.3e} ({stat_abs:.3e} absolute) (tol {LEARNER_TOL})")
+    return {"weight_err": err, "stat_err": stat_err, "stat_abs_err": stat_abs, "rows": batch.count}
+
+
+def phase_transformer_server(counters: list) -> dict:
+    """PPO with ``TransformerPolicy`` and decoupled inference: 2 CUDA workers
+    of 8 CartPole lanes, ``inference="server"`` with 3 replicas behind the
+    router (sticky, by the policy's lane-state protocol), ``iters``
+    ``train()`` calls under a deadline, the last one profiled, then
+    ``stop()`` and no flow thread left.  Launches are checked exactly
+    against the path's own counters: each serve dispatch, each rollout's
+    GAE bootstrap and each SGD step's forward run one flash forward a layer;
+    each SGD step one flash backward a layer and one surrogate forward and
+    backward; each rollout one GAE; every other kernel none."""
+    import torch
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+
+    cfg = TF_SERVE
+    threads_before = set(threading.enumerate())
+    t_init = time.perf_counter()
+    workers = WorkerSet.create(lambda i: _tf_worker(i, "cuda"), cfg["num_workers"])
+    algo = Algorithm.from_plan(
+        "ppo", workers, train_batch_size=cfg["train_batch_size"], num_sgd_iter=cfg["num_sgd_iter"],
+        sgd_minibatch_size=cfg["sgd_minibatch_size"], inference="server",
+        inference_replicas=cfg["replicas"])
+    init_s = time.perf_counter() - t_init
+    ((nid, meta),) = algo.compiled._inference_meta.items()
+    router = meta["router"]
+
+    def check(result):
+        info = result["info"]
+        _require(set(result) == RESULT_KEYS, f"transformer server: result keys {sorted(result)}")
+        _require(set(info) == INFO_KEYS and all(math.isfinite(info[k]) for k in INFO_KEYS),
+                 f"transformer server: info {info}")
+
+    rows = []
+    try:
+        with _deadline(TF_SERVE_DEADLINE_S, "transformer server"):
+            for c in counters:
+                c.reset()
+            for i in range(cfg["iters"] - 1):
+                t0 = time.perf_counter()
+                result = algo.train()
+                torch.cuda.synchronize()
+                rows.append({"iter": i, "seconds": time.perf_counter() - t0})
+                check(result)
+            result, dt, busy_ms, ours = _profiled_train(algo, check)
+            launches = {c.name: c.value for c in counters}
+            stats = router.stats()
+            ctr = result["counters"]
+    finally:
+        algo.stop()
+    left = [t.name for t in threading.enumerate() if t not in threads_before and t.is_alive()
+            and not isinstance(t, threading._DummyThread)]
+    _require(not left, f"transformer server: threads of the flow alive after stop(): {left}")
+    iters, layers = cfg["iters"], TF_LAYERS
+    lanes = cfg["num_envs"] * cfg["rollout_len"]
+    rollouts = ctr["num_steps_sampled"] // lanes
+    sgd_steps = iters * cfg["num_sgd_iter"] * (cfg["train_batch_size"] // cfg["sgd_minibatch_size"])
+    dispatches = [r["stats"]["num_dispatches"] for r in stats["replicas"]]
+    _require(ctr["num_steps_trained"] == iters * cfg["train_batch_size"],
+             f"transformer server: counters {ctr} after {iters} iterations")
+    _require(stats["num_requests"] == rollouts * cfg["rollout_len"]
+             and ctr[f"inference/{nid}/num_requests"] == stats["num_requests"]
+             and len(dispatches) == cfg["replicas"] and stats["num_failures"] == 0,
+             f"transformer server: router stats {stats} for {rollouts} rollouts")
+    expect = {c.name: 0 for c in counters}
+    expect.update(gae=rollouts, ppo_surrogate_fwd=sgd_steps, ppo_surrogate_bwd=sgd_steps,
+                  flash_attention_fwd=layers * (sum(dispatches) + rollouts + sgd_steps),
+                  flash_attention_bwd=layers * sgd_steps)
+    _require(launches == expect, f"transformer server: launches {launches}, expected {expect}")
+    first, after = rows[0]["seconds"], [r["seconds"] for r in rows[1:]]
+    mean = sum(after) / len(after)
+    profile = {"wall_ms": dt * 1e3, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / (dt * 1e3), "port_kernels_ms": ours}
+    print(f"transformer server main path: {iters} train() iterations (first {first:.4f} s, mean of "
+          f"the next {len(after)} {mean:.4f} s, init {init_s:.2f} s; the last profiled: wall "
+          f"{dt * 1e3:.1f} ms, device busy {busy_ms:.3f} ms, idle share {profile['idle_share']:.4f}); "
+          f"{rollouts} rollouts, {sgd_steps} SGD steps, {stats['num_requests']} requests in "
+          f"{sum(dispatches)} dispatches (per replica {dispatches}); launches {launches} (expected "
+          f"from the counters); port kernels {ours}; no flow thread alive after stop()")
+    return {"iterations": rows, "init_s": init_s, "first_s": first, "mean_s": mean,
+            "launches": launches, "counters": ctr, "profile": profile, "rollouts": rollouts,
+            "sgd_steps": sgd_steps, "dispatches": dispatches, "requests": stats["num_requests"]}
+
+
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
     "vtrace": ("src/repro_torch/kernels/csrc/vtrace.cu", "src/repro/kernels/advantages.py:72"),
@@ -3130,6 +3611,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # The PPO-LM phase runs near the card's 80 GB: on an H100 two workers'
+    # GAE bootstraps once found 13.86 GiB cached in unused blocks and no
+    # room for a 2.5 GiB activation.  Growable segments return that space.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3197,6 +3682,14 @@ def main() -> int:
             record[name] = phase_plan_path(name, every_counter)
         record["composition"] = phase_composition()
         record["async_opt"] = phase_async_opt()
+        t_serving = time.perf_counter()
+        record["keys"] = phase_keys()
+        record["serving"] = phase_serving()
+        record["mamba_parity"] = phase_mamba_parity()
+        record["transformer_learner_parity"] = phase_transformer_learner_parity()
+        record["ppo_transformer_server"] = phase_transformer_server(every_counter)
+        record["serving_slice_s"] = time.perf_counter() - t_serving
+        print(f"serving slice phases 28-32: {record['serving_slice_s']:.1f} s")
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3206,7 +3699,8 @@ def main() -> int:
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
              **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
-             **{name: record[name]["launches"] for name in PLAN_PATHS}}
+             **{name: record[name]["launches"] for name in PLAN_PATHS},
+             "ppo_transformer_server": record["ppo_transformer_server"]["launches"]}
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}

@@ -515,15 +515,80 @@ class CompiledFlow:
             )
 
     def _lower_inference(self, node: Node, workers: Any) -> Optional[List[Any]]:
-        """The decoupled-inference serving tier for a source node
-        (``inference='server'``): not ported yet, so asking for it raises
-        instead of silently acting locally."""
+        """Build the decoupled-inference serving tier for a source node.
+
+        ``inference='server'`` lowers to ``inference_replicas`` (default 1)
+        ``InferenceActor`` replicas — each a ``VirtualActor`` with a restart
+        budget, so the chaos/FailurePolicy path can heal them — behind one
+        ``InferenceRouter`` shared by the node's rollout shards (the router
+        satisfies the client API; the node's ``failure_policy`` doubles as
+        the replica-loss policy).  ``inference_routing`` picks dispatch:
+        ``'auto'`` probes the served policy for statefulness, else
+        ``'least_loaded'``/``'sticky'`` force it.  The router serves the
+        local worker's policy and is registered as a weight sink on the
+        WorkerSet, so every ``sync_weights`` broadcast bumps the weight
+        version on every replica.  Owned by this CompiledFlow: ``stop()``
+        stops the replicas.
+        """
         if node.annotations.get("inference") != "server":
             return None
-        raise NotImplementedError(
-            "inference='server' needs rl/inference.py, which is not ported to "
-            "repro_torch yet"
+        from repro_torch.core.actor import VirtualActor
+        from repro_torch.rl.inference import CreditGate, InferenceActor, InferenceRouter
+
+        lw = workers.local_worker()
+        policy = getattr(lw, "policy", None)
+        if policy is None:
+            self._diag(
+                Severity.ERROR,
+                "inference='server' but the local worker has no .policy to "
+                "serve; falling back to local inference",
+                node=node.id,
+                hint="use a worker type exposing .policy, or drop "
+                "inference='server'",
+            )
+            return None
+        num_shards = max(1, len(workers.remote_workers()))
+        credits = node.annotations.get("inference_credits") or 2 * num_shards
+        replicas_n = int(node.annotations.get("inference_replicas") or 1)
+        routing = node.annotations.get("inference_routing", "auto")
+        failure_policy = node.annotations.get("failure_policy")
+        if failure_policy not in ("restart", "drop_shard"):
+            failure_policy = "restart"
+        actors = [
+            VirtualActor(
+                factory=lambda: InferenceActor(
+                    lambda: policy,
+                    algo=getattr(lw, "algo", "pg"),
+                    epsilon=getattr(lw, "epsilon", 0.0),
+                    device=getattr(lw, "device", "cuda"),
+                ),
+                name=(
+                    f"inference-{node.id}"
+                    if replicas_n == 1
+                    else f"inference-{node.id}-r{i}"
+                ),
+                max_restarts=1,
+                backoff_base=0.0,
+            )
+            for i in range(replicas_n)
+        ]
+        gate = CreditGate(int(credits))
+        router = InferenceRouter(
+            actors,
+            credits=gate,
+            weights_provider=lw.get_weights,
+            sticky=None if routing == "auto" else routing == "sticky",
+            failure_policy=failure_policy,
+            name=f"inference-router-{node.id}",
         )
+        router.sync_weights()  # serve canonical weights from the start
+        if hasattr(workers, "add_weight_sink"):
+            workers.add_weight_sink(router.sync_weights)
+            self._weight_sink_regs.append((workers, router.sync_weights))
+        self._inference_actors.extend(actors)
+        self._inference_meta[node.id] = {"router": router, "gate": gate}
+        # One router shared by every shard: dispatch and health are global.
+        return [router] * num_shards
 
     def _lower_node(self, node: Node) -> Any:
         k, p = node.kind, node.params

@@ -74,7 +74,7 @@ def build_a2c(
 
     ``vector=N`` runs each gradient worker's sampling through the
     vectorized rollout engine (N lanes, one batched dispatch per step);
-    ``inference='server'`` is not ported and raises at lowering.
+    ``inference='server'`` decouples acting onto a shared InferenceActor.
     """
     spec = FlowSpec("a2c")
     grads = spec.par_gradients(
@@ -327,7 +327,7 @@ def build_impala(
     ``NotImplementedError``.  ``vector``/``inference`` configure the
     vectorized rollout engine on the sampling side — the many-shard async
     pipeline with N env lanes per shard is the high-env-count IMPALA
-    scenario (``inference='server'`` is not ported and raises).
+    scenario.
     """
     spec = FlowSpec(name)
     learner = spec.learner_thread(

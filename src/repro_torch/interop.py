@@ -3,7 +3,14 @@
 Both packages keep the same trees, the policies' ``{"pi": [{"w": [din,
 dout], "b": [dout]}, ...], "vf": [...]}`` and the models' nested dicts with
 their blocks stacked along a leading ``num_blocks`` axis, so one numpy round
-trip serves every parity test and checkpoint.  This module takes and returns numpy arrays and never
+trip serves every parity test and checkpoint.  The serving policies' trees
+carry across the same way: ``SSMStatePolicy``'s ``{"embed", "trunk", "pi",
+"vf"}`` with the Mamba block's ``in_proj``, ``conv_w``, ``conv_b``,
+``x_proj``, ``dt_bias``, ``dt_proj``, ``A_log``, ``D`` and ``out_proj`` under
+``"trunk"`` (every ``w`` ``[din, dout]``, ``conv_w`` ``[d_conv, d_in]``,
+``A_log`` ``[d_in, d_state]``), and ``TransformerPolicy``'s ``{"obs_proj",
+"pos", "pi_head", "vf_head", "layer_<i>": {"norm1", "attn", "norm2",
+"mlp"}}``.  This module takes and returns numpy arrays and never
 imports JAX; a caller holding JAX arrays converts them with ``np.asarray``.
 """
 

@@ -58,15 +58,17 @@ def parity_gap(worker) -> float:
     then one true ``decode_step`` against the no-cache forward."""
     import torch
 
+    from repro_torch import prng
+
     policy = worker.policy
     obs = worker.vstate.obs
     prev = obs.clone()
     prev[:, policy.ctx] -= 1
     prev[:, policy.ctx + 1] = 0
-    gen = torch.Generator(device=obs.device).manual_seed(0)
+    keys = prng.split(prng.key(0, obs.device), obs.shape[0])
     with torch.no_grad():
         state = policy.init_lane_state(obs.shape[0], obs.device)
-        _, _, _, state = policy.compute_actions_stateful(worker.params, prev, gen, state)
+        _, _, _, state = policy.compute_actions_stateful(worker.params, prev, keys, state)
         return float(policy.decode_parity_gap(worker.params, obs, state))
 
 

@@ -1,15 +1,20 @@
-"""Recurrent layers on tensors (PyTorch port of the RWKV-6 part of
-``repro/models/ssm.py``): the RWKV-6 "Finch" time-mix with data-dependent
-decay, its sequence path through ``ops.rwkv6`` (the CUDA kernels on the
-card, the step loop on the CPU) and its decode state.
+"""Recurrent layers on tensors (PyTorch port of ``repro/models/ssm.py``): the
+RWKV-6 "Finch" time-mix with data-dependent decay, its sequence path through
+``ops.rwkv6`` (the CUDA kernels on the card, the step loop on the CPU) and its
+decode state; and Mamba, its sequence path and its one-token decode with the
+``(h, conv)`` state carried like env state in a rollout actor.
 
-Mamba and the one-token RWKV-6 decode belong to the serving slice and are
-not ported yet; ``Model`` raises for a ``mamba`` layer.
+Mamba is no TPU kernel in the reference (a ``lax.scan`` of plain ops), so its
+selective scan here is a loop of plain torch ops over time on either device.
+The reference's sharding annotations (``shard``) are dropped.  The one-token
+RWKV-6 decode is not ported yet, and ``Model`` still raises for a ``mamba``
+layer (no configuration of the port uses one).
 """
 
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +25,15 @@ from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
 
 PyTree = Any
 
-__all__ = ["rwkv6_init", "rwkv6_apply", "init_rwkv6_state"]
+__all__ = [
+    "rwkv6_init",
+    "rwkv6_apply",
+    "init_rwkv6_state",
+    "mamba_init",
+    "mamba_apply",
+    "mamba_decode",
+    "init_mamba_state",
+]
 
 
 def rwkv6_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
@@ -92,3 +105,97 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTre
         "wkv": torch.zeros((batch, H, s.head_dim, s.head_dim), dtype=torch.float32, device=device),
         "x_prev": torch.zeros((batch, cfg.d_model), dtype=torch_dtype(cfg.dtype), device=device),
     }
+
+
+# ================================================================== Mamba
+def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time as stack + einsum, as the reference.
+    xc: [B, T, d_in]; w: [K, d_in]; b: [d_in]."""
+    K = w.shape[0]
+    T = xc.shape[1]
+    pad = F.pad(xc, (0, 0, K - 1, 0))
+    stacked = torch.stack([pad[:, i : i + T] for i in range(K)], dim=-1)  # [B, T, d, K]
+    return torch.einsum("btdk,kd->btd", stacked, w) + b
+
+
+def mamba_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    dtype = torch_dtype(cfg.dtype)
+    device = generator.device
+    # S4D-real initialization for A.
+    a = torch.arange(1, s.d_state + 1, dtype=torch.float32, device=device)[None, :].repeat(d_in, 1)
+    return {
+        "in_proj": dense_init(generator, d, 2 * d_in, dtype),
+        "conv_w": (
+            torch.randn((s.d_conv, d_in), generator=generator, device=device) / math.sqrt(s.d_conv)
+        ).to(dtype),
+        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "x_proj": dense_init(generator, d_in, 2 * s.d_state + 1, dtype),  # -> B, C, dt
+        "dt_bias": torch.full((d_in,), -4.0, dtype=dtype, device=device),  # softplus(-4): small dt
+        "dt_proj": dense_init(generator, 1, d_in, dtype),
+        "A_log": torch.log(a),
+        "D": torch.ones((d_in,), dtype=torch.float32, device=device),
+        "out_proj": dense_init(generator, d_in, d, dtype),
+    }
+
+
+def _mamba_scan(
+    params: PyTree, xc: torch.Tensor, h0: torch.Tensor, s
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan. xc: [B, T, d_in] (post conv + silu); h0: [B, d_in, N]."""
+    A = -torch.exp(params["A_log"])  # [d_in, N]
+    proj = xc @ params["x_proj"]  # [B, T, 2N + 1]
+    Bp, Cp, dt_in = proj[..., : s.d_state], proj[..., s.d_state : 2 * s.d_state], proj[..., -1:]
+    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])  # [B, T, d_in]
+    h, ys = h0, []
+    for t in range(xc.shape[1]):
+        # xs stay in model dtype; math in fp32.
+        x_t, b_t, c_t, dt_t = (z[:, t].float() for z in (xc, Bp, Cp, dt))
+        dA = torch.exp(dt_t[..., None] * A[None])  # [B, d_in, N]
+        dBx = dt_t[..., None] * b_t[:, None, :] * x_t[..., None]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, c_t).to(xc.dtype))
+    y = torch.stack(ys, dim=1).float() + xc.float() * params["D"]
+    return y.to(xc.dtype), h
+
+
+def mamba_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sequence path. x: [B, T, d]."""
+    s = cfg.ssm
+    B = x.shape[0]
+    d_in = s.expand * x.shape[-1]
+    xz = x @ params["in_proj"]
+    xc, z = xz[..., :d_in], xz[..., d_in:]
+    xc = F.silu(_causal_conv(xc, params["conv_w"], params["conv_b"]))
+    h0 = torch.zeros((B, d_in, s.d_state), dtype=torch.float32, device=x.device)
+    y, _ = _mamba_scan(params, xc, h0, s)
+    return (y * F.silu(z)) @ params["out_proj"]
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTree:
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return {
+        "h": torch.zeros((batch, d_in, s.d_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros(
+            (batch, s.d_conv - 1, d_in), dtype=torch_dtype(cfg.dtype), device=device
+        ),
+    }
+
+
+def mamba_decode(
+    params: PyTree, x: torch.Tensor, state: PyTree, cfg: ModelConfig
+) -> Tuple[torch.Tensor, PyTree]:
+    """One-token decode. x: [B, 1, d]; returns (out [B, 1, d], new state)."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    xz = x @ params["in_proj"]
+    xc, z = xz[..., :d_in], xz[..., d_in:]
+    window = torch.cat([state["conv"], xc], dim=1)  # [B, d_conv, d_in]
+    conv = torch.einsum("bkd,kd->bd", window, params["conv_w"]) + params["conv_b"]
+    xc1 = F.silu(conv)[:, None, :]  # [B, 1, d_in]
+    y, h = _mamba_scan(params, xc1, state["h"], s)
+    out = (y * F.silu(z)) @ params["out_proj"]
+    return out, {"h": h, "conv": window[:, 1:]}

@@ -10,6 +10,14 @@ from repro_torch.rl.env import (
     VectorEnvState,
     VectorStep,
 )
+from repro_torch.rl.inference import (
+    AdmissionQueue,
+    CreditGate,
+    InferenceActor,
+    InferenceClient,
+    InferenceRouter,
+    InferenceUnavailable,
+)
 from repro_torch.rl.lm_policy import LMTokenPolicy
 from repro_torch.rl.model_based import ModelBasedWorker
 from repro_torch.rl.policy import (
@@ -30,6 +38,7 @@ from repro_torch.rl.rollout_worker import (
     assemble_fragments,
 )
 from repro_torch.rl.sample_batch import MultiAgentBatch, SampleBatch, concat_batches
+from repro_torch.rl.stateful_policy import SSMStatePolicy
 from repro_torch.rl.token_env import (
     EOS,
     PAD,
@@ -39,5 +48,6 @@ from repro_torch.rl.token_env import (
     split_obs,
     target_token_reward,
 )
+from repro_torch.rl.transformer_policy import TransformerPolicy
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -24,6 +24,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
+
 __all__ = [
     "Env",
     "CartPole",
@@ -297,6 +299,15 @@ class VectorEnv:
             ep_len=torch.zeros((n,), dtype=torch.int32, device=device),
             eps_count=torch.zeros((n,), dtype=torch.int32, device=device),
         )
+
+    @staticmethod
+    def _split_lanes(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[N, 2] lane keys -> (next chain keys, per-lane subkeys): each
+        lane's ``jax.random.split(k, 2)`` (``repro_torch.prng``).  The acting
+        keys follow these chains; the auto-resets still draw from the
+        state's generator."""
+        both = prng.split(rng, 2)
+        return both[:, 0], both[:, 1]
 
     # ----------------------------------------------------------------- step
     def step(self, state: VectorEnvState, actions: torch.Tensor) -> Tuple[VectorEnvState, VectorStep]:

@@ -23,8 +23,9 @@ being synchronized, only the speedup does.
 
 Lane-state layout: every leaf carries the lane axis leading, so the model's
 stacked block caches ``[num_blocks, B, ...]`` appear as ``[B, num_blocks,
-...]`` at the protocol boundary and are moved back inside.  Randomness
-(action sampling) comes from the caller's ``torch.Generator``.
+...]`` at the protocol boundary and are moved back inside.  Each lane samples
+its token from its own threefry key (``repro_torch.prng``, ``[B, 2]``), as
+the reference's ``vmap(jax.random.categorical)`` does.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.transformer import Model
 from repro_torch.rl.policy import ActorCriticPolicy, mlp_apply, mlp_init
@@ -62,11 +64,12 @@ def _lm_cfg(
     )
 
 
-def _sample(logits: torch.Tensor, generator: torch.Generator):
-    """Categorical actions from [B, V] logits, and their log-probs."""
-    logp_all = torch.log_softmax(logits, dim=-1)
-    action = torch.multinomial(torch.exp(logp_all), 1, generator=generator)
-    return action[:, 0], logp_all.gather(-1, action)[:, 0]
+def _sample(logits: torch.Tensor, keys: torch.Tensor):
+    """Categorical actions from [B, V] logits, one lane key [B, 2] a row,
+    and their log-probs."""
+    action = prng.categorical(keys, logits)
+    logp = torch.log_softmax(logits, dim=-1).gather(-1, action[:, None])[:, 0]
+    return action, logp
 
 
 class LMTokenPolicy:
@@ -136,10 +139,10 @@ class LMTokenPolicy:
         h_last = self._last_hidden(params, obs.reshape(-1, obs.shape[-1]))
         return mlp_apply(params["vf"], h_last)[..., 0].reshape(lead)
 
-    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        """Batched acting without a cache (the slow path)."""
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
+        """Batched acting with per-lane keys, without a cache (the slow path)."""
         logits, value = self.logits_value(params, obs)
-        action, logp = _sample(logits, generator)
+        action, logp = _sample(logits, keys)
         return action, logp, value, logits
 
     # ------------------------------------------------ stateful-policy protocol
@@ -182,12 +185,12 @@ class LMTokenPolicy:
         return h[:, 0], new_cache
 
     def compute_actions_stateful(
-        self, params: PyTree, obs: torch.Tensor, generator: torch.Generator, state: PyTree
+        self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor, state: PyTree
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, PyTree]:
-        """One generation step against the per-lane KV cache."""
+        """One generation step against the per-lane KV cache, per-lane keys."""
         h_last, new_cache = self._hidden_stateful(params, obs, state)
         logits, value = self._heads(params, h_last)
-        action, logp = _sample(logits, generator)
+        action, logp = _sample(logits, keys)
         return action, logp, value, self._to_lane_layout(new_cache)
 
     # ------------------------------------------------------------ parity gate

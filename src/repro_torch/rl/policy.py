@@ -4,7 +4,10 @@ Parameters are the reference's plain dict tree, ``{"pi": [{"w": [din, dout],
 "b": [dout]}, ...], "vf": [...]}``, held as tensors on the policy's device:
 the ``w`` layout is the reference's ``[din, dout]``, not ``nn.Linear``'s
 ``[out, in]``, so ``repro_torch.interop`` carries weights across in one
-numpy round trip.  Randomness comes from an explicit ``torch.Generator``.
+numpy round trip.  ``act`` draws from an explicit ``torch.Generator`` (the
+non-vectorized ``RolloutWorker``); ``compute_actions`` samples each row from
+that row's own threefry key (``repro_torch.prng``, ``[N, 2]``), bit for bit
+as the reference's ``vmap``ped acting does.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.ops import fused_ppo_loss, fused_vtrace
 
 PyTree = Any
@@ -94,10 +98,15 @@ class ActorCriticPolicy:
         logp = logp_all.gather(-1, action)[..., 0]
         return action[..., 0], logp, value, logits
 
-    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        """Batched acting for the vectorized rollout engine (``act`` is
-        already batched)."""
-        return self.act(params, obs, generator)
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
+        """Batched acting with *per-lane* keys: ``obs [N, obs_dim]``, ``keys
+        [N, 2]``.  Row i samples from ``keys[i]`` alone, so its action does
+        not depend on the batch it is dispatched in (the serving tier's bit
+        parity rests on it)."""
+        logits, value = self.logits_value(params, obs)
+        action = prng.categorical(keys, logits)
+        logp = torch.log_softmax(logits, dim=-1).gather(-1, action[:, None])[:, 0]
+        return action, logp, value, logits
 
     def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         """Critic value only (the GAE bootstrap)."""
@@ -217,9 +226,18 @@ class DQNPolicy:
         return action, torch.zeros_like(value), value, q
 
     def compute_actions(
-        self, params: PyTree, obs: torch.Tensor, generator: torch.Generator, epsilon: float
+        self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor, epsilon: float
     ):
-        return self.act(params, obs, generator, epsilon)
+        """Per-lane-keyed batched epsilon-greedy (see ActorCriticPolicy):
+        each lane's key splits into the random action's and the coin's."""
+        q = self.q_values(params, obs)
+        greedy = torch.argmax(q, dim=-1)
+        sub = prng.split(keys, 2)
+        random_a = prng.randint(sub[:, 0], (), 0, self.num_actions)
+        explore = prng.uniform(sub[:, 1], ()) < epsilon
+        action = torch.where(explore, random_a, greedy)
+        value = torch.max(q, dim=-1).values
+        return action, torch.zeros_like(value), value, q
 
     def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         return torch.max(self.q_values(params, obs), dim=-1).values
@@ -301,8 +319,11 @@ class SACPolicy:
         value = self._q(params["q1"], obs, action)
         return action, logp, value, action
 
-    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        return self.act(params, obs, generator)
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
+        """Per-lane-keyed batched squashed-Gaussian acting."""
+        action, logp = self._pi(params, obs, prng.normal(keys, (self.action_dim,)))
+        value = self._q(params["q1"], obs, action)
+        return action, logp, value, action
 
     def critic_loss(self, params, target_params, batch, eps):
         with torch.no_grad():
@@ -357,8 +378,12 @@ class DummyPolicy:
     def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         return torch.zeros(tuple(obs.shape[:-1]), device=obs.device)
 
-    def compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        return self.act(params, obs, generator)
+    def compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
+        """Per-lane-keyed batched random acting (pure RNG: bit-identical to
+        the reference's, which anchors the serving tier's parity tests)."""
+        action = prng.randint(keys, (), 0, self.num_actions)
+        zeros = torch.zeros(tuple(obs.shape[:-1]), device=obs.device)
+        return action, zeros, zeros, zeros
 
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]):
         return torch.sum(params["theta"] ** 2), {}

@@ -25,12 +25,13 @@ tensors and rebinds ``self.params``, so a ``get_weights`` on another thread
 ``learn_on_batch``) reads either the old or the new weights, never a mix.
 
 ``VectorizedRolloutWorker`` is the vectorized engine over a ``VectorEnv``:
-one batched policy dispatch per step, per-episode fragments with globally
-unique ``eps_id`` labels, truncation-aware GAE, and the cached-decode path
-(``decode="cache"``) that carries an LM's per-lane KV cache through the
-rollout.  ``MultiAgentRolloutWorker`` steps one env of several agents, each
-mapped to a policy of its own (the PPO+DQN composition), and returns a
-``MultiAgentBatch``.
+one batched policy dispatch per step with per-lane threefry keys, per-episode
+fragments with globally unique ``eps_id`` labels, truncation-aware GAE, the
+cached-decode path (``decode="cache"``) that carries an LM's per-lane KV
+cache through the rollout, and decoupled inference (``inference="server"``)
+through the serving tier of ``rl/inference.py``.  ``MultiAgentRolloutWorker``
+steps one env of several agents, each mapped to a policy of its own (the
+PPO+DQN composition), and returns a ``MultiAgentBatch``.
 
 The workers run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with ``device="cuda"`` and no CUDA device they raise.
@@ -44,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.ops import fused_gae as gae
 from repro_torch.optim import Optimizer, adam
 from repro_torch.rl.env import Env, VectorEnv
@@ -370,14 +372,24 @@ def _child_generator(parent: torch.Generator, device: torch.device) -> torch.Gen
     return gen
 
 
+def _draw_key(parent: torch.Generator) -> torch.Tensor:
+    """A threefry key ``[2]`` (two uint32 words in int64) drawn from
+    ``parent``, on its device."""
+    return torch.randint(0, 2**32, (2,), generator=parent, device=parent.device, dtype=torch.int64)
+
+
 class VectorizedRolloutWorker(RolloutWorker):
     """Vectorized rollout engine: a ``VectorEnv`` stepped with one batched
     policy dispatch per step (PyTorch port of the reference's
-    ``VectorizedRolloutWorker``, local inference).
+    ``VectorizedRolloutWorker``).
 
       * env auto-reset and episode accounting live in a ``VectorEnvState``
-        with its own generator; acting draws from ``act_rng``.  Both, and
-        the lane state, are part of ``get_state``/``set_state``;
+        with its own generator.  Acting draws from ``act_rng``, ``[N, 2]``
+        threefry lane keys, ``fold_in(k_act, i)`` of a key drawn from the
+        worker's generator and split every step as the reference's; a lane's
+        actions therefore do not depend on which batch serves it.  The env
+        state, ``act_rng`` and the lane state are part of
+        ``get_state``/``set_state``;
       * batches are per-episode fragments: every row carries a globally
         unique int64 ``eps_id``, plus ``terminateds``/``truncateds``;
       * GAE runs through ``ops.fused_gae`` with truncation-aware bootstrap:
@@ -386,10 +398,14 @@ class VectorizedRolloutWorker(RolloutWorker):
       * ``decode="cache"``: a policy with the stateful protocol
         (``init_lane_state``/``compute_actions_stateful``) carries per-lane
         model state, an LM's KV cache, through the rollout, so acting is one
-        decode step per token instead of a full forward.
-
-    The reference's decoupled inference (``inference="server"``) is not
-    ported yet and raises ``NotImplementedError``.
+        decode step per token instead of a full forward;
+      * ``inference="server"``: actions come from an ``InferenceActor`` (or
+        an ``InferenceRouter`` of replicas) through ``inference_client``, one
+        request per step with the lanes' obs and keys.  If the server fails
+        mid-rollout the in-flight fragment is dropped
+        (``num_fragments_dropped``), the client recovers (restart and weight
+        re-sync), and sampling resumes from the live env state, up to
+        ``max_inference_retries`` times.
     """
 
     def __init__(
@@ -400,14 +416,12 @@ class VectorizedRolloutWorker(RolloutWorker):
         num_envs: int = 8,
         rollout_len: int = 64,
         inference: str = "local",
+        inference_client: Any = None,
+        max_inference_retries: int = 3,
         decode: str = "forward",
         **kwargs: Any,
     ):
-        if inference == "server":
-            raise NotImplementedError(
-                "inference='server' needs rl/inference.py, which is not ported to repro_torch yet"
-            )
-        if inference != "local":
+        if inference not in ("local", "server"):
             raise ValueError(f"unknown inference mode {inference!r}")
         if decode not in ("forward", "cache"):
             raise ValueError(f"unknown decode mode {decode!r}")
@@ -417,6 +431,9 @@ class VectorizedRolloutWorker(RolloutWorker):
                 "(init_lane_state/compute_actions_stateful)"
             )
         self.inference = inference
+        self.inference_client = inference_client
+        self.max_inference_retries = max_inference_retries
+        self.num_fragments_dropped = 0
         self.decode = decode
         super().__init__(env, policy, algo=algo, num_envs=num_envs, rollout_len=rollout_len, **kwargs)
 
@@ -432,7 +449,8 @@ class VectorizedRolloutWorker(RolloutWorker):
     def _init_env_state(self) -> None:
         self._rebuild_plumbing()
         self.vstate = self.venv.reset(_child_generator(self._gen, self.device))
-        self.act_rng = _child_generator(self._gen, self.device)
+        k_act = _draw_key(self._gen)
+        self.act_rng = prng.fold_in(k_act, torch.arange(self.num_envs, device=self.device))
         self._reset_lane_state()
 
     def _reset_lane_state(self) -> None:
@@ -453,11 +471,11 @@ class VectorizedRolloutWorker(RolloutWorker):
         """Reconfigure lanes / inference mode / decode path (FlowSpec
         annotation lowering).
 
-        Resizing rebuilds the ``VectorEnv`` with fresh generators derived
-        from the worker's; ``inference='server'`` without a client stays
-        local (flagged in the ack) and with one raises, since the serving
-        tier is not ported; ``decode='cache'`` on a policy without the
-        stateful protocol falls back to ``'forward'`` likewise.
+        Resizing rebuilds the ``VectorEnv`` and the lane keys from the
+        worker's generator; switching to ``'server'`` without a client falls
+        back to local inference (flagged in the ack), and ``decode='cache'``
+        on a policy without the stateful protocol falls back to
+        ``'forward'`` likewise.
         """
         if vector is not None and int(vector) != self.num_envs:
             self.num_envs = int(vector)
@@ -465,11 +483,11 @@ class VectorizedRolloutWorker(RolloutWorker):
         if inference is not None:
             if inference not in ("local", "server"):
                 raise ValueError(f"unknown inference mode {inference!r}")
-            if inference == "server" and client is not None:
-                raise NotImplementedError(
-                    "inference='server' needs rl/inference.py, which is not ported to repro_torch yet"
-                )
-            self.inference = "local"
+            if client is not None:
+                self.inference_client = client
+            if inference == "server" and self.inference_client is None:
+                inference = "local"
+            self.inference = inference
         if decode is not None:
             if decode not in ("forward", "cache"):
                 raise ValueError(f"unknown decode mode {decode!r}")
@@ -481,38 +499,43 @@ class VectorizedRolloutWorker(RolloutWorker):
         return {"vector": self.num_envs, "inference": self.inference, "decode": self.decode}
 
     # --------------------------------------------------------------- rollout
-    def _compute_actions(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+    def _compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
         if self.algo == "dqn":
-            return self.policy.compute_actions(params, obs, generator, self.epsilon)
-        return self.policy.compute_actions(params, obs, generator)
+            return self.policy.compute_actions(params, obs, keys, self.epsilon)
+        return self.policy.compute_actions(params, obs, keys)
+
+    @staticmethod
+    def _step_columns(obs, action, logp, value, out) -> Dict[str, torch.Tensor]:
+        return {
+            "obs": obs,
+            "actions": action,
+            "rewards": out.reward,
+            "dones": out.done.float(),
+            "terminateds": out.terminated.float(),
+            "truncateds": out.truncated.float(),
+            "logp": logp,
+            "values": value,
+            "next_obs": out.next_obs,
+            "completed": out.completed_return,
+            "eps_count": out.eps_count,
+        }
 
     @torch.no_grad()
     def _vrollout(self) -> Dict[str, torch.Tensor]:
-        params, vstate, lstate = self.params, self.vstate, self.lane_state
+        params, vstate, lstate, act_rng = self.params, self.vstate, self.lane_state, self.act_rng
         steps = []
         for _ in range(self.rollout_len):
+            act_rng, k_act = VectorEnv._split_lanes(act_rng)
             obs = vstate.obs
             if self.decode == "cache":
                 action, logp, value, lstate = self.policy.compute_actions_stateful(
-                    params, obs, self.act_rng, lstate
+                    params, obs, k_act, lstate
                 )
             else:
-                action, logp, value, _ = self._compute_actions(params, obs, self.act_rng)
+                action, logp, value, _ = self._compute_actions(params, obs, k_act)
             vstate, out = self.venv.step(vstate, action)
-            steps.append({
-                "obs": obs,
-                "actions": action,
-                "rewards": out.reward,
-                "dones": out.done.float(),
-                "terminateds": out.terminated.float(),
-                "truncateds": out.truncated.float(),
-                "logp": logp,
-                "values": value,
-                "next_obs": out.next_obs,
-                "completed": out.completed_return,
-                "eps_count": out.eps_count,
-            })
-        self.vstate, self.lane_state = vstate, lstate
+            steps.append(self._step_columns(obs, action, logp, value, out))
+        self.vstate, self.lane_state, self.act_rng = vstate, lstate, act_rng
         return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
     @torch.no_grad()
@@ -538,18 +561,64 @@ class VectorizedRolloutWorker(RolloutWorker):
         for r in flat[flat != 0.0]:
             self._completed.append(float(r))
 
-    def sample(self) -> SampleBatch:
-        cols = self._postprocess_cols(self.params, self._vrollout())
+    def _emit(self, cols: Dict[str, torch.Tensor]) -> SampleBatch:
+        """Post-rollout path shared by both inference modes."""
+        cols = self._postprocess_cols(self.params, cols)
         self._record_completed(_host(cols.pop("completed")))
         return assemble_fragments(self._drop_off_policy_columns(cols), self._lane_base)
+
+    def sample(self) -> SampleBatch:
+        if self.inference == "server":
+            return self._sample_server()
+        return self._emit(self._vrollout())
+
+    # ---------------------------------------------------- decoupled inference
+    def _sample_server(self) -> SampleBatch:
+        from repro_torch.rl.inference import InferenceUnavailable
+
+        attempts = 0
+        while True:
+            try:
+                return self._emit(self._server_rollout())
+            except InferenceUnavailable:
+                # Drop ONLY the in-flight fragment: the env state has advanced
+                # to wherever acting stopped; the collected step columns are
+                # discarded, emitted batches are untouched.
+                self.num_fragments_dropped += 1
+                attempts += 1
+                if attempts > self.max_inference_retries:
+                    raise
+                self.inference_client.recover()
+
+    @torch.no_grad()
+    def _server_rollout(self) -> Dict[str, torch.Tensor]:
+        # Routing clients (InferenceRouter) want the global lane ids so
+        # stateful policies can be sticky-routed; plain clients and bare
+        # targets keep the two-argument call.
+        client = self.inference_client
+        lanes = self._lane_base if getattr(client, "wants_lanes", False) else None
+        steps = []
+        for _ in range(self.rollout_len):
+            self.act_rng, k_act = VectorEnv._split_lanes(self.act_rng)
+            obs = self.vstate.obs
+            request = (_host(obs), _host(k_act).astype(np.uint32))
+            if lanes is not None:
+                request += (lanes,)
+            action, logp, value = (
+                torch.as_tensor(x, device=self.device) for x in client.compute_actions(*request)
+            )
+            self.vstate, out = self.venv.step(self.vstate, action)
+            steps.append(self._step_columns(obs, action, logp, value, out))
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
     # ------------------------------------------------------------ durability
     def get_state(self) -> Dict[str, Any]:
         state = {
             "generator": self._gen.get_state().numpy(),
             "vstate": VectorEnv.state_to_numpy(self.vstate),
-            "act_rng": self.act_rng.get_state().numpy(),
+            "act_rng": _host(self.act_rng).astype(np.uint32),
             "completed": list(self._completed),
+            "num_fragments_dropped": self.num_fragments_dropped,
         }
         if self.decode == "cache":
             state["lane_state"] = tree_map(_host, self.lane_state)
@@ -558,10 +627,15 @@ class VectorizedRolloutWorker(RolloutWorker):
     def set_state(self, state: Dict[str, Any]) -> None:
         self._gen.set_state(torch.as_tensor(state["generator"]))
         self.vstate = VectorEnv.state_from_numpy(state["vstate"], self.device)
-        self.act_rng.set_state(torch.as_tensor(state["act_rng"]))
+        self.act_rng = torch.as_tensor(
+            np.asarray(state["act_rng"]).astype(np.int64), device=self.device
+        )
         self._completed = deque(state["completed"], maxlen=100)
-        # Adopt the checkpoint's lane count.
-        lanes = int(self.vstate.obs.shape[0])
+        self.num_fragments_dropped = int(state.get("num_fragments_dropped", 0))
+        # Adopt the checkpoint's lane count: a state saved at vector=8
+        # restored into a worker configured vector=4 must not leave stale
+        # lane plumbing behind.
+        lanes = int(self.act_rng.shape[0])
         if lanes != self.num_envs:
             self.num_envs = lanes
             self._rebuild_plumbing()
@@ -579,8 +653,7 @@ class VectorizedRolloutWorker(RolloutWorker):
 
     def episode_stats(self) -> Dict[str, float]:
         stats = super().episode_stats()
-        # Only the server inference path drops fragments; it is not ported.
-        stats["fragments_dropped"] = 0.0
+        stats["fragments_dropped"] = float(self.num_fragments_dropped)
         return stats
 
 

@@ -328,8 +328,22 @@ def test_impala_builder_vector_lowers():
 
 @pytest.mark.parametrize("kw", [dict(num_learners=2), dict(inference="server")])
 def test_impala_unported_options_raise(kw):
+    """The sharded learner still raises; ``inference="server"`` is ported
+    since, and its case holds that IMPALA trains through the serving tier."""
     ws = WorkerSet.create(lambda i: _port_worker(i, cls=VectorizedRolloutWorker), 1)
     try:
+        if "inference" in kw:
+            with Algorithm.from_plan("impala", ws, train_batch_size=32, own_workers=False,
+                                     **kw) as algo:
+                res = algo.train()
+                for _ in range(20):
+                    if res["counters"].get("num_steps_trained", 0):
+                        break
+                    res = algo.train()
+                (actor,) = algo.compiled._inference_actors
+                served = actor.sync("stats")["num_requests"]
+            assert res["counters"]["num_steps_trained"] > 0 and served > 0
+            return
         with pytest.raises(NotImplementedError):
             with Algorithm.from_plan("impala", ws, train_batch_size=32, **kw) as algo:
                 algo.train()

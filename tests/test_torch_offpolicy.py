@@ -627,11 +627,17 @@ def test_a2c_vector_lowers_onto_vectorized_workers():
 
 
 def test_a2c_server_inference_raises():
+    """It raised while the serving tier was not ported; now A2C's gradient
+    workers act through it: every rollout step is one served request."""
     ws = WorkerSet.create(lambda i: _pg_worker(i, cls=VectorizedRolloutWorker), 1)
     try:
-        with pytest.raises(NotImplementedError):
-            with Algorithm.from_plan("a2c", ws, own_workers=False, inference="server") as algo:
-                algo.train()
+        with Algorithm.from_plan("a2c", ws, own_workers=False, inference="server") as algo:
+            res = algo.train()
+            (actor,) = algo.compiled._inference_actors
+            stats = actor.sync("stats")
+        ack = ws.remote_workers()[0].sync("configure_vectorization")
+        assert res["info"]["batch_count"] > 0 and stats["num_requests"] > 0
+        assert ack["inference"] == "server"
     finally:
         ws.stop()
 

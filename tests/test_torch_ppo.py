@@ -354,9 +354,7 @@ def _unported(what):
 
     workers = WorkerSet.create(lambda i: _cpu_worker(i), 1)
     try:
-        if what == "inference_server":
-            Algorithm.from_plan("ppo", workers, inference="server", **SMALL_PPO)
-        elif what == "sharded_learner":
+        if what == "sharded_learner":
             with Algorithm.from_plan("ppo", workers, num_learners=2, **SMALL_PPO) as algo:
                 algo.train()
         elif what == "process_backend":
@@ -388,12 +386,39 @@ def _strict_compiles_ppo_and_refuses_errors():
         workers.stop()
 
 
+def _server_inference_trains_ppo():
+    """The serving tier is ported: ``inference="server"`` lowers onto the
+    vectorized workers, and the router's replicas serve every acting step."""
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.rl import VectorizedRolloutWorker
+
+    def vec_worker(i):
+        return VectorizedRolloutWorker(
+            CartPole(), ActorCriticPolicy(4, 2, hidden=(16, 16), loss_kind="ppo"),
+            algo="ppo", num_envs=3, rollout_len=16, seed=1, worker_index=i, device="cpu",
+        )
+
+    workers = WorkerSet.create(vec_worker, 1)
+    with Algorithm.from_plan("ppo", workers, inference="server", **SMALL_PPO) as algo:
+        result = algo.train()
+        ((nid, meta),) = algo.compiled._inference_meta.items()
+        assert result["counters"]["num_steps_trained"] > 0
+        assert result["counters"][f"inference/{nid}/num_requests"] == 2 * 16
+        (actor,) = algo.compiled._inference_actors
+        assert actor.sync("stats")["num_lane_steps"] == 2 * 16 * 3
+
+
 @pytest.mark.parametrize(
     "what", ["strict", "inference_server", "sharded_learner", "process_backend", "transport"]
 )
 def test_unported_paths_raise_instead_of_falling_back(what):
-    if what == "strict":  # ported since: the case holds what strict=True does now
+    # Ported since: these cases hold what strict=True and inference="server" do now.
+    if what == "strict":
         _strict_compiles_ppo_and_refuses_errors()
+        return
+    if what == "inference_server":
+        _server_inference_trains_ppo()
         return
     with pytest.raises(NotImplementedError):
         _unported(what)

@@ -28,6 +28,7 @@ from repro.models.transformer import _fit_window as jax_fit_window
 from repro.rl.lm_policy import LMTokenPolicy as JaxLMTokenPolicy
 from repro.rl.token_env import TokenEnv as JaxTokenEnv
 from repro.rl.token_env import TokenEnvState as JaxTokenEnvState
+from repro_torch import prng
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.operators import TrainOneStep
 from repro_torch.interop import params_from_numpy, params_to_numpy
@@ -38,6 +39,8 @@ from repro_torch.rl import (
     MAX_LANES,
     ActorCriticPolicy,
     CartPole,
+    InferenceActor,
+    InferenceClient,
     LMTokenPolicy,
     SampleBatch,
     TokenEnv,
@@ -237,7 +240,8 @@ def test_lm_policy_stateful_episode_matches_reference_with_injected_actions():
     """Along a live episode (prefill step, then decodes), the port's stateful
     values and the log-probs of the actions it samples match the reference's
     stateful values and its no-cache forward's log-probs of the same
-    actions; the lane state keeps the [B, num_blocks, ...] layout."""
+    actions; from the same lane keys both sample the same tokens; the lane
+    state keeps the [B, num_blocks, ...] layout."""
     env_j = JaxTokenEnv(vocab_size=11, ctx=16, min_prompt=3, max_prompt=6, horizon=8)
     env_t = TokenEnv(vocab_size=11, ctx=16, min_prompt=3, max_prompt=6, horizon=8)
     pol_j, pol_t, params = _policies(n_layers=2)
@@ -248,13 +252,14 @@ def test_lm_policy_stateful_episode_matches_reference_with_injected_actions():
     obs_t = torch.from_numpy(np.array(obs_j))
     state_j, state_t = pol_j.init_lane_state(B), pol_t.init_lane_state(B)
     assert tuple(state_t["blocks"]["0"]["k"].shape) == (B, 2, 16, 2, 8)
-    gen = torch.Generator().manual_seed(0)
     keys = jax.random.split(jax.random.PRNGKey(1), B)
+    keys_t = torch.from_numpy(np.asarray(keys).astype(np.int64))
     stateful_j = jax.jit(pol_j.compute_actions_stateful)
     logits_value_j = jax.jit(pol_j.logits_value)
     for i in range(env_t.horizon):
-        a_t, lp_t, v_t, state_t = pol_t.compute_actions_stateful(p_t, obs_t, gen, state_t)
-        _, _, v_j, state_j = stateful_j(params, jnp.asarray(obs_t.numpy()), keys, state_j)
+        a_t, lp_t, v_t, state_t = pol_t.compute_actions_stateful(p_t, obs_t, keys_t, state_t)
+        a_j, _, v_j, state_j = stateful_j(params, jnp.asarray(obs_t.numpy()), keys, state_j)
+        np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j), err_msg=f"tokens at step {i}")
         logits_f, _ = logits_value_j(params, jnp.asarray(obs_t.numpy()))
         lp_f = jax.nn.log_softmax(logits_f)[jnp.arange(B), jnp.asarray(a_t.numpy())]
         _close(v_t, v_j, EPISODE_TOL, name=f"value at step {i}")
@@ -273,7 +278,7 @@ def test_lm_policy_self_heals_after_state_loss():
     obs = torch.from_numpy(_token_obs(np.random.default_rng(2), 2, 16, 11))
     obs[:, 17] = 3.0  # mid-episode: t > 0, yet the fresh state has pos 0
     _, _, v_stale, state = pol_t.compute_actions_stateful(
-        p_t, obs, torch.Generator().manual_seed(0), pol_t.init_lane_state(2)
+        p_t, obs, prng.split(prng.key(0), 2), pol_t.init_lane_state(2)
     )
     _, v_f = pol_j.logits_value(params, jnp.asarray(obs.numpy()))
     _close(v_stale, v_f, EPISODE_TOL, name="re-prefilled value")
@@ -369,8 +374,15 @@ def test_vector_worker_decode_reconfigure_and_fallback():
                                     rollout_len=4, device="cpu")
     assert plain.configure_vectorization(decode="cache")["decode"] == "forward"
     assert plain.sample().count == 8
-    with pytest.raises(NotImplementedError):
-        VectorizedRolloutWorker(CartPole(), ActorCriticPolicy(4, 2), inference="server", device="cpu")
+    # inference='server' without a client falls back to local acting; with
+    # one, the worker samples through the serving tier.
+    assert plain.configure_vectorization(inference="server")["inference"] == "local"
+    client = InferenceClient(InferenceActor(lambda: ActorCriticPolicy(4, 2), device="cpu"))
+    served = VectorizedRolloutWorker(CartPole(), ActorCriticPolicy(4, 2), num_envs=2,
+                                     rollout_len=4, inference="server", inference_client=client,
+                                     device="cpu")
+    assert served.sample().count == 8
+    assert client.actor.stats()["num_requests"] == 4
 
 
 def test_rlhf_entry_points_default_to_cuda(monkeypatch):
