@@ -64,7 +64,17 @@ phase that fails, and then prints no result line):
    that is not a multiple of 64, each with the 3xTF32 and the fp32 bound;
    each time of the Phi-3.5-MoE path's grouped-matmul and flash-backward
    cases read by both clocks before and after the profiler, with the card's
-   SM clock, power and temperature beside them;
+   SM clock, power and temperature beside them; flash forward and backward
+   at Qwen3-14B's [2, 4096, 40/8, 128];
+3b. threefry: the hash kernel (``csrc/threefry.cu``) bitwise equal to its
+   plain int64 chain on the card and to the CPU, and across two calls,
+   hashing counters at [8, 4] (PPO CartPole's resets), [1, 2], [8, 2],
+   [256, 2], [4096, 2], PPO-LM's [8, 151936] and [1, 2^20], as bits and as
+   split keys, and at keys read in place through a split's stride, and
+   ``fold_in`` at [256] (one key or one word broadcast too); device ms, the
+   plain chain's, and the bound (79 int32 operations a hash); one launch a
+   hash through every ``repro_torch.prng`` draw; keyed token sampling at
+   [8, 151936] timed beside ``torch.multinomial`` and PR 23's op chain;
 4. learner parity: four PPO SGD steps on one CartPole batch on the card
    (kernels) and on the CPU (plain versions) from the same weights agree to
    1e-4;
@@ -115,7 +125,10 @@ phase that fails, and then prints no result line):
 14. off-policy learner parity: 8 ``learn_on_batch`` steps (SGD, lr 0.01) of
    a DQN and of a SAC learner on one replayed batch on the card and on the
    CPU from the same online and target weights (SAC with the same two
-   noises a step injected) agree to 1e-4, ``td_error`` as host numpy;
+   noises a step injected) end with weights within 1e-4, and each step's
+   stats agree to 1e-4 with a CPU twin given the card's weights before the
+   step, ``td_error`` as host numpy; the stats along the two runs are
+   printed beside them, not gated (they follow the weights' drift);
 15. main path 8: DQN (``build_dqn``) at ``benchmarks/common.py``'s workers
    (2 workers, 4 envs x 16 steps, epsilon 0.2) with one replay buffer at
    ``examples/apex_dqn.py``'s settings (50,000 rows, batches of 64, 1,000
@@ -211,7 +224,30 @@ phase that fails, and then prints no result line):
    the routers' dispatches, the rollouts and the SGD steps (flash forward a
    layer for each dispatch, bootstrap and SGD step, flash backward a layer
    and the surrogate forward and backward for each SGD step, GAE for each
-   rollout, every other kernel 0).
+   rollout, every other kernel 0);
+33. determinism: StubEnv + DummyPolicy, 2 workers x 4 lanes x 8 steps, 2
+   rounds through ``ParallelRollouts`` on the card: the vectorized stream
+   bitwise equal to ``PerEnvRolloutWorker``'s, and to the vectorized stream
+   run on the CPU but for rewards, advantages and returns (tanh, the GAE
+   kernel: within 1e-5); six threefry launches a vectorized step;
+34. durability: PPO CartPole on vectorized workers (SGD) for 2 iterations,
+   ``Algorithm.save``, 2 more; a fresh Algorithm ``restore``d runs the same
+   2 with equal counters and losses within 1e-6, each remote worker's next
+   sample bitwise equal; DQN with 2 replay actors restored with equal
+   counters and replay stats, training on;
+35. Qwen3-14B restart: ``launch/train.py``'s ``main`` with ``--arch
+   qwen3-14b --layers 2 --checkpoint`` (2 steps of 2 x 4,096 tokens), its
+   file read back by ``restore_pytree``; then a learner's 2 steps,
+   ``save_pytree`` of its parameters and optimizer state, 2 more steps, and
+   a fresh learner restored from the file giving the same 2 losses within
+   1e-5.
+
+Phases 20-21 run a third pretraining path, Qwen3-14B (hf:Qwen/Qwen3-8B
+family: d_model 5120, 40 heads, 8 KV heads, d_ff 17408, vocab 151936,
+qk-norm) at its published widths cut to 2 layers, its flash launches checked
+per step.  Every keyed path checks that it launched the threefry kernel
+(PPO CartPole and PPO-LM exactly: 4 a rollout and 2 a step, and 9 a step,
+plus 1 a SGD step); the pretraining paths launch none.
 
 Phase 3 also holds flash attention at that path's shapes, [B, 4, 2/2, 32]
 for B = 8 and 16 (serve dispatches), 128 (the learner, forward and
@@ -260,6 +296,13 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+# int32 operations outside the tensor cores: 64 INT32 lanes on each of the
+# H100 SXM's 132 SMs at its 1,980 MHz boost clock (the Hopper white paper's
+# per-SM unit counts; the clock the card reads under load in phase 3).  These
+# are the ALU pipe's (shifts, logic, IADD3); the FMA pipe runs integer
+# multiply-adds (IMAD) on 64 lanes more, and four schedulers issue 128
+# instructions a clock an SM.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TOL = 1e-5  # atol = rtol for kernel vs plain version, float32
 # atol = rtol for attention gradients, kernel vs autograd through the plain
 # version: each dK/dV element sums Sq * g terms, each dQ element Sk terms,
@@ -303,7 +346,8 @@ ASYNC_PATHS = {
 # published widths cut to 2 layers, 4,096 tokens per sequence (the repo's
 # train_4k length) and a global batch of 2 (from 256) in 2 data shards.
 PRETRAIN = dict(seq=4096, batch=2, data_shards=2, steps=4, layers=2)
-PRETRAIN_PATHS = {"pretrain_rwkv6": "rwkv6-7b", "pretrain_phi": "phi3.5-moe-42b-a6.6b"}
+PRETRAIN_PATHS = {"pretrain_rwkv6": "rwkv6-7b", "pretrain_phi": "phi3.5-moe-42b-a6.6b",
+                  "pretrain_qwen3": "qwen3-14b"}
 PRETRAIN_DEADLINE_S = 420  # per path, model init included
 # The shapes those paths give their kernels (the path phases check them
 # against the configurations): RWKV-6's r, k, v, w [B, T, H, N]; Phi's
@@ -312,6 +356,7 @@ PRETRAIN_DEADLINE_S = 420  # per path, model init included
 RWKV6_PATH_SHAPE = (2, 4096, 64, 64)
 MOE_GMM_UP = (20480, 4096, 6400, 16)  # [T, D, F, E] of the up and gate products
 PHI_ATTENTION = (2, 4096, 32, 8, 128)
+QWEN3_ATTENTION = (2, 4096, 40, 8, 128)  # Qwen3-14B's [B, S, H, KV, D]
 # atol = rtol for the grouped matmul against the loop over groups: each
 # output element sums 4,096 to 6,400 products, in another order than cuBLAS.
 GMM_TOL = 1e-4
@@ -327,9 +372,15 @@ PATH_SHAPES = {
     "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
                           "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2]},
     "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
-                            "ppo_transformer_server": [[b, 4, 2, 2, 32] for b in (8, 16, 128, 256)]},
+                            "ppo_transformer_server": [[b, 4, 2, 2, 32] for b in (8, 16, 128, 256)],
+                            "pretrain_qwen3": list(QWEN3_ATTENTION)},
     "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
-                            "ppo_transformer_server": [128, 4, 2, 2, 32]},
+                            "ppo_transformer_server": [128, 4, 2, 2, 32],
+                            "pretrain_qwen3": list(QWEN3_ATTENTION)},
+    # The hash's output shapes: [L, n] random bits, [L, n, 2] split keys.
+    # PPO CartPole's resets draw [8, 4] bits; PPO-LM samples [8, 151936];
+    # IMPALA's 256 lanes split [256, 2, 2] a step.
+    "threefry": {"ppo_cartpole": [8, 4], "ppo_lm": [8, 151936], "impala_vector": [256, 2, 2]},
     "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     **{name: {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
@@ -615,6 +666,15 @@ def _tensor_core_bounds(nbytes: int, flops: int) -> dict:
     bound, by = _bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
     return {"bound_ms": bound, "bound_by": by, "bound_fp32_ms": _bound_ms(nbytes, flops)[0],
             "bytes": nbytes, "flops": flops}
+
+
+def _keyed_launches(name: str, launches: dict, expect: dict) -> None:
+    """Every rollout draw of a keyed path is a threefry hash: require the
+    path to have launched the kernel, and take its count into ``expect``
+    (the paths whose count phases 5, 7 and 33 check exactly set it
+    themselves)."""
+    _require(launches.get("threefry", 0) > 0, f"{name}: no threefry launch ({launches})")
+    expect["threefry"] = launches["threefry"]
 
 
 def _max_err(a, b) -> float:
@@ -1549,10 +1609,14 @@ def phase_kernels() -> dict:
             *_narrow_heads(_flash_bwd_case, 36),
         ],
     }
+    _qwen3 = (QWEN3_ATTENTION[0], QWEN3_ATTENTION[1], *QWEN3_ATTENTION[1:])
     out["flash_attention_fwd"] += [
         _flash_fwd_case(*_phi, True, 0, 0, 26, kernel_iters=20),
         *_narrow_heads(_flash_fwd_case, 27),
+        _flash_fwd_case(*_qwen3, True, 0, 0, 70, kernel_iters=20),  # Qwen3-14B's learner
     ]
+    out["flash_attention_bwd"].append(
+        _flash_bwd_case(*_qwen3, True, 0, 0, 71, kernel_iters=10))
     # TransformerPolicy's trunk on the server-inference PPO path.
     S, H, D = TF_ATTENTION
     out["flash_attention_fwd"] += [_flash_fwd_case(b, S, S, H, H, D, True, 0, 0, 60 + i)
@@ -1706,10 +1770,15 @@ def phase_main_path(counters: list) -> dict:
              f"counters {ctr} after {iters} iterations")
     samples_per_iter = cfg["train_batch_size"] // (cfg["num_envs"] * cfg["rollout_len"])
     sgd_steps = cfg["num_sgd_iter"] * (cfg["train_batch_size"] // cfg["sgd_minibatch_size"])
+    # The non-vectorized worker hashes 4 times a rollout (its chain's split,
+    # the split into step keys, their acting/env split, the env keys) and
+    # twice a step (the categorical, CartPole's reset draw); each SGD step
+    # once (the learner key the chain splits off).
     expect = {
         "gae": iters * samples_per_iter,
         "ppo_surrogate_fwd": iters * sgd_steps,
         "ppo_surrogate_bwd": iters * sgd_steps,
+        "threefry": iters * (samples_per_iter * (4 + 2 * cfg["rollout_len"]) + sgd_steps),
     }
     _require(launches == expect, f"launches {launches}, expected {expect}")
     print(f"main path: {iters} train() iterations in {total:.3f} s, launches {launches}")
@@ -1786,10 +1855,14 @@ def _rlhf_expected_launches() -> dict:
     prefills = c["rollout_len"] // RLHF_ENV["horizon"]
     decodes = c["rollout_len"] - prefills
     sgd_steps = c["num_sgd_iter"] * (c["train_batch_size"] // c["sgd_minibatch_size"])
+    # Threefry: nine hashes a vectorized step (the lane split, the
+    # categorical, the env's two splits, TokenEnv's reset draw: a split and
+    # two randints of two each) and one a SGD step (the learner key).
     return {
         "gae": samples,
         "ppo_surrogate_fwd": sgd_steps,
         "ppo_surrogate_bwd": sgd_steps,
+        "threefry": samples * c["rollout_len"] * 9 + sgd_steps,
         "decode_attention": samples * decodes * L,
         "flash_attention_fwd": samples * (prefills + 1) * L + sgd_steps * L,
         "flash_attention_bwd": sgd_steps * L,
@@ -2145,6 +2218,7 @@ def phase_async(name: str, counters: list) -> dict:
     else:
         expect = {"gae": rollouts.count, "vtrace": 0,
                   "ppo_surrogate_fwd": steps, "ppo_surrogate_bwd": steps}
+    _keyed_launches(name, launches, expect)
     _require(launches == expect, f"{name}: launches {launches}, expected {expect} "
                                  f"(learner steps {steps}, rollouts run {rollouts.count})")
     _require(rollouts.count >= received, f"{name}: {received} rollouts received but "
@@ -2304,8 +2378,9 @@ def phase_gradient_plan(name: str, counters: list) -> dict:
     ctr = result["counters"]
     applied = ctr["num_steps_trained"] // rows_per_grad
     _require(ctr["num_steps_sampled"] == ctr["num_steps_trained"], f"{name}: counters {ctr}")
-    others = {k: v for k, v in launches.items() if k != "gae"}
+    others = {k: v for k, v in launches.items() if k not in ("gae", "threefry")}
     _require(not any(others.values()), f"{name}: launches {launches}")
+    _keyed_launches(name, launches, {})
     if name == "a2c":
         expect = iters * cfg["num_workers"]
         _require(applied == expect and launches["gae"] == expect,
@@ -2348,18 +2423,38 @@ def _sac_worker(index: int, device: str, optimizer=None):
                          target_polyak=0.01, device=device, **kw)
 
 
-def _stat_err(info_g: dict, info_c: dict) -> tuple:
+def _stat_err(info_g: dict, info_c: dict, scale: dict = None) -> tuple:
     """The largest difference between two learners' stats (scalars or
-    per-row arrays), relative where the CPU's value is above 1 in magnitude
-    and absolute below, and the largest absolute difference."""
+    per-row arrays), relative to ``scale[k]`` (per row) where it is given and
+    to the CPU's value otherwise, where that scale is above 1 in magnitude,
+    and absolute below; and the largest absolute difference."""
     import numpy as np
 
+    scale = scale or {}
     scaled = absolute = 0.0
     for k in info_g:
         diff = np.abs(np.asarray(info_g[k]) - info_c[k])
         absolute = max(absolute, float(diff.max()))
-        scaled = max(scaled, float((diff / np.maximum(1.0, np.abs(info_c[k]))).max()))
+        ref = scale[k] if k in scale else np.abs(info_c[k])
+        scaled = max(scaled, float((diff / np.maximum(1.0, ref)).max()))
     return scaled, absolute
+
+
+def _acted_q(worker, algo: str, batch) -> "np.ndarray":
+    """Each row's acted Q value under ``worker``'s online weights, as its
+    loss computes it before the step (DQN's ``q_sa``, SAC's ``q1``): the
+    operand of ``td_error`` beside its target."""
+    import torch
+
+    with torch.no_grad():
+        obs = torch.as_tensor(batch["obs"], device=worker.device)
+        actions = torch.as_tensor(batch["actions"], device=worker.device)
+        if algo == "dqn":
+            q = worker.policy.q_values(worker.params, obs)
+            return q.gather(-1, actions.long()[:, None])[:, 0].cpu().numpy()
+        if actions.dim() == 1:
+            actions = actions[:, None]
+        return worker.policy._q(worker.params["q1"], obs, actions).cpu().numpy()
 
 
 def _tree_err(a, b) -> float:
@@ -2376,10 +2471,18 @@ def _tree_err(a, b) -> float:
 def phase_offpolicy_learner_parity() -> dict:
     """DQN and SAC learners on the card and on the CPU from the same online
     and target weights, fed the same replayed batch (and, for SAC, the same
-    two noises a step, injected) for ``OFFPOLICY_PARITY_STEPS`` steps of SGD:
-    weights agree within ``LEARNER_TOL``, and stats within it absolute below
-    1 and relative above (SAC's critic loss is of order 1e2, where float32
-    carries about 1e-5 absolute)."""
+    two noises a step, injected) for ``OFFPOLICY_PARITY_STEPS`` steps of SGD.
+    Gated within ``LEARNER_TOL``: the weights after the steps, and each
+    step's stats against a CPU twin given the card's weights before that
+    step (absolute below 1 and relative above: SAC's critic loss is of order
+    1e2, where float32 carries about 1e-5 absolute).  Printed and recorded
+    beside them, not gated: each step's stats against the CPU learner's own
+    run, a ``td_error`` row relative to ``|q| + |target|``.  That reading
+    follows the trajectory, not a step: SGD at lr 0.01 on SAC's losses of
+    1e2-1e3 amplifies float32 rounding, so on an H100 the two runs' weights
+    end 3.3e-05 apart and a row's q, both near 0.74, 2.6e-04 apart while a
+    step's stats from the same weights agree to 2.5e-06; the weights gate
+    holds that drift."""
     import numpy as np
     import torch
 
@@ -2388,41 +2491,56 @@ def phase_offpolicy_learner_parity() -> dict:
     from repro_torch.rl import ReplayBuffer
 
     out = {}
+    def sync(dst, src):
+        dst.set_weights(params_to_numpy(src.get_weights()))
+        dst.target_params = params_from_numpy(params_to_numpy(src.target_params))
+
     for algo, make in (("dqn", _dqn_worker), ("sac", _sac_worker)):
-        gpu, cpu = (make(0, dev, optimizer=sgd(OFFPOLICY_PARITY_LR)) for dev in ("cuda", "cpu"))
-        cpu.set_weights(params_to_numpy(gpu.get_weights()))
-        cpu.target_params = params_from_numpy(params_to_numpy(gpu.target_params))
+        gpu, cpu, twin = (make(0, dev, optimizer=sgd(OFFPOLICY_PARITY_LR))
+                          for dev in ("cuda", "cpu", "cpu"))
+        sync(cpu, gpu)
         rb = ReplayBuffer(capacity=4096, sample_batch_size=64, learning_starts=64, seed=0)
         for _ in range(2):
             rb.add_batch(gpu.sample())
         batch = rb.replay()
-        if algo == "sac":  # the same noises on both devices, two a step
+        if algo == "sac":  # the same noises on every learner, two a step
             rng = np.random.default_rng(0)
             noises = [rng.standard_normal((batch.count, 1)).astype(np.float32)
                       for _ in range(2 * OFFPOLICY_PARITY_STEPS)]
-            for w in (gpu, cpu):
+            for w in (gpu, cpu, twin):
                 it = iter(noises)
                 w.policy.noise = lambda obs, gen, it=it: torch.from_numpy(next(it)).to(obs.device)
-        stat_err = stat_abs = 0.0
+        run_err = run_abs = step_err = step_abs = 0.0
         for _ in range(OFFPOLICY_PARITY_STEPS):
-            info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+            sync(twin, gpu)
+            q_c = _acted_q(cpu, algo, batch)
+            info_g, info_t = gpu.learn_on_batch(batch), twin.learn_on_batch(batch)
+            info_c = cpu.learn_on_batch(batch)
             _require(isinstance(info_g["td_error"], np.ndarray),
                      f"{algo}: td_error is {type(info_g['td_error'])}, not host numpy")
-            scaled, absolute = _stat_err(info_g, info_c)
-            stat_err, stat_abs = max(stat_err, scaled), max(stat_abs, absolute)
+            operands = {"td_error": np.abs(q_c) + np.abs(q_c - info_c["td_error"])}
+            scaled, absolute = _stat_err(info_g, info_c, operands)
+            run_err, run_abs = max(run_err, scaled), max(run_abs, absolute)
+            scaled, absolute = _stat_err(info_g, info_t)
+            step_err, step_abs = max(step_err, scaled), max(step_abs, absolute)
         err = _tree_err(gpu.params, cpu.params)
         target_err = _tree_err(gpu.target_params, cpu.target_params)
         _require(max(err, target_err) <= LEARNER_TOL,
                  f"{algo} learner parity: card vs CPU weights differ by {err:.3e} "
                  f"(target {target_err:.3e})")
-        _require(stat_err <= LEARNER_TOL, f"{algo} learner parity: stats differ by {stat_err:.3e}")
+        _require(step_err <= LEARNER_TOL,
+                 f"{algo} learner parity: a step's stats from the same weights differ by "
+                 f"{step_err:.3e}")
         print(f"{algo} learner parity: {OFFPOLICY_PARITY_STEPS} learn_on_batch steps (SGD, lr "
               f"{OFFPOLICY_PARITY_LR}) on one replayed batch of {batch.count} rows, card vs CPU "
-              f"max weight err {err:.3e}, target err {target_err:.3e}, max stat err "
-              f"{stat_err:.3e} (relative above 1; tol {LEARNER_TOL}; absolute {stat_abs:.3e}); "
-              "td_error as host numpy")
-        out[algo] = {"weight_err": err, "target_err": target_err, "stat_err": stat_err,
-                     "stat_abs_err": stat_abs, "rows": batch.count}
+              f"max weight err {err:.3e}, target err {target_err:.3e}; each step's stats from the "
+              f"same weights: max err {step_err:.3e} (absolute {step_abs:.3e}); tol {LEARNER_TOL}; "
+              f"not gated, stats along the two runs: max err {run_err:.3e} (td_error relative to "
+              f"|q| + |target|, other stats relative above 1; absolute {run_abs:.3e}); td_error "
+              "as host numpy")
+        out[algo] = {"weight_err": err, "target_err": target_err, "stat_err": run_err,
+                     "stat_abs_err": run_abs, "step_stat_err": step_err,
+                     "step_stat_abs_err": step_abs, "rows": batch.count}
     return out
 
 
@@ -2510,7 +2628,9 @@ def phase_replay_plan(name: str, counters: list) -> dict:
         _require(not learner.is_alive(), f"{name}: the learner thread is alive after stop()")
     ctr = result["counters"]
     launches = {c.name: c.value for c in counters}
-    _require(not any(launches.values()), f"{name}: launches {launches}, expected none")
+    _keyed_launches(name, launches, {})
+    _require(not any(v for k, v in launches.items() if k != "threefry"),
+             f"{name}: launches {launches}, expected no kernel but threefry")
     _require(ctr["num_steps_trained"] > 0, f"{name}: nothing trained: {ctr}")
     names = {k for k in ctr if not k.startswith("bytes_moved/")} - TIMING_COUNTERS
     _require(names <= REPLAY_COUNTERS, f"{name}: counters {sorted(ctr)}")
@@ -2669,7 +2789,9 @@ def _check_path_shapes(cfg) -> None:
         _require(shape == MOE_GMM_UP, f"{cfg.name}: grouped-matmul shape {shape} != {MOE_GMM_UP}")
     if cfg.num_heads:
         shape = (B, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-        _require(shape == PHI_ATTENTION, f"{cfg.name}: attention shape {shape} != {PHI_ATTENTION}")
+        _require(shape in (PHI_ATTENTION, QWEN3_ATTENTION),
+                 f"{cfg.name}: attention shape {shape} is neither {PHI_ATTENTION} nor "
+                 f"{QWEN3_ATTENTION}")
 
 
 def phase_pretrain(name: str, counters: list) -> dict:
@@ -3035,6 +3157,7 @@ def phase_plan_path(name: str, counters: list) -> dict:
                  + steps["dqn"] * cfg["replay"]["sample_batch_size"],
                  f"{name}: counters {ctr} for {steps} training steps")
         _require(sum(s["added"] for s in extra["replay"]) > 0, f"{name}: replay {extra['replay']}")
+    _keyed_launches(name, launches, expect)
     _require(launches == expect, f"{name}: launches {launches}, expected {expect}")
     first, after = rows[0]["seconds"], [r["seconds"] for r in rows[1:]]
     mean = sum(after) / len(after)
@@ -3559,6 +3682,7 @@ def phase_transformer_server(counters: list) -> dict:
     expect.update(gae=rollouts, ppo_surrogate_fwd=sgd_steps, ppo_surrogate_bwd=sgd_steps,
                   flash_attention_fwd=layers * (sum(dispatches) + rollouts + sgd_steps),
                   flash_attention_bwd=layers * sgd_steps)
+    _keyed_launches("transformer server", launches, expect)
     _require(launches == expect, f"transformer server: launches {launches}, expected {expect}")
     first, after = rows[0]["seconds"], [r["seconds"] for r in rows[1:]]
     mean = sum(after) / len(after)
@@ -3573,6 +3697,514 @@ def phase_transformer_server(counters: list) -> dict:
     return {"iterations": rows, "init_s": init_s, "first_s": first, "mean_s": mean,
             "launches": launches, "counters": ctr, "profile": profile, "rollouts": rollouts,
             "sgd_steps": sgd_steps, "dispatches": dispatches, "requests": stats["num_requests"]}
+
+
+# ------------------------------------------------------------ phase 3b
+# The threefry kernel: counter hashing at these [lanes, counters] (both
+# modes), fold_in over THREEFRY_FOLD_IN_LANES lanes.  THREEFRY_OPS is the
+# int32 instructions of one hash as sm_90 issues them (csrc/threefry.cu's
+# header): 20 rounds of an add, a funnel-shift rotate and an xor (60), the six
+# injections into the second word (one add each, key and constant together),
+# the last injection into the first word (the other five fold into the next
+# round's add as one IADD3) and the parity word (one LOP3): 68.  Of them
+# THREEFRY_ALU_OPS, the 20 rotations (SHF) and 21 LOP3, run on the ALU pipe
+# alone; the 27 adds may issue on the FMA pipe as IMAD.IADD beside it (ptxas
+# puts 18 there), and an SM issues 128 instructions a clock, twice the ALU
+# pipe's 64.  So the least time of a hash at INT32_OPS_PER_S is the larger of
+# 41 and 68 / 2 instructions: 41 (``_threefry_ops``).  The phase tallies the
+# fold_in kernel's SASS beside it (``_threefry_sass``).  PR 23's keyed
+# sampling at [8, 151936] took PR23_KEYED_SAMPLING_MS a decode step as the op
+# chain (chip run 3 of PR 23, H100 80GB HBM3, 700 W).
+THREEFRY_COUNTS = [(8, 2), (1, 2), (256, 2), (4096, 2), (8, 151936), (1, 2**20)]
+THREEFRY_FOLD_IN_LANES = 256
+THREEFRY_OPS = 68
+THREEFRY_ALU_OPS = 41
+PR23_KEYED_SAMPLING_MS = 3.1203
+
+
+def _threefry_ops(hashes: int, xor: bool) -> float:
+    """The int32 operations the bound charges ``hashes`` hashes at
+    ``INT32_OPS_PER_S``: the ALU pipe's shifts and logic, or half of all the
+    instructions (the issue rate), whichever is more; ``xor`` adds the LOP3
+    that folds the two words into bits."""
+    return hashes * max(THREEFRY_ALU_OPS + int(xor), (THREEFRY_OPS + int(xor)) / 2)
+
+
+def _threefry_case(lanes: int, n: int, xor: bool, seed: int) -> dict:
+    """The counter-hashing kernel against the plain int64 chain on the card
+    and on the CPU: bitwise, and bitwise across two calls; device time,
+    the plain chain's, and the bound (``_threefry_ops`` against 16 B a
+    counter written for keys, 8 B for bits)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as tf
+
+    keys_c = prng.split(prng.key(seed), lanes)  # the plain version, on the CPU
+    keys_g = keys_c.cuda()
+    got = tf.hash_counts_cuda(keys_g, n, xor)
+    again = tf.hash_counts_cuda(keys_g, n, xor)
+    plain = tf.hash_counts_plain(keys_g, n, xor)
+    cpu = tf.hash_counts_plain(keys_c, n, xor)
+    torch.cuda.synchronize()
+    shape = [lanes, n] if xor else [lanes, n, 2]
+    _require(torch.equal(got, plain), f"threefry {shape}: kernel differs from the plain chain")
+    _require(torch.equal(got, again), f"threefry {shape}: two calls differ")
+    _require(torch.equal(got.cpu(), cpu), f"threefry {shape}: the card differs from the CPU")
+    del got, again, plain, cpu
+    nbytes = 16 * lanes + lanes * n * (8 if xor else 16)
+    ops = lanes * n * (THREEFRY_OPS + int(xor))
+    bound, by = _bound_ms(nbytes, _threefry_ops(lanes * n, xor), INT32_OPS_PER_S)
+    big = lanes * n >= 2**20
+    return {
+        "shape": shape, "mode": "bits" if xor else "keys", "max_abs_err": 0.0, "bitwise": True,
+        "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "int32_ops": ops, "library_ms": None,
+        **_timings(lambda: tf.hash_counts_cuda(keys_g, n, xor),
+                   lambda: tf.hash_counts_plain(keys_g, n, xor), plain_iters=5 if big else 20),
+    }
+
+
+def _threefry_fold_in_case(lanes: int, seed: int) -> dict:
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as tf
+
+    keys_c = prng.split(prng.key(seed), lanes)
+    data_c = torch.arange(lanes) * 7919
+    keys_g, data_g = keys_c.cuda(), data_c.cuda()
+    got = tf.fold_in_cuda(keys_g, data_g)
+    _require(torch.equal(got, tf.fold_in_cuda(keys_g, data_g)), "threefry fold_in: two calls differ")
+    _require(torch.equal(got, tf.fold_in_plain(keys_g, data_g)),
+             "threefry fold_in: kernel differs from the plain chain")
+    _require(torch.equal(got.cpu(), tf.fold_in_plain(keys_c, data_c)),
+             "threefry fold_in: the card differs from the CPU")
+    # One key against many words and many keys against one word (stride 0).
+    one = tf.fold_in_cuda(keys_g[0], data_g)
+    _require(torch.equal(one.cpu(), tf.fold_in_plain(keys_c[0], data_c)),
+             "threefry fold_in: one key over many words differs from the CPU")
+    word = tf.fold_in_cuda(keys_g, 5)
+    _require(torch.equal(word.cpu(), tf.fold_in_plain(keys_c, 5)),
+             "threefry fold_in: many keys over one word differs from the CPU")
+    nbytes = lanes * (16 + 8 + 16)
+    bound, by = _bound_ms(nbytes, _threefry_ops(lanes, False), INT32_OPS_PER_S)
+    return {
+        "shape": [lanes], "mode": "fold_in", "max_abs_err": 0.0, "bitwise": True,
+        "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "int32_ops": lanes * THREEFRY_OPS, "library_ms": None,
+        **_timings(lambda: tf.fold_in_cuda(keys_g, data_g),
+                   lambda: tf.fold_in_plain(keys_g, data_g), plain_iters=20),
+    }
+
+
+def _threefry_sass() -> dict:
+    """The opcodes of ``threefry_fold_in_kernel`` in the built library's SASS
+    (``cuobjdump -sass``): one hash and its loads, stores and index
+    arithmetic.  The kernel's integer instructions must number at least
+    ``THREEFRY_OPS``, and its shifts and logic (``SHF``, ``PRMT`` for a
+    rotation by 16 or 24, ``LOP3``) at least ``THREEFRY_ALU_OPS``: a bound
+    that counted more than the card issues would flatter the kernel."""
+    from repro_torch.kernels.build import build_info
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"read": False}
+    sass = subprocess.run([tool, "-sass", build_info()["path"]], capture_output=True, text=True,
+                          timeout=300)
+    _require(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    opcodes, inside = {}, False
+    for ln in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            inside = "threefry_fold_in_kernel" in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        if inside and m:
+            opcodes[m.group(1)] = opcodes.get(m.group(1), 0) + 1
+    alu = sum(n for op, n in opcodes.items()
+              if op in ("IADD3", "VIADD", "IADD", "LOP3", "SHF", "PRMT", "LEA", "IMAD"))
+    out = {"read": True, "instructions": sum(n for op, n in opcodes.items() if op != "NOP"),
+           "shf": opcodes.get("SHF", 0), "prmt": opcodes.get("PRMT", 0),
+           "iadd3": opcodes.get("IADD3", 0) + opcodes.get("VIADD", 0),
+           "lop3": opcodes.get("LOP3", 0), "integer": alu, "opcodes": opcodes}
+    _require(out["instructions"] > 0, "threefry: no SASS found for threefry_fold_in_kernel")
+    _require(alu >= THREEFRY_OPS, f"threefry: the fold_in kernel issues {alu} integer "
+                                  f"instructions, fewer than the bound's {THREEFRY_OPS} a hash")
+    shift_logic = out["shf"] + out["prmt"] + out["lop3"]
+    _require(shift_logic >= THREEFRY_ALU_OPS,
+             f"threefry: the fold_in kernel issues {shift_logic} shifts and logic "
+             f"instructions, fewer than the bound's {THREEFRY_ALU_OPS} a hash")
+    return out
+
+
+def phase_threefry(counter) -> dict:
+    """The threefry kernel (``csrc/threefry.cu``) bitwise against its plain
+    int64 chain on the card and on the CPU at ``THREEFRY_COUNTS`` in both
+    modes and at strided keys, ``fold_in`` at ``THREEFRY_FOLD_IN_LANES``
+    lanes; one launch a hash through every ``repro_torch.prng`` draw
+    (``randint`` two: a split, then bits); keyed token sampling at PPO-LM's
+    [8, 151936] beside ``torch.multinomial`` and PR 23's op chain."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs.qwen15_4b import CONFIG as QWEN
+    from repro_torch.kernels import threefry as tf
+
+    cases = [_threefry_case(lanes, n, xor, 100 + i)
+             for i, (lanes, n) in enumerate(THREEFRY_COUNTS) for xor in (True, False)]
+    # The first case is PPO CartPole's reset draw ([8, 4] bits), the shape
+    # the kernels line reports first.
+    cases.insert(0, _threefry_case(8, 4, True, 99))
+    cases.append(_threefry_fold_in_case(THREEFRY_FOLD_IN_LANES, 120))
+    # A split's halves are views with a row stride of 4 words: the kernel
+    # reads them in place.
+    both = prng.split(prng.split(prng.key(7, "cuda"), 64), 2)
+    for half in (both[:, 0], both[:, 1]):
+        _require(not half.is_contiguous(), "threefry: the strided case is contiguous")
+        _require(torch.equal(tf.hash_counts_cuda(half, 3, False).cpu(),
+                             tf.hash_counts_plain(half.cpu(), 3, False)),
+                 "threefry: strided keys differ from the CPU")
+    keys = prng.split(prng.key(8, "cuda"), 16)
+    logits = torch.randn((16, 5), device="cuda")
+    draws = {
+        "split": (lambda: prng.split(keys, 3), 1),
+        "fold_in": (lambda: prng.fold_in(keys[0], torch.arange(16, device="cuda")), 1),
+        "random_bits": (lambda: prng.random_bits(keys, (2, 3)), 1),
+        "uniform": (lambda: prng.uniform(keys, (4,), -0.05, 0.05), 1),
+        "gumbel": (lambda: prng.gumbel(keys, (5,)), 1),
+        "normal": (lambda: prng.normal(keys, (2,)), 1),
+        "categorical": (lambda: prng.categorical(keys, logits), 1),
+        "categorical_key": (lambda: prng.categorical_key(keys[0], logits), 1),
+        "randint": (lambda: prng.randint(keys, (), 0, 7), 2),
+    }
+    launches = {}
+    for name, (draw, want) in draws.items():
+        counter.reset()
+        draw()
+        launches[name] = counter.value
+        _require(counter.value == want, f"threefry: prng.{name} launched {counter.value} "
+                                        f"kernels, expected {want}")
+    counter.reset()
+    vocab = QWEN.vocab_size
+    keys8 = prng.split(prng.key(24, "cuda"), 8)
+    lm_logits = torch.randn((8, vocab), device="cuda")
+    sampler = torch.Generator(device="cuda").manual_seed(0)
+    sampling = {
+        "keyed_categorical": _time_ms(lambda: prng.categorical(keys8, lm_logits), iters=50),
+        "generator_multinomial": _time_ms(
+            lambda: torch.multinomial(torch.softmax(lm_logits, -1), 1, generator=sampler),
+            iters=50),
+        "pr23_op_chain": PR23_KEYED_SAMPLING_MS,
+    }
+    for c in cases:
+        print(f"threefry {c['mode']} {c['shape']}: bitwise (card, CPU, two calls) "
+              f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
+              f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
+              f"bound_ms={c['bound_ms']:.6f} ({c['bound_by']}) records_lost={c['records_lost']}"
+              + (f" ms_from={c['ms_from']}" if c["ms_from"] != "profiler" else ""))
+    print(f"threefry: one launch a hash ({launches}); strided keys read in place; keyed sampling "
+          f"at [8, {vocab}] {sampling['keyed_categorical']:.4f} ms a decode step against "
+          f"{sampling['generator_multinomial']:.4f} ms for torch.multinomial (CUDA events; the "
+          f"op chain of PR 23: {PR23_KEYED_SAMPLING_MS} ms)")
+    sass = _threefry_sass()
+    if sass["read"]:
+        print(f"threefry SASS (threefry_fold_in_kernel): {sass['instructions']} instructions, "
+              f"{sass['integer']} integer ({sass['shf']} SHF, {sass['prmt']} PRMT, "
+              f"{sass['iadd3']} IADD3/VIADD, "
+              f"{sass['lop3']} LOP3) against the bound's {THREEFRY_OPS} a hash, "
+              f"{THREEFRY_ALU_OPS} of them shifts and logic; {sass['opcodes']}")
+    return {"cases": cases, "launches_per_draw": launches, "lm_sampling_ms": sampling,
+            "sass": sass}
+
+
+# ------------------------------------------------------------- phase 33
+# The determinism phase: tests/test_rollout_determinism.py's workers.
+DETERMINISM = dict(num_workers=2, num_envs=4, rollout_len=8, rounds=2, seed=21, max_steps=6)
+# Columns the card holds bitwise to the CPU: all but the float columns that
+# pass through tanh (StubEnv's reward: CUDA's tanhf against the CPU's) and the
+# GAE kernel (held to TOL of the plain loop, its scan order differs).
+CARD_CPU_FLOAT_COLUMNS = ("rewards", "advantages", "returns")
+
+
+def _determinism_stream(cls, device: str, counter=None) -> list:
+    from repro_torch.core.operators import ParallelRollouts
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.rl import DummyPolicy, StubEnv
+
+    c = DETERMINISM
+
+    def factory(i):
+        return cls(StubEnv(max_steps=c["max_steps"]), DummyPolicy(4, 2), algo="pg",
+                   num_envs=c["num_envs"], rollout_len=c["rollout_len"], seed=c["seed"],
+                   worker_index=i, device=device)
+
+    ws = WorkerSet.create(factory, c["num_workers"])
+    try:
+        it = iter(ParallelRollouts(ws, mode="bulk_sync"))
+        if counter is not None:
+            counter.reset()
+        stream = [next(it) for _ in range(c["rounds"])]
+        launched = counter.value if counter is not None else None
+    finally:
+        ws.stop()
+    return stream, launched
+
+
+def phase_determinism(counter) -> dict:
+    """StubEnv + DummyPolicy on the card (2 workers x 4 lanes x 8 steps, 2
+    rounds through ``ParallelRollouts``): the vectorized stream bitwise equal
+    to ``PerEnvRolloutWorker``'s, and to the vectorized stream run on the CPU
+    (bitwise on every column but rewards, advantages and returns, within
+    ``TOL``); the vectorized engine launches six hashes a step (the lane
+    split, ``randint``'s two, the env's two splits and StubEnv's reset
+    draw)."""
+    import numpy as np
+
+    from repro_torch.rl import PerEnvRolloutWorker, VectorizedRolloutWorker
+
+    c = DETERMINISM
+    vec, launched = _determinism_stream(VectorizedRolloutWorker, "cuda", counter)
+    per, _ = _determinism_stream(PerEnvRolloutWorker, "cuda")
+    cpu, _ = _determinism_stream(VectorizedRolloutWorker, "cpu")
+    expect = c["num_workers"] * c["rounds"] * c["rollout_len"] * 6
+    _require(launched == expect, f"determinism: {launched} threefry launches, expected {expect}")
+    float_err = 0.0
+    for r, (a, b, h) in enumerate(zip(vec, per, cpu)):
+        _require(set(a.keys()) == set(b.keys()) == set(h.keys()), f"determinism: columns {a.keys()}")
+        for k in a:
+            _require(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                     f"determinism round {r}: {k} differs between vectorized and per-env")
+            if k in CARD_CPU_FLOAT_COLUMNS:
+                err = float(np.max(np.abs(a[k] - h[k])))
+                float_err = max(float_err, err)
+                _require(err <= TOL, f"determinism round {r}: {k} card vs CPU {err:.3e}")
+            else:
+                _require(np.array_equal(a[k], h[k]), f"determinism round {r}: {k} card vs CPU")
+    rows = sum(b.count for b in vec)
+    print(f"determinism: {c['rounds']} rounds of {c['num_workers']} workers x {c['num_envs']} "
+          f"lanes x {c['rollout_len']} steps ({rows} rows): vectorized == per-env bitwise on the "
+          f"card, == the CPU's bitwise but {', '.join(CARD_CPU_FLOAT_COLUMNS)} (max abs err "
+          f"{float_err:.3e}); threefry launches {launched} (= 6 a step)")
+    return {"rows": rows, "threefry_launches": launched, "card_cpu_float_max_abs_err": float_err}
+
+
+# ------------------------------------------------------------- phase 34
+# Durability on the card: PPO CartPole with vectorized workers, and DQN with
+# 2 replay actors.  Algorithm.save keeps weights and flow state, as the
+# reference's: neither optimizer moments (so PPO trains with SGD, whose
+# state is a step count) nor operator state such as TrainOneStep's minibatch
+# shuffle (so PPO takes one step on the whole batch, which is not shuffled).
+DURABILITY_PPO = dict(num_workers=2, num_envs=8, rollout_len=32, train_batch_size=512,
+                      num_sgd_iter=1, sgd_minibatch_size=0, iters=2, lr=0.01)
+DURABILITY_DQN = dict(num_workers=1, num_envs=2, rollout_len=8, replay_actors=2, iters=4,
+                      target_update_freq=128)
+DURABILITY_LOSS_TOL = 1e-6
+
+
+def phase_durability() -> dict:
+    """``Algorithm.save``/``restore`` on the card.  PPO: 2 iterations,
+    ``save``, 2 more; a fresh Algorithm on fresh workers ``restore``s and
+    runs 2: equal counters, losses within 1e-6, then each remote worker's
+    next sample bitwise equal and the local weights equal.  DQN with 2
+    replay actors: 4 iterations, ``save``; a fresh Algorithm restored has
+    the same counters and replay stats and trains on from them."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.actor import ActorPool
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+    from repro_torch.optim import sgd
+    from repro_torch.rl import (
+        ActorCriticPolicy,
+        CartPole,
+        DQNPolicy,
+        ReplayBuffer,
+        RolloutWorker,
+        VectorizedRolloutWorker,
+    )
+    from repro_torch.tree import tree_leaves
+
+    p, d = DURABILITY_PPO, DURABILITY_DQN
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+
+    def ppo_algo():
+        def factory(i):
+            return VectorizedRolloutWorker(
+                CartPole(), ActorCriticPolicy(4, 2, loss_kind="ppo"), algo="ppo",
+                num_envs=p["num_envs"], rollout_len=p["rollout_len"], optimizer=sgd(p["lr"]),
+                seed=3, worker_index=i, device="cuda")
+
+        ws = WorkerSet.create(factory, p["num_workers"])
+        return Algorithm.from_plan("ppo", ws, train_batch_size=p["train_batch_size"],
+                                   num_sgd_iter=p["num_sgd_iter"],
+                                   sgd_minibatch_size=p["sgd_minibatch_size"]), ws
+
+    def dqn_algo():
+        def factory(i):
+            return RolloutWorker(CartPole(), DQNPolicy(4, 2), algo="dqn", num_envs=d["num_envs"],
+                                 rollout_len=d["rollout_len"], seed=11, worker_index=i,
+                                 epsilon=0.3, device="cuda")
+
+        ws = WorkerSet.create(factory, d["num_workers"])
+        rp = ActorPool.from_targets([
+            ReplayBuffer(capacity=2048, sample_batch_size=32, learning_starts=64, seed=5)
+            for _ in range(d["replay_actors"])])
+        return Algorithm.from_plan("dqn", ws, rp, target_update_freq=d["target_update_freq"]), rp
+
+    try:
+        algo, ws = ppo_algo()
+        for _ in range(p["iters"]):
+            algo.train()
+        path = str(tmp / "ppo.npz")
+        algo.save(path)
+        after = [algo.train() for _ in range(p["iters"])]
+        samples = [a.sync("sample") for a in ws.remote_workers()]
+        weights = tree_leaves(ws.local_worker().get_weights())
+        algo.stop()
+        algo2, ws2 = ppo_algo()
+        algo2.restore(path)
+        again = [algo2.train() for _ in range(p["iters"])]
+        samples2 = [a.sync("sample") for a in ws2.remote_workers()]
+        weights2 = tree_leaves(ws2.local_worker().get_weights())
+        algo2.stop()
+        loss_err = 0.0
+        for a, b in zip(after, again):
+            _require(a["counters"] == b["counters"],
+                     f"durability ppo: counters {b['counters']} != {a['counters']}")
+            loss_err = max(loss_err, abs(a["info"]["loss"] - b["info"]["loss"]))
+        _require(loss_err <= DURABILITY_LOSS_TOL, f"durability ppo: losses differ by {loss_err:.3e}")
+        for s, t in zip(samples, samples2):
+            _require(set(s.keys()) == set(t.keys()) and all(np.array_equal(s[k], t[k]) for k in s),
+                     "durability ppo: the restored workers' next samples differ")
+        w_err = max(_max_err(a, b) for a, b in zip(weights, weights2))
+        _require(w_err <= DURABILITY_LOSS_TOL, f"durability ppo: weights differ by {w_err:.3e}")
+
+        algo, rp = dqn_algo()
+        for _ in range(d["iters"]):
+            result = algo.train()
+        path = str(tmp / "dqn.npz")
+        algo.save(path)
+        counters, stats = dict(result["counters"]), [a.sync("stats") for a in rp]
+        algo.stop()
+        algo2, rp2 = dqn_algo()
+        algo2.restore(path)
+        restored = dict(algo2._it.metrics.counters)
+        stats2 = [a.sync("stats") for a in rp2]
+        _require(all(restored.get(k) == v for k, v in counters.items()),
+                 f"durability dqn: counters {restored} != {counters}")
+        _require(stats2 == stats, f"durability dqn: replay stats {stats2} != {stats}")
+        res = algo2.train()
+        _require(res["counters"]["num_steps_sampled"] > counters["num_steps_sampled"],
+                 f"durability dqn: no training after restore: {res['counters']}")
+        algo2.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    print(f"durability: PPO with vectorized workers restored after {p['iters']} iterations: "
+          f"{p['iters']} more with equal counters, losses within {loss_err:.3e}, each remote "
+          f"worker's next sample bitwise equal, weights within {w_err:.3e}; DQN with "
+          f"{d['replay_actors']} replay actors restored with equal counters and replay stats "
+          f"{stats}, and trains on")
+    return {"ppo_loss_max_abs_err": loss_err, "ppo_weights_max_abs_err": w_err,
+            "dqn_counters": counters, "dqn_replay_stats": stats}
+
+
+# ------------------------------------------------------------- phase 36
+QWEN3_RESTART = dict(arch="qwen3-14b", layers=2, seq=4096, batch=2, data_shards=2, steps=4)
+QWEN3_RESTART_RTOL = 1e-5  # tests/test_durability.py's tolerance
+QWEN3_RESTART_DEADLINE_S = 600  # the driver's run, two learners and 35 GB of files
+
+
+def phase_qwen3_restart() -> dict:
+    """Qwen3-14B at its published widths cut to 2 layers, 2 x 4,096 tokens
+    a step, fp32.  First the driver a user runs, ``python -m
+    repro_torch.launch.train --arch qwen3-14b --layers 2 ... --checkpoint``
+    (its ``main``, 2 steps), whose file ``restore_pytree`` must read.  Then
+    the restart check of ``tests/test_durability.py``: a learner takes 2
+    steps, ``save_pytree`` writes its parameters and optimizer state, it
+    takes 2 more; a fresh learner restored from the file (copied into its own
+    tensors) takes the same 2 and gives the same losses within 1e-5."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.spmd import SPMDLearnerWorker, SPMDTrainContext
+    from repro_torch.data import make_batch
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    q = QWEN3_RESTART
+    cfg = train.train_config(q["arch"], layers=q["layers"])
+    shape = InputShape("train", q["seq"], q["batch"], "train")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_qwen3_"))
+    times = {}
+
+    def learner():
+        opt = train.pretrain_optimizer(q["steps"])
+        return SPMDLearnerWorker(SPMDTrainContext(cfg, opt, device="cuda"), seed=0)
+
+    def step(lw, s):
+        loss = lw.learn_on_batch(make_batch(cfg, shape, seed=0, step=s))["loss"]
+        torch.cuda.synchronize()
+        return loss
+
+    try:
+        with _deadline(QWEN3_RESTART_DEADLINE_S, "qwen3 restart"):
+            cli = str(tmp / "cli.npz")
+            t0 = time.perf_counter()
+            train.main(["--arch", q["arch"], "--layers", str(q["layers"]), "--seq", str(q["seq"]),
+                        "--batch", str(q["batch"]), "--data-shards", str(q["data_shards"]),
+                        "--steps", "2", "--checkpoint", cli])
+            times["cli_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            ck = str(tmp / "ck.npz")
+            a = learner()
+            for s in range(2):
+                step(a, s)
+            t0 = time.perf_counter()
+            save_pytree(ck, {"params": a.params, "opt": a.opt_state})
+            times["save_s"] = time.perf_counter() - t0
+            ref = [step(a, s) for s in (2, 3)]
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            b = learner()
+            t0 = time.perf_counter()
+            state = restore_pytree(ck, {"params": b.params, "opt": b.opt_state})
+            times["restore_s"] = time.perf_counter() - t0
+            b.params, b.opt_state = state["params"], state["opt"]
+            out = [step(b, s) for s in (2, 3)]
+            ckpt_bytes = os.path.getsize(ck)
+            os.remove(ck)
+            # The driver's checkpoint holds the same tree.
+            restore_pytree(cli, b.params)
+            finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(b.params))
+            cli_bytes = os.path.getsize(cli)
+            del b, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    _require(finite, "qwen3: the driver's checkpoint holds non-finite parameters")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(out, ref))
+    _require(rel <= QWEN3_RESTART_RTOL,
+             f"qwen3 restart: losses {out} against {ref} (rel err {rel:.3e})")
+    print(f"qwen3 restart: losses {ref} before, {out} after the restart (max rel err {rel:.3e}, "
+          f"rtol {QWEN3_RESTART_RTOL}); checkpoint {ckpt_bytes / 2**30:.2f} GiB (save "
+          f"{times['save_s']:.1f} s, restore {times['restore_s']:.1f} s); the driver's "
+          f"--checkpoint {cli_bytes / 2**30:.2f} GiB read back ({times['cli_s']:.1f} s for its "
+          f"2 steps)")
+    return {"losses": ref, "restored_losses": out, "max_rel_err": rel, "bytes": ckpt_bytes,
+            "cli_bytes": cli_bytes, **times}
 
 
 KERNEL_SITES = {
@@ -3598,6 +4230,9 @@ KERNEL_SITES = {
     # the backward with einsums.
     "moe_gmm_dx": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/models/moe.py:145"),
     "moe_gmm_dw": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/models/moe.py:145"),
+    # No TPU kernel: the reference hashes in XLA, jax.random under vmap (its
+    # VectorEnv's per-lane split here; every rollout draw is such a hash).
+    "threefry": ("src/repro_torch/kernels/csrc/threefry.cu", "src/repro/rl/env.py:299"),
 }
 
 
@@ -3633,25 +4268,28 @@ def main() -> int:
     )
     from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
+    from repro_torch.kernels.threefry import THREEFRY_LAUNCHES
 
     every_counter = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
                      DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
                      RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_DX_LAUNCHES,
-                     MOE_GMM_DW_LAUNCHES]
+                     MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
     record: dict = {}
     try:
         record["device"] = phase_device()
         record["build"] = phase_build()
         record["launch_floor"] = _launch_floor()
         record["kernels"] = phase_kernels()
+        record["threefry"] = phase_threefry(THREEFRY_LAUNCHES)
+        record["kernels"]["threefry"] = record["threefry"]["cases"]
         record["learner_parity"] = phase_learner_parity()
         record["main_path"] = phase_main_path(
-            [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES]
+            [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         )
         record["lm_learner_parity"] = phase_lm_learner_parity()
         record["rlhf"] = phase_rlhf(
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
-             DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES]
+             DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         )
         # The RLHF path peaks at about 74 GiB, and PyTorch's allocator keeps
         # it cached; a later phase's new actor thread creates its cuBLAS
@@ -3664,10 +4302,10 @@ def main() -> int:
         for name in ASYNC_PATHS:
             record[name] = phase_async(
                 name, [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
-                       SURROGATE_BWD_LAUNCHES]
+                       SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
             )
         rl_counters = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
-                       SURROGATE_BWD_LAUNCHES]
+                       SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         for name in GRADIENT_PATHS:
             record[name] = phase_gradient_plan(name, rl_counters)
         record["offpolicy_learner_parity"] = phase_offpolicy_learner_parity()
@@ -3690,6 +4328,12 @@ def main() -> int:
         record["ppo_transformer_server"] = phase_transformer_server(every_counter)
         record["serving_slice_s"] = time.perf_counter() - t_serving
         print(f"serving slice phases 28-32: {record['serving_slice_s']:.1f} s")
+        t_durable = time.perf_counter()
+        record["determinism"] = phase_determinism(THREEFRY_LAUNCHES)
+        record["durability"] = phase_durability()
+        record["qwen3_restart"] = phase_qwen3_restart()
+        record["durability_slice_s"] = time.perf_counter() - t_durable
+        print(f"determinism and durability phases 33-35: {record['durability_slice_s']:.1f} s")
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

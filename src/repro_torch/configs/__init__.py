@@ -1,7 +1,8 @@
 """Model configurations: the dataclasses of ``repro/configs/base.py``, the
 architectures the port runs (``qwen1.5-4b``, whose attention and vocabulary
-widths the RLHF slice uses; ``rwkv6-7b`` and ``phi3.5-moe-42b-a6.6b``,
-which the LM pretraining slice trains), and ``reduced_config``, the
+widths the RLHF slice uses; ``rwkv6-7b``, ``phi3.5-moe-42b-a6.6b`` and
+``qwen3-14b``, the reference driver's default, which the LM pretraining
+slice trains), and ``reduced_config``, the
 reference's same-family reduction for CPU tests."""
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ from repro_torch.configs.base import (
     SSMConfig,
 )
 from repro_torch.configs.phi35_moe_42b import CONFIG as _phi
+from repro_torch.configs.qwen3_14b import CONFIG as _qwen14
 from repro_torch.configs.qwen15_4b import CONFIG as _qwen4
 from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 
-ARCHITECTURES: Dict[str, ModelConfig] = {c.name: c for c in [_rwkv, _qwen4, _phi]}
+ARCHITECTURES: Dict[str, ModelConfig] = {c.name: c for c in [_rwkv, _qwen4, _phi, _qwen14]}
 
 
 def get_config(arch_id: str) -> ModelConfig:

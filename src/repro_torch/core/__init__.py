@@ -1,8 +1,8 @@
 """RLlib Flow core (PyTorch port): the hybrid actor-dataflow runtime.
 
-Exports what this slice ports; the eager plan shims (``core/plans.py``),
-the multi-host backend (``core/remote.py``) and the SPMD helpers wait for
-later slices.
+Exports what the port has, the eager plan shims (``core/plans.py``)
+included; the multi-host backend (``core/remote.py``) waits for a later
+slice.
 """
 
 from repro_torch.core.actor import (
@@ -50,6 +50,19 @@ from repro_torch.core.operators import (
     UpdateTargetNetwork,
     UpdateWorkerWeights,
     par_compute_gradients,
+)
+from repro_torch.core.plans import (
+    a2c_plan,
+    a3c_plan,
+    apex_plan,
+    appo_plan,
+    dqn_plan,
+    impala_plan,
+    maml_plan,
+    mbpo_plan,
+    multi_agent_ppo_dqn_plan,
+    ppo_plan,
+    sac_plan,
 )
 from repro_torch.core.transport import CreditPool, OverflowPolicy
 from repro_torch.core.workers import WorkerSet

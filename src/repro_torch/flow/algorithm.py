@@ -4,6 +4,7 @@ One object owns the whole lifecycle every driver used to hand-roll:
 
     algo = Algorithm.from_plan("ppo", workers, train_batch_size=1024)
     result = algo.train()          # one result dict from the plan's stream
+    algo.save("ckpt.npz")          # durable state = policy weights (§3)
     algo.stop()                    # joins learner threads, stops actors
 
 or as a context manager::
@@ -16,10 +17,8 @@ Side effects are deferred: constructing the Algorithm compiles the graph but
 starts nothing; the first ``train()`` starts learner threads; ``stop()``
 joins them — after it returns, no flow-owned threads are alive.
 
-The PyTorch port registers nine plans (``"a2c"``, ``"a3c"``, ``"ppo"``,
-``"ppo_lm"``, ``"dqn"``, ``"apex"``, ``"sac"``, ``"impala"``, ``"appo"``);
-``explain``, ``save`` and ``restore`` of the JAX package are not ported
-yet.
+The PyTorch port registers all twelve of the reference's plans; its
+``explain`` (cost attribution over XLA HLO) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ __all__ = ["Algorithm"]
 
 
 class Algorithm:
-    """Run-facade for a compiled flow: train / introspect / stop."""
+    """Run-facade for a compiled flow: train / checkpoint / introspect / stop."""
 
     def __init__(
         self,
@@ -178,6 +177,95 @@ class Algorithm:
         if self._stopped:
             raise RuntimeError("Algorithm is stopped")
         return self._workers.remove_workers(num_workers)
+
+    # -------------------------------------------------------- durability
+    def save(self, path: str) -> None:
+        """Checkpoint the canonical policy weights plus the flow's resumable
+        state (metrics counters, replay-buffer contents and RNG, and every
+        worker's ``get_state``: env state and key chains).
+
+        Weights go to ``path`` (.npz, the reference's format: either package
+        restores the other's); the flow state goes to ``path +
+        ".state.pkl"`` so a mid-stream restore resumes training with
+        identical counters, replay state and rollout streams.
+
+        All state is collected *before* any file is written: a dead replay
+        actor raises here (recover() first), never leaving a half-written
+        checkpoint that would later restore silently without flow state."""
+        import pickle
+
+        from repro_torch.checkpoint import save_pytree
+
+        weights = self._workers.local_worker().get_weights()
+        state: Dict[str, Any] = {"counters": self._it.metrics.snapshot_counters()}
+        if self._replay is not None:
+            try:
+                state["replay"] = [a.sync("get_state") for a in self._replay]
+            except AttributeError:
+                pass  # replay target without get_state(): counters-only state
+        lw = self._workers.local_worker()
+        if hasattr(lw, "get_state"):
+            state["local_worker"] = lw.get_state()
+        if hasattr(self._workers, "remote_workers"):
+            remote_states: Dict[str, Any] = {}
+            for actor in self._workers.remote_workers():
+                if not getattr(actor, "alive", True):
+                    continue
+                try:
+                    remote_states[actor.name] = actor.sync("get_state")
+                except AttributeError:
+                    pass  # worker without get_state(): weights-only worker
+            if remote_states:
+                state["remote_workers"] = remote_states
+        save_pytree(path, weights)
+        with open(path + ".state.pkl", "wb") as f:
+            pickle.dump(state, f)
+
+    def restore(self, path: str) -> None:
+        """Restore weights into the local worker (copied into its own
+        tensors), broadcast them to the remotes, and (when a state sidecar
+        exists) restore metrics counters, replay state and every worker's
+        state so training resumes exactly where ``save()`` left off."""
+        import os
+        import pickle
+
+        from repro_torch.checkpoint import restore_pytree
+
+        lw = self._workers.local_worker()
+        lw.set_weights(restore_pytree(path, lw.get_weights()))
+        self._workers.sync_weights()
+        sidecar = path + ".state.pkl"
+        if not os.path.exists(sidecar):
+            return
+        with open(sidecar, "rb") as f:
+            state = pickle.load(f)
+        metrics = self._it.metrics
+        metrics.counters.clear()
+        metrics.counters.update(state.get("counters", {}))
+        replay_states = state.get("replay")
+        if replay_states and self._replay is not None:
+            if len(replay_states) != len(self._replay):
+                raise ValueError(
+                    f"checkpoint has {len(replay_states)} replay-actor states "
+                    f"but this Algorithm has {len(self._replay)} replay actors; "
+                    "restore into a matching topology"
+                )
+            for actor, rstate in zip(self._replay, replay_states):
+                actor.sync("set_state", rstate)
+        if "local_worker" in state and hasattr(lw, "set_state"):
+            lw.set_state(state["local_worker"])
+        remote_states = state.get("remote_workers")
+        if remote_states and hasattr(self._workers, "remote_workers"):
+            # Matched by actor name (rollout-<index>), so restore works into
+            # a fresh WorkerSet of the same topology; extra/missing workers
+            # are left as-is (weights were already broadcast above).
+            for actor in self._workers.remote_workers():
+                rstate = remote_states.get(actor.name)
+                if rstate is not None:
+                    try:
+                        actor.sync("set_state", rstate)
+                    except AttributeError:
+                        pass
 
     # ------------------------------------------------------------ shutdown
     def stop(self) -> None:

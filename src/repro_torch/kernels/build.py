@@ -50,6 +50,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points in csrc/ (see each source's header note).
 _SIGNATURES = {
     # r, v, d, last, adv, ret, T, B, gamma, gamma*lam, stream
@@ -83,6 +84,10 @@ _SIGNATURES = {
     "moe_gmm_dx_launch": [_P] * 5 + [_I] * 4 + [_P],
     # x, dy, ends, dw, T, D, F, E, stream
     "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # keys, key_stride, lanes, n, out, xor_words, stream
+    "threefry_counts_launch": [_P, _L, _L, _L, _P, _I, _P],
+    # keys, key_stride, data, data_stride, lanes, out, stream
+    "threefry_fold_in_launch": [_P, _L, _P, _L, _L, _P, _P],
     # stream: an empty kernel, the shortest launch of the library
     "empty_launch": [_P],
 }

@@ -16,9 +16,11 @@ backward kernels), MoE layers ``ops.moe_gmm`` and attention layers
 trains in float32 whatever the configuration's dtype says (and prints so).
 
 Runs on the GPU unless ``--device cpu`` is given; ``--layers`` cuts the
-configuration's depth and keeps its widths:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b --layers 2 \\
-      --seq 4096 --batch 2 --data-shards 2 --steps 4
+configuration's depth and keeps its widths; ``--checkpoint PATH`` saves the
+learner's parameters there after the run (``repro_torch.checkpoint``, .npz
+keyed by tree path, which the JAX package's ``restore_pytree`` reads too):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --layers 2 \\
+      --seq 4096 --batch 2 --data-shards 2 --steps 4 --checkpoint ckpt/qwen3.npz
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
       --device cpu --smoke --steps 2 --batch 2 --seq 32
 """
@@ -71,6 +73,16 @@ def train_config(arch: str, smoke: bool = False, layers: int = 0):
     return dataclasses.replace(cfg, dtype="float32")
 
 
+def pretrain_optimizer(steps: int, lr: float = 3e-4):
+    """The reference driver's optimizer: AdamW under a warmup-cosine
+    schedule, with global-norm clipping."""
+    from repro_torch.optim import adamw, chain_clip_by_global_norm, linear_warmup_cosine
+
+    return chain_clip_by_global_norm(
+        adamw(linear_warmup_cosine(lr, 20, max(steps, 100)), weight_decay=0.1), max_norm=1.0
+    )
+
+
 def make_pretrain(
     cfg,
     seq: int,
@@ -81,20 +93,18 @@ def make_pretrain(
     device: Any = "cuda",
 ) -> Tuple[Any, Any, Any, Any]:
     """The learner, the data actors, the worker set and the flow spec of one
-    pretraining run, with the reference driver's optimizer: AdamW under a
-    warmup-cosine schedule, with global-norm clipping."""
+    pretraining run, with the reference driver's optimizer
+    (``pretrain_optimizer``)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.core.actor import ActorPool
     from repro_torch.core.spmd import SPMDLearnerWorker, SPMDTrainContext
     from repro_torch.core.workers import WorkerSet
     from repro_torch.data import TokenPipeline
-    from repro_torch.optim import adamw, chain_clip_by_global_norm, linear_warmup_cosine
 
-    optimizer = chain_clip_by_global_norm(
-        adamw(linear_warmup_cosine(lr, 20, max(steps, 100)), weight_decay=0.1), max_norm=1.0
-    )
     shape = InputShape("train", seq, batch, "train")
-    learner = SPMDLearnerWorker(SPMDTrainContext(cfg, optimizer, device=device), seed=0)
+    learner = SPMDLearnerWorker(
+        SPMDTrainContext(cfg, pretrain_optimizer(steps, lr), device=device), seed=0
+    )
     pipes = ActorPool.from_targets(
         [TokenPipeline(cfg, shape, seed=0, host_id=i, num_hosts=data_shards)
          for i in range(data_shards)],
@@ -106,7 +116,7 @@ def make_pretrain(
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="qwen3-14b")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
     ap.add_argument("--layers", type=int, default=0, help="cut the config to this many layers")
@@ -115,11 +125,9 @@ def main(argv=None) -> None:
     ap.add_argument("--data-shards", type=int, default=2)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--checkpoint", default="", help="save the learner's parameters here (.npz)")
     ap.add_argument("--dot", action="store_true", help="print the flow graph and exit")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("checkpointing is not ported to repro_torch yet")
 
     from repro_torch.flow import Algorithm
 
@@ -144,6 +152,11 @@ def main(argv=None) -> None:
                     f"({(time.time() - t0) / (step + 1):.2f}s/step)",
                     flush=True,
                 )
+        if args.checkpoint:
+            from repro_torch.checkpoint import save_pytree
+
+            save_pytree(args.checkpoint, learner.params)
+            print(f"saved checkpoint to {args.checkpoint}", flush=True)
 
 
 if __name__ == "__main__":

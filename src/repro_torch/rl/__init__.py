@@ -33,6 +33,7 @@ from repro_torch.rl.rollout_worker import (
     EPS_STRIDE,
     MAX_LANES,
     MultiAgentRolloutWorker,
+    PerEnvRolloutWorker,
     RolloutWorker,
     VectorizedRolloutWorker,
     assemble_fragments,

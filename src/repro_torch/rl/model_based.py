@@ -158,6 +158,10 @@ class ModelBasedWorker(RolloutWorker):
         )
         obs = torch.as_tensor(batch["obs"], device=self.device)
         start = obs.index_select(0, torch.as_tensor(idx, device=self.device))
+        # The reference draws the member and the actions from a key it splits
+        # off the worker's chain; the port draws them from the generator (a
+        # deliberate difference) and advances the chain alike.
+        self._next_key()
         member = int(torch.randint(self.ensemble_size, (1,), generator=self._gen,
                                    device=self.device))
         cols = self.synth_rollout(self.params, self.dyn_params[member], start, self._sample_action)

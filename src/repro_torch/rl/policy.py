@@ -4,10 +4,12 @@ Parameters are the reference's plain dict tree, ``{"pi": [{"w": [din, dout],
 "b": [dout]}, ...], "vf": [...]}``, held as tensors on the policy's device:
 the ``w`` layout is the reference's ``[din, dout]``, not ``nn.Linear``'s
 ``[out, in]``, so ``repro_torch.interop`` carries weights across in one
-numpy round trip.  ``act`` draws from an explicit ``torch.Generator`` (the
-non-vectorized ``RolloutWorker``); ``compute_actions`` samples each row from
-that row's own threefry key (``repro_torch.prng``, ``[N, 2]``), bit for bit
-as the reference's ``vmap``ped acting does.
+numpy round trip.  Acting draws from threefry keys (``repro_torch.prng``)
+bit for bit as the reference's does: ``act`` takes one key ``[2]`` for the
+whole batch (the non-vectorized ``RolloutWorker``), ``compute_actions``
+one key a row, ``[N, 2]`` (the reference's ``vmap``ped ``act``).
+Parameter initialisation draws from a ``torch.Generator``: weights cross
+between the packages through ``repro_torch.interop``, never by seed.
 """
 
 from __future__ import annotations
@@ -89,14 +91,14 @@ class ActorCriticPolicy:
     def logits_value(self, params: PyTree, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return mlp_apply(params["pi"], obs), mlp_apply(params["vf"], obs)[..., 0]
 
-    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        """Sample actions for a batch of observations ``[N, obs_dim]``;
-        returns (action, logp, value, logits)."""
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
+        """Sample actions for observations ``[..., obs_dim]`` from one key
+        ``[2]`` (``jax.random.categorical(key, logits)``); returns (action,
+        logp, value, logits)."""
         logits, value = self.logits_value(params, obs)
-        logp_all = torch.log_softmax(logits, dim=-1)
-        action = torch.multinomial(torch.exp(logp_all), 1, generator=generator)
-        logp = logp_all.gather(-1, action)[..., 0]
-        return action[..., 0], logp, value, logits
+        action = prng.categorical_key(key, logits)
+        logp = torch.log_softmax(logits, dim=-1).gather(-1, action[..., None])[..., 0]
+        return action, logp, value, logits
 
     def compute_actions(self, params: PyTree, obs: torch.Tensor, keys: torch.Tensor):
         """Batched acting with *per-lane* keys: ``obs [N, obs_dim]``, ``keys
@@ -212,15 +214,15 @@ class DQNPolicy:
     def q_values(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         return mlp_apply(params["q"], obs)
 
-    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator, epsilon: float):
-        """Epsilon-greedy over a batch ``[N, obs_dim]``; returns (action,
-        zeros, max Q, Q)."""
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor, epsilon: float):
+        """Epsilon-greedy over observations ``[..., obs_dim]`` from one key
+        ``[2]``, split into the random actions' and the coins'; returns
+        (action, zeros, max Q, Q)."""
         q = self.q_values(params, obs)
         greedy = torch.argmax(q, dim=-1)
-        random_a = torch.randint(
-            0, self.num_actions, greedy.shape, generator=generator, device=q.device
-        )
-        explore = torch.rand(greedy.shape, generator=generator, device=q.device) < epsilon
+        k1, k2 = prng.split(key, 2)
+        random_a = prng.randint(k1, tuple(greedy.shape), 0, self.num_actions)
+        explore = prng.uniform(k2, tuple(greedy.shape)) < epsilon
         action = torch.where(explore, random_a, greedy)
         value = torch.max(q, dim=-1).values
         return action, torch.zeros_like(value), value, q
@@ -264,9 +266,12 @@ class DQNPolicy:
 class SACPolicy:
     """Continuous SAC: squashed Gaussian actor + twin Q critics.
 
-    ``loss`` draws the two standard-normal noises (the critic's on
-    ``next_obs``, the actor's on ``obs``) from a generator and hands them to
-    ``loss_with_noise``, the deterministic core.  As in the reference, the
+    Acting draws its noise from threefry keys, as the reference's.  ``loss``
+    draws the two standard-normal noises (the critic's on ``next_obs``, the
+    actor's on ``obs``) from the learner's generator (the reference splits
+    them from its learner key: a deliberate difference, the learner's noise
+    is not a rollout draw) and hands them to ``loss_with_noise``, the
+    deterministic core.  As in the reference, the
     critic target (``next_logp`` from the online actor included) is
     stop-gradient, while the actor loss does send gradient into ``q1``/``q2``.
     """
@@ -314,8 +319,11 @@ class SACPolicy:
     def _q(self, q_params: PyTree, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
         return mlp_apply(q_params, torch.cat([obs, act], dim=-1))[..., 0]
 
-    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        action, logp = self._pi(params, obs, self.noise(obs, generator))
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
+        """Squashed-Gaussian actions for ``[..., obs_dim]`` from one key
+        ``[2]``: one normal draw of the actor's output shape."""
+        eps = prng.normal(key, tuple(obs.shape[:-1]) + (self.action_dim,))
+        action, logp = self._pi(params, obs, eps)
         value = self._q(params["q1"], obs, action)
         return action, logp, value, action
 
@@ -369,9 +377,9 @@ class DummyPolicy:
     def init_params(self, generator: torch.Generator) -> PyTree:
         return {"theta": torch.zeros((1,), device=generator.device)}
 
-    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
         shape = tuple(obs.shape[:-1])
-        action = torch.randint(0, self.num_actions, shape, generator=generator, device=obs.device)
+        action = prng.randint(key, shape, 0, self.num_actions)
         zeros = torch.zeros(shape, device=obs.device)
         return action, zeros, zeros, zeros
 

@@ -2,8 +2,8 @@
 ``repro/rl/rollout_worker.py``).
 
 Owns a batched env, a policy, its parameters (plus target parameters for
-the off-policy ``dqn`` and ``sac``) and optimizer state, and a
-``torch.Generator``, all on one device.  Where the reference compiles the
+the off-policy ``dqn`` and ``sac``) and optimizer state, and a threefry key
+chain, all on one device.  Where the reference compiles the
 T-step rollout into one ``lax.scan``, the port runs it as a loop of eager
 batched steps on the device and ends it with the GAE kernel (``pg`` and
 ``ppo``; ``vtrace``, ``dqn`` and ``sac`` workers compute no advantages); the
@@ -24,14 +24,28 @@ tensors and rebinds ``self.params``, so a ``get_weights`` on another thread
 (the IMPALA broadcast gate, while the learner thread runs
 ``learn_on_batch``) reads either the old or the new weights, never a mix.
 
+Every rollout draw comes from the reference's key chains (``repro_torch.prng``,
+bit for bit): the worker's root key ``key(seed * 10007 + worker_index)``
+splits into the chain, the parameters' key and the envs' key; each rollout
+splits the chain into a key a step, each step's key into the acting key and
+the envs' key, and that into a key an env.  So a worker's stream equals the
+reference's from the same seed and converted weights, and ``get_state`` /
+``set_state`` carry the chain, which makes a restored worker's next rollout
+bit-identical.  Two draws stay on a ``torch.Generator`` seeded the same way
+(deliberate differences of the port): parameter initialisation (weights
+cross between the packages by value, ``repro_torch.interop``) and the
+learner's own noise (SAC's loss; MBPO's synthetic rollouts).
+
 ``VectorizedRolloutWorker`` is the vectorized engine over a ``VectorEnv``:
 one batched policy dispatch per step with per-lane threefry keys, per-episode
 fragments with globally unique ``eps_id`` labels, truncation-aware GAE, the
 cached-decode path (``decode="cache"``) that carries an LM's per-lane KV
 cache through the rollout, and decoupled inference (``inference="server"``)
-through the serving tier of ``rl/inference.py``.  ``MultiAgentRolloutWorker``
-steps one env of several agents, each mapped to a policy of its own (the
-PPO+DQN composition), and returns a ``MultiAgentBatch``.
+through the serving tier of ``rl/inference.py``.  ``PerEnvRolloutWorker`` is
+its per-env reference loop (one dispatch an env a step, the same key
+chains).  ``MultiAgentRolloutWorker`` steps one env of several agents, each
+mapped to a policy of its own (the PPO+DQN composition), and returns a
+``MultiAgentBatch``.
 
 The workers run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with ``device="cuda"`` and no CUDA device they raise.
@@ -40,7 +54,7 @@ The workers run on the GPU unless the caller asks for the CPU
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +62,7 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels.ops import fused_gae as gae
 from repro_torch.optim import Optimizer, adam
-from repro_torch.rl.env import Env, VectorEnv
+from repro_torch.rl.env import Env, VectorEnv, VectorEnvState
 from repro_torch.rl.sample_batch import MultiAgentBatch, SampleBatch
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -58,6 +72,7 @@ __all__ = [
     "RolloutWorker",
     "MultiAgentRolloutWorker",
     "VectorizedRolloutWorker",
+    "PerEnvRolloutWorker",
     "assemble_fragments",
     "MAX_LANES",
     "EPS_STRIDE",
@@ -195,35 +210,47 @@ class RolloutWorker:
         self.worker_index = worker_index
         self.device = _resolve_device(device, type(self).__name__)
 
+        root = seed * 10007 + worker_index
+        self._key, _, ek = prng.split(prng.key(root, self.device), 3)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed * 10007 + worker_index)
+        self._gen.manual_seed(root)
         self.params = policy.init_params(self._gen)
         self.update_target()
         self.optimizer = optimizer or adam(3e-4)
         self.opt_state = self.optimizer.init(self.params)
 
         self._completed: deque = deque(maxlen=100)
-        self._init_env_state()
+        self._init_env_state(ek)
 
-    def _init_env_state(self) -> None:
-        """Build the worker's env-side state (subclass hook: the vectorized
-        engine keeps a ``VectorEnv`` state instead)."""
-        self.env_state, self.obs = self.env.reset(self.num_envs, self._gen, self.device)
+    def _init_env_state(self, ek: torch.Tensor) -> None:
+        """Build the worker's env-side state from the envs' key (subclass
+        hook: the vectorized engine keeps a ``VectorEnv`` state instead)."""
+        self.env_state, self.obs = self.env.reset(prng.split(ek, self.num_envs))
         self._ep_returns = torch.zeros((self.num_envs,), dtype=torch.float32, device=self.device)
 
+    def _next_key(self) -> torch.Tensor:
+        """Advance the worker's chain by one split; the split-off key."""
+        self._key, k = prng.split(self._key, 2)
+        return k
+
     # --------------------------------------------------------------- rollout
-    def _act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
+    def _act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
         if self.algo == "dqn":
-            return self.policy.act(params, obs, generator, self.epsilon)
-        return self.policy.act(params, obs, generator)
+            return self.policy.act(params, obs, key, self.epsilon)
+        return self.policy.act(params, obs, key)
 
     @torch.no_grad()
     def _rollout(self) -> Dict[str, torch.Tensor]:
         params, env_state, obs, ep_ret = self.params, self.env_state, self.obs, self._ep_returns
+        # The reference's chain: a key a step, each split into the acting key
+        # and the envs' key, that split into a key an env.  All steps' keys
+        # come from three hashes, before the loop.
+        step_keys = prng.split(prng.split(self._next_key(), self.rollout_len), 2)  # [T, 2, 2]
+        env_keys = prng.split(step_keys[:, 1], self.num_envs)  # [T, N, 2]
         steps = []
-        for _ in range(self.rollout_len):
-            action, logp, value, _ = self._act(params, obs, self._gen)
-            env_state, next_obs, reward, done = self.env.step(env_state, action, self._gen)
+        for t in range(self.rollout_len):
+            action, logp, value, _ = self._act(params, obs, step_keys[t, 0])
+            env_state, next_obs, reward, done = self.env.step(env_state, action, env_keys[t])
             new_ret = ep_ret + reward
             completed = torch.where(done, new_ret, 0.0)
             ep_ret = torch.where(done, 0.0, new_ret)
@@ -270,7 +297,8 @@ class RolloutWorker:
     def _loss_for(self, params: PyTree, target_params: PyTree, batch: Dict[str, torch.Tensor]):
         """The policy's loss; ``target_params`` (no grad) enter the DQN and
         SAC losses, and SAC draws its two noises from the worker's
-        generator."""
+        generator (the reference draws them from the learner key
+        ``_grads`` splits off; a deliberate difference)."""
         if self.algo == "dqn":
             return self.policy.loss(params, target_params, batch)
         if self.algo == "sac":
@@ -278,6 +306,7 @@ class RolloutWorker:
         return self.policy.loss(params, batch)
 
     def _grads(self, batch: Dict[str, torch.Tensor]):
+        self._next_key()  # the reference's learner key: the chain advances alike
         return _value_and_grad(lambda p: self._loss_for(p, self.target_params, batch), self.params)
 
     @staticmethod
@@ -333,9 +362,11 @@ class RolloutWorker:
 
     # ------------------------------------------------------------ durability
     def get_state(self) -> Dict[str, Any]:
-        """Resumable rollout-side state (weights travel separately): env
-        auto-reset state, generator state, episode stats."""
+        """Resumable rollout-side state (weights travel separately): the key
+        chain (uint32, as the reference's), env auto-reset state, episode
+        stats, and the learner's generator."""
         return {
+            "key": _host(self._key).astype(np.uint32),
             "generator": self._gen.get_state().numpy(),
             "env_state": [np.asarray(x.cpu()) for x in self.env_state],
             "obs": self.obs.cpu().numpy(),
@@ -344,6 +375,7 @@ class RolloutWorker:
         }
 
     def set_state(self, state: Dict[str, Any]) -> None:
+        self._key = _device_key(state["key"], self.device)
         self._gen.set_state(torch.as_tensor(state["generator"]))
         self.env_state = type(self.env_state)(
             *(torch.as_tensor(x, device=self.device) for x in state["env_state"])
@@ -364,18 +396,10 @@ class RolloutWorker:
         pass
 
 
-def _child_generator(parent: torch.Generator, device: torch.device) -> torch.Generator:
-    """A new generator on ``device`` seeded by a draw from ``parent``."""
-    seed = int(torch.randint(0, 2**62, (1,), generator=parent, device=parent.device).item())
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
-
-
-def _draw_key(parent: torch.Generator) -> torch.Tensor:
-    """A threefry key ``[2]`` (two uint32 words in int64) drawn from
-    ``parent``, on its device."""
-    return torch.randint(0, 2**32, (2,), generator=parent, device=parent.device, dtype=torch.int64)
+def _device_key(words: Any, device: torch.device) -> torch.Tensor:
+    """Checkpointed key words (uint32, as either package writes them) as
+    the port's int64 key tensor on ``device``."""
+    return torch.as_tensor(np.asarray(words).astype(np.int64), device=device)
 
 
 class VectorizedRolloutWorker(RolloutWorker):
@@ -383,12 +407,12 @@ class VectorizedRolloutWorker(RolloutWorker):
     policy dispatch per step (PyTorch port of the reference's
     ``VectorizedRolloutWorker``).
 
-      * env auto-reset and episode accounting live in a ``VectorEnvState``
-        with its own generator.  Acting draws from ``act_rng``, ``[N, 2]``
-        threefry lane keys, ``fold_in(k_act, i)`` of a key drawn from the
-        worker's generator and split every step as the reference's; a lane's
-        actions therefore do not depend on which batch serves it.  The env
-        state, ``act_rng`` and the lane state are part of
+      * env auto-reset, per-lane env key chains and episode accounting live
+        in a ``VectorEnvState``.  Acting draws from ``act_rng``, ``[N, 2]``
+        threefry lane keys, ``fold_in(k_act, i)`` of the envs' key's split
+        and split every step as the reference's; a lane's actions therefore
+        do not depend on which batch serves it.  The env state, ``act_rng``,
+        the worker's chain and the lane state are part of
         ``get_state``/``set_state``;
       * batches are per-episode fragments: every row carries a globally
         unique int64 ``eps_id``, plus ``terminateds``/``truncateds``;
@@ -446,10 +470,10 @@ class VectorizedRolloutWorker(RolloutWorker):
         self.venv = VectorEnv(self.env, self.num_envs)
         self._lane_base = self.worker_index * MAX_LANES + np.arange(self.num_envs, dtype=np.int64)
 
-    def _init_env_state(self) -> None:
+    def _init_env_state(self, ek: torch.Tensor) -> None:
         self._rebuild_plumbing()
-        self.vstate = self.venv.reset(_child_generator(self._gen, self.device))
-        k_act = _draw_key(self._gen)
+        k_env, k_act = prng.split(ek, 2)
+        self.vstate = self.venv.reset(k_env)
         self.act_rng = prng.fold_in(k_act, torch.arange(self.num_envs, device=self.device))
         self._reset_lane_state()
 
@@ -471,15 +495,15 @@ class VectorizedRolloutWorker(RolloutWorker):
         """Reconfigure lanes / inference mode / decode path (FlowSpec
         annotation lowering).
 
-        Resizing rebuilds the ``VectorEnv`` and the lane keys from the
-        worker's generator; switching to ``'server'`` without a client falls
-        back to local inference (flagged in the ack), and ``decode='cache'``
-        on a policy without the stateful protocol falls back to
-        ``'forward'`` likewise.
+        Resizing rebuilds the ``VectorEnv`` with fresh per-lane key chains
+        split from the worker's chain; switching to ``'server'`` without a
+        client falls back to local inference (flagged in the ack), and
+        ``decode='cache'`` on a policy without the stateful protocol falls
+        back to ``'forward'`` likewise.
         """
         if vector is not None and int(vector) != self.num_envs:
             self.num_envs = int(vector)
-            self._init_env_state()
+            self._init_env_state(self._next_key())
         if inference is not None:
             if inference not in ("local", "server"):
                 raise ValueError(f"unknown inference mode {inference!r}")
@@ -614,6 +638,7 @@ class VectorizedRolloutWorker(RolloutWorker):
     # ------------------------------------------------------------ durability
     def get_state(self) -> Dict[str, Any]:
         state = {
+            "key": _host(self._key).astype(np.uint32),
             "generator": self._gen.get_state().numpy(),
             "vstate": VectorEnv.state_to_numpy(self.vstate),
             "act_rng": _host(self.act_rng).astype(np.uint32),
@@ -625,11 +650,10 @@ class VectorizedRolloutWorker(RolloutWorker):
         return state
 
     def set_state(self, state: Dict[str, Any]) -> None:
+        self._key = _device_key(state["key"], self.device)
         self._gen.set_state(torch.as_tensor(state["generator"]))
         self.vstate = VectorEnv.state_from_numpy(state["vstate"], self.device)
-        self.act_rng = torch.as_tensor(
-            np.asarray(state["act_rng"]).astype(np.int64), device=self.device
-        )
+        self.act_rng = _device_key(state["act_rng"], self.device)
         self._completed = deque(state["completed"], maxlen=100)
         self.num_fragments_dropped = int(state.get("num_fragments_dropped", 0))
         # Adopt the checkpoint's lane count: a state saved at vector=8
@@ -655,6 +679,56 @@ class VectorizedRolloutWorker(RolloutWorker):
         stats = super().episode_stats()
         stats["fragments_dropped"] = float(self.num_fragments_dropped)
         return stats
+
+
+class PerEnvRolloutWorker(VectorizedRolloutWorker):
+    """The per-env reference loop: one policy dispatch *per env per step*.
+
+    The same key chains, env stepping and fragment assembly as
+    ``VectorizedRolloutWorker``; only the inference dispatch differs (N
+    single-row ``act`` calls, each with its lane's key, instead of one
+    batched call).  For elementwise envs and policies (``StubEnv`` +
+    ``DummyPolicy``) the two engines are bit-identical, which the
+    determinism suite pins down.
+    """
+
+    def _rebuild_plumbing(self) -> None:
+        super()._rebuild_plumbing()
+        # Each lane steps through an N=1 VectorEnv over its slice of the
+        # state: a lane's step is elementwise, so its key chain and its
+        # values equal lane i of the N-wide step.
+        self._venv1 = VectorEnv(self.env, 1)
+
+    @staticmethod
+    def _lane(state: VectorEnvState, i: int) -> VectorEnvState:
+        es = state.env_state
+        rest = (x[i : i + 1] for x in state[1:])
+        return VectorEnvState(type(es)(*(x[i : i + 1] for x in es)), *rest)
+
+    @staticmethod
+    def _concat(lanes: List[VectorEnvState]) -> VectorEnvState:
+        es = [lane.env_state for lane in lanes]
+        fields = (torch.cat(xs, dim=0) for xs in zip(*(lane[1:] for lane in lanes)))
+        return VectorEnvState(type(es[0])(*(torch.cat(xs, dim=0) for xs in zip(*es))), *fields)
+
+    @torch.no_grad()
+    def sample(self) -> SampleBatch:
+        if self.inference == "server" or self.decode == "cache":
+            return super().sample()
+        lanes = [self._lane(self.vstate, i) for i in range(self.num_envs)]
+        act_rng, steps = self.act_rng, []
+        for _ in range(self.rollout_len):
+            act_rng, k_act = VectorEnv._split_lanes(act_rng)
+            per_lane = []
+            for i in range(self.num_envs):
+                obs_i = lanes[i].obs
+                a, logp, value, _ = self._act(self.params, obs_i, k_act[i])
+                lanes[i], out = self._venv1.step(lanes[i], a)
+                per_lane.append(self._step_columns(obs_i, a, logp, value, out))
+            steps.append({k: torch.cat([p[k] for p in per_lane]) for k in per_lane[0]})
+        self.act_rng = act_rng
+        self.vstate = self._concat(lanes)
+        return self._emit({k: torch.stack([s[k] for s in steps]) for k in steps[0]})
 
 
 class MultiAgentRolloutWorker:
@@ -696,8 +770,10 @@ class MultiAgentRolloutWorker:
         self.agent_to_policy = dict(agent_to_policy)
         self.worker_index = worker_index
         self.device = _resolve_device(device, type(self).__name__)
+        root = seed * 7919 + worker_index
+        self._key = prng.key(root, self.device)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed * 7919 + worker_index)
+        self._gen.manual_seed(root)
 
         self.policies: Dict[str, Any] = {}
         self.params: Dict[str, PyTree] = {}
@@ -706,6 +782,7 @@ class MultiAgentRolloutWorker:
         self.opt_states: Dict[str, PyTree] = {}
         self.algos: Dict[str, str] = {}
         for pid, spec in policy_specs.items():  # params drawn in the specs' order
+            self._next_key()  # the reference's parameter key: the chain advances alike
             self.policies[pid] = spec["policy"]
             self.algos[pid] = spec.get("algo", "ppo")
             self.params[pid] = spec["policy"].init_params(self._gen)
@@ -721,17 +798,26 @@ class MultiAgentRolloutWorker:
             for pid in self.policies
         }
 
-        self.env_state, self.obs = env.reset(self._gen, self.device)
+        self.env_state, self.obs = env.reset(self._next_key())
         self._ep_returns = torch.zeros((env.num_agents,), dtype=torch.float32, device=self.device)
         self._completed: deque = deque(maxlen=100)
+
+    def _next_key(self) -> torch.Tensor:
+        """Advance the worker's chain by one split; the split-off key."""
+        self._key, k = prng.split(self._key, 2)
+        return k
 
     # --------------------------------------------------------------- rollout
     @torch.no_grad()
     def _rollout(self) -> Dict[str, torch.Tensor]:
         A, dev = self.env.num_agents, self.device
         env_state, obs, ep_ret = self.env_state, self.obs, self._ep_returns
+        # A key a step, split into the acting key (every policy's) and the
+        # env's, as the reference's chain.
+        step_keys = prng.split(prng.split(self._next_key(), self.rollout_len), 2)  # [T, 2, 2]
         steps = []
-        for _ in range(self.rollout_len):
+        for t in range(self.rollout_len):
+            k_act, k_env = step_keys[t]
             actions = torch.zeros((A,), dtype=torch.int64, device=dev)
             logps = torch.zeros((A,), dtype=torch.float32, device=dev)
             values = torch.zeros((A,), dtype=torch.float32, device=dev)
@@ -739,13 +825,13 @@ class MultiAgentRolloutWorker:
                 idx = self._agents[pid]
                 o = obs.index_select(0, idx)
                 if self.algos[pid] == "dqn":
-                    a, lp, v, _ = pol.act(self.params[pid], o, self._gen, self.epsilon)
+                    a, lp, v, _ = pol.act(self.params[pid], o, k_act, self.epsilon)
                 else:
-                    a, lp, v, _ = pol.act(self.params[pid], o, self._gen)
+                    a, lp, v, _ = pol.act(self.params[pid], o, k_act)
                 actions.index_copy_(0, idx, a)
                 logps.index_copy_(0, idx, lp)
                 values.index_copy_(0, idx, v)
-            env_state, next_obs, reward, done = self.env.step(env_state, actions, self._gen)
+            env_state, next_obs, reward, done = self.env.step(env_state, actions, k_env)
             new_ret = ep_ret + reward
             completed = torch.where(done, new_ret, 0.0)
             ep_ret = torch.where(done, 0.0, new_ret)
@@ -795,6 +881,7 @@ class MultiAgentRolloutWorker:
         weights), autograd and its optimizer.  Returns the loss as a float
         and, for DQN, the per-row ``td_error`` as a numpy array."""
         dev = _device_batch(batch, self.device)
+        self._next_key()  # the reference's learner key: the chain advances alike
         pol = self.policies[policy_id]
         if self.algos[policy_id] == "dqn":
             target = self.target_params[policy_id]

@@ -1,7 +1,7 @@
 """TokenEnv: autoregressive generation as an RL environment (PyTorch port of
 ``repro/rl/token_env.py``), on the port's batched ``Env`` API: state fields
-are ``[N]`` (tokens ``[N, ctx]``) tensors and randomness comes from an
-explicit ``torch.Generator``.
+are ``[N]`` (tokens ``[N, ctx]``) tensors and each lane draws its prompt
+from its own threefry key, bit for bit the reference's.
 
   * **reset** samples prompts: ``prompt_len`` tokens drawn from the vocab
     (ragged per lane within ``[min_prompt, max_prompt]``), avoiding PAD/EOS.
@@ -23,10 +23,11 @@ The observation is the whole generation state: the ``[ctx]`` token window
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.rl.env import Env
 
 __all__ = ["TokenEnv", "TokenEnvState", "split_obs", "make_obs", "target_token_reward", "PAD", "EOS"]
@@ -107,16 +108,12 @@ class TokenEnv(Env):
         self.num_actions = vocab_size
 
     # --------------------------------------------------------------- protocol
-    def reset(
-        self, num_envs: int, generator: torch.Generator, device: Any
-    ) -> Tuple[TokenEnvState, torch.Tensor]:
-        prompt_len = torch.randint(
-            self.min_prompt, self.max_prompt + 1, (num_envs,), generator=generator, device=device
-        ).to(torch.int32)
+    def reset(self, keys: torch.Tensor) -> Tuple[TokenEnvState, torch.Tensor]:
+        sub = prng.split(keys, 2)  # [N, 2, 2]: (kp, kl) a lane
+        prompt_len = prng.randint(sub[:, 1], (), self.min_prompt, self.max_prompt + 1).to(torch.int32)
         # Prompt tokens avoid PAD/EOS so prompts are unambiguous content.
-        body = torch.randint(
-            2, self.vocab_size, (num_envs, self.ctx), generator=generator, device=device
-        ).to(torch.int32)
+        body = prng.randint(sub[:, 0], (self.ctx,), 2, self.vocab_size).to(torch.int32)
+        num_envs, device = body.shape[0], body.device
         idx = torch.arange(self.ctx, device=device)
         tokens = torch.where(idx[None] < prompt_len[:, None], body, PAD)
         st = TokenEnvState(
@@ -128,7 +125,7 @@ class TokenEnv(Env):
         )
         return st, make_obs(st.tokens, st.length, st.t)
 
-    def step_raw(self, st: TokenEnvState, action: torch.Tensor):
+    def step_raw(self, st: TokenEnvState, action: torch.Tensor, keys: torch.Tensor):
         tok = torch.where(st.finished, PAD, action.to(torch.int32))
         idx = torch.arange(self.ctx, device=st.tokens.device)
         tokens = torch.where(idx[None] == st.length[:, None], tok[:, None], st.tokens)

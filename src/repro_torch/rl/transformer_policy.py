@@ -111,13 +111,14 @@ class TransformerPolicy:
         value = head_apply(params["vf_head"], z)[..., 0]
         return logits.reshape(lead + (self.num_actions,)), value.reshape(lead)
 
-    def act(self, params: PyTree, obs: torch.Tensor, generator: torch.Generator):
-        """Sample actions for ``obs [N, obs_dim]`` from a generator (the
-        non-vectorized ``RolloutWorker``)."""
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
+        """Sample actions for ``obs [N, obs_dim]`` from one key ``[2]`` (the
+        non-vectorized ``RolloutWorker``; ``jax.random.categorical(key,
+        logits)``)."""
         logits, value = self.logits_value(params, obs)
-        logp_all = torch.log_softmax(logits, dim=-1)
-        action = torch.multinomial(torch.exp(logp_all), 1, generator=generator)
-        return action[..., 0], logp_all.gather(-1, action)[..., 0], value, logits
+        action = prng.categorical_key(key, logits)
+        logp = torch.log_softmax(logits, dim=-1).gather(-1, action[..., None])[..., 0]
+        return action, logp, value, logits
 
     def value(self, params: PyTree, obs: torch.Tensor) -> torch.Tensor:
         """Critic value only (GAE bootstrap at truncation boundaries)."""

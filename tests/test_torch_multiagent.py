@@ -31,6 +31,7 @@ from repro.rl.policy import DQNPolicy as JaxDQNPolicy
 from repro.rl.replay import ReplayBuffer as JaxReplayBuffer
 from repro.rl.rollout_worker import MultiAgentRolloutWorker as JaxMAWorker
 from repro.rl.sample_batch import SampleBatch as JaxSampleBatch
+from repro_torch import prng
 from repro_torch.core.actor import ActorPool
 from repro_torch.core.operators import StandardizeFields
 from repro_torch.core.workers import WorkerSet
@@ -99,7 +100,7 @@ def test_multi_agent_cartpole_step_raw_matches_reference():
     )
     env_t = MultiAgentCartPole(A, mapping)
     out_t = env_t.step_raw(CartPoleState(*map(torch.from_numpy, (x, x_dot, theta, theta_dot, t))),
-                           torch.from_numpy(actions))
+                           torch.from_numpy(actions), prng.key(0))
     for got, want in zip(tree_leaves(tuple(out_t[0])) + [out_t[1]],
                          jax.tree_util.tree_leaves(out_j[0]) + [out_j[1]]):
         _close(got.numpy(), want, ENV_TOL)
@@ -111,11 +112,10 @@ def test_multi_agent_cartpole_step_raw_matches_reference():
 
 def test_multi_agent_cartpole_resets_one_lane_per_agent():
     env = MultiAgentCartPole(4, MAPPING)
-    st, obs = env.reset(torch.Generator().manual_seed(0), "cpu")
+    st, obs = env.reset(prng.key(0))
     assert obs.shape == (4, 4) and st.t.shape == (4,)
     assert float(obs.abs().max()) <= 0.05
-    st, obs, reward, done = env.step(st, torch.ones(4, dtype=torch.int64),
-                                     torch.Generator().manual_seed(1))
+    st, obs, reward, done = env.step(st, torch.ones(4, dtype=torch.int64), prng.key(1))
     assert obs.shape == (4, 4) and reward.shape == (4,) and done.dtype == torch.bool
 
 

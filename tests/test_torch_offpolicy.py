@@ -37,6 +37,7 @@ from repro.rl.replay import ReplayBuffer as JaxReplayBuffer
 from repro.rl.rollout_worker import RolloutWorker as JaxWorker
 from repro.rl.sample_batch import SampleBatch as JaxSampleBatch
 from repro.rl.env import CartPole as JaxCartPole
+from repro_torch import prng
 from repro_torch.core.actor import ActorPool
 from repro_torch.core.metrics import NUM_SAMPLES_DROPPED
 from repro_torch.core.workers import WorkerSet
@@ -77,6 +78,11 @@ def _tree_close(got, want, tol=TOL):
         _close(g, w, tol)
 
 
+def _torch_keys(keys):
+    """JAX's uint32 keys as the port's int64 keys."""
+    return torch.from_numpy(np.asarray(keys).astype(np.int64))
+
+
 def _jax_params(policy, seed):
     return jax.tree_util.tree_map(np.asarray, policy.init_params(jax.random.PRNGKey(seed)))
 
@@ -95,7 +101,7 @@ def test_pendulum_step_raw_matches_reference():
     keys = jax.random.split(jax.random.PRNGKey(0), len(t))
     out_j = jax.vmap(env_j.step_raw)(st_j, jnp.asarray(actions), keys)
     st_t = PendulumState(*map(torch.from_numpy, (theta, theta_dot, t)))
-    out_t = Pendulum().step_raw(st_t, torch.from_numpy(actions))
+    out_t = Pendulum().step_raw(st_t, torch.from_numpy(actions), _torch_keys(keys))
     for name, got, want in zip(("state", "obs", "reward"), out_t[:3], out_j[:3]):
         for g, w in zip(jax.tree_util.tree_leaves(tuple(got) if name == "state" else got),
                         jax.tree_util.tree_leaves(want)):
@@ -117,7 +123,7 @@ def test_stub_env_step_raw_matches_reference():
         JaxStubEnvState(jnp.asarray(x), jnp.asarray(t)), jnp.asarray(actions), keys
     )
     out_t = StubEnv().step_raw(StubEnvState(torch.from_numpy(x), torch.from_numpy(t)),
-                               torch.from_numpy(actions).long())
+                               torch.from_numpy(actions).long(), _torch_keys(keys))
     _close(out_t[0].x.numpy(), out_j[0].x, ENV_TOL, "x")
     np.testing.assert_array_equal(out_t[0].t.numpy(), np.asarray(out_j[0].t))
     _close(out_t[1].numpy(), out_j[1], ENV_TOL, "obs")
@@ -137,17 +143,14 @@ def test_env_step_auto_reset_takes_whole_rows(env_cls):
     against StubEnv's ``[4, 4]`` field broadcasts across columns unless it is
     reshaped to the field's rank."""
     env, n = env_cls(), 4
-    gen = torch.Generator().manual_seed(1)
-    state, _ = env.reset(n, gen, "cpu")
+    state, _ = env.reset(prng.split(prng.key(1), n))
     state = type(state)(*state[:-1], torch.tensor([env.max_steps - 1, 0, env.max_steps - 1, 3],
                                                   dtype=torch.int32))
     action = torch.zeros((n, 1)) if env_cls is Pendulum else torch.tensor([1, 0, 1, 0])
-    stepped, stepped_obs, _, _, _ = env.step_raw(state, action)
-    reset_gen = torch.Generator().manual_seed(7)
-    twin = torch.Generator()
-    twin.set_state(reset_gen.get_state())
-    reset_st, reset_obs = env.reset(n, twin, "cpu")
-    new, obs, _, done = env.step(state, action, reset_gen)
+    step_keys = prng.split(prng.key(7), n)
+    stepped, stepped_obs, _, _, _ = env.step_raw(state, action, step_keys)
+    reset_st, reset_obs = env.reset(step_keys)
+    new, obs, _, done = env.step(state, action, step_keys)
     assert done.tolist() == [True, False, True, False]
     for field, got, fresh, kept in zip(state._fields, new, reset_st, stepped):
         for lane in range(n):
@@ -160,7 +163,7 @@ def test_env_step_auto_reset_takes_whole_rows(env_cls):
 
 def test_vector_env_steps_stub_env_with_per_lane_resets():
     venv = VectorEnv(StubEnv(max_steps=3), 4)
-    state = venv.reset(torch.Generator().manual_seed(0))
+    state = venv.reset(prng.key(0))
     ends = 0
     for _ in range(7):
         state, out = venv.step(state, torch.tensor([1, 0, 1, 0]))
@@ -371,8 +374,7 @@ def test_dummy_policy_matches_reference():
     got = _port_loss_and_grads(pol_t.loss, params, {})
     _assert_loss_parity(got, want)
     obs = torch.zeros((5, 4))
-    action, logp, value, _ = pol_t.act(pol_t.init_params(torch.Generator()), obs,
-                                       torch.Generator().manual_seed(0))
+    action, logp, value, _ = pol_t.act(pol_t.init_params(torch.Generator()), obs, prng.key(0))
     assert action.shape == (5,) and action.dtype == torch.int64
     assert ((action >= 0) & (action < 2)).all() and not logp.any() and not value.any()
 
@@ -383,14 +385,13 @@ def test_dqn_greedy_acting_matches_reference_argmax():
     obs = np.random.default_rng(0).standard_normal((64, 4)).astype(np.float32)
     q_j = pol_j.q_values(params, jnp.asarray(obs))
     a_t, logp, v_t, q_t = pol_t.act(params_from_numpy(params), torch.from_numpy(obs),
-                                   torch.Generator().manual_seed(0), 0.0)
+                                   prng.key(0), 0.0)
     np.testing.assert_array_equal(a_t.numpy(), np.asarray(jnp.argmax(q_j, axis=-1)))
     _close(v_t.numpy(), jnp.max(q_j, axis=-1))
     _close(q_t.numpy(), q_j)
     assert not logp.any()
     # With epsilon 1 every action is a uniform draw: both actions occur.
-    a_rand = pol_t.act(params_from_numpy(params), torch.from_numpy(obs),
-                       torch.Generator().manual_seed(0), 1.0)[0]
+    a_rand = pol_t.act(params_from_numpy(params), torch.from_numpy(obs), prng.key(0), 1.0)[0]
     assert set(a_rand.tolist()) == {0, 1, 2}
 
 

@@ -25,6 +25,7 @@ from repro.rl.env import CartPole as JaxCartPole
 from repro.rl.env import CartPoleState as JaxCartPoleState
 from repro.rl.policy import ActorCriticPolicy as JaxPolicy
 from repro.rl.rollout_worker import RolloutWorker as JaxWorker
+from repro_torch import prng
 from repro_torch.core.operators import StandardizeFields, TrainOneStep
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.optim import adam, sgd
@@ -85,7 +86,8 @@ def test_cartpole_step_raw_matches_reference():
     keys = jax.random.split(jax.random.PRNGKey(0), 7)
     out_j = jax.vmap(env_j.step_raw)(st_j, jnp.asarray(actions), keys)
     st_t = CartPoleState(*map(torch.from_numpy, fields))
-    out_t = CartPole().step_raw(st_t, torch.from_numpy(actions).long())
+    out_t = CartPole().step_raw(st_t, torch.from_numpy(actions).long(),
+                                torch.from_numpy(np.asarray(keys).astype(np.int64)))
     new_j, obs_j, rew_j, term_j, trunc_j = out_j
     new_t, obs_t, rew_t, term_t, trunc_t = out_t
     _close(obs_t, obs_j, name="obs")
@@ -98,18 +100,19 @@ def test_cartpole_step_raw_matches_reference():
 
 
 def test_cartpole_reset_and_auto_reset():
-    env, gen = CartPole(), torch.Generator().manual_seed(0)
-    st, obs = env.reset(64, gen, "cpu")
+    env = CartPole()
+    st, obs = env.reset(prng.split(prng.key(0), 64))
     assert tuple(obs.shape) == (64, 4) and obs.dtype == torch.float32
     assert float(obs.abs().max()) <= 0.05 and int(st.t.abs().max()) == 0
     fields, actions = _cartpole_states()
     st = CartPoleState(*map(torch.from_numpy, fields))
-    new, obs, reward, done = env.step(st, torch.from_numpy(actions).long(), gen)
+    keys = prng.split(prng.key(1), 7)
+    new, obs, reward, done = env.step(st, torch.from_numpy(actions).long(), keys)
     done_np = done.numpy()
     assert done_np.tolist() == [False, True, True, False, False, True, True]
     # Lanes that ended restart from a fresh reset state; the others step on.
     assert float(obs[done].abs().max()) <= 0.05 and (new.t[done] == 0).all()
-    raw = env.step_raw(st, torch.from_numpy(actions).long())
+    raw = env.step_raw(st, torch.from_numpy(actions).long(), keys)
     torch.testing.assert_close(obs[~done], raw[1][~done], rtol=0, atol=0)
     assert (reward == 1.0).all()
 

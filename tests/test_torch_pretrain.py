@@ -30,6 +30,7 @@ from repro.core.spmd import SPMDTrainContext as JaxContext
 from repro.launch.mesh import make_local_mesh
 from repro.models import Model as JaxModel
 from repro_torch import optim
+from repro_torch.checkpoint import restore_pytree
 from repro_torch.configs import InputShape, get_config, reduced_config
 from repro_torch.core.spmd import SPMDLearnerWorker, SPMDTrainContext
 from repro_torch.data import TokenPipeline, make_batch, name_digest
@@ -219,15 +220,21 @@ def test_build_lm_flow_matches_reference_result_keys_and_counters(reference_lear
     assert abs(r2_t["info"]["nll"] - np.log(cfg_t.vocab_size)) < 0.5
 
 
-def test_train_cli_runs_on_the_cpu(capsys):
+def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
+    ckpt = str(tmp_path / "w.npz")
     train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--device", "cpu", "--smoke", "--steps", "2",
-                "--batch", "2", "--seq", "16"])
+                "--batch", "2", "--seq", "16", "--checkpoint", ckpt])
     out = capsys.readouterr().out
-    assert "dtype float32" in out
+    assert "dtype float32" in out and f"saved checkpoint to {ckpt}" in out
     losses = [float(line.split()[3]) for line in out.splitlines() if line.startswith("step")]
     assert len(losses) == 2 and all(abs(x - np.log(512)) < 0.5 for x in losses)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train.main(["--device", "cpu", "--smoke", "--checkpoint", "w.npz"])
+    # The checkpoint holds every parameter of the model the driver trained.
+    cfg = train.train_config("phi3.5-moe-42b-a6.6b", smoke=True)
+    like = Model(cfg).init_params(torch.Generator().manual_seed(1))
+    restored = restore_pytree(ckpt, like)
+    assert [tuple(x.shape) for x in tree_leaves(restored)] == [
+        tuple(x.shape) for x in tree_leaves(like)]
+    assert all(torch.isfinite(x).all() for x in tree_leaves(restored))
 
 
 def test_train_cli_dot_prints_the_graph(capsys):

@@ -193,7 +193,8 @@ def test_token_env_step_raw_matches_reference(sync):
     env_t = TokenEnv(vocab_size=11, ctx=ctx, min_prompt=2, max_prompt=4, horizon=6, sync=sync)
     keys = jax.random.split(jax.random.PRNGKey(0), N)
     out_j = jax.vmap(env_j.step_raw)(JaxTokenEnvState(*map(jnp.asarray, fields)), jnp.asarray(actions), keys)
-    out_t = env_t.step_raw(TokenEnvState(*map(torch.from_numpy, fields)), torch.from_numpy(actions))
+    out_t = env_t.step_raw(TokenEnvState(*map(torch.from_numpy, fields)), torch.from_numpy(actions),
+                           torch.from_numpy(np.asarray(keys).astype(np.int64)))
     for a, b in zip(out_t[0], out_j[0]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for i, name in enumerate(("obs", "reward", "terminated", "truncated"), start=1):
@@ -202,7 +203,7 @@ def test_token_env_step_raw_matches_reference(sync):
 
 def test_token_env_reset_and_obs_layout():
     env = TokenEnv(vocab_size=11, ctx=24, min_prompt=3, max_prompt=8, horizon=16)
-    st, obs = env.reset(64, torch.Generator().manual_seed(0), "cpu")
+    st, obs = env.reset(prng.split(prng.key(0), 64))
     assert tuple(obs.shape) == (64, env.obs_dim) and obs.dtype == torch.float32
     assert int(st.prompt_len.min()) >= 3 and int(st.prompt_len.max()) <= 8
     inside = torch.arange(24)[None] < st.prompt_len[:, None]
@@ -264,7 +265,7 @@ def test_lm_policy_stateful_episode_matches_reference_with_injected_actions():
         lp_f = jax.nn.log_softmax(logits_f)[jnp.arange(B), jnp.asarray(a_t.numpy())]
         _close(v_t, v_j, EPISODE_TOL, name=f"value at step {i}")
         _close(lp_t, lp_f, EPISODE_TOL, name=f"logp at step {i}")
-        sts_t, obs_t, _, term, _ = env_t.step_raw(sts_t, a_t)
+        sts_t, obs_t, _, term, _ = env_t.step_raw(sts_t, a_t, keys_t)
     assert bool(term.all())  # sync horizon
     for name in ("k", "v"):
         _close(state_t["blocks"]["0"][name], state_j["blocks"]["0"][name], EPISODE_TOL, name=name)
