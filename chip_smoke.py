@@ -241,6 +241,23 @@ phase that fails, and then prints no result line):
    ``save_pytree`` of its parameters and optimizer state, 2 more steps, and
    a fresh learner restored from the file giving the same 2 losses within
    1e-5.
+37. runtime across processes and hosts (under its own deadline): phase 33's
+   stream through the thread backend, process children (pickle and
+   shared-memory transports, started from the fork server) and a
+   driver-managed host (socket frames), bitwise equal to phase 33's; phase
+   5's PPO CartPole (2 workers, ``ITERS`` iterations) on the same four, each
+   worker's first sample bitwise equal to the thread run's, the learner's
+   weights within 1e-5 of it, the children's GAE and threefry launches read
+   by RPC (``_ChildProbe``) and the driver's surrogate and threefry launches
+   exactly what the configuration implies, CUDA tensors across each boundary
+   bitwise on cuda:0; a process worker's OS process killed under
+   ``restart`` (the replacement builds its CUDA context and the stream goes
+   on) and the host killed under ``drop_shard`` (its 2 shards dropped,
+   training goes on); no shared-memory segment left.  Printed, not gated:
+   seconds to start a child (fork server and spawn) and to restart one,
+   seconds per PPO iteration on each backend, bytes a batch and a weight
+   sync put on the boundary, and the card's idle share (the driver's and
+   the children's kernels, each process profiled by its own window).
 
 Phases 20-21 run a third pretraining path, Qwen3-14B (hf:Qwen/Qwen3-8B
 family: d_model 5120, 40 heads, 8 KV heads, d_ff 17408, vocab 151936,
@@ -360,17 +377,24 @@ QWEN3_ATTENTION = (2, 4096, 40, 8, 128)  # Qwen3-14B's [B, S, H, KV, D]
 # atol = rtol for the grouped matmul against the loop over groups: each
 # output element sums 4,096 to 6,400 products, in another order than cuBLAS.
 GMM_TOL = 1e-4
+# Phase 37 runs phase 5's PPO CartPole on each backend of the runtime (a
+# driver-managed host for remote-socket); the kernels see phase 5's shapes.
+RUNTIME_BACKENDS = ("thread", "process-pickle", "process-shm", "remote-socket")
+RUNTIME_PATHS = tuple(b.replace("-", "_") for b in RUNTIME_BACKENDS)
 # The shape each main path gives each kernel, where phase 3 checks it (a
 # list of shapes where one path gives a kernel several).
 PATH_SHAPES = {
     "gae": {"ppo_cartpole": [64, 8], "ppo_lm": [32, 8], "appo": [32, 4], "a2c": [32, 4],
             "a3c": [32, 4], "maml": [16, 2], "mbpo": [[32, 4], [8, 128]],
-            "multi_agent_ppo_dqn": [16, 4], "ppo_transformer_server": [32, 8]},
+            "multi_agent_ppo_dqn": [16, 4], "ppo_transformer_server": [32, 8],
+            **{f"ppo_cartpole_{b}": [64, 8] for b in RUNTIME_PATHS}},
     "vtrace": {"impala": [32, 16], "impala_vector": [32, 512]},
     "ppo_surrogate_fwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
-                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2]},
+                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2],
+                          **{f"ppo_cartpole_{b}": [256, 2] for b in RUNTIME_PATHS}},
     "ppo_surrogate_bwd": {"ppo_cartpole": [256, 2], "ppo_lm": [128, 151936], "appo": [512, 2],
-                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2]},
+                          "multi_agent_ppo_dqn": [128, 2], "ppo_transformer_server": [128, 2],
+                          **{f"ppo_cartpole_{b}": [256, 2] for b in RUNTIME_PATHS}},
     "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
                             "ppo_transformer_server": [[b, 4, 2, 2, 32] for b in (8, 16, 128, 256)],
                             "pretrain_qwen3": list(QWEN3_ATTENTION)},
@@ -380,7 +404,8 @@ PATH_SHAPES = {
     # The hash's output shapes: [L, n] random bits, [L, n, 2] split keys.
     # PPO CartPole's resets draw [8, 4] bits; PPO-LM samples [8, 151936];
     # IMPALA's 256 lanes split [256, 2, 2] a step.
-    "threefry": {"ppo_cartpole": [8, 4], "ppo_lm": [8, 151936], "impala_vector": [256, 2, 2]},
+    "threefry": {"ppo_cartpole": [8, 4], "ppo_lm": [8, 151936], "impala_vector": [256, 2, 2],
+                 **{f"ppo_cartpole_{b}": [8, 4] for b in RUNTIME_PATHS}},
     "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
     **{name: {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
@@ -3927,20 +3952,18 @@ DETERMINISM = dict(num_workers=2, num_envs=4, rollout_len=8, rounds=2, seed=21, 
 CARD_CPU_FLOAT_COLUMNS = ("rewards", "advantages", "returns")
 
 
-def _determinism_stream(cls, device: str, counter=None) -> list:
+def _determinism_stream(kind: str, device: str, counter=None, backend="thread") -> tuple:
+    """Phase 33's stream: ``kind`` ("vectorized" or "per_env") workers on
+    ``device``, their remote actors on ``backend``; the threefry launches
+    ``counter`` read over the rounds, where it is given."""
     from repro_torch.core.operators import ParallelRollouts
     from repro_torch.core.workers import WorkerSet
-    from repro_torch.rl import DummyPolicy, StubEnv
 
     c = DETERMINISM
-
-    def factory(i):
-        return cls(StubEnv(max_steps=c["max_steps"]), DummyPolicy(4, 2), algo="pg",
-                   num_envs=c["num_envs"], rollout_len=c["rollout_len"], seed=c["seed"],
-                   worker_index=i, device=device)
-
-    ws = WorkerSet.create(factory, c["num_workers"])
+    ws = WorkerSet.create(_RuntimeWorkers(kind, device), c["num_workers"], backend=backend)
     try:
+        on = {a.backend_name for a in ws.remote_workers()}
+        _require(on == {getattr(backend, "name", backend)}, f"determinism: workers on {on}")
         it = iter(ParallelRollouts(ws, mode="bulk_sync"))
         if counter is not None:
             counter.reset()
@@ -3961,12 +3984,11 @@ def phase_determinism(counter) -> dict:
     draw)."""
     import numpy as np
 
-    from repro_torch.rl import PerEnvRolloutWorker, VectorizedRolloutWorker
-
     c = DETERMINISM
-    vec, launched = _determinism_stream(VectorizedRolloutWorker, "cuda", counter)
-    per, _ = _determinism_stream(PerEnvRolloutWorker, "cuda")
-    cpu, _ = _determinism_stream(VectorizedRolloutWorker, "cpu")
+    vec, launched = _determinism_stream("vectorized", "cuda", counter)
+    _PHASE33_STREAM[:] = vec
+    per, _ = _determinism_stream("per_env", "cuda")
+    cpu, _ = _determinism_stream("vectorized", "cpu")
     expect = c["num_workers"] * c["rounds"] * c["rollout_len"] * 6
     _require(launched == expect, f"determinism: {launched} threefry launches, expected {expect}")
     float_err = 0.0
@@ -4207,6 +4229,543 @@ def phase_qwen3_restart() -> dict:
             "cli_bytes": cli_bytes, **times}
 
 
+# ------------------------------------------------------------- phase 37
+# The runtime across processes and hosts, on the card: phase 33's stream and
+# phase 5's PPO CartPole through the thread backend, process children (the
+# pickle and shared-memory transports; started from the fork server) and a
+# driver-managed host (socket frames), then chaos.  Every worker of a child
+# is on the card; a child's launch counters are its own, read by RPC.
+RUNTIME_HOST = "rollout-box"
+RUNTIME_DEADLINE_S = 300
+RUNTIME_WEIGHT_TOL = 1e-5  # the learner's weights after ITERS, against the thread run
+RUNTIME_CHAOS_S = 120  # per chaos case: a stream that does not recover fails the phase
+_PHASE33_STREAM: list = []  # phase 33's vectorized thread stream, for phase 37a
+
+
+def _all_counters() -> list:
+    from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
+    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
+    from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
+    from repro_torch.kernels.moe_gmm import (
+        MOE_GMM_DW_LAUNCHES,
+        MOE_GMM_DX_LAUNCHES,
+        MOE_GMM_LAUNCHES,
+    )
+    from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
+    from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
+    from repro_torch.kernels.threefry import THREEFRY_LAUNCHES
+
+    return [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
+            DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
+            RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_DX_LAUNCHES,
+            MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
+
+
+class _ChildProbe:
+    """A remote worker as its process or host holds it: every attribute is
+    the worker's, and the script reads by RPC what only the child knows (its
+    pid, its launch counters, its first samples, where the tensors it was
+    sent landed).  Defined here, so that no method goes on the port's
+    workers."""
+
+    def __init__(self, worker, keep: int):
+        self._worker = worker
+        self._keep = keep
+        self._kept: list = []
+        self._profile = None
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self.__dict__["_worker"], name)
+
+    def sample(self):
+        import numpy as np
+
+        batch = self._worker.sample()
+        if len(self._kept) < self._keep:
+            self._kept.append({k: np.array(batch[k], copy=True) for k in batch.keys()})
+        return batch
+
+    def kept(self) -> list:
+        return self._kept
+
+    def pid(self) -> int:
+        return os.getpid()
+
+    def cuda_context(self) -> tuple:
+        import torch
+
+        initialised = torch.cuda.is_initialized()
+        return initialised, torch.cuda.current_device() if initialised else None
+
+    def launches(self) -> dict:
+        return {c.name: c.value for c in _all_counters()}
+
+    def reset_launches(self) -> None:
+        for c in _all_counters():
+            c.reset()
+
+    def profile_start(self) -> None:
+        self._profile = _DeviceProfile()
+        self._profile.start()
+
+    def profile_stop(self) -> float:
+        """Device microseconds of this process's kernels since
+        ``profile_start`` (the primer left out)."""
+        busy, self._profile = self._profile.stop(), None
+        return sum(busy.values())
+
+    def echo(self, obj):
+        return obj
+
+    def devices(self, obj: dict) -> dict:
+        return {k: str(v.device) for k, v in obj.items()}
+
+
+class _RuntimeWorkers:
+    """Phases 33 and 37's picklable worker factory: ``"ppo"`` is phase 5's
+    worker, ``"vectorized"`` and ``"per_env"`` phase 33's StubEnv +
+    DummyPolicy engines; remote indices come wrapped in a ``_ChildProbe``.
+    A child re-imports this script as ``__mp_main__`` and never runs
+    ``main()``, so the factory sets the float32 matmul flags that ``main()``
+    sets in the driver."""
+
+    def __init__(self, kind: str, device: str, keep: int = 1):
+        self.kind = kind
+        self.device = device
+        self.keep = keep
+
+    def __call__(self, index: int):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if self.kind == "ppo":
+            worker = _make_worker(index, self.device)
+        else:
+            from repro_torch.rl import (
+                DummyPolicy,
+                PerEnvRolloutWorker,
+                StubEnv,
+                VectorizedRolloutWorker,
+            )
+
+            cls = VectorizedRolloutWorker if self.kind == "vectorized" else PerEnvRolloutWorker
+            c = DETERMINISM
+            worker = cls(StubEnv(max_steps=c["max_steps"]), DummyPolicy(4, 2), algo="pg",
+                         num_envs=c["num_envs"], rollout_len=c["rollout_len"], seed=c["seed"],
+                         worker_index=index, device=self.device)
+        return worker if index == 0 else _ChildProbe(worker, self.keep)
+
+
+def _runtime_backend(name: str):
+    """(backend, host handle) for a row of RUNTIME_BACKENDS; the handle is
+    the driver-managed host of ``remote-socket``."""
+    from repro_torch.core import ProcessBackend, RemoteBackend, start_local_host
+
+    if name == "thread":
+        return "thread", None
+    if name.startswith("process-"):
+        return ProcessBackend(transport=name.split("-", 1)[1]), None
+    handle = start_local_host()
+    return RemoteBackend(address=handle.address), handle
+
+
+def _child_launches(remotes, backend_name: str) -> dict:
+    """The launches of the rollout children, summed once per process (a
+    host's workers share one); empty on the thread backend, whose workers
+    count in the driver."""
+    if backend_name == "thread":
+        return {}
+    by_pid = {}
+    for a in remotes:
+        by_pid[a.sync("pid")] = a.sync("launches")
+    out: dict = {}
+    for launches in by_pid.values():
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _eps_worker(batch) -> int:
+    from repro_torch.rl.rollout_worker import EPS_STRIDE, MAX_LANES
+
+    return int(batch["eps_id"][0]) // EPS_STRIDE // MAX_LANES
+
+
+def _pull_workers(it, want: set, what: str) -> None:
+    """Pull batches until every worker index of ``want`` has fed one."""
+    seen: set = set()
+    t0 = time.perf_counter()
+    while not want <= seen:
+        _require(time.perf_counter() - t0 < RUNTIME_CHAOS_S, f"runtime restart: {what} ({seen})")
+        seen.add(_eps_worker(next(it)))
+
+
+def _runtime_start_s() -> dict:
+    """Seconds from a process cell's construction to its first reply, with
+    phase 5's worker built on the card in the child: the fork server's first
+    child (the server itself starting), a second one, and ``spawn``."""
+    import functools
+
+    from repro_torch.core import ProcessBackend, VirtualActor
+
+    out = {}
+    for label, method in (("forkserver_first", None), ("forkserver", None), ("spawn", "spawn")):
+        t0 = time.perf_counter()
+        a = VirtualActor(factory=functools.partial(_RuntimeWorkers("ppo", "cuda"), 1),
+                         backend=ProcessBackend(transport="shm", start_method=method))
+        try:
+            initialised, device = a.sync("cuda_context")
+            out[label] = time.perf_counter() - t0
+            _require(initialised and device == 0, f"runtime: a {label} child has no CUDA context")
+        finally:
+            a.stop()
+    return out
+
+
+def _runtime_stream(name: str) -> list:
+    backend, handle = _runtime_backend(name)
+    try:
+        return _determinism_stream("vectorized", "cuda", backend=backend)[0]
+    finally:
+        if handle is not None:
+            handle.stop()
+
+
+def _runtime_ppo(name: str, counters: list, profile: bool = False) -> dict:
+    """Phase 5's PPO CartPole for ITERS iterations with its rollout workers
+    on ``name``'s backend (``remote-socket``: ``host=`` lowering onto a
+    driver-managed host).  Returns the seconds per iteration, the workers'
+    first samples, the learner's weights, the driver's and the children's
+    launches, the bytes a batch and a weight sync put on the boundary, and
+    (``profile``) the card's idle share over the last iteration, from the
+    driver's and each child's device time."""
+    import torch
+
+    from repro_torch.core import ProcessBackend
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm, build_ppo
+
+    cfg = PPO_CONFIG
+    plan = dict(train_batch_size=cfg["train_batch_size"], num_sgd_iter=cfg["num_sgd_iter"],
+                sgd_minibatch_size=cfg["sgd_minibatch_size"])
+    factory = _RuntimeWorkers("ppo", "cuda")
+    if name == "remote-socket":
+        ws = WorkerSet.create(factory, cfg["num_workers"])
+        spec = build_ppo(ws, host=RUNTIME_HOST, **plan)
+        spec.declare_host(RUNTIME_HOST)
+        algo = Algorithm.from_plan(spec, ws)
+        _require(RUNTIME_HOST in algo.compiled.host_handles, "runtime: no driver-managed host")
+    else:
+        backend = "thread" if name == "thread" else ProcessBackend(transport=name.split("-", 1)[1])
+        ws = WorkerSet.create(factory, cfg["num_workers"], backend=backend)
+        algo = Algorithm.from_plan("ppo", ws, **plan)
+    out: dict = {}
+    try:
+        remotes = ws.remote_workers()
+        want_backend = {"thread": "thread", "remote-socket": "remote"}.get(name, "process")
+        _require({a.backend_name for a in remotes} == {want_backend},
+                 f"runtime {name}: workers on {[a.backend_name for a in remotes]}")
+        for c in counters:
+            c.reset()
+        for a in remotes:
+            a.sync("reset_launches")
+        # One profiler window per process over the last iteration: the
+        # driver's and, by RPC, each child's (a child's kernels run in its
+        # own CUDA context, which the driver's profiler does not see).
+        probes = list({a.sync("pid"): a for a in remotes}.values()) if name != "thread" else []
+        seconds, busy, child_busy_us = [], None, []
+        for i in range(ITERS):
+            prof = None
+            if profile and i == ITERS - 1:
+                for a in probes:
+                    a.sync("profile_start")
+                prof = _DeviceProfile()
+                prof.start()
+            t0 = time.perf_counter()
+            result = algo.train()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if prof is not None:
+                busy = prof.stop()
+                child_busy_us = [a.sync("profile_stop") for a in probes]
+            _require(all(math.isfinite(v) for v in result["info"].values()),
+                     f"runtime {name}: non-finite stats {result['info']}")
+        driver = {c.name: c.value for c in counters}
+        children = _child_launches(remotes, name)
+        out.update(seconds=seconds, driver=driver, children=children,
+                   kept=[a.sync("kept") for a in remotes],
+                   weights=ws.local_worker().get_weights(), counters=result["counters"])
+        if busy is not None:
+            # Contexts of different processes time-slice on the card (no
+            # MPS), so their kernels do not overlap and the busy times add.
+            driver_ms, children_ms = sum(busy.values()) / 1e3, sum(child_busy_us) / 1e3
+            out["idle_share"] = 1.0 - (driver_ms + children_ms) / (seconds[-1] * 1e3)
+            out["driver_busy_ms"], out["children_busy_ms"] = driver_ms, children_ms
+            out["profiled_processes"] = 1 + len(probes)
+        if name != "thread":
+            a = remotes[0]
+            cell = a._cell
+            w0 = dict(cell.wire_bytes)
+            shm0 = dict(getattr(cell._decoder, "stats", {}))
+            batch = a.sync("sample")
+            shm = {k: v - shm0.get(k, 0) for k, v in getattr(cell._decoder, "stats", {}).items()}
+            w1 = dict(cell.wire_bytes)
+            weights = ws.local_worker().get_weights()
+            a.sync("set_weights", weights)
+            w2 = dict(cell.wire_bytes)
+            out["bytes"] = {
+                "batch_rows": batch.count, "batch_columns_bytes": batch.size_bytes(),
+                "batch_wire_bytes": w1["received"] - w0["received"],
+                "batch_shm_bytes": shm.get("bytes_shm", 0),
+                "weight_sync_wire_bytes": w2["sent"] - w1["sent"],
+                "weight_bytes": sum(t.numel() * t.element_size()
+                                    for t in _tree_tensors(weights)),
+            }
+            # The tensor boundary on the card: CUDA tensors sent to the
+            # child land there on cuda:0, and come back on cuda:0, bitwise.
+            landed = a.sync("devices", dict(enumerate(_tree_tensors(weights))))
+            _require(set(landed.values()) == {str(_tree_tensors(weights)[0].device)},
+                     f"runtime {name}: tensors landed on {set(landed.values())}")
+            back = a.sync("echo", weights)
+            for got, sent in zip(_tree_tensors(back), _tree_tensors(weights)):
+                _require(got.device == sent.device and torch.equal(got, sent),
+                         f"runtime {name}: a CUDA tensor came back changed or moved")
+            out["cuda_tensors_bitwise"] = True
+    finally:
+        algo.stop()
+    return out
+
+
+def _tree_tensors(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _runtime_restart() -> dict:
+    """Kill a process worker's OS process mid-stream under ``restart``: the
+    supervisor starts a replacement child, which builds its CUDA context,
+    and the stream goes on with both workers."""
+    import signal as _signal
+
+    from repro_torch.core import ProcessBackend
+    from repro_torch.core.metrics import (
+        NUM_SHARDS_DROPPED,
+        NUM_WORKER_FAILURES,
+        MetricsContext,
+        set_metrics_for_thread,
+    )
+    from repro_torch.core.operators import ParallelRollouts
+    from repro_torch.core.workers import WorkerSet
+
+    ws = WorkerSet.create(_RuntimeWorkers("vectorized", "cuda"), 2, backend=ProcessBackend(transport="shm"),
+                          max_restarts=2, backoff_base=0.0, failure_policy="restart")
+    try:
+        stream = ParallelRollouts(ws, mode="async", num_async=1)
+        metrics = MetricsContext()
+        set_metrics_for_thread(metrics)
+        stream.metrics = metrics
+        it = iter(stream)
+        # The children build their CUDA contexts at their own pace: pull
+        # until both have fed the stream.
+        _pull_workers(it, {1, 2}, "both workers did not feed the stream")
+        (victim,) = [a for a in ws.remote_workers() if a.name == "rollout-1"]
+        old = victim.sync("pid")
+        os.kill(old, _signal.SIGKILL)
+        t0 = time.perf_counter()
+        while True:
+            _require(time.perf_counter() - t0 < RUNTIME_CHAOS_S,
+                     "runtime restart: the killed worker never came back")
+            b = next(it)
+            if _eps_worker(b) == 1 and victim.num_restarts >= 1:
+                break
+        restart_s = time.perf_counter() - t0
+        new = victim.sync("pid")
+        initialised, _ = victim.sync("cuda_context")
+        _require(new != old and initialised, f"runtime restart: pid {old} -> {new}, CUDA {initialised}")
+        _pull_workers(it, {1, 2}, "the stream did not go on with both workers")
+        _require(metrics.counters[NUM_WORKER_FAILURES] >= 1
+                 and metrics.counters.get(NUM_SHARDS_DROPPED, 0) == 0,
+                 f"runtime restart: counters {dict(metrics.counters)}")
+        return {"restart_s": restart_s, "num_restarts": victim.num_restarts,
+                "failures": metrics.counters[NUM_WORKER_FAILURES]}
+    finally:
+        ws.stop()
+        set_metrics_for_thread(None)
+
+
+def _runtime_machine_loss() -> dict:
+    """Kill the driver-managed host of a rollout fragment under
+    ``drop_shard``: its two shards are dropped and training goes on with
+    the driver's two workers."""
+    from repro_torch.core.metrics import NUM_SHARDS_DROPPED
+    from repro_torch.core.operators import TrainOneStep
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm, FlowSpec
+
+    ws_remote = WorkerSet.create(_RuntimeWorkers("vectorized", "cuda"), 2, failure_policy="drop_shard")
+    ws_local = WorkerSet.create(_RuntimeWorkers("vectorized", "cuda"), 2, failure_policy="drop_shard")
+    spec = FlowSpec("machine_loss")
+    spec.declare_host(RUNTIME_HOST)
+    remote = spec.rollouts(ws_remote, mode="async", num_async=1, failure_policy="drop_shard",
+                           host=RUNTIME_HOST)
+    local = spec.rollouts(ws_local, mode="async", num_async=1, failure_policy="drop_shard")
+    out = spec.concurrently([remote, local], mode="async").for_each(TrainOneStep(ws_local))
+    spec.set_output(out.report(ws_local))
+    algo = Algorithm.from_plan(spec, ws_local, own_workers=False)
+    try:
+        result = algo.train()
+        _require({a.backend_name for a in ws_remote.remote_workers()} == {"remote"},
+                 "runtime machine loss: the fragment is not on its host")
+        algo.compiled.host_handles[RUNTIME_HOST].kill()
+        t0 = time.perf_counter()
+        while result["counters"].get(NUM_SHARDS_DROPPED, 0) < 2:
+            _require(time.perf_counter() - t0 < RUNTIME_CHAOS_S,
+                     "runtime machine loss: the host's shards were never dropped")
+            result = algo.train()
+        drop_s = time.perf_counter() - t0
+        before = result["counters"]["num_steps_trained"]
+        for _ in range(3):
+            result = algo.train()
+        trained = result["counters"]["num_steps_trained"]
+        _require(result["counters"][NUM_SHARDS_DROPPED] == 2 and trained > before
+                 and ws_remote.num_healthy_workers() == 0 and ws_local.num_healthy_workers() == 2,
+                 f"runtime machine loss: counters {result['counters']}")
+        return {"shards_dropped": result["counters"][NUM_SHARDS_DROPPED], "drop_s": drop_s,
+                "steps_trained_after": trained - before}
+    finally:
+        algo.stop()
+        ws_remote.stop()
+        ws_local.stop()
+
+
+def phase_runtime(smi: str) -> dict:
+    """Phase 37: the runtime across processes and hosts on the card (one
+    chip, under its own deadline).
+
+    a. phase 33's stream (2 workers x 4 lanes x 8 steps, 2 rounds) through
+       the thread backend, process-pickle, process-shm and a driver-managed
+       host: bitwise equal across the four and to phase 33's thread stream;
+    b. phase 5's PPO CartPole (2 workers, ITERS iterations) on the same four:
+       each worker's first sample bitwise equal to the thread run's, the
+       learner's weights within RUNTIME_WEIGHT_TOL of it, the children's GAE
+       and threefry launches (read by RPC) and the driver's surrogate and
+       threefry launches exactly what the configuration implies, CUDA
+       tensors across each boundary bitwise on cuda:0;
+    c. chaos: a process worker killed under ``restart`` comes back with its
+       CUDA context and the stream goes on; the host killed under
+       ``drop_shard`` drops its 2 shards and training goes on; no
+       shared-memory segment of this driver is left.
+
+    Printed, not gated: seconds to start a child (fork server, spawn) and to
+    restart one, seconds per PPO iteration on each backend, bytes a batch
+    and a weight sync put on the boundary, the card's idle share under
+    process-shm (the driver's and both children's device time)."""
+    import numpy as np
+
+    from repro_torch.core import list_segments
+    from repro_torch.core.transport import SEGMENT_PREFIX
+
+    cfg = PPO_CONFIG
+    counters = _all_counters()
+    record: dict = {"nvidia_smi": smi}
+    with _deadline(RUNTIME_DEADLINE_S, "phase 37 (runtime across processes and hosts)"):
+        t_phase = time.perf_counter()
+        record["start_s"] = st = _runtime_start_s()
+        print(f"runtime [{smi}]: child start {st['forkserver_first']:.3f} s (fork server's first, "
+              f"the server starting), {st['forkserver']:.3f} s (fork server), {st['spawn']:.3f} s "
+              f"(spawn)", flush=True)
+        # a. the determinism stream
+        _require(len(_PHASE33_STREAM) == DETERMINISM["rounds"], "runtime: phase 33's stream is missing")
+        for name in RUNTIME_BACKENDS:
+            for r, (a, b) in enumerate(zip(_runtime_stream(name), _PHASE33_STREAM)):
+                _require(set(a.keys()) == set(b.keys()), f"runtime {name}: columns {a.keys()}")
+                for k in b.keys():
+                    _require(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                             f"runtime {name} round {r}: {k} differs from phase 33's stream")
+        record["stream_rows"] = sum(b.count for b in _PHASE33_STREAM)
+        print(f"runtime [{smi}]: phase 33's stream ({record['stream_rows']} rows) bitwise equal on "
+              f"{', '.join(RUNTIME_BACKENDS)}", flush=True)
+        # b. PPO CartPole on each backend
+        samples_per_iter = cfg["train_batch_size"] // (cfg["num_envs"] * cfg["rollout_len"])
+        sgd_steps = cfg["num_sgd_iter"] * (cfg["train_batch_size"] // cfg["sgd_minibatch_size"])
+        rollout_hashes = ITERS * samples_per_iter * (4 + 2 * cfg["rollout_len"])
+        want_child = {"gae": ITERS * samples_per_iter, "threefry": rollout_hashes}
+        want_driver = {"ppo_surrogate_fwd": ITERS * sgd_steps, "ppo_surrogate_bwd": ITERS * sgd_steps,
+                       "threefry": ITERS * sgd_steps}
+        runs, record["ppo"] = {}, {}
+        for name in RUNTIME_BACKENDS:
+            runs[name] = run = _runtime_ppo(
+                name, counters, profile=name == "process-shm")
+            driver = {k: v for k, v in run["driver"].items() if v}
+            child = {k: v for k, v in run["children"].items() if v}
+            total = {k: driver.get(k, 0) + child.get(k, 0) for k in {*driver, *child}}
+            expect = {k: want_child.get(k, 0) + want_driver.get(k, 0)
+                      for k in {*want_child, *want_driver}}
+            _require(total == expect, f"runtime {name}: launches {total}, expected {expect}")
+            if name != "thread":  # the rollouts ran in the children, the learner in the driver
+                _require(child == want_child,
+                         f"runtime {name}: children's launches {child}, expected {want_child}")
+                _require(driver == want_driver,
+                         f"runtime {name}: driver's launches {driver}, expected {want_driver}")
+                ref = runs["thread"]
+                for w, (got, want) in enumerate(zip(run["kept"], ref["kept"])):
+                    _require(len(got) == len(want) == 1, f"runtime {name}: kept {len(got)} samples")
+                    for k in want[0]:
+                        _require(got[0][k].dtype == want[0][k].dtype
+                                 and np.array_equal(got[0][k], want[0][k]),
+                                 f"runtime {name}: worker {w + 1}'s first sample differs in {k}")
+                run["weight_max_abs_err"] = err = max(
+                    float((a - b).abs().max())
+                    for a, b in zip(_tree_tensors(run["weights"]), _tree_tensors(ref["weights"])))
+                _require(err <= RUNTIME_WEIGHT_TOL,
+                         f"runtime {name}: learner weights {err:.3e} from the thread run's")
+                _require(run["cuda_tensors_bitwise"], f"runtime {name}: CUDA tensors")
+            record["ppo"][name] = p = {
+                "s_per_iter": sum(run["seconds"][1:]) / (len(run["seconds"]) - 1),
+                "first_iter_s": run["seconds"][0], "launches": total,
+                "driver_launches": driver, "child_launches": child,
+                **{k: run[k] for k in ("weight_max_abs_err", "bytes", "idle_share", "driver_busy_ms",
+                                       "children_busy_ms", "profiled_processes")
+                   if k in run}}
+            _print_runtime_ppo(smi, name, p)
+        # c. chaos on the card
+        record["restart"] = _runtime_restart()
+        print(f"runtime [{smi}]: a process worker killed under restart: replaced and serving again "
+              f"in {record['restart']['restart_s']:.3f} s, its CUDA context built; the stream "
+              f"went on with both workers", flush=True)
+        record["machine_loss"] = ml = _runtime_machine_loss()
+        leftover = list_segments(f"{SEGMENT_PREFIX}{os.getpid()}")
+        _require(not leftover, f"runtime: shared-memory segments left: {leftover}")
+        record["seconds"] = time.perf_counter() - t_phase
+    print(f"runtime: host killed under drop_shard: {ml['shards_dropped']} shards dropped in "
+          f"{ml['drop_s']:.3f} s, {ml['steps_trained_after']} rows trained after; no "
+          f"shared-memory segment left; phase 37 took {record['seconds']:.1f} s")
+    return record
+
+
+def _print_runtime_ppo(smi: str, name: str, p: dict) -> None:
+    extra = ""
+    if "bytes" in p:
+        b = p["bytes"]
+        extra = (f"; a batch of {b['batch_rows']} rows ({b['batch_columns_bytes']} B of "
+                 f"columns): {b['batch_wire_bytes']} B on the wire + {b['batch_shm_bytes']} "
+                 f"B through shared memory; a weight sync ({b['weight_bytes']} B of "
+                 f"tensors): {b['weight_sync_wire_bytes']} B on the wire")
+    if "idle_share" in p:
+        extra += (f"; the card's idle share {p['idle_share']:.4f} over the last iteration "
+                  f"(busy {p['driver_busy_ms']:.2f} ms in the driver + "
+                  f"{p['children_busy_ms']:.2f} ms in the children, "
+                  f"{p['profiled_processes']} processes profiled)")
+    err = f", weights {p['weight_max_abs_err']:.3e} from thread" if "weight_max_abs_err" in p else ""
+    print(f"runtime [{smi}]: PPO CartPole on {name}: {p['s_per_iter']:.4f} s/iter after a "
+          f"first of {p['first_iter_s']:.3f} s, launches {p['launches']} (children "
+          f"{p['child_launches']}){err}{extra}", flush=True)
+
+
 KERNEL_SITES = {
     "gae": ("src/repro_torch/kernels/csrc/gae.cu", "src/repro/kernels/advantages.py:59"),
     "vtrace": ("src/repro_torch/kernels/csrc/vtrace.cu", "src/repro/kernels/advantages.py:72"),
@@ -4236,6 +4795,49 @@ KERNEL_SITES = {
 }
 
 
+def _descendants(root: int) -> list:
+    """Pids of the live (not zombie) processes under ``root``, from /proc."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{entry}/stat").read_text()
+        except OSError:
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(entry))
+    out, todo = [], [root]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            out.append(pid)
+            todo.append(pid)
+    return sorted(out)
+
+
+def _stop_every_process() -> list:
+    """Stop what the script started and return the pids that outlived it.
+
+    Phase 37's children are stopped by their cells, but the fork server they
+    came from and multiprocessing's resource tracker exit only after the
+    script has (the server finalising the torch it preloaded), so they would
+    still be running when it ends: stop them here and wait for them.  A
+    process still under this one after that is killed, and reported."""
+    if "repro_torch.core" in sys.modules:
+        from repro_torch.core import ActorError, stop_helper_processes
+
+        try:
+            stop_helper_processes()
+        except ActorError as exc:
+            print(f"chip_smoke: {exc}", file=sys.stderr)
+    left = _descendants(os.getpid())
+    for pid in left:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    return left
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4261,19 +4863,10 @@ def main() -> int:
     from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
     from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
     from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
-    from repro_torch.kernels.moe_gmm import (
-        MOE_GMM_DW_LAUNCHES,
-        MOE_GMM_DX_LAUNCHES,
-        MOE_GMM_LAUNCHES,
-    )
-    from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
     from repro_torch.kernels.threefry import THREEFRY_LAUNCHES
 
-    every_counter = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
-                     DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
-                     RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_DX_LAUNCHES,
-                     MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
+    every_counter = _all_counters()
     record: dict = {}
     try:
         record["device"] = phase_device()
@@ -4334,9 +4927,26 @@ def main() -> int:
         record["qwen3_restart"] = phase_qwen3_restart()
         record["durability_slice_s"] = time.perf_counter() - t_durable
         print(f"determinism and durability phases 33-35: {record['durability_slice_s']:.1f} s")
+        # Each child of phase 37 holds its own CUDA context and allocator
+        # cache beside the driver's: release what the checkpoint phases left.
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            record["runtime"] = phase_runtime(record["device"]["nvidia_smi"])
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        left = _stop_every_process()
+    if left:
+        print(f"chip_smoke: FAILED: processes {left} were still running at the end "
+              f"(killed)", file=sys.stderr)
+        return 1
+    print("processes: the fork server, the resource tracker and every child stopped; "
+          "none left", flush=True)
 
     kernels = []
     paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
@@ -4344,7 +4954,9 @@ def main() -> int:
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
              **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
              **{name: record[name]["launches"] for name in PLAN_PATHS},
-             "ppo_transformer_server": record["ppo_transformer_server"]["launches"]}
+             "ppo_transformer_server": record["ppo_transformer_server"]["launches"],
+             **{f"ppo_cartpole_{b.replace('-', '_')}": record["runtime"]["ppo"][b]["launches"]
+                for b in RUNTIME_BACKENDS}}
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}

@@ -1,8 +1,8 @@
 """RLlib Flow core (PyTorch port): the hybrid actor-dataflow runtime.
 
-Exports what the port has, the eager plan shims (``core/plans.py``)
-included; the multi-host backend (``core/remote.py``) waits for a later
-slice.
+Exports what the reference's ``repro.core`` exports: the actors, the
+iterators and operators, the eager plan shims (``core/plans.py``), the
+thread, process and remote backends and the transports.
 """
 
 from repro_torch.core.actor import (
@@ -23,6 +23,7 @@ from repro_torch.core.executor import (
     SupervisorSpec,
     ThreadBackend,
     resolve_backend,
+    stop_helper_processes,
 )
 from repro_torch.core.iterators import (
     LocalIterator,
@@ -64,7 +65,24 @@ from repro_torch.core.plans import (
     ppo_plan,
     sac_plan,
 )
-from repro_torch.core.transport import CreditPool, OverflowPolicy
+from repro_torch.core.remote import (
+    LocalHostHandle,
+    RemoteBackend,
+    RemoteCell,
+    start_local_host,
+)
+from repro_torch.core.transport import (
+    CreditPool,
+    FrameDecoder,
+    OverflowPolicy,
+    PickleTransport,
+    SharedMemoryTransport,
+    SocketTransport,
+    Transport,
+    encode_frame,
+    list_segments,
+    resolve_transport,
+)
 from repro_torch.core.workers import WorkerSet
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -14,7 +14,9 @@ thread that serializes method execution, giving Ray-like semantics:
 Where the target executes is pluggable (``core.executor``): ``ThreadBackend``
 keeps it in-process (PyTorch releases the GIL inside its kernels and CUDA
 launches are asynchronous, so virtual actors still overlap device compute);
-the port has no process backend yet.
+``ProcessBackend`` builds it in a child process (started by forkserver or
+spawn, never fork) from a pickled factory and turns method calls into pipe
+RPCs; ``RemoteBackend`` (``core.remote``) homes it on another host.
 Actors are also *supervised*: with a factory and ``max_restarts`` the target
 is rebuilt with exponential backoff after a failure, and a ``FailurePolicy``
 tells downstream gather operators whether to restart, drop the shard, or

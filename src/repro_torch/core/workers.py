@@ -13,10 +13,9 @@ actors) that sample in parallel.  The protocol any worker target must satisfy:
 
 Fault tolerance / elasticity (executor runtime):
 
-  * ``create(..., max_restarts=2, failure_policy="drop_shard")`` builds
-    supervised workers; the factory is kept so workers can be rebuilt.  The
-    port runs them on the thread backend: ``backend="process"`` and
-    ``transport=`` are not ported yet and raise ``NotImplementedError``.
+  * ``create(..., backend="process", max_restarts=2, failure_policy="drop_shard")``
+    builds supervised workers on any execution backend; the factory is kept
+    so workers can be rebuilt.
   * ``sync_weights`` skips dead workers instead of poisoning the caller.
   * ``add_workers``/``remove_workers`` resize the group mid-training (the
     pool version bump makes pool-aware gather loops pick up the change).
@@ -71,17 +70,28 @@ class WorkerSet:
     ) -> "WorkerSet":
         """Build a local worker (index 0) and ``num_workers`` remote actors.
 
-        ``backend`` selects the execution vehicle ("thread" or an
+        ``backend`` selects the execution vehicle ("thread" | "process" | an
         ``ExecutionBackend``); supervision kwargs configure restart budget,
-        backoff, and the failure policy gather operators honor.
+        backoff, and the failure policy gather operators honor.  For the
+        process backend ``worker_factory`` must be picklable (module-level).
 
-        ``transport`` (the reference's inter-process data plane) is not
-        ported yet: passing one raises ``NotImplementedError``.
+        ``transport`` selects the process data plane ("shm" | "pickle" | a
+        ``Transport`` instance; see ``core.transport``) when ``backend`` is
+        given as a string; thread backends ignore it (already zero-copy).
         """
         if transport is not None:
-            raise NotImplementedError(
-                "transport= selects the process backend's data plane, which is not ported yet"
-            )
+            if not isinstance(backend, str):
+                # backend=None would silently build ThreadBackend and drop
+                # the transport — reject both that and instance backends.
+                raise ValueError(
+                    'transport= requires a backend name (e.g. backend="process"); '
+                    "for a backend instance, configure its transport directly"
+                )
+            from repro_torch.core.executor import BACKENDS
+
+            if backend not in BACKENDS:
+                raise ValueError(f"unknown backend {backend!r}; known: {sorted(BACKENDS)}")
+            backend = BACKENDS[backend](transport=transport)
         local = worker_factory(0)
         actor_kwargs = dict(
             backend=backend,

@@ -380,12 +380,40 @@ class CompiledFlow:
         return out
 
     def _host_backend(self, host: str, node: Node) -> Any:
-        """The RemoteBackend for a declared host: not ported yet, so a
-        ``host=`` placement raises instead of silently staying local."""
-        raise NotImplementedError(
-            f"host={host!r}: multi-host fragments need core/remote.py, which is "
-            "not ported to repro_torch yet"
-        )
+        """Resolve (and memoize) the RemoteBackend for a declared host.
+
+        A driver-managed host (``HostSpec.address is None``) is launched
+        here via ``start_local_host`` and owned by this flow — ``stop()``
+        tears it down.  An external host (``"host:port"``) is only
+        connected to; its lifetime is the operator's problem.  A launch or
+        connect failure degrades that host's fragment to the driver (one
+        error diagnostic, memoized so each host fails at most once).
+        """
+        if host in self._host_backends:
+            return self._host_backends[host]
+        from repro_torch.core.remote import RemoteBackend, start_local_host
+
+        hspec = self.spec.hosts[host]
+        backend: Any = None
+        try:
+            if hspec.address is None:
+                handle = start_local_host()
+                self.host_handles[host] = handle
+                address: Any = handle.address
+            else:
+                address = hspec.address
+            backend = RemoteBackend(address=address)
+        except Exception as exc:
+            self._diag(
+                Severity.ERROR,
+                f"failed to launch/connect host {host!r}: {exc!r}; its "
+                "fragment stays on the driver's local backend",
+                node=node.id,
+                hint="check the host address, or use a driver-managed host "
+                "(declare_host with no address)",
+            )
+        self._host_backends[host] = backend
+        return backend
 
     def _lower_host(self, node: Node, actors: Any) -> None:
         """Lower a source node's ``host=`` placement annotation.

@@ -369,9 +369,8 @@ class FlowSpec:
         ``address=None`` -> driver-managed: ``compile()`` launches a local
         ``RemoteHost`` process and tears it down with the flow.  Pass
         ``"host:port"`` to target an externally-run ``RemoteHost`` (started
-        on another machine via ``repro.core.remote.start_local_host`` or an
+        on another machine via ``repro_torch.core.remote.start_local_host`` or an
         equivalent entrypoint).  Source nodes opt in with ``.host(name)``.
-        The port has no remote backend yet: lowering a ``host=`` node raises.
         """
         if not isinstance(name, str) or not name:
             raise ValueError(f"declare_host() needs a non-empty name (got {name!r})")

@@ -159,7 +159,14 @@ _HOST_COLUMNS = frozenset({"batch_indices", "eps_id"})
 
 
 def _device_batch(batch: SampleBatch, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if k not in _HOST_COLUMNS}
+    """The loss columns as tensors on ``device``.  A read-only column (a
+    view into a shared-memory ring slot) is copied: a CPU tensor must not
+    alias a buffer it may not write."""
+    return {
+        k: torch.as_tensor(v if v.flags.writeable else np.array(v), device=device)
+        for k, v in batch.items()
+        if k not in _HOST_COLUMNS
+    }
 
 
 def _episode_stats(completed: deque) -> Dict[str, float]:

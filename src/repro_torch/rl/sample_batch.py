@@ -29,6 +29,29 @@ WEIGHTS = "weights"  # importance weights (prioritized replay)
 EPS_ID = "eps_id"
 
 
+def _check_one_schema(batches: Sequence["SampleBatch"]) -> None:
+    first = batches[0]
+    for i, b in enumerate(batches[1:], start=1):
+        for k in sorted(set(first.keys()) ^ set(b.keys())):
+            where = "part 0" if k in first._data else f"part {i}"
+            raise TypeError(
+                f"concat_samples: column {k!r} is only in {where}; every part "
+                "must carry the same columns"
+            )
+        for k in first.keys():
+            a, c = np.asarray(first[k]), np.asarray(b[k])
+            if a.dtype != c.dtype:
+                raise TypeError(
+                    f"concat_samples: column {k!r} is {a.dtype} in part 0 and "
+                    f"{c.dtype} in part {i}; convert the parts to one dtype first"
+                )
+            if a.shape[1:] != c.shape[1:]:
+                raise TypeError(
+                    f"concat_samples: column {k!r} has trailing shape {a.shape[1:]} "
+                    f"in part 0 and {c.shape[1:]} in part {i}"
+                )
+
+
 class SampleBatch(Mapping[str, np.ndarray]):
     """Columnar batch of experiences; all columns share leading dim."""
 
@@ -110,10 +133,15 @@ class SampleBatch(Mapping[str, np.ndarray]):
 
     @staticmethod
     def concat_samples(batches: Sequence["SampleBatch"]) -> "SampleBatch":
+        """Concatenate parts of ONE schema: the same columns, each with one
+        dtype and one trailing shape.  A part that differs raises
+        ``TypeError`` naming the column (the reference drops or ``KeyError``s
+        on a differing key set and lets numpy promote dtypes)."""
         batches = [b for b in batches if b.count > 0]
         if not batches:
             return SampleBatch()
         keys = batches[0].keys()
+        _check_one_schema(batches)
         out = SampleBatch(
             {k: np.concatenate([b[k] for b in batches], axis=0) for k in keys}
         )

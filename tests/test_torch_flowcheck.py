@@ -550,6 +550,42 @@ def test_determinism_hazard_flags_torch_global_generator(stage, flagged):
         assert flagged in d.message and "torch.Generator" in d.hint
 
 
+def _real_vs_fake(build_port, build_ref):
+    """Analyze the port's spec over a real pool, the reference's over the
+    fake pool it stands in for, and hold the two diagnostic lists equal."""
+    got = PORT.analyze(build_port(PORT))
+    assert [_key(d) for d in got] == [_key(d) for d in REF.analyze(build_ref(REF))]
+    return got
+
+
+def test_pickle_safety_on_a_real_process_backend_pool():
+    """The fake's case on a real ``ProcessBackend`` WorkerSet: server
+    inference on process workers draws the reference's warning."""
+    import torch_chaos
+
+    from repro_torch.core import ProcessBackend, WorkerSet
+
+    ws = WorkerSet.create(
+        torch_chaos.make_vec_dummy_worker, 2, backend=ProcessBackend(transport="pickle")
+    )
+    try:
+        assert {a.backend_name for a in ws.remote_workers()} == {"process"}
+
+        def build(pool):
+            def _build(ns):
+                spec = ns.FlowSpec("proc-server")
+                spec.set_output(spec.rollouts(pool, inference="server"))
+                return spec
+
+            return _build
+
+        diags = _real_vs_fake(build(ws), build(FakePool(backend="process", local=FakeLocalWorker())))
+        [d] = by_rule(diags, "pickle-safety")
+        assert d.severity == Severity.WARN and "pickle" in d.message
+    finally:
+        ws.stop()
+
+
 # ------------------------------------------------- cross-host-placement
 def test_cross_host_flags_undeclared_and_non_source_placement():
     def build(ns):
@@ -578,6 +614,32 @@ def test_cross_host_flags_shm_edge_spanning_fragments():
     assert span and span[0].is_error
     assert "cannot span the host boundary" in span[0].message
     assert "thread backend" in span[0].hint
+
+
+def test_cross_host_flags_a_real_process_pool_spanning_fragments():
+    """The fake's shm-span case on a real ``ProcessBackend`` pool placed on
+    a host: its shared-memory edge cannot span the host boundary."""
+    import torch_chaos
+
+    from repro_torch.core import ProcessBackend, WorkerSet
+
+    ws = WorkerSet.create(torch_chaos.make_stub_worker, 2, backend=ProcessBackend(transport="shm"))
+    try:
+        def build(pool):
+            def _build(ns):
+                spec = ns.FlowSpec("shm-span")
+                spec.declare_host("box")
+                spec.set_output(spec.rollouts(pool, host="box"))
+                return spec
+
+            return _build
+
+        diags = by_rule(_real_vs_fake(build(ws), build(FakePool(backend="process"))),
+                        "cross-host-placement")
+        span = [d for d in diags if "process-backed" in d.message]
+        assert span and span[0].is_error and "cannot span the host boundary" in span[0].message
+    finally:
+        ws.stop()
 
 
 def test_cross_host_flags_server_inference_on_remote_fragment():

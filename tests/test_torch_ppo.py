@@ -360,12 +360,57 @@ def _unported(what):
         if what == "sharded_learner":
             with Algorithm.from_plan("ppo", workers, num_learners=2, **SMALL_PPO) as algo:
                 algo.train()
-        elif what == "process_backend":
-            WorkerSet.create(lambda i: _cpu_worker(i), 1, backend="process")
-        elif what == "transport":
-            WorkerSet.create(lambda i: _cpu_worker(i), 1, backend="thread", transport="shm")
     finally:
         workers.stop()
+
+
+def _process_backend_trains_ppo(**create):
+    """The process backend is ported: PPO trains with its rollout worker in
+    a child process started from the fork server, and the broadcast weights
+    (torch tensors, crossing as host bytes) arrive equal to the learner's.
+    ``torch_chaos.make_ppo_worker`` is the picklable factory: a child imports
+    the factory's module, and this one imports JAX."""
+    import torch_chaos
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+
+    workers = WorkerSet.create(torch_chaos.make_ppo_worker, 1, **create)
+    try:
+        (remote,) = workers.remote_workers()
+        assert remote.backend_name == "process"
+        with Algorithm.from_plan("ppo", workers, own_workers=False, **SMALL_PPO) as algo:
+            assert algo.train()["counters"]["num_steps_trained"] > 0
+        for got, want in zip(tree_leaves(remote.sync("get_weights")),
+                             tree_leaves(workers.local_worker().get_weights())):
+            assert got.device == want.device and torch.equal(got, want)
+    finally:
+        workers.stop()
+
+
+def _transport_selects_the_data_plane():
+    """``transport=`` is ported: it picks the process backend's data plane
+    by name; a thread backend takes and ignores it, and a transport with no
+    backend name is refused, as in the reference."""
+    import torch_chaos
+
+    from repro_torch.core.executor import ThreadBackend
+    from repro_torch.core.transport import PickleTransport
+    from repro_torch.core.workers import WorkerSet
+
+    _process_backend_trains_ppo(backend="process", transport="pickle")
+    workers = WorkerSet.create(torch_chaos.make_ppo_worker, 1, backend="process", transport="pickle")
+    try:
+        assert isinstance(workers.remote_workers()[0]._cell._transport, PickleTransport)
+    finally:
+        workers.stop()
+    workers = WorkerSet.create(lambda i: _cpu_worker(i), 1, backend="thread", transport="shm")
+    try:
+        assert isinstance(workers.remote_workers()[0]._backend, ThreadBackend)
+    finally:
+        workers.stop()
+    with pytest.raises(ValueError, match="requires a backend name"):
+        WorkerSet.create(lambda i: _cpu_worker(i), 1, transport="shm")
 
 
 def _strict_compiles_ppo_and_refuses_errors():
@@ -416,12 +461,19 @@ def _server_inference_trains_ppo():
     "what", ["strict", "inference_server", "sharded_learner", "process_backend", "transport"]
 )
 def test_unported_paths_raise_instead_of_falling_back(what):
-    # Ported since: these cases hold what strict=True and inference="server" do now.
+    # Ported since: these cases hold what strict=True, inference="server",
+    # the process backend and transport= do now.
     if what == "strict":
         _strict_compiles_ppo_and_refuses_errors()
         return
     if what == "inference_server":
         _server_inference_trains_ppo()
+        return
+    if what == "process_backend":
+        _process_backend_trains_ppo(backend="process")
+        return
+    if what == "transport":
+        _transport_selects_the_data_plane()
         return
     with pytest.raises(NotImplementedError):
         _unported(what)
