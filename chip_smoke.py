@@ -159,6 +159,29 @@ phase that fails, and then prints no result line):
    profiled last step;
 21. main path 12: the same for Phi-3.5-MoE 42B (16 experts, top-2) cut to 2
    layers;
+21b. zoo parity: phase 19's learner parity at the reduced Qwen1.5-32B,
+   Nemotron-4 15B, DeepSeek-V2-Lite, Jamba, LLaVA-NeXT and MusicGen (the
+   routing probe on the MoE ones first);
+21c. the model zoo's pretraining paths, each as phase 20 with ``ZOO_STEPS``
+   steps and launches read per step against what its layers imply (MLA and
+   Mamba launch no kernel): DeepSeek-V2-Lite 16B cut to its dense prologue +
+   one MoE block (64 experts, top-6, 2 shared; MLA through the plain chunked
+   attention), Jamba 52B cut to entries 2-3 of its block (Mamba + dense,
+   attention + MoE with 16 experts of 14,336) at 1 x 4,096 tokens, LLaVA-NeXT
+   34B (2 x (2,880 media + 1,216 text), the loss over text) and MusicGen
+   large (2 x 4,096 x 4 codebooks), each at its published widths;
+21d. the model zoo's serving paths: ``make_prefill_step`` on a 2 x 512
+   prompt then 16 ``make_decode_step`` calls at published widths cut to 2
+   layers (float32, MoE at capacity factor 8) for DeepSeek-V2-Lite (MLA's
+   latent cache), Jamba (Mamba state, attention and MoE), RWKV-6 7B,
+   Qwen1.5-32B with the int8 KV cache, Nemotron-4 15B, MusicGen (tokens [B,
+   1, 4]) and LLaVA-NeXT (2,880 media before the prompt): each step's logits
+   within 1e-4 x max |logits| of one full forward's, the int8 case's within
+   0.05 of its float32 cache's run and its cache under 0.6 x the bytes,
+   launches exact (flash once an attention layer in the prefill, decode
+   attention once an attention layer a step, RWKV-6 once a layer in the
+   prefill, the grouped matmul three times an MoE layer in the prefill and
+   in each step);
 22. plan learner parity, card vs CPU from the same weights: the
    multi-agent worker's ``learn_on_batch`` for ``"ppo_policy"`` (the
    surrogate kernels at [128, 2]) and ``"dqn_policy"`` (a replayed batch),
@@ -265,6 +288,15 @@ qk-norm) at its published widths cut to 2 layers, its flash launches checked
 per step.  Every keyed path checks that it launched the threefry kernel
 (PPO CartPole and PPO-LM exactly: 4 a rollout and 2 a step, and 9 a step,
 plus 1 a SGD step); the pretraining paths launch none.
+
+Phase 3 also holds the model zoo's path shapes: flash forward and backward
+at LLaVA's [2, 4096, 56/8, 128], MusicGen's [2, 4096, 32/32, 64] and Jamba's
+[1, 4096, 32/8, 128] and forward at each serving prefill; the grouped matmul
+and its dX and dW at DeepSeek's [61440, 2048] x [64, 2048, 1408] and Jamba's
+[10240, 4096] x [16, 4096, 14336] (up and down) and forward at their serving
+products; decode attention at each serving case's heads and window; RWKV-6 at
+the serving prefill's [2, 512, 64, 64].  Every phase prints its seconds, and
+the run prints them all before its result lines.
 
 Phase 3 also holds flash attention at that path's shapes, [B, 4, 2/2, 32]
 for B = 8 and 16 (serve dispatches), 128 (the learner, forward and
@@ -374,6 +406,42 @@ RWKV6_PATH_SHAPE = (2, 4096, 64, 64)
 MOE_GMM_UP = (20480, 4096, 6400, 16)  # [T, D, F, E] of the up and gate products
 PHI_ATTENTION = (2, 4096, 32, 8, 128)
 QWEN3_ATTENTION = (2, 4096, 40, 8, 128)  # Qwen3-14B's [B, S, H, KV, D]
+# The model zoo's pretraining paths: each configuration at its published
+# widths cut to 2 layers by launch/train.py's cut_layers (DeepSeek: its dense
+# prologue + one MoE block; Jamba: entries 2-3 of its block, Mamba + dense
+# and attention + MoE), 2 x 4,096 tokens a step (LLaVA: 2,880 media + 1,216
+# text a sequence; MusicGen: 4 codebooks a position), ZOO_STEPS steps.
+# Jamba's MoE layer alone holds 2.82 B parameters (45 GB with gradients and
+# AdamW's moments), so it takes 1 x 4,096 tokens.
+ZOO_PRETRAIN_PATHS = {"pretrain_deepseek": "deepseek-v2-lite-16b",
+                      "pretrain_jamba": "jamba-v0.1-52b",
+                      "pretrain_llava": "llava-next-34b",
+                      "pretrain_musicgen": "musicgen-large"}
+PRETRAIN_BATCH = {"pretrain_jamba": 1}
+ZOO_STEPS = 4
+# Their kernels' shapes: the grouped matmul's up product [E * B * C, D] x
+# [E, D, F] with C = ceil(1.25 * T * top_k / E) (DeepSeek 480, Jamba 640),
+# and flash attention's [B, S, H, KV, D].  MLA attention (DeepSeek) is the
+# plain chunked path and launches no flash kernel.
+DEEPSEEK_GMM_UP = (61440, 2048, 1408, 64)
+JAMBA_GMM_UP = (10240, 4096, 14336, 16)
+LLAVA_ATTENTION = (2, 4096, 56, 8, 128)
+MUSICGEN_ATTENTION = (2, 4096, 32, 32, 64)
+JAMBA_ATTENTION = (1, 4096, 32, 8, 128)
+# The serving paths: make_prefill_step on a 2 x 512 prompt (LLaVA: 2,880
+# media + 512 text), then 16 make_decode_step calls, each configuration at
+# its published widths cut to 2 layers, float32, MoE at capacity factor 8
+# (as the reference's decode test, so that decode and forward drop nothing);
+# Qwen1.5-32B with the int8 KV cache.  The cache window holds the prompt and
+# the 16 steps.
+SERVE_ZOO = {"serve_deepseek": ("deepseek-v2-lite-16b", ""), "serve_jamba": ("jamba-v0.1-52b", ""),
+             "serve_rwkv6": ("rwkv6-7b", ""), "serve_qwen32_int8": ("qwen1.5-32b", "int8"),
+             "serve_nemotron": ("nemotron-4-15b", ""), "serve_musicgen": ("musicgen-large", ""),
+             "serve_llava": ("llava-next-34b", "")}
+SERVE = dict(batch=2, prompt=512, steps=16, layers=2, capacity_factor=8.0)
+SERVE_REL_TOL = 1e-4  # decode logits vs the full forward's, x max |logits|
+INT8_REL_TOL = 0.05  # int8-cache decode vs the float32 cache's (tests/test_perf_features.py)
+INT8_BYTES = 0.6  # the int8 cache's bytes, at most this share of the float32 cache's
 # atol = rtol for the grouped matmul against the loop over groups: each
 # output element sums 4,096 to 6,400 products, in another order than cuBLAS.
 GMM_TOL = 1e-4
@@ -381,6 +449,29 @@ GMM_TOL = 1e-4
 # driver-managed host for remote-socket); the kernels see phase 5's shapes.
 RUNTIME_BACKENDS = ("thread", "process-pickle", "process-shm", "remote-socket")
 RUNTIME_PATHS = tuple(b.replace("-", "_") for b in RUNTIME_BACKENDS)
+# The serving paths' kernel shapes: flash in the prefill [B, S, H, KV, D]
+# (LLaVA's S counts the media), decode attention [B, 1, H, KV, D, W] with W
+# the prompt and the steps, RWKV-6 in the prefill [B, T, H, N], and the
+# grouped matmul's up products in the prefill and in a decode step at
+# capacity factor 8 (C = ceil(8 * S * top_k / E): 384 and 1 for DeepSeek,
+# 512 and 1 for Jamba).
+_W = SERVE["prompt"] + SERVE["steps"]
+SERVE_PREFILL_ATTENTION = {"serve_jamba": (2, 512, 32, 8, 128), "serve_qwen32_int8": (2, 512, 40, 40, 128),
+                           "serve_nemotron": (2, 512, 48, 8, 128), "serve_musicgen": (2, 512, 32, 32, 64),
+                           "serve_llava": (2, 2880 + 512, 56, 8, 128)}
+SERVE_DECODE_ATTENTION = {"serve_jamba": (2, 1, 32, 8, 128, _W), "serve_qwen32_int8": (2, 1, 40, 40, 128, _W),
+                          "serve_nemotron": (2, 1, 48, 8, 128, _W), "serve_musicgen": (2, 1, 32, 32, 64, _W),
+                          "serve_llava": (2, 1, 56, 8, 128, 2880 + _W)}
+SERVE_RWKV6_SHAPE = (2, 512, 64, 64)
+SERVE_GMM_UP = {"serve_deepseek": [(49152, 2048, 1408, 64), (128, 2048, 1408, 64)],
+                "serve_jamba": [(16384, 4096, 14336, 16), (32, 4096, 14336, 16)]}
+
+
+def _down(up) -> list:
+    """The down product's [T, F, D, E] beside an up product's [T, D, F, E]."""
+    return [up[0], up[2], up[1], up[3]]
+
+
 # The shape each main path gives each kernel, where phase 3 checks it (a
 # list of shapes where one path gives a kernel several).
 PATH_SHAPES = {
@@ -397,21 +488,32 @@ PATH_SHAPES = {
                           **{f"ppo_cartpole_{b}": [256, 2] for b in RUNTIME_PATHS}},
     "flash_attention_fwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
                             "ppo_transformer_server": [[b, 4, 2, 2, 32] for b in (8, 16, 128, 256)],
-                            "pretrain_qwen3": list(QWEN3_ATTENTION)},
+                            "pretrain_qwen3": list(QWEN3_ATTENTION),
+                            "pretrain_llava": list(LLAVA_ATTENTION),
+                            "pretrain_musicgen": list(MUSICGEN_ATTENTION),
+                            "pretrain_jamba": list(JAMBA_ATTENTION),
+                            **{name: list(shape) for name, shape in SERVE_PREFILL_ATTENTION.items()}},
     "flash_attention_bwd": {"ppo_lm": [128, 256, 20, 20, 128], "pretrain_phi": list(PHI_ATTENTION),
                             "ppo_transformer_server": [128, 4, 2, 2, 32],
-                            "pretrain_qwen3": list(QWEN3_ATTENTION)},
+                            "pretrain_qwen3": list(QWEN3_ATTENTION),
+                            "pretrain_llava": list(LLAVA_ATTENTION),
+                            "pretrain_musicgen": list(MUSICGEN_ATTENTION),
+                            "pretrain_jamba": list(JAMBA_ATTENTION)},
+    "decode_attention": {name: list(shape) for name, shape in SERVE_DECODE_ATTENTION.items()},
     # The hash's output shapes: [L, n] random bits, [L, n, 2] split keys.
     # PPO CartPole's resets draw [8, 4] bits; PPO-LM samples [8, 151936];
     # IMPALA's 256 lanes split [256, 2, 2] a step.
     "threefry": {"ppo_cartpole": [8, 4], "ppo_lm": [8, 151936], "impala_vector": [256, 2, 2],
                  **{f"ppo_cartpole_{b}": [8, 4] for b in RUNTIME_PATHS}},
-    "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
+    "rwkv6_fwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE), "serve_rwkv6": list(SERVE_RWKV6_SHAPE)},
     "rwkv6_bwd": {"pretrain_rwkv6": list(RWKV6_PATH_SHAPE)},
-    **{name: {"pretrain_phi": [list(MOE_GMM_UP), [MOE_GMM_UP[0], MOE_GMM_UP[2], MOE_GMM_UP[1],
-                                                 MOE_GMM_UP[3]]]}
+    **{name: {path: [list(up), _down(up)] for path, up in (
+        ("pretrain_phi", MOE_GMM_UP), ("pretrain_deepseek", DEEPSEEK_GMM_UP),
+        ("pretrain_jamba", JAMBA_GMM_UP))}
        for name in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw")},
 }
+PATH_SHAPES["moe_gmm"].update({path: [list(up) for up in ups] + [_down(up) for up in ups]
+                               for path, ups in SERVE_GMM_UP.items()})
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 # The gradient paths (A2C, A3C) at examples/quickstart.py's workers: 2 'pg'
 # workers of 4 CartPole envs x 32 steps.
@@ -1461,14 +1563,14 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
 
 
 def _gmm_bwd_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
-                  overrun: int = 0, tail: int = 0) -> dict:
+                  overrun: int = 0, tail: int = 0, batch: int = PRETRAIN["batch"]) -> dict:
     """The backward products of the grouped matmul out = x @ w[e] against the
     loops over groups: dX = dy @ w[e]^T and dW[e] = x_e^T dy_e (twice: bitwise
     equal), with ``overrun`` and ``tail`` as ``_gmm_case``.  For dW, dy is
     scaled by 1 / sqrt(mean group size), so dW is O(1) as the other outputs.
     Each yardstick is the einsum of ``GmmMatmul``'s backward that the kernel
     replaces (``repro/models/moe.py:145``), on the [B, E, C, .] layout of
-    the pretraining path (B = PRETRAIN["batch"])."""
+    the pretraining path (B = ``batch``)."""
     import torch
 
     from repro_torch.kernels.moe_gmm import (
@@ -1503,7 +1605,7 @@ def _gmm_bwd_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20
               **_tensor_core_bounds(4 * (T * D + E * D * F + T * F), 2 * T * D * F)}
     dx_lib, dw_lib = {"library_ms": None}, {"library_ms": None}
     if len(set(sizes)) == 1:
-        B = PRETRAIN["batch"]
+        B = batch
         per_b = (E, B, sizes[0] // B)
         dy4 = dy.view(*per_b, F).transpose(0, 1).contiguous()
         x4 = x.view(*per_b, D).transpose(0, 1).contiguous()
@@ -1551,6 +1653,41 @@ def _narrow_heads(case, seed: int) -> list:
         case(2, 300, 500, 8, 2, 64, False, 0, 0, seed + 2),
         case(2, 300, 812, 8, 8, 32, True, 128, 512, seed + 3),
     ]
+
+
+def _zoo_kernel_cases(out: dict) -> None:
+    """The model zoo's path shapes, appended after each kernel's earlier
+    cases: flash forward and backward at the LLaVA, MusicGen (D = 64) and
+    Jamba (batch 1) learners and forward at each serving prefill; the grouped
+    matmul and its dX and dW at DeepSeek's and Jamba's learner products (up
+    and down) and forward at their serving products (prefill and a decode
+    step); decode attention at each serving case's heads and window (one
+    shared prefix mask, as the path's); RWKV-6 at the serving prefill."""
+    t0 = time.perf_counter()
+    for seed, (B, S, H, KV, D) in enumerate((LLAVA_ATTENTION, MUSICGEN_ATTENTION, JAMBA_ATTENTION)):
+        out["flash_attention_fwd"].append(
+            _flash_fwd_case(B, S, S, H, KV, D, True, 0, 0, 80 + seed, kernel_iters=20))
+        out["flash_attention_bwd"].append(
+            _flash_bwd_case(B, S, S, H, KV, D, True, 0, 0, 83 + seed, kernel_iters=10))
+    for seed, (B, S, H, KV, D) in enumerate(SERVE_PREFILL_ATTENTION.values()):
+        out["flash_attention_fwd"].append(
+            _flash_fwd_case(B, S, S, H, KV, D, True, 0, 0, 86 + seed, kernel_iters=20))
+    for seed, (B, _, H, KV, D, W) in enumerate(SERVE_DECODE_ATTENTION.values()):
+        out["decode_attention"].append(_decode_case(B, H, KV, D, W, "shared", 91 + seed))
+    serve = _rwkv6_case(*SERVE_RWKV6_SHAPE, 57, kernel_iters=20)
+    out["rwkv6_fwd"].append(serve["fwd"])
+    out["rwkv6_bwd"].append(serve["bwd"])
+    learners = ((DEEPSEEK_GMM_UP, PRETRAIN["batch"]), (JAMBA_GMM_UP, PRETRAIN_BATCH["pretrain_jamba"]))
+    for seed, ((T, D, F, E), batch) in enumerate(learners):
+        for d, f in ((D, F), (F, D)):
+            out["moe_gmm"].append(_gmm_case([T // E] * E, d, f, 100 + seed, kernel_iters=10))
+            bwd = _gmm_bwd_case([T // E] * E, d, f, 110 + seed, kernel_iters=10, batch=batch)
+            out["moe_gmm_dx"].append(bwd["dx"])
+            out["moe_gmm_dw"].append(bwd["dw"])
+    for seed, (T, D, F, E) in enumerate(u for ups in SERVE_GMM_UP.values() for u in ups):
+        for d, f in ((D, F), (F, D)):
+            out["moe_gmm"].append(_gmm_case([T // E] * E, d, f, 120 + seed, kernel_iters=10))
+    print(f"  the model zoo's kernel cases: {time.perf_counter() - t0:.1f} s")
 
 
 def _launch_floor() -> dict:
@@ -1661,6 +1798,7 @@ def phase_kernels() -> dict:
     out["rwkv6_fwd"] = [c["fwd"] for c in rwkv6_cases]
     out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
     out.update(_gmm_cases())
+    _zoo_kernel_cases(out)
     for name, cases in out.items():
         tol = GRAD_TOL if name in ("flash_attention_bwd", "rwkv6_bwd") else TOL
         tol = GMM_TOL if name.startswith("moe_gmm") else tol
@@ -2727,13 +2865,13 @@ def _record_routing(fn):
     return seen
 
 
-def phase_pretrain_parity() -> dict:
-    """One ``learn_on_batch`` of the pretraining learner (SGD at lr 1, so
-    the weight difference is the gradient difference; see phase 6) on the
-    card and on the CPU from the same weights, at the reduced configuration
-    of each architecture in float32.  For the MoE one the experts every
-    token routes to must first be the same on both devices: one flipped
-    choice would make the weight comparison meaningless."""
+def _pretrain_parity(arch: str) -> dict:
+    """One ``learn_on_batch`` (SGD at lr 1, so the weight difference is the
+    gradient difference; see phase 6) of the pretraining learner on the card
+    and on the CPU from the same weights, at ``arch``'s reduced
+    configuration in float32.  For an MoE one the experts every token routes
+    to must first be the same on both devices: one flipped choice would make
+    the weight comparison meaningless."""
     import numpy as np
     import torch
 
@@ -2745,78 +2883,106 @@ def phase_pretrain_parity() -> dict:
     from repro_torch.optim import sgd
     from repro_torch.tree import tree_leaves
 
-    out = {}
-    for arch in PRETRAIN_PATHS.values():
-        cfg = train_config(arch, smoke=True)
-        gpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cuda"))
-        cpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cpu"))
-        cpu.set_weights(params_to_numpy(gpu.get_weights()))
-        batch = make_batch(cfg, InputShape("t", 64, 2, "train"), seed=0, step=0)
-        routed = 0
-        if cfg.moe is not None:
-            def probe(worker):
-                tokens, labels = (torch.from_numpy(batch[k]).to(worker.ctx.device)
-                                  for k in ("tokens", "labels"))
-                with torch.no_grad():
-                    return _record_routing(lambda: worker.ctx.model.loss(worker.params, tokens, labels))
+    cfg = train_config(arch, smoke=True)
+    gpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cuda"))
+    cpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cpu"))
+    cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    batch = make_batch(cfg, InputShape("t", 64, 2, "train"), seed=0, step=0)
+    routed = 0
+    if cfg.moe is not None:
+        def probe(worker):
+            tokens, labels = (torch.from_numpy(batch[k]).to(worker.ctx.device)
+                              for k in ("tokens", "labels"))
+            media = batch.get("media_emb")
+            media = None if media is None else torch.from_numpy(media).to(worker.ctx.device)
+            with torch.no_grad():
+                return _record_routing(
+                    lambda: worker.ctx.model.loss(worker.params, tokens, labels, media))
 
-            on_gpu, on_cpu = probe(gpu), probe(cpu)
-            _require(len(on_gpu) == len(on_cpu) == cfg.num_layers, "routing probe missed a layer")
-            flips = sum(int((a != b).sum()) for a, b in zip(on_gpu, on_cpu))
-            _require(flips == 0, f"pretrain parity ({arch}): {flips} expert choices differ between "
-                                 "card and CPU, so the weights cannot be compared")
-            routed = sum(a.numel() for a in on_gpu)
-        info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
-        w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
-        w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
-        err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
-        stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
-        _require(err <= LEARNER_TOL, f"pretrain parity ({arch}): card vs CPU weights differ by {err:.3e}")
-        _require(stat_err <= LEARNER_TOL, f"pretrain parity ({arch}): stats differ by {stat_err:.3e}")
-        routing = f"; {routed} expert choices identical" if cfg.moe is not None else ""
-        print(f"pretrain learner parity ({cfg.name}): one learn_on_batch (SGD, lr 1) on 2 x 64 tokens, "
-              f"card vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol "
-              f"{LEARNER_TOL}){routing}; loss {info_g['loss']:.4f}")
-        out[arch] = {"weight_err": err, "stat_err": stat_err, "expert_choices_checked": routed}
+        on_gpu, on_cpu = probe(gpu), probe(cpu)
+        moe_layers = sum(s.mlp == "moe" for s in cfg.prologue + cfg.block_pattern * cfg.num_blocks)
+        _require(len(on_gpu) == len(on_cpu) == moe_layers, "routing probe missed a layer")
+        flips = sum(int((a != b).sum()) for a, b in zip(on_gpu, on_cpu))
+        _require(flips == 0, f"pretrain parity ({arch}): {flips} expert choices differ between "
+                             "card and CPU, so the weights cannot be compared")
+        routed = sum(a.numel() for a in on_gpu)
+    info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+    w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
+    w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
+    stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
+    _require(err <= LEARNER_TOL, f"pretrain parity ({arch}): card vs CPU weights differ by {err:.3e}")
+    _require(stat_err <= LEARNER_TOL, f"pretrain parity ({arch}): stats differ by {stat_err:.3e}")
+    routing = f"; {routed} expert choices identical" if cfg.moe is not None else ""
+    print(f"pretrain learner parity ({cfg.name}): one learn_on_batch (SGD, lr 1) on 2 x 64 tokens, "
+          f"card vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol "
+          f"{LEARNER_TOL}){routing}; loss {info_g['loss']:.4f}")
+    return {"weight_err": err, "stat_err": stat_err, "expert_choices_checked": routed}
+
+
+def phase_pretrain_parity() -> dict:
+    """``_pretrain_parity`` at the reduced RWKV-6, Phi-3.5-MoE and Qwen3-14B."""
+    return {arch: _pretrain_parity(arch) for arch in PRETRAIN_PATHS.values()}
+
+
+def phase_zoo_parity() -> dict:
+    """``_pretrain_parity`` at the reduced configurations of the six
+    architectures of the model zoo's slice: Qwen1.5-32B (QKV bias),
+    Nemotron-4 (squared ReLU), DeepSeek-V2-Lite (MLA, shared experts),
+    Jamba (Mamba, MoE), LLaVA-NeXT (media prepended) and MusicGen (four
+    codebooks)."""
+    t0 = time.perf_counter()
+    out = {arch: _pretrain_parity(arch) for arch in (
+        "qwen1.5-32b", "nemotron-4-15b", *ZOO_PRETRAIN_PATHS.values())}
+    print(f"zoo parity: {time.perf_counter() - t0:.1f} s")
     return out
 
 
 # --------------------------------------------------------- phases 20-21
 def _pretrain_expected(cfg) -> dict:
-    """Launches per train() step implied by the configuration: each layer's
-    forward once (no remat) and its backward once; an MoE layer runs three
-    expert products (up, gate, down) with a gated MLP, two without, and the
-    dX and dW products of each in the backward."""
-    L = cfg.num_layers
-    spec = cfg.block_pattern[0]
-    expect = {}
-    if spec.kind == "rwkv6":
-        expect.update(rwkv6_fwd=L, rwkv6_bwd=L)
-    if spec.kind == "attn":
-        expect.update(flash_attention_fwd=L, flash_attention_bwd=L)
-    if spec.mlp == "moe":
-        products = L * (3 if cfg.activation == "silu" else 2)
-        expect.update(moe_gmm=products, moe_gmm_dx=products, moe_gmm_dw=products)
+    """Launches per train() step implied by the configuration, layer by
+    layer (prologue, then the pattern of each block): each layer's forward
+    once (no remat) and its backward once; a GQA attention layer runs flash
+    forward and backward, MLA none (the plain chunked path), Mamba none; an
+    RWKV-6 layer the RWKV-6 forward and backward; an MoE MLP three expert
+    products (up, gate, down) with a gated MLP, two without, and the dX and
+    dW products of each in the backward."""
+    expect: dict = {}
+
+    def add(name, n):
+        expect[name] = expect.get(name, 0) + n
+
+    for spec in cfg.prologue + cfg.block_pattern * cfg.num_blocks:
+        if spec.kind == "rwkv6":
+            add("rwkv6_fwd", 1)
+            add("rwkv6_bwd", 1)
+        if spec.kind == "attn" and cfg.mla is None:
+            add("flash_attention_fwd", 1)
+            add("flash_attention_bwd", 1)
+        if spec.mlp == "moe":
+            for name in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw"):
+                add(name, 3 if cfg.activation == "silu" else 2)
     return expect
 
 
-def _check_path_shapes(cfg) -> None:
+def _check_path_shapes(cfg, batch: int) -> None:
     """The shapes phase 3 held the kernels to are this path's own."""
-    B, T = PRETRAIN["batch"], PRETRAIN["seq"]
-    if cfg.ssm is not None:
+    T = PRETRAIN["seq"]
+    kinds = {s.kind for s in cfg.prologue + cfg.block_pattern}
+    if "rwkv6" in kinds:
         s = cfg.ssm
-        shape = (B, T, cfg.d_model // s.head_dim, s.head_dim)
+        shape = (batch, T, cfg.d_model // s.head_dim, s.head_dim)
         _require(shape == RWKV6_PATH_SHAPE, f"{cfg.name}: RWKV-6 shape {shape} != {RWKV6_PATH_SHAPE}")
     if cfg.moe is not None:
         e = cfg.moe
         C = max(1, math.ceil(e.capacity_factor * T * e.top_k / e.num_experts))
-        shape = (e.num_experts * B * C, cfg.d_model, e.d_ff, e.num_experts)
-        _require(shape == MOE_GMM_UP, f"{cfg.name}: grouped-matmul shape {shape} != {MOE_GMM_UP}")
-    if cfg.num_heads:
-        shape = (B, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-        _require(shape in (PHI_ATTENTION, QWEN3_ATTENTION),
-                 f"{cfg.name}: attention shape {shape} is neither {PHI_ATTENTION} nor "
-                 f"{QWEN3_ATTENTION}")
+        shape = (e.num_experts * batch * C, cfg.d_model, e.d_ff, e.num_experts)
+        known = (MOE_GMM_UP, DEEPSEEK_GMM_UP, JAMBA_GMM_UP)
+        _require(shape in known, f"{cfg.name}: grouped-matmul shape {shape} is none of {known}")
+    if "attn" in kinds and cfg.mla is None:
+        shape = (batch, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        known = (PHI_ATTENTION, QWEN3_ATTENTION, LLAVA_ATTENTION, MUSICGEN_ATTENTION, JAMBA_ATTENTION)
+        _require(shape in known, f"{cfg.name}: attention shape {shape} is none of {known}")
 
 
 def phase_pretrain(name: str, counters: list) -> dict:
@@ -2831,17 +2997,23 @@ def phase_pretrain(name: str, counters: list) -> dict:
     from repro_torch.launch.train import make_pretrain, train_config
     from repro_torch.tree import tree_leaves
 
-    c = PRETRAIN
-    cfg = train_config(PRETRAIN_PATHS[name], layers=c["layers"])
-    _check_path_shapes(cfg)
+    batch = PRETRAIN_BATCH.get(name, PRETRAIN["batch"])
+    c = dict(PRETRAIN, batch=batch, data_shards=min(batch, PRETRAIN["data_shards"]),
+             steps=ZOO_STEPS if name in ZOO_PRETRAIN_PATHS else PRETRAIN["steps"])
+    cfg, cut = train_config({**PRETRAIN_PATHS, **ZOO_PRETRAIN_PATHS}[name], layers=c["layers"],
+                            with_note=True)
+    print(f"{name}: {cut}")
+    _check_path_shapes(cfg, c["batch"])
     expect = {k.name: 0 for k in counters}
     expect.update(_pretrain_expected(cfg))
     # The synthetic tokens are uniform, so the loss stays at the NLL of
     # uniform labels under the initial logits, ln V + sigma^2 / 2, with sigma
     # = 0.02 sqrt(d_model) the logits' spread (the head's init scale times
     # the unit-RMS final norm): 11.91 for RWKV-6 and 11.20 for Phi-3.5-MoE.
+    # V is MusicGen's codebook size (each codebook's head is a V-way
+    # softmax), and LLaVA's loss is over its text positions.
     loss0 = math.log(cfg.vocab_size) + (0.02 * math.sqrt(cfg.d_model)) ** 2 / 2
-    tokens = c["seq"] * c["batch"]
+    tokens = c["seq"] * c["batch"]  # LLaVA's count its media positions
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2890,7 +3062,7 @@ def phase_pretrain(name: str, counters: list) -> dict:
     torch.cuda.empty_cache()
     _require(peak < 80e9, f"{name}: peak memory {peak / 1e9:.2f} GB")
     busy_ms = sum(busy.values()) / 1e3
-    names = ("rwkv6_", "gmm_", "flash_")
+    names = ("rwkv6_", "gmm_", "flash_", "decode_attention")
     ours = {k[:60]: v / 1e3 for k, v in busy.items() if any(n in k for n in names)}
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     warm = [r["seconds"] for r in rows[1:-1]]
@@ -2907,11 +3079,167 @@ def phase_pretrain(name: str, counters: list) -> dict:
     print(f"{name} top device kernels (ms): {profiled['top_kernels_ms']}")
     print(f"{name} main path: {c['steps']} train() steps of {tokens} tokens, "
           f"{warm_s:.3f} s per step and {tokens / warm_s:.1f} tokens/s after the first "
-          f"(steps 1-{c['steps'] - 2}), per-step launches {expect}")
-    return {"config": cfg.name, "layers": cfg.num_layers, "params": n_params, "steps": rows,
+          f"(steps 1-{c['steps'] - 2}), per-step launches {expect}; phase "
+          f"{time.perf_counter() - t_init:.1f} s")
+    return {"config": cfg.name, "layers": cfg.num_layers, "cut": cut, "batch": c["batch"],
+            "params": n_params, "steps": rows, "phase_s": time.perf_counter() - t_init,
             "seconds_per_step": warm_s, "tokens_per_s": tokens / warm_s, "init_s": init_s,
             "launches": launches,
             "expected_per_step": expect, "peak_memory_bytes": peak, "profile": profiled}
+
+
+# ------------------------------------------------------------ phase 21b
+def _serve_expected(cfg, steps: int) -> dict:
+    """Launches of one prefill and ``steps`` decode steps, layer by layer:
+    flash forward once a GQA attention layer in the prefill, decode
+    attention once a GQA attention layer a step (MLA attends in its latent
+    space with plain einsums), the RWKV-6 forward once an RWKV-6 layer in
+    the prefill (the decode step is plain, as the reference's), and the
+    grouped matmul three (gated) or two times an MoE layer in the prefill and
+    in each step.  Mamba is plain throughout."""
+    expect: dict = {}
+
+    def add(name, n):
+        expect[name] = expect.get(name, 0) + n
+
+    for spec in cfg.prologue + cfg.block_pattern * cfg.num_blocks:
+        if spec.kind == "attn" and cfg.mla is None:
+            add("flash_attention_fwd", 1)
+            add("decode_attention", steps)
+        if spec.kind == "rwkv6":
+            add("rwkv6_fwd", 1)
+        if spec.mlp == "moe":
+            add("moe_gmm", (3 if cfg.activation == "silu" else 2) * (1 + steps))
+    return expect
+
+
+def _serve_run(model, params, tokens, media, steps: int) -> tuple:
+    """``make_prefill_step`` on tokens[:, :-steps] (and the media), then
+    ``steps`` ``make_decode_step`` calls on the rest: (the prefill's last
+    logits, each step's logits, the final cache, prefill s, s per step)."""
+    import torch
+
+    from repro_torch.models import make_decode_step, make_prefill_step
+
+    S = tokens.shape[1] - steps
+    W = tokens.shape[1] + (0 if media is None else media.shape[1])
+    prefill, decode = make_prefill_step(model, window=W), make_decode_step(model)
+    t0 = time.perf_counter()
+    batch = {"tokens": tokens[:, :S]}
+    if media is not None:
+        batch["media_emb"] = media
+    first, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = []
+    for i in range(steps):
+        step_logits, cache = decode(params, cache, {"tokens": tokens[:, S + i:S + i + 1]})
+        logits.append(step_logits[:, 0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return first[:, 0], torch.stack(logits, dim=1), cache, t1 - t0, (t2 - t1) / steps
+
+
+def phase_serve_zoo(name: str, counters: list) -> dict:
+    """One serving path of the model zoo: the configuration at its published
+    widths cut to 2 layers (``cut_layers``), float32, random weights from a
+    seed on the card; ``make_prefill_step`` on a 2 x 512 prompt (LLaVA with
+    2,880 media embeddings before it), then 16 ``make_decode_step`` calls,
+    counters zeroed just before and read just after and checked against
+    ``_serve_expected``, every other kernel 0.  Each step's logits (and the
+    prefill's last) must be within 1e-4 x max |logits| of one full forward's
+    at the same position.  The int8 case (Qwen1.5-32B) also decodes with the
+    float32 cache, which the forward gate holds, and its logits must be
+    within 0.05 (relative) of that run's, its cache under 0.6 x the bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+
+    arch, cache_dtype = SERVE_ZOO[name]
+    c = SERVE
+    t_phase = time.perf_counter()
+    cfg, cut = train_config(arch, layers=c["layers"], with_note=True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=c["capacity_factor"]))
+    float_cfg = cfg
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=cache_dtype)
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = model.init_params(g)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        B, T = c["batch"], c["prompt"] + c["steps"]
+        shape = (B, T, cfg.num_codebooks) if cfg.modality == "audio" else (B, T)
+        tokens = torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")
+        media = None
+        if cfg.modality == "vlm":
+            media = torch.randn((B, cfg.num_media_tokens, cfg.d_model), generator=g, device="cuda")
+        expect = {k.name: 0 for k in counters}
+        expect.update(_serve_expected(cfg, c["steps"]))
+        torch.cuda.synchronize()
+        for k in counters:
+            k.reset()
+        first, logits, cache, prefill_s, step_s = _serve_run(model, params, tokens, media, c["steps"])
+        launches = {k.name: k.value for k in counters}
+        _require(launches == expect, f"{name}: launched {launches}, expected {expect}")
+        M = 0 if media is None else media.shape[1]
+        x, _ = model.forward(params, tokens, media)
+        full = model._head(params, x[:, M + c["prompt"] - 1:])
+        del x
+        want = full[:, 1:] if cache_dtype != "int8" else None
+        scale = float(full.abs().max())
+        first_err = float((first - full[:, 0]).abs().max())
+        out = {"config": cfg.name, "cut": cut, "params": n_params, "prefill_s": prefill_s,
+               "decode_step_s": step_s, "launches": launches, "expected": expect}
+        if cache_dtype == "int8":
+            # The float32 cache's run is the one held to the forward; the
+            # int8 run is held to it.
+            f_first, f_logits, f_cache, _, _ = _serve_run(Model(float_cfg), params, tokens, media,
+                                                          c["steps"])
+            first_err = float((f_first - full[:, 0]).abs().max())
+            want, int8_logits, logits = full[:, 1:], logits, f_logits
+            int8_rel = float((int8_logits - f_logits).abs().max() / f_logits.abs().max())
+
+            def nbytes(tree):
+                return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+            share = nbytes(cache) / nbytes(f_cache)
+            _require(int8_rel < INT8_REL_TOL, f"{name}: int8 decode {int8_rel:.4f} from the float32 "
+                                              f"cache's (limit {INT8_REL_TOL})")
+            _require(share < INT8_BYTES, f"{name}: the int8 cache is {share:.3f} of the float32 "
+                                         f"cache's bytes (limit {INT8_BYTES})")
+            out.update(int8_rel_err=int8_rel, int8_cache_share=share,
+                       int8_cache_bytes=nbytes(cache), float_cache_bytes=nbytes(f_cache))
+        step_err = float((logits - want).abs().max())
+        finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(first).all())
+    peak = torch.cuda.max_memory_allocated()
+    tol = SERVE_REL_TOL * scale
+    _require(finite, f"{name}: non-finite logits")
+    _require(max(step_err, first_err) <= tol,
+             f"{name}: decode vs forward logits differ by {max(step_err, first_err):.3e} "
+             f"(limit {SERVE_REL_TOL} x max |logits| = {tol:.3e})")
+    _require(peak < 80e9, f"{name}: peak memory {peak / 1e9:.2f} GB")
+    out.update(max_abs_logits=scale, decode_vs_forward_err=step_err, prefill_vs_forward_err=first_err,
+               rel_err=max(step_err, first_err) / scale, peak_memory_bytes=peak)
+    del params, cache, logits, full, tokens, media, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    int8 = (f"; int8 cache {out['int8_rel_err']:.2e} from the float32 cache's, "
+            f"{out['int8_cache_share']:.3f} of its bytes" if cache_dtype == "int8" else "")
+    print(f"{name} ({cut}): {n_params / 1e9:.3f} B parameters; prefill of {B} x {c['prompt']}"
+          + (f" (+{M} media)" if M else "") + f" {prefill_s * 1e3:.1f} ms, {c['steps']} decode steps "
+          f"{step_s * 1e3:.2f} ms each; decode vs forward max err {step_err:.3e}, prefill "
+          f"{first_err:.3e} (limit {tol:.3e}){int8}; launches {launches}; peak memory "
+          f"{peak / 2**30:.2f} GiB; phase {out['phase_s']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ phases 22-27
@@ -4838,6 +5166,18 @@ def _stop_every_process() -> list:
     return left
 
 
+PHASE_SECONDS: dict = {}  # wall seconds of each phase, in the order run
+
+
+def _run(key: str, phase, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[key] = time.perf_counter() - t0
+    print(f"phase {key}: {PHASE_SECONDS[key]:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4869,18 +5209,20 @@ def main() -> int:
     every_counter = _all_counters()
     record: dict = {}
     try:
-        record["device"] = phase_device()
-        record["build"] = phase_build()
-        record["launch_floor"] = _launch_floor()
-        record["kernels"] = phase_kernels()
-        record["threefry"] = phase_threefry(THREEFRY_LAUNCHES)
+        record["device"] = _run("device", phase_device)
+        record["build"] = _run("build", phase_build)
+        record["launch_floor"] = _run("launch_floor", _launch_floor)
+        record["kernels"] = _run("kernels", phase_kernels)
+        record["threefry"] = _run("threefry", phase_threefry, THREEFRY_LAUNCHES)
         record["kernels"]["threefry"] = record["threefry"]["cases"]
-        record["learner_parity"] = phase_learner_parity()
-        record["main_path"] = phase_main_path(
+        record["learner_parity"] = _run("learner_parity", phase_learner_parity)
+        record["main_path"] = _run(
+            "main_path", phase_main_path,
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         )
-        record["lm_learner_parity"] = phase_lm_learner_parity()
-        record["rlhf"] = phase_rlhf(
+        record["lm_learner_parity"] = _run("lm_learner_parity", phase_lm_learner_parity)
+        record["rlhf"] = _run(
+            "rlhf", phase_rlhf,
             [GAE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
              DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         )
@@ -4891,40 +5233,53 @@ def main() -> int:
         # pretraining phases do around themselves.
         gc.collect()
         torch.cuda.empty_cache()
-        record["vtrace_learner_parity"] = phase_vtrace_learner_parity()
+        record["vtrace_learner_parity"] = _run("vtrace_learner_parity",
+                                               phase_vtrace_learner_parity)
         for name in ASYNC_PATHS:
-            record[name] = phase_async(
-                name, [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
-                       SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
+            record[name] = _run(
+                name, phase_async, name,
+                [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
+                 SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
             )
         rl_counters = [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES,
                        SURROGATE_BWD_LAUNCHES, THREEFRY_LAUNCHES]
         for name in GRADIENT_PATHS:
-            record[name] = phase_gradient_plan(name, rl_counters)
-        record["offpolicy_learner_parity"] = phase_offpolicy_learner_parity()
+            record[name] = _run(name, phase_gradient_plan, name, rl_counters)
+        record["offpolicy_learner_parity"] = _run("offpolicy_learner_parity",
+                                                  phase_offpolicy_learner_parity)
         for name in REPLAY_PATHS:
-            record[name] = phase_replay_plan(name, rl_counters)
-        record["flowcheck"] = phase_flowcheck()
-        record["pretrain_parity"] = phase_pretrain_parity()
+            record[name] = _run(name, phase_replay_plan, name, rl_counters)
+        record["flowcheck"] = _run("flowcheck", phase_flowcheck)
+        record["pretrain_parity"] = _run("pretrain_parity", phase_pretrain_parity)
         for name in PRETRAIN_PATHS:
-            record[name] = phase_pretrain(name, every_counter)
-        record["plan_learner_parity"] = phase_plan_learner_parity()
+            record[name] = _run(name, phase_pretrain, name, every_counter)
+        t_zoo = time.perf_counter()
+        record["zoo_parity"] = _run("zoo_parity", phase_zoo_parity)
+        for name in ZOO_PRETRAIN_PATHS:
+            record[name] = _run(name, phase_pretrain, name, every_counter)
+        for name in SERVE_ZOO:
+            record[name] = _run(name, phase_serve_zoo, name, every_counter)
+        record["zoo_slice_s"] = time.perf_counter() - t_zoo
+        print(f"model zoo phases 21b-21d: {record['zoo_slice_s']:.1f} s")
+        record["plan_learner_parity"] = _run("plan_learner_parity", phase_plan_learner_parity)
         for name in PLAN_PATHS:
-            record[name] = phase_plan_path(name, every_counter)
-        record["composition"] = phase_composition()
-        record["async_opt"] = phase_async_opt()
+            record[name] = _run(name, phase_plan_path, name, every_counter)
+        record["composition"] = _run("composition", phase_composition)
+        record["async_opt"] = _run("async_opt", phase_async_opt)
         t_serving = time.perf_counter()
-        record["keys"] = phase_keys()
-        record["serving"] = phase_serving()
-        record["mamba_parity"] = phase_mamba_parity()
-        record["transformer_learner_parity"] = phase_transformer_learner_parity()
-        record["ppo_transformer_server"] = phase_transformer_server(every_counter)
+        record["keys"] = _run("keys", phase_keys)
+        record["serving"] = _run("serving", phase_serving)
+        record["mamba_parity"] = _run("mamba_parity", phase_mamba_parity)
+        record["transformer_learner_parity"] = _run("transformer_learner_parity",
+                                                    phase_transformer_learner_parity)
+        record["ppo_transformer_server"] = _run("ppo_transformer_server",
+                                                phase_transformer_server, every_counter)
         record["serving_slice_s"] = time.perf_counter() - t_serving
         print(f"serving slice phases 28-32: {record['serving_slice_s']:.1f} s")
         t_durable = time.perf_counter()
-        record["determinism"] = phase_determinism(THREEFRY_LAUNCHES)
-        record["durability"] = phase_durability()
-        record["qwen3_restart"] = phase_qwen3_restart()
+        record["determinism"] = _run("determinism", phase_determinism, THREEFRY_LAUNCHES)
+        record["durability"] = _run("durability", phase_durability)
+        record["qwen3_restart"] = _run("qwen3_restart", phase_qwen3_restart)
         record["durability_slice_s"] = time.perf_counter() - t_durable
         print(f"determinism and durability phases 33-35: {record['durability_slice_s']:.1f} s")
         # Each child of phase 37 holds its own CUDA context and allocator
@@ -4932,7 +5287,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         try:
-            record["runtime"] = phase_runtime(record["device"]["nvidia_smi"])
+            record["runtime"] = _run("runtime", phase_runtime, record["device"]["nvidia_smi"])
         finally:
             gc.collect()
             torch.cuda.empty_cache()
@@ -4953,6 +5308,7 @@ def main() -> int:
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
              **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
+             **{name: record[name]["launches"] for name in (*ZOO_PRETRAIN_PATHS, *SERVE_ZOO)},
              **{name: record[name]["launches"] for name in PLAN_PATHS},
              "ppo_transformer_server": record["ppo_transformer_server"]["launches"],
              **{f"ppo_cartpole_{b.replace('-', '_')}": record["runtime"]["ppo"][b]["launches"]
@@ -4986,6 +5342,8 @@ def main() -> int:
             **{k: path_case[k] for k in ("logsumexp_ms", "logsumexp_call_ms") if k in path_case},
             "cases_by_path": cases_by_path,
         })
+    record["phase_seconds"] = PHASE_SECONDS
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

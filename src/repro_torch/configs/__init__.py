@@ -1,8 +1,6 @@
-"""Model configurations: the dataclasses of ``repro/configs/base.py``, the
-architectures the port runs (``qwen1.5-4b``, whose attention and vocabulary
-widths the RLHF slice uses; ``rwkv6-7b``, ``phi3.5-moe-42b-a6.6b`` and
-``qwen3-14b``, the reference driver's default, which the LM pretraining
-slice trains), and ``reduced_config``, the
+"""Architecture registry: ``get_config(arch_id)`` / ``--arch <id>`` over the
+reference's ten architectures (the dataclasses of ``repro/configs/base.py``
+and a copy of each configuration file), and ``reduced_config``, the
 reference's same-family reduction for CPU tests."""
 
 from __future__ import annotations
@@ -19,12 +17,32 @@ from repro_torch.configs.base import (
     MoEConfig,
     SSMConfig,
 )
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
+from repro_torch.configs.jamba_v01_52b import CONFIG as _jamba
+from repro_torch.configs.llava_next_34b import CONFIG as _llava
+from repro_torch.configs.musicgen_large import CONFIG as _musicgen
+from repro_torch.configs.nemotron_4_15b import CONFIG as _nemotron
 from repro_torch.configs.phi35_moe_42b import CONFIG as _phi
-from repro_torch.configs.qwen3_14b import CONFIG as _qwen14
+from repro_torch.configs.qwen3_14b import CONFIG as _qwen3
+from repro_torch.configs.qwen15_32b import CONFIG as _qwen32
 from repro_torch.configs.qwen15_4b import CONFIG as _qwen4
 from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 
-ARCHITECTURES: Dict[str, ModelConfig] = {c.name: c for c in [_rwkv, _qwen4, _phi, _qwen14]}
+ARCHITECTURES: Dict[str, ModelConfig] = {
+    c.name: c
+    for c in [
+        _deepseek,
+        _jamba,
+        _rwkv,
+        _qwen4,
+        _llava,
+        _qwen32,
+        _musicgen,
+        _nemotron,
+        _phi,
+        _qwen3,
+    ]
+}
 
 
 def get_config(arch_id: str) -> ModelConfig:

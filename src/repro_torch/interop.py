@@ -10,8 +10,13 @@ carry across the same way: ``SSMStatePolicy``'s ``{"embed", "trunk", "pi",
 ``"trunk"`` (every ``w`` ``[din, dout]``, ``conv_w`` ``[d_conv, d_in]``,
 ``A_log`` ``[d_in, d_state]``), and ``TransformerPolicy``'s ``{"obs_proj",
 "pos", "pi_head", "vf_head", "layer_<i>": {"norm1", "attn", "norm2",
-"mlp"}}``.  This module takes and returns numpy arrays and never
-imports JAX; a caller holding JAX arrays converts them with ``np.asarray``.
+"mlp"}}``.  The model zoo's trees carry across the same way: MLA's
+``w_dkv`` and up-projections ``w_uk`` ``[lora, H, nope]`` and ``w_uv``
+``[lora, H, v]``, a Mamba layer's ``A_log``, ``D`` and ``conv_w``, and the
+audio model's codebook embeddings ``[K, V, d]`` and head ``[d, K * V]``, each
+with the blocks' leading ``num_blocks`` axis where a block holds it.  This
+module takes and returns numpy arrays and never imports JAX; a caller
+holding JAX arrays converts them with ``np.asarray``.
 """
 
 from __future__ import annotations

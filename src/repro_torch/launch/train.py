@@ -11,12 +11,15 @@ thread backend:
 
 Data pipeline shards are actors; the learner's ``learn_on_batch`` is the
 step.  Kernels on the path: RWKV-6 layers run ``ops.rwkv6`` (forward and
-backward kernels), MoE layers ``ops.moe_gmm`` and attention layers
-``ops.flash_attention``.  Every kernel of the port is float32, so the driver
+backward kernels), MoE layers ``ops.moe_gmm`` and GQA attention layers
+``ops.flash_attention``; MLA attention and Mamba layers are plain torch, as
+in the reference.  Every kernel of the port is float32, so the driver
 trains in float32 whatever the configuration's dtype says (and prints so).
 
 Runs on the GPU unless ``--device cpu`` is given; ``--layers`` cuts the
-configuration's depth and keeps its widths; ``--checkpoint PATH`` saves the
+configuration's depth and keeps its widths (``cut_layers``: a prologue
+stays, and a pattern longer than the cut becomes its first window with every
+layer kind, e.g. Jamba's entries 2-3, Mamba + dense and attention + MoE); ``--checkpoint PATH`` saves the
 learner's parameters there after the run (``repro_torch.checkpoint``, .npz
 keyed by tree path, which the JAX package's ``restore_pytree`` reads too):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --layers 2 \\
@@ -60,17 +63,55 @@ def build_lm_flow(workers, pipes):
     return spec
 
 
-def train_config(arch: str, smoke: bool = False, layers: int = 0):
+def pattern_window(pattern: tuple, n: int) -> int:
+    """Start of the first window of ``n`` consecutive entries of ``pattern``
+    that holds every layer kind and every MLP kind the pattern has."""
+    kinds = {s.kind for s in pattern}, {s.mlp for s in pattern}
+    for start in range(len(pattern) - n + 1):
+        window = pattern[start:start + n]
+        if ({s.kind for s in window}, {s.mlp for s in window}) == kinds:
+            return start
+    raise ValueError(f"no {n} consecutive entries of {pattern} hold every layer and MLP kind")
+
+
+def cut_layers(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers, its widths kept: a prologue stays
+    whole and the blocks are cut so that prologue + pattern x blocks ==
+    ``layers``; a pattern longer than what is left becomes its first window
+    that holds every layer and MLP kind (``pattern_window``), one block.
+    Returns (the configuration, a line that says what was taken)."""
+    n = layers - len(cfg.prologue)
+    if n < 1:
+        raise ValueError(f"{cfg.name}: cannot cut to {layers} layers (prologue {len(cfg.prologue)})")
+    pattern = cfg.block_pattern
+    taken = f"{n // len(pattern)} x its {len(pattern)}-layer block" if len(pattern) <= n else ""
+    if len(pattern) > n:
+        start = pattern_window(pattern, n)
+        pattern = pattern[start:start + n]
+        taken = f"entries {start}-{start + n - 1} of its {len(cfg.block_pattern)}-layer block"
+    elif n % len(pattern):
+        raise ValueError(f"{cfg.name}: cannot cut to {layers} layers "
+                         f"(pattern of {len(pattern)} after a prologue of {len(cfg.prologue)})")
+    kinds = " ".join(f"{s.kind}/{s.mlp}" for s in cfg.prologue + pattern * (n // len(pattern)))
+    note = (f"{cfg.name} cut to {layers} layers: "
+            + (f"its prologue of {len(cfg.prologue)} + " if cfg.prologue else "")
+            + f"{taken} [{kinds}]")
+    return dataclasses.replace(cfg, num_layers=layers, block_pattern=pattern), note
+
+
+def train_config(arch: str, smoke: bool = False, layers: int = 0, with_note: bool = False):
     """The configuration the driver trains: ``arch`` (reduced with
-    ``smoke``), cut to ``layers`` layers when given, in float32."""
+    ``smoke``), cut to ``layers`` layers when given (``cut_layers``), in
+    float32; with ``with_note``, (the configuration, ``cut_layers``' line or
+    "")."""
     from repro_torch.configs import get_config, reduced_config
 
     cfg = reduced_config(arch) if smoke else get_config(arch)
+    note = ""
     if layers:
-        if cfg.prologue or layers % len(cfg.block_pattern):
-            raise ValueError(f"{cfg.name}: cannot cut to {layers} layers")
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-    return dataclasses.replace(cfg, dtype="float32")
+        cfg, note = cut_layers(cfg, layers)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    return (cfg, note) if with_note else cfg
 
 
 def pretrain_optimizer(steps: int, lr: float = 3e-4):
@@ -131,7 +172,9 @@ def main(argv=None) -> None:
 
     from repro_torch.flow import Algorithm
 
-    cfg = train_config(args.arch, args.smoke, args.layers)
+    cfg, note = train_config(args.arch, args.smoke, args.layers, with_note=True)
+    if note:
+        print(note, flush=True)
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, dtype float32 "
           f"(the port's kernels are float32), device {args.device}", flush=True)
     learner, pipes, workers, spec = make_pretrain(

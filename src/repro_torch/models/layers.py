@@ -1,13 +1,19 @@
-"""Transformer building blocks on tensors (PyTorch port of the dense-attention
-subset of ``repro/models/layers.py``): norms, rope, MLPs and GQA attention
-with a training/prefill path (``ops.flash_attention``) and a single-token
-decode path against a ring-buffer KV cache (``ops.decode_attention``).
+"""Transformer building blocks on tensors (PyTorch port of
+``repro/models/layers.py``): norms, rope, MLPs, and attention (GQA, MLA,
+qk-norm, QKV bias, sliding window) with a training/prefill path and a
+single-token decode path against a ring-buffer KV cache, in the model's
+dtype or in int8 with per-row bfloat16 scales.
+
+GQA attention goes through ``ops.flash_attention`` (training, prefill) and
+``ops.decode_attention`` (decode).  MLA, whose query/key and value head dims
+differ, trains through ``chunked_attention``, the port's copy of the
+reference's plain memory-bounded attention (``repro/kernels/ref.py``), as the
+reference does, and decodes in the latent space with plain einsums.
 
 Functions are pure over plain dict parameter trees in the reference's
 ``[din, dout]`` layout, so ``repro_torch.interop`` carries weights across.
 The reference's sharding annotations (``shard``) are no-ops without a mesh
-and are dropped.  MLA attention and the int8 KV cache wait for a later slice
-and raise ``NotImplementedError``.
+and are dropped.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -33,6 +40,7 @@ __all__ = [
     "attention_apply",
     "attention_decode",
     "init_attn_cache",
+    "chunked_attention",
     "torch_dtype",
 ]
 
@@ -42,13 +50,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` as a torch dtype."""
     return _DTYPES[name]
-
-
-def _unported(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention (cfg.mla) is not ported to repro_torch yet")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported to repro_torch yet")
 
 
 # ------------------------------------------------------------------- norms
@@ -109,10 +110,25 @@ def mlp_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 # --------------------------------------------------------- attention (GQA)
 def attention_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
-    _unported(cfg)
     dtype = torch_dtype(cfg.dtype)
     device = generator.device
     d, hd = cfg.d_model, cfg.head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        H = cfg.num_heads
+
+        def up(width: int) -> torch.Tensor:
+            w = torch.randn((m.kv_lora_rank, H, width), generator=generator, device=device)
+            return (w / math.sqrt(m.kv_lora_rank)).to(dtype)
+
+        return {
+            "wq": dense_init(generator, d, H * (m.nope_head_dim + m.rope_head_dim), dtype),
+            "w_dkv": dense_init(generator, d, m.kv_lora_rank + m.rope_head_dim, dtype),
+            # up-projections from the latent: [lora, H, nope] and [lora, H, v]
+            "w_uk": up(m.nope_head_dim),
+            "w_uv": up(m.v_head_dim),
+            "wo": dense_init(generator, H * m.v_head_dim, d, dtype),
+        }
     p = {
         "wq": dense_init(generator, d, cfg.num_heads * hd, dtype),
         "wk": dense_init(generator, d, cfg.num_kv_heads * hd, dtype),
@@ -148,6 +164,76 @@ def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions: t
     return q, k, v
 
 
+def _mla_qkv_train(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """MLA without absorption (the training/prefill path): q and k carry the
+    shared rope part in the head dim, so qk heads are nope + rope wide."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = (x @ params["wq"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = x @ params["w_dkv"]  # [B, S, lora + rope_dim]
+    c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank :]
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)  # one shared head
+    k_nope = torch.einsum("bsc,chn->bshn", c, params["w_uk"])
+    v = torch.einsum("bsc,chv->bshv", c, params["w_uv"])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
+    return q_full, k_full, v
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Memory-bounded attention (the reference's ``ref.chunked_attention``):
+    q [B, Sq, H, D] against k [B, Sk, KV, D] and v [B, Sk, KV, Dv], one query
+    chunk at a time, so the score buffer peaks at [B, H, chunk, Sk].  Under
+    autograd each chunk is checkpointed: the backward recomputes its scores
+    instead of keeping them.  Plain torch on either device; the model uses it
+    where the head dims differ (MLA), as the reference does."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(D)
+    orig_Sq = Sq
+    if Sq % chunk:
+        q = F.pad(q, (0, 0, 0, 0, 0, chunk - Sq % chunk))
+        Sq = q.shape[1]
+    k_pos = torch.arange(Sk, device=q.device)
+
+    def one_chunk(qi: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start: int) -> torch.Tensor:
+        qg = qi.reshape(B, chunk, KV, g, D)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
+        q_pos = q_offset + start + torch.arange(chunk, device=q.device)
+        mask = torch.ones((chunk, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+        return out.reshape(B, chunk, H, v.shape[-1])
+
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for start in range(0, Sq, chunk):
+        qi = q[:, start : start + chunk]
+        if remat:
+            outs.append(checkpoint(one_chunk, qi, k, v, start, use_reentrant=False))
+        else:
+            outs.append(one_chunk(qi, k, v, start))
+    return torch.cat(outs, dim=1)[:, :orig_Sq]
+
+
 def attention_apply(
     params: PyTree,
     x: torch.Tensor,
@@ -156,25 +242,74 @@ def attention_apply(
     window: int = 0,
 ) -> torch.Tensor:
     """Training / prefill attention (no cache). x: [B, S, d]."""
-    _unported(cfg)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     win = window or cfg.sliding_window
+    if cfg.mla is not None:
+        # Distinct qk and v head dims: the plain chunked path, as the
+        # reference (its Pallas kernel, like the CUDA one, takes equal dims).
+        q, k, v = _mla_qkv_train(params, x, cfg, positions)
+        out = chunked_attention(q, k, v, causal=True, window=win)
+        return out.reshape(B, S, -1) @ params["wo"]
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = kops.flash_attention(q, k, v, causal=True, window=win)
     return out.reshape(B, S, -1) @ params["wo"]
 
 
 # ------------------------------------------------------------ decode / cache
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., head_dim] -> (int8 values, per-row bfloat16 scale): the int8
+    cache's storage format; the arithmetic is float32."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, window: int, device: Any = "cpu") -> PyTree:
-    _unported(cfg)
-    shape = (batch, window, cfg.num_kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg.dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c": zeros(batch, window, m.kv_lora_rank),
+                "k_rope": zeros(batch, window, m.rope_head_dim)}
+    shape = (batch, window, cfg.num_kv_heads)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k_q": zeros(*shape, cfg.head_dim, dtype=torch.int8),
+            "k_s": zeros(*shape, 1, dtype=torch.bfloat16),
+            "v_q": zeros(*shape, cfg.head_dim, dtype=torch.int8),
+            "v_s": zeros(*shape, 1, dtype=torch.bfloat16),
+        }
+    return {"k": zeros(*shape, cfg.head_dim), "v": zeros(*shape, cfg.head_dim)}
+
+
+def _ring_write(pos: torch.Tensor, B: int, W: int, device) -> torch.Tensor:
+    """[B, W] bool: the ring-buffer slot each lane writes (pos % W), for a
+    scalar pos or a [B] vector of per-lane positions."""
+    slot = pos % W
+    window_pos = torch.arange(W, device=device)
+    if pos.dim() == 0:
+        return (window_pos == slot)[None].expand(B, W)
+    return window_pos[None] == slot[:, None]
+
+
+def _ring_valid(pos: torch.Tensor, W: int, device) -> torch.Tensor:
+    """Ring-buffer occupancy after the write at pos: [W], or [B, W] for
+    per-lane positions."""
+    window_pos = torch.arange(W, device=device)
+    last = torch.clamp(pos, max=W - 1)
+    if pos.dim() == 0:
+        return window_pos <= last
+    return window_pos[None] <= last[:, None]
 
 
 def attention_decode(
@@ -191,9 +326,11 @@ def attention_decode(
     window W. Returns (out [B, 1, d], new_cache); the cache is not written
     in place.
     """
-    _unported(cfg)
+    if cfg.mla is not None:
+        return _mla_decode(params, x, cache, pos, cfg)
     B = x.shape[0]
-    W = cache["k"].shape[1]
+    quant = "k_q" in cache
+    W = (cache["k_q"] if quant else cache["k"]).shape[1]
     hd = cfg.head_dim
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     q = x @ params["wq"]
@@ -210,22 +347,65 @@ def attention_decode(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    slot = pos % W
-    window_pos = torch.arange(W, device=x.device)
-    if pos.dim() == 0:
-        hit = (window_pos == slot)[None].expand(B, W)
+    hit = _ring_write(pos, B, W, x.device)[:, :, None, None]
+    if quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        new_cache = {
+            "k_q": torch.where(hit, kq, cache["k_q"]),
+            "k_s": torch.where(hit, ks, cache["k_s"]),
+            "v_q": torch.where(hit, vq, cache["v_q"]),
+            "v_s": torch.where(hit, vs, cache["v_s"]),
+        }
+        # Dequantize for the attention math, as the reference: the cache
+        # kept between steps is int8 either way, which is the memory win.
+        ck = _dequantize_kv(new_cache["k_q"], new_cache["k_s"], k.dtype)
+        cv = _dequantize_kv(new_cache["v_q"], new_cache["v_s"], v.dtype)
     else:
-        # Per-lane write slot: one-hot select along the window axis.
-        hit = window_pos[None] == slot[:, None]  # [B, W]
-    hit = hit[:, :, None, None]
-    ck = torch.where(hit, k, cache["k"])
-    cv = torch.where(hit, v, cache["v"])
-    new_cache = {"k": ck, "v": cv}
-
-    last = torch.clamp(pos, max=W - 1)
-    if pos.dim() == 0:
-        valid = window_pos <= last  # ring-buffer occupancy
-    else:
-        valid = window_pos[None] <= last[:, None]  # [B, W]
-    out = kops.decode_attention(q, ck, cv, valid)
+        ck = torch.where(hit, k, cache["k"])
+        cv = torch.where(hit, v, cache["v"])
+        new_cache = {"k": ck, "v": cv}
+    out = kops.decode_attention(q, ck, cv, _ring_valid(pos, W, x.device))
     return out.reshape(B, 1, -1) @ params["wo"], new_cache
+
+
+def _mla_decode(
+    params: PyTree, x: torch.Tensor, cache: PyTree, pos: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, PyTree]:
+    """MLA decode with matrix absorption: attend in the latent space, so the
+    cache is only [B, W, lora + rope] (the technique's memory win)."""
+    m = cfg.mla
+    B = x.shape[0]
+    W = cache["c"].shape[1]
+    H = cfg.num_heads
+    positions = pos[None] if pos.dim() == 0 else pos[:, None]
+
+    q = (x @ params["wq"]).reshape(B, 1, H, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = x @ params["w_dkv"]
+    c_new, k_rope_new = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank :]
+    k_rope_new = rope(k_rope_new[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+
+    hit = _ring_write(pos, B, W, x.device)[:, :, None]
+    cc = torch.where(hit, c_new, cache["c"])
+    cr = torch.where(hit, k_rope_new, cache["k_rope"])
+
+    # Absorb W_uk into the query: q_lat [B, H, lora].
+    q_lat = torch.einsum("bhn,chn->bhc", q_nope[:, 0], params["w_uk"])
+    scores = torch.einsum("bhc,bwc->bhw", q_lat.float(), cc.float())
+    scores = scores + torch.einsum("bhr,bwr->bhw", q_rope[:, 0].float(), cr.float())
+    scores = scores * (1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim))
+    valid = _ring_valid(pos, W, x.device)
+    if valid.dim() == 1:
+        valid = valid[None].expand(B, W)
+    vmask = valid[:, None]
+    scores = torch.where(vmask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(vmask, p, torch.zeros_like(p)).to(cc.dtype)  # empty cache -> zeros
+    ctx_lat = torch.einsum("bhw,bwc->bhc", p, cc)
+    # Absorb W_uv on the way out.
+    v = torch.einsum("bhc,chv->bhv", ctx_lat, params["w_uv"])
+    out = v.reshape(B, 1, H * m.v_head_dim) @ params["wo"]
+    return out, {"c": cc, "k_rope": cr}

@@ -1,14 +1,15 @@
 """Recurrent layers on tensors (PyTorch port of ``repro/models/ssm.py``): the
 RWKV-6 "Finch" time-mix with data-dependent decay, its sequence path through
-``ops.rwkv6`` (the CUDA kernels on the card, the step loop on the CPU) and its
-decode state; and Mamba, its sequence path and its one-token decode with the
-``(h, conv)`` state carried like env state in a rollout actor.
+``ops.rwkv6`` (the CUDA kernels on the card, the step loop on the CPU) and
+its one-token decode; and Mamba, its sequence path and its one-token decode.
+Each decode state is carried like env state in a rollout actor.
 
-Mamba is no TPU kernel in the reference (a ``lax.scan`` of plain ops), so its
-selective scan here is a loop of plain torch ops over time on either device.
-The reference's sharding annotations (``shard``) are dropped.  The one-token
-RWKV-6 decode is not ported yet, and ``Model`` still raises for a ``mamba``
-layer (no configuration of the port uses one).
+The reference computes the RWKV-6 decode step and Mamba's selective scan
+with plain ops (no TPU kernel), and so does the port: the scan runs through
+``scan_utils.chunked_scan`` in chunks of 128 steps, each checkpointed, as
+the reference's, with each chunk's elementwise work done for the whole
+chunk at once (``chunked_scan``'s ``prep`` and ``post``) rather than a step
+at a time.  The reference's sharding annotations (``shard``) are dropped.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
+from repro_torch.models.scan_utils import chunked_scan
 
 PyTree = Any
 
 __all__ = [
     "rwkv6_init",
     "rwkv6_apply",
+    "rwkv6_decode",
     "init_rwkv6_state",
     "mamba_init",
     "mamba_apply",
@@ -107,6 +110,25 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTre
     }
 
 
+def rwkv6_decode(
+    params: PyTree, x: torch.Tensor, state: PyTree, cfg: ModelConfig
+) -> Tuple[torch.Tensor, PyTree]:
+    """One-token decode. x: [B, 1, d]; returns (out [B, 1, d], new state)."""
+    B = x.shape[0]
+    d = cfg.d_model
+    x_prev = state["x_prev"][:, None, :]
+    r, k, v, g, w = _rwkv6_streams(params, x, x_prev, cfg)
+    r1, k1, v1, w1 = (z[:, 0].float() for z in (r, k, v, w))
+    u = params["bonus_u"].float()
+    S = state["wkv"]
+    kv = k1[..., :, None] * v1[..., None, :]
+    o = torch.einsum("bhn,bhnm->bhm", r1, S + u[None, :, :, None] * kv)
+    S = w1[..., :, None] * S + kv
+    out = o.reshape(B, 1, d).to(x.dtype)
+    out = rms_norm(out, params["ln_out"], cfg.norm_eps) * g
+    return out @ params["wo"], {"wkv": S, "x_prev": x[:, 0]}
+
+
 # ================================================================== Mamba
 def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time as stack + einsum, as the reference.
@@ -149,15 +171,28 @@ def _mamba_scan(
     proj = xc @ params["x_proj"]  # [B, T, 2N + 1]
     Bp, Cp, dt_in = proj[..., : s.d_state], proj[..., s.d_state : 2 * s.d_state], proj[..., -1:]
     dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])  # [B, T, d_in]
-    h, ys = h0, []
-    for t in range(xc.shape[1]):
-        # xs stay in model dtype; math in fp32.
-        x_t, b_t, c_t, dt_t = (z[:, t].float() for z in (xc, Bp, Cp, dt))
-        dA = torch.exp(dt_t[..., None] * A[None])  # [B, d_in, N]
-        dBx = dt_t[..., None] * b_t[:, None, :] * x_t[..., None]
+
+    def prep(inp):
+        # A chunk's xs [L, B, ...] stay in model dtype; math in fp32.  The
+        # reference's step computes dA and dB x each step; here a chunk at a
+        # time, the same elementwise ops in the same order.
+        x_t, b_t, c_t, dt_t = (z.float() for z in inp)
+        dA = torch.exp(dt_t[..., None] * A)  # [L, B, d_in, N]
+        dBx = dt_t[..., None] * b_t[:, :, None, :] * x_t[..., None]
+        return dA, dBx, c_t
+
+    def step(h, inp):
+        dA, dBx = inp[0], inp[1]
         h = dA * h + dBx
-        ys.append(torch.einsum("bdn,bn->bd", h, c_t).to(xc.dtype))
-    y = torch.stack(ys, dim=1).float() + xc.float() * params["D"]
+        return h, h
+
+    def post(hs, prepped):
+        # y_t = h_t . C_t for the chunk's L steps: [L, B, d_in].
+        return torch.einsum("lbdn,lbn->lbd", hs, prepped[2]).to(xc.dtype)
+
+    tm = lambda z: z.transpose(0, 1)  # noqa: E731
+    h, ys = chunked_scan(step, h0, (tm(xc), tm(Bp), tm(Cp), tm(dt)), chunk=128, prep=prep, post=post)
+    y = ys.transpose(0, 1).float() + xc.float() * params["D"]
     return y.to(xc.dtype), h
 
 

@@ -1,34 +1,34 @@
 """Model assembly on tensors (PyTorch port of ``repro/models/transformer.py``):
 embeddings -> prologue -> stacked blocks -> head, with the train/prefill
-forward and the causal LM loss, prefill returning the KV cache, single-token
-decode against a ring-buffer cache, and ``make_train_step``.
+forward and the causal LM loss, prefill returning the cache of every layer
+(attention K/V, in int8 or as MLA's latent, and the RWKV-6 and Mamba
+states), single-token decode against it, text, VLM (media embeddings
+prepended) and audio (summed codebook embeddings, a head per codebook)
+inputs, and the step builders ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step``.
 
 The parameter tree is the reference's: the repeated blocks are stacked along
 a leading ``num_blocks`` axis (``params["blocks"]["0"]["attn"]["wq"]`` is
 ``[num_blocks, d, H * hd]``), and so are the block caches, so
 ``repro_torch.interop`` carries a JAX model's weights over in one round
 trip.  Where the reference runs ``lax.scan`` over that axis, the port loops
-over block ``i`` in Python; it does not rematerialise (the reference's
-``remat``), so each layer's forward runs once per step.
-
-Ported: text models with attention (``kind="attn"``) and RWKV-6
-(``kind="rwkv6"``) layers and dense or MoE (``mlp="moe"``) MLPs.  Layer kind
-``mamba``, the ``vlm``/``audio`` modalities, MLA and the int8 KV cache raise
-``NotImplementedError``, and so do prefill and decode through an RWKV-6 or
-MoE layer (the serving slice).
+over block ``i`` in Python; it does not rematerialise the layers (the
+reference's ``remat``), so each layer's forward runs once per step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     _project_qkv,
+    _quantize_kv,
     attention_apply,
     attention_decode,
     attention_init,
@@ -36,6 +36,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_init,
     rms_norm,
+    rope,
     torch_dtype,
 )
 from repro_torch.models.moe import moe_apply, moe_init
@@ -43,27 +44,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-__all__ = ["Model", "make_train_step"]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.modality != "text":
-        raise NotImplementedError(f"modality {cfg.modality!r} is not ported to repro_torch yet")
-    for spec in tuple(cfg.prologue) + tuple(cfg.block_pattern):
-        if spec.kind not in ("attn", "rwkv6"):
-            raise NotImplementedError(f"layer kind {spec.kind!r} is not ported to repro_torch yet")
-        if spec.mlp not in ("dense", "none", "moe"):
-            raise NotImplementedError(f"mlp={spec.mlp!r} is not ported to repro_torch yet")
-
-
-def _check_cacheable(cfg: ModelConfig) -> None:
-    """Prefill and decode are ported for attention layers with dense MLPs."""
-    for spec in tuple(cfg.prologue) + tuple(cfg.block_pattern):
-        if spec.kind != "attn" or spec.mlp == "moe":
-            raise NotImplementedError(
-                f"prefill/decode through a {spec.kind!r} layer with mlp={spec.mlp!r} "
-                "is not ported to repro_torch yet"
-            )
+__all__ = ["Model", "make_train_step", "make_prefill_step", "make_decode_step"]
 
 
 def _block(tree: PyTree, i: int) -> PyTree:
@@ -77,7 +58,6 @@ def _stack(trees: list) -> PyTree:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        _check_ported(cfg)
         self.cfg = cfg
         self.pattern = cfg.block_pattern
         self.num_blocks = cfg.num_blocks
@@ -88,10 +68,14 @@ class Model:
         dtype = torch_dtype(cfg.dtype)
         device = generator.device
         p: Dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
-        if spec.kind == "rwkv6":
-            p["attn"] = ssm_mod.rwkv6_init(generator, cfg)
-        else:
+        if spec.kind == "attn":
             p["attn"] = attention_init(generator, cfg)
+        elif spec.kind == "rwkv6":
+            p["attn"] = ssm_mod.rwkv6_init(generator, cfg)
+        elif spec.kind == "mamba":
+            p["attn"] = ssm_mod.mamba_init(generator, cfg)
+        else:
+            raise ValueError(spec.kind)
         if spec.mlp != "none":
             p["norm2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
             if spec.mlp == "moe":
@@ -102,7 +86,8 @@ class Model:
 
     def init_params(self, generator: torch.Generator) -> PyTree:
         """Random weights on the generator's device: N(0, 0.02) embeddings
-        and head, scaled-normal projections, unit norms."""
+        and head (one table and one head slice per codebook for audio),
+        scaled-normal projections, unit norms."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         device = generator.device
@@ -111,9 +96,15 @@ class Model:
         def normal(shape):
             return (torch.randn(shape, generator=generator, device=device) * scale).to(dtype)
 
+        if cfg.modality == "audio":
+            K, V = cfg.num_codebooks, cfg.vocab_size
+            embed, head = normal((K, V, cfg.d_model)), normal((cfg.d_model, K * V))
+        else:
+            embed = normal((cfg.vocab_size, cfg.d_model))
+            head = normal((cfg.d_model, cfg.vocab_size))
         params: Dict[str, Any] = {
-            "embed": normal((cfg.vocab_size, cfg.d_model)),
-            "lm_head": normal((cfg.d_model, cfg.vocab_size)),
+            "embed": embed,
+            "lm_head": head,
             "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         }
         for i, spec in enumerate(cfg.prologue):
@@ -126,57 +117,101 @@ class Model:
         return params
 
     # ------------------------------------------------------------ embedding
-    def _embed(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), params["embed"])
+    def _embed(
+        self, params: PyTree, tokens: torch.Tensor, media_emb: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        tokens = tokens.long()
+        if cfg.modality == "audio":
+            # tokens [B, S, K] -> the sum of the per-codebook embeddings.
+            x = F.embedding(tokens[..., 0], params["embed"][0])
+            for k in range(1, cfg.num_codebooks):
+                x = x + F.embedding(tokens[..., k], params["embed"][k])
+        else:
+            x = F.embedding(tokens, params["embed"])
+        if cfg.modality == "vlm" and media_emb is not None:
+            x = torch.cat([media_emb.to(x.dtype), x], dim=1)
+        return x
 
     def _head(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
-        return x @ params["lm_head"]
+        """Logits [..., V], or [..., K, V] for audio (one slice a codebook)."""
+        cfg = self.cfg
+        logits = x @ params["lm_head"]
+        if cfg.modality == "audio":
+            return logits.reshape(tuple(x.shape[:-1]) + (cfg.num_codebooks, cfg.vocab_size))
+        return logits
 
     # --------------------------------------------------------------- forward
+    def _mlp(self, lp: PyTree, x: torch.Tensor, spec: LayerSpec) -> Tuple[torch.Tensor, Any]:
+        """The residual MLP half of a layer: (x, MoE aux loss or None)."""
+        cfg = self.cfg
+        if spec.mlp == "none":
+            return x, None
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        if spec.mlp == "moe":
+            h2, aux = moe_apply(lp["mlp"], h2, cfg)
+            return x + h2, aux
+        return x + mlp_apply(lp["mlp"], h2, cfg), None
+
     def _apply_layer(
         self, lp: PyTree, x: torch.Tensor, spec: LayerSpec, window: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if spec.kind == "rwkv6":
-            x = x + ssm_mod.rwkv6_apply(lp["attn"], h, cfg)
+        if spec.kind == "attn":
+            h = attention_apply(lp["attn"], h, cfg, window=window)
+        elif spec.kind == "rwkv6":
+            h = ssm_mod.rwkv6_apply(lp["attn"], h, cfg)
         else:
-            x = x + attention_apply(lp["attn"], h, cfg, window=window)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if spec.mlp != "none":
-            h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            if spec.mlp == "moe":
-                h2, aux = moe_apply(lp["mlp"], h2, cfg)
-            else:
-                h2 = mlp_apply(lp["mlp"], h2, cfg)
-            x = x + h2
+            h = ssm_mod.mamba_apply(lp["attn"], h, cfg)
+        x, aux = self._mlp(lp, x + h, spec)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
 
-    def forward(
-        self, params: PyTree, tokens: torch.Tensor, window: int = 0
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (hidden [B, S, d], MoE aux loss, a float32 scalar)."""
-        cfg = self.cfg
-        x = self._embed(params, tokens)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, spec in enumerate(cfg.prologue):
-            x, a = self._apply_layer(params[f"prologue_{i}"], x, spec, window)
-            aux = aux + a
+    def _layers(self, params: PyTree):
+        """(layer params, spec, cache key, block) for every layer in order:
+        the prologue's, then each block's pattern (block None for the
+        prologue)."""
+        for i, spec in enumerate(self.cfg.prologue):
+            yield params[f"prologue_{i}"], spec, f"prologue_{i}", None
         for b in range(self.num_blocks):
             bp = _block(params["blocks"], b)
             for i, spec in enumerate(self.pattern):
-                x, a = self._apply_layer(bp[str(i)], x, spec, window)
-                aux = aux + a
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                yield bp[str(i)], spec, str(i), b
+
+    def forward(
+        self,
+        params: PyTree,
+        tokens: torch.Tensor,
+        media_emb: Optional[torch.Tensor] = None,
+        window: int = 0,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (hidden [B, S, d], MoE aux loss, a float32 scalar); for
+        VLM, S counts the prepended media positions."""
+        x = self._embed(params, tokens, media_emb)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, spec, _, _ in self._layers(params):
+            x, a = self._apply_layer(lp, x, spec, window)
+            aux = aux + a
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux
 
     # ------------------------------------------------------------------ loss
     def loss(
-        self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
+        self,
+        params: PyTree,
+        tokens: torch.Tensor,
+        labels: torch.Tensor,
+        media_emb: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Causal LM loss: the mean next-token NLL over labels >= 0 (labels
-        < 0 are masked) plus the MoE aux loss; returns (loss, {"nll", "aux"})."""
-        x, aux = self.forward(params, tokens)
+        < 0 are masked; media positions carry no labels) plus the MoE aux
+        loss; returns (loss, {"nll", "aux"})."""
+        cfg = self.cfg
+        x, aux = self.forward(params, tokens, media_emb)
+        if cfg.modality == "vlm" and media_emb is not None:
+            x = x[:, media_emb.shape[1]:]
         logits = self._head(params, x).float()
         labels = labels.long()
         mask = (labels >= 0).float()
@@ -187,17 +222,23 @@ class Model:
         return loss + aux, {"nll": loss, "aux": aux}
 
     # ------------------------------------------------------------- caching
+    def _init_layer_cache(self, spec: LayerSpec, batch: int, window: int, device: Any) -> PyTree:
+        if spec.kind == "attn":
+            return init_attn_cache(self.cfg, batch, window, device)
+        if spec.kind == "rwkv6":
+            return ssm_mod.init_rwkv6_state(self.cfg, batch, device)
+        return ssm_mod.init_mamba_state(self.cfg, batch, device)
+
     def init_cache(self, batch: int, window: int, device: Any = "cpu") -> PyTree:
-        _check_cacheable(self.cfg)
         cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
         for i, spec in enumerate(self.cfg.prologue):
-            cache[f"prologue_{i}"] = init_attn_cache(self.cfg, batch, window, device)
+            cache[f"prologue_{i}"] = self._init_layer_cache(spec, batch, window, device)
         cache["blocks"] = {
             str(i): tree_map(
                 lambda leaf: leaf.expand((self.num_blocks,) + tuple(leaf.shape)).clone(),
-                init_attn_cache(self.cfg, batch, window, device),
+                self._init_layer_cache(spec, batch, window, device),
             )
-            for i in range(len(self.pattern))
+            for i, spec in enumerate(self.pattern)
         }
         return cache
 
@@ -206,40 +247,38 @@ class Model:
     ) -> Tuple[torch.Tensor, PyTree]:
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        h, lcache = attention_decode(lp["attn"], h, lcache, pos, cfg)
-        x = x + h
-        if spec.mlp != "none":
-            h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h2, cfg)
+        if spec.kind == "attn":
+            h, lcache = attention_decode(lp["attn"], h, lcache, pos, cfg)
+        elif spec.kind == "rwkv6":
+            h, lcache = ssm_mod.rwkv6_decode(lp["attn"], h, lcache, cfg)
+        else:
+            h, lcache = ssm_mod.mamba_decode(lp["attn"], h, lcache, cfg)
+        x, _ = self._mlp(lp, x + h, spec)
         return x, lcache
 
     def decode_step(
         self, params: PyTree, cache: PyTree, tokens: torch.Tensor, with_hidden: bool = False
     ):
-        """One token for every sequence. tokens: [B, 1].
+        """One token for every sequence. tokens: [B, 1] (audio [B, 1, K]).
 
         ``cache["pos"]`` may be a scalar (all sequences at the same depth) or
         a [B] vector of per-lane positions (ragged co-batched decode).
         Returns (logits, new_cache), plus the final-norm hidden [B, 1, d]
         when ``with_hidden`` (for value heads riding the decode path).
         """
-        cfg = self.cfg
-        _check_cacheable(cfg)
         pos = cache["pos"]
         x = self._embed(params, tokens)
         new_cache: Dict[str, Any] = {"pos": pos + 1}
-        for i, spec in enumerate(cfg.prologue):
-            x, c = self._decode_layer(params[f"prologue_{i}"], x, spec, cache[f"prologue_{i}"], pos)
-            new_cache[f"prologue_{i}"] = c
-        per_block = []
-        for b in range(self.num_blocks):
-            bp, bc = _block(params["blocks"], b), _block(cache["blocks"], b)
-            out = {}
-            for i, spec in enumerate(self.pattern):
-                x, out[str(i)] = self._decode_layer(bp[str(i)], x, spec, bc[str(i)], pos)
-            per_block.append(out)
+        per_block: List[Dict[str, Any]] = [{} for _ in range(self.num_blocks)]
+        for lp, spec, key, b in self._layers(params):
+            lcache = cache[key] if b is None else _block(cache["blocks"][key], b)
+            x, c = self._decode_layer(lp, x, spec, lcache, pos)
+            if b is None:
+                new_cache[key] = c
+            else:
+                per_block[b][key] = c
         new_cache["blocks"] = _stack(per_block)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = self._head(params, x)
         if with_hidden:
             return logits, new_cache, x
@@ -247,42 +286,46 @@ class Model:
 
     # ------------------------------------------------------------- prefill
     def prefill(
-        self, params: PyTree, tokens: torch.Tensor, window: int = 0, with_hidden: bool = False
+        self,
+        params: PyTree,
+        tokens: torch.Tensor,
+        media_emb: Optional[torch.Tensor] = None,
+        window: int = 0,
+        with_hidden: bool = False,
     ):
         """Forward over a prompt, returning (last-token logits, filled cache).
 
-        The cache window equals the prompt length (or ``window`` if set);
-        attention caches are the (rope'd) K/V of the prompt, fitted into the
-        ring buffer.  With ``with_hidden`` the full final-norm hidden
-        [B, S, d] is appended to the return (callers with ragged prompts need
-        logits at their own last position, not at S - 1).
+        The cache window equals the prompt length, media positions included
+        (or ``window`` if set); attention caches are the (rope'd) K/V of the
+        prompt fitted into the ring buffer (int8 codes and scales, or MLA's
+        latent), recurrent layers' caches their state after the prompt.
+        With ``with_hidden`` the full final-norm hidden [B, S, d] is
+        appended to the return (callers with ragged prompts need logits at
+        their own last position, not at S - 1).
         """
         cfg = self.cfg
-        _check_cacheable(cfg)
         S = tokens.shape[1]
+        if cfg.modality == "vlm" and media_emb is not None:
+            S = S + media_emb.shape[1]
         W = window or S
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, media_emb)
         positions = torch.arange(S, device=x.device)
         cache: Dict[str, Any] = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
-
-        def layer_with_cache(lp, x, spec):
+        per_block: List[Dict[str, Any]] = [{} for _ in range(self.num_blocks)]
+        for lp, spec, key, b in self._layers(params):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            c = _prefill_attn_cache(lp["attn"], h, cfg, W, positions)
-            x = x + attention_apply(lp["attn"], h, cfg, window=window)
-            if spec.mlp != "none":
-                h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-                x = x + mlp_apply(lp["mlp"], h2, cfg)
-            return x, c
-
-        for i, spec in enumerate(cfg.prologue):
-            x, cache[f"prologue_{i}"] = layer_with_cache(params[f"prologue_{i}"], x, spec)
-        per_block = []
-        for b in range(self.num_blocks):
-            bp = _block(params["blocks"], b)
-            cs = {}
-            for i, spec in enumerate(self.pattern):
-                x, cs[str(i)] = layer_with_cache(bp[str(i)], x, spec)
-            per_block.append(cs)
+            if spec.kind == "attn":
+                c = _prefill_attn_cache(lp["attn"], h, cfg, W, positions)
+                h = attention_apply(lp["attn"], h, cfg, window=window)
+            elif spec.kind == "rwkv6":
+                h, c = _prefill_rwkv6(lp["attn"], h, cfg)
+            else:
+                h, c = _prefill_mamba(lp["attn"], h, cfg)
+            x, _ = self._mlp(lp, x + h, spec)
+            if b is None:
+                cache[key] = c
+            else:
+                per_block[b][key] = c
         cache["blocks"] = _stack(per_block)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._head(params, x[:, -1:])
@@ -291,18 +334,20 @@ class Model:
         return logits, cache
 
 
-# ----------------------------------------------------------- step builder
+# ----------------------------------------------------------- step builders
 def make_train_step(model: Model, optimizer) -> Callable:
     """The learner's step: the loss, its gradient, and ``optimizer.apply_``,
     which updates the parameters and the optimizer's moments in place (see
     ``repro_torch.optim.optimizers``).  ``train_step(params, opt_state,
     batch)`` takes parameter leaves that require grad and a batch of
-    ``tokens`` and ``labels`` tensors, and returns (params, the new state,
-    {"loss", "nll", "aux"} as tensors); the returned params are the same
-    tensors, updated."""
+    ``tokens`` and ``labels`` tensors (and ``media_emb`` for VLM), and
+    returns (params, the new state, {"loss", "nll", "aux"} as tensors); the
+    returned params are the same tensors, updated."""
 
     def train_step(params: PyTree, opt_state: PyTree, batch: Dict[str, torch.Tensor]):
-        loss, parts = model.loss(params, batch["tokens"], batch["labels"])
+        loss, parts = model.loss(
+            params, batch["tokens"], batch["labels"], media_emb=batch.get("media_emb")
+        )
         leaves = tree_leaves(params)
         grads: List[Any] = list(torch.autograd.grad(loss, leaves))
         opt_state = optimizer.apply_(params, grads, opt_state)
@@ -312,11 +357,43 @@ def make_train_step(model: Model, optimizer) -> Callable:
     return train_step
 
 
+def make_prefill_step(model: Model, window: int = 0) -> Callable:
+    """``prefill_step(params, batch)`` -> (last-token logits, cache) over
+    ``batch["tokens"]`` (and ``batch["media_emb"]`` for VLM), on the device
+    of the caller's tensors."""
+
+    def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):
+        return model.prefill(params, batch["tokens"], media_emb=batch.get("media_emb"),
+                             window=window)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    """``decode_step(params, cache, batch)`` -> (logits, new cache) for one
+    token a sequence, ``batch["tokens"]`` [B, 1] (audio [B, 1, K])."""
+
+    def decode_step(params: PyTree, cache: PyTree, batch: Dict[str, torch.Tensor]):
+        return model.decode_step(params, cache, batch["tokens"])
+
+    return decode_step
+
+
 # ------------------------------------------------- prefill cache builders
 def _prefill_attn_cache(
     ap: PyTree, h: torch.Tensor, cfg: ModelConfig, W: int, positions: torch.Tensor
 ) -> PyTree:
+    if cfg.mla is not None:
+        m = cfg.mla
+        ckv = h @ ap["w_dkv"]
+        c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+        k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+        return {"c": _fit_window(c, W), "k_rope": _fit_window(k_rope, W)}
     _, k, v = _project_qkv(ap, h, cfg, positions)
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = _quantize_kv(_fit_window(k, W))
+        vq, vs = _quantize_kv(_fit_window(v, W))
+        return {"k_q": kq, "k_s": ks, "v_q": vq, "v_s": vs}
     return {"k": _fit_window(k, W), "v": _fit_window(v, W)}
 
 
@@ -331,3 +408,29 @@ def _fit_window(x: torch.Tensor, W: int) -> torch.Tensor:
         return torch.roll(tail, shifts=(S - W) % W, dims=1)
     pad = torch.zeros((x.shape[0], W - S) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=1)
+
+
+def _prefill_rwkv6(ap: PyTree, h: torch.Tensor, cfg: ModelConfig):
+    """RWKV-6 over the prompt through ``ops.rwkv6``, which also returns the
+    final WKV state: (out, {"wkv", "x_prev"})."""
+    B, T, d = h.shape
+    x_prev = F.pad(h, (0, 0, 1, 0))[:, :-1]
+    r, k, v, g, w = ssm_mod._rwkv6_streams(ap, h, x_prev, cfg)
+    out, state = kops.rwkv6(r, k, v, w, ap["bonus_u"].float(), chunk=cfg.ssm.chunk)
+    out = rms_norm(out.reshape(B, T, d), ap["ln_out"], cfg.norm_eps) * g
+    return out @ ap["wo"], {"wkv": state, "x_prev": h[:, -1]}
+
+
+def _prefill_mamba(ap: PyTree, h: torch.Tensor, cfg: ModelConfig):
+    """Mamba over the prompt: (out, {"h": the scan's final state, "conv":
+    the last d_conv - 1 pre-conv inputs})."""
+    s = cfg.ssm
+    B, T, d = h.shape
+    d_in = s.expand * d
+    xz = h @ ap["in_proj"]
+    xc, z = xz[..., :d_in], xz[..., d_in:]
+    xc_act = F.silu(ssm_mod._causal_conv(xc, ap["conv_w"], ap["conv_b"]))
+    h0 = torch.zeros((B, d_in, s.d_state), dtype=torch.float32, device=h.device)
+    y, hN = ssm_mod._mamba_scan(ap, xc_act, h0, s)
+    out = (y * F.silu(z)) @ ap["out_proj"]
+    return out, {"h": hN, "conv": xc[:, T - (s.d_conv - 1):]}

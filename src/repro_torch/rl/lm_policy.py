@@ -145,6 +145,17 @@ class LMTokenPolicy:
         action, logp = _sample(logits, keys)
         return action, logp, value, logits
 
+    def act(self, params: PyTree, obs: torch.Tensor, key: torch.Tensor):
+        """The per-env worker's acting: obs ``[..., ctx + 2]`` from one key
+        ``[2]``.  The reference runs ``compute_actions`` on ``obs[None]`` and
+        ``key[None]`` and takes row 0, which is
+        ``jax.random.categorical(key, logits)`` over the obs' logits; so is
+        this.  Returns (action, logp, value, logits)."""
+        logits, value = self.logits_value(params, obs)
+        action = prng.categorical_key(key, logits)
+        logp = torch.log_softmax(logits, dim=-1).gather(-1, action[..., None])[..., 0]
+        return action, logp, value, logits
+
     # ------------------------------------------------ stateful-policy protocol
     def init_lane_state(self, n: int, device: Any = "cpu") -> PyTree:
         """Fresh per-lane KV cache (lane axis leading on every leaf)."""

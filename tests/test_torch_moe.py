@@ -266,3 +266,103 @@ def test_moe_gmm_variants_edit_the_shipped_source(name):
     for old, new in moe_gmm_variants.VARIANTS[name]:
         assert text.count(old) == 1, old
         assert new != old
+
+
+# ------------------------------- tests/test_moe_layer.py, on the port
+# The reference's five MoE invariants, each also held to the reference's
+# moe_apply on the same weights and inputs (1e-4, float32).
+def _layer_configs(E=4, k=2, cf=8.0, d=64, dff=128, num_shared=0):
+    from repro.configs.base import LayerSpec as JaxLayerSpec
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    from repro.configs.base import MoEConfig as JaxMoEConfig
+    from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
+
+    def make(model_cls, spec_cls, moe_cls):
+        return model_cls(
+            name="t", arch_type="moe", num_layers=1, d_model=d, num_heads=2, num_kv_heads=2,
+            d_ff=dff, vocab_size=64, block_pattern=(spec_cls(kind="attn", mlp="moe"),),
+            moe=moe_cls(num_experts=E, top_k=k, d_ff=dff, capacity_factor=cf, num_shared=num_shared),
+            dtype="float32",
+        )
+
+    return make(JaxModelConfig, JaxLayerSpec, JaxMoEConfig), make(ModelConfig, LayerSpec, MoEConfig)
+
+
+def _layer_pair(seed, S, B=1, **kw):
+    """(cfg_j, cfg_t, reference params, port params, x as numpy) with
+    reference weights carried over."""
+    cfg_j, cfg_t = _layer_configs(**kw)
+    params_j = jax_moe.moe_init(jax.random.PRNGKey(seed), cfg_j)
+    x = np.random.default_rng(seed).standard_normal((B, S, cfg_t.d_model)).astype(np.float32)
+    params_t = params_from_numpy(jax.tree_util.tree_map(np.asarray, params_j))
+    return cfg_j, cfg_t, params_j, params_t, x
+
+
+def _layer_apply(cfg_j, cfg_t, params_j, params_t, x):
+    out_j, aux_j = jax_moe.moe_apply(params_j, jnp.asarray(x), cfg_j)
+    with torch.no_grad():
+        out_t, aux_t = moe.moe_apply(params_t, torch.from_numpy(x), cfg_t)
+    _close(out_t, out_j, 1e-4, name="out vs reference")
+    _close(aux_t, aux_j, 1e-4, name="aux vs reference")
+    return out_t.numpy(), float(aux_t)
+
+
+def test_moe_output_shape_and_finite():
+    out, aux = _layer_apply(*_layer_pair(0, 16, B=2))
+    assert out.shape == (2, 16, 64)
+    assert np.isfinite(out).all()
+    assert aux >= 0.0
+
+
+def test_moe_matches_dense_expert_computation():
+    """With capacity ample and k = E (all experts selected), the MoE output
+    equals the explicitly computed weighted sum of every expert's FFN."""
+    E = 2
+    cfg_j, cfg_t, params_j, params_t, x = _layer_pair(0, 8, E=E, k=E, cf=float(E) * 2)
+    out, _ = _layer_apply(cfg_j, cfg_t, params_j, params_t, x)
+    xt = torch.from_numpy(x)
+    w = torch.softmax(xt @ params_t["router"], dim=-1)  # renormalized top-E == softmax
+    expected = torch.zeros_like(xt)
+    for e in range(E):
+        h = torch.nn.functional.silu(xt @ params_t["gate"][e]) * (xt @ params_t["up"][e])
+        expected = expected + w[..., e : e + 1] * (h @ params_t["down"][e])
+    np.testing.assert_allclose(out, expected.numpy(), atol=1e-4, rtol=1e-3)
+
+
+def test_moe_capacity_drops_tokens():
+    """With capacity 1 and many tokens per row, most contributions drop: the
+    output stays finite and at most E * C = 2 tokens have one."""
+    out, _ = _layer_apply(*_layer_pair(0, 32, E=2, k=1, cf=0.01))
+    assert np.isfinite(out).all()
+    assert (np.abs(out[0]).sum(-1) > 1e-6).sum() <= 2
+
+
+def test_moe_shared_experts_always_active():
+    """The shared expert gives every token an output despite the drops."""
+    out, _ = _layer_apply(*_layer_pair(0, 16, E=4, k=1, cf=0.01, num_shared=1))
+    assert (np.abs(out[0]).sum(-1) > 1e-6).all()
+
+
+hypothesis = pytest.importorskip("hypothesis", reason="property-based tests need hypothesis")
+
+
+@hypothesis.given(hypothesis.strategies.integers(min_value=1, max_value=4),
+                  hypothesis.strategies.integers(min_value=4, max_value=24))
+@hypothesis.settings(max_examples=10, deadline=None)
+def test_moe_gradients_finite(k, S):
+    """Finite gradients for any k and S, equal to the reference's."""
+    cfg_j, cfg_t, params_j, params_t, x = _layer_pair(0, S, E=4, k=k, cf=4.0)
+
+    def loss_j(p, xx):
+        out, aux = jax_moe.moe_apply(p, xx, cfg_j)
+        return jnp.sum(out**2) + aux
+
+    grads_j = jax.jit(jax.grad(loss_j))(params_j, jnp.asarray(x))
+    names = sorted(params_t)
+    for name in names:
+        params_t[name].requires_grad_(True)
+    out, aux = moe.moe_apply(params_t, torch.from_numpy(x), cfg_t)
+    grads = torch.autograd.grad(torch.sum(out**2) + aux, [params_t[n] for n in names])
+    for name, g in zip(names, grads):
+        assert torch.isfinite(g).all(), name
+        _close(g, grads_j[name], 1e-4, name=f"d{name}")

@@ -144,37 +144,85 @@ def test_fit_window_and_clamped_prefill_then_decode(S, W):
     _close(dec_t, dec_j, name="decode after clamp")
 
 
-def test_unported_model_features_raise():
+def _feature_config(feature):
+    """The small model of ``_cfgs(4, 2)`` with one feature of the model zoo."""
     import dataclasses
 
+    from repro_torch.configs.base import MLAConfig, MoEConfig, SSMConfig
+
     _, cfg = _cfgs(4, 2)
-    for bad in (
-        dict(block_pattern=(LayerSpec(kind="mamba", mlp="dense"),)),
-        dict(modality="audio"),
-    ):
-        with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(cfg, **bad))
-    # MoE MLPs and RWKV-6 layers train (the pretraining slice) but have no
-    # prefill or decode path yet.
-    from repro_torch.configs.base import MoEConfig, SSMConfig
+    return dataclasses.replace(cfg, **{
+        "mamba": dict(block_pattern=(LayerSpec(kind="mamba", mlp="dense"),),
+                      ssm=SSMConfig(kind="mamba", d_state=4)),
+        "audio": dict(modality="audio", num_codebooks=2),
+        "vlm": dict(modality="vlm", num_media_tokens=3),
+        "moe": dict(block_pattern=(LayerSpec(kind="attn", mlp="moe"),),
+                    moe=MoEConfig(num_experts=2, d_ff=8)),
+        "rwkv6": dict(block_pattern=(LayerSpec(kind="rwkv6", mlp="dense"),),
+                      ssm=SSMConfig(kind="rwkv6", head_dim=8)),
+        "int8": dict(kv_cache_dtype="int8"),
+        "mla": dict(mla=MLAConfig(kv_lora_rank=16, rope_head_dim=8, nope_head_dim=8, v_head_dim=8)),
+        "hybrid": dict(block_pattern=(LayerSpec(kind="mamba", mlp="dense"), LayerSpec(kind="attn", mlp="moe")),
+                       ssm=SSMConfig(kind="mamba", d_state=4), moe=MoEConfig(num_experts=2, d_ff=8)),
+    }[feature])
 
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for serve_only in (
-        dict(block_pattern=(LayerSpec(kind="attn", mlp="moe"),), moe=MoEConfig(num_experts=2, d_ff=8)),
-        dict(block_pattern=(LayerSpec(kind="rwkv6", mlp="dense"),), ssm=SSMConfig(kind="rwkv6", head_dim=8)),
-    ):
-        model = Model(dataclasses.replace(cfg, **serve_only))
-        with pytest.raises(NotImplementedError):
-            model.init_cache(2, 8)
-        with pytest.raises(NotImplementedError):
-            model.prefill(model.init_params(torch.Generator().manual_seed(0)), tokens)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, kv_cache_dtype="int8")).init_cache(2, 8)
-    from repro_torch.configs.base import MLAConfig
 
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, mla=MLAConfig())).init_params(gen)
+@pytest.mark.parametrize("feature", ["mamba", "audio", "vlm", "moe", "rwkv6", "int8", "mla", "hybrid"])
+def test_unported_model_features_raise(feature):
+    """Each feature this test once found unported (raising
+    ``NotImplementedError``) now builds, prefills and decodes: the prefill's
+    cache has ``init_cache``'s structure and shapes, and two decode steps give
+    finite logits of the modality's shape."""
+    cfg = _feature_config(feature)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    B, S, W = 2, 4, 8
+    shape = (B, S + 2, cfg.num_codebooks) if cfg.modality == "audio" else (B, S + 2)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator().manual_seed(1))
+    media = torch.randn((B, cfg.num_media_tokens, cfg.d_model)) if cfg.modality == "vlm" else None
+    empty = model.init_cache(B, W)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, tokens[:, :S], media_emb=media, window=W)
+        for k in (S, S + 1):
+            logits, cache = model.decode_step(params, cache, tokens[:, k:k + 1])
+            assert torch.isfinite(logits).all()
+    want = (B, 1, cfg.num_codebooks, cfg.vocab_size) if cfg.modality == "audio" else (B, 1, cfg.vocab_size)
+    assert tuple(logits.shape) == want
+    assert int(cache["pos"]) == S + 2 + cfg.num_media_tokens * (media is not None)
+    got_l, empty_l = tree_leaves(cache), tree_leaves(empty)
+    assert [(tuple(a.shape), a.dtype) for a in got_l] == [(tuple(a.shape), a.dtype) for a in empty_l]
+
+
+@pytest.mark.parametrize("num_envs", [1, 3])
+def test_per_env_worker_over_a_token_env_acts_as_the_reference(num_envs):
+    """``LMTokenPolicy.act`` (the per-env ``RolloutWorker``'s acting): a
+    rollout over a ``TokenEnv`` from the reference's weights and key chain
+    takes the reference's actions and observations, with values, advantages
+    and returns within 1e-5.  Log-probs equal the reference's within 1e-5
+    for one env.  For several, the reference's ``act`` reads every env's
+    log-prob from env 0's distribution (its ``take_along_axis`` broadcasts a
+    [1, 1, N] index over [1, N, V]); the port's are each env's own, checked
+    against the port's logits."""
+    from repro.rl.rollout_worker import RolloutWorker as JaxRolloutWorker
+    from repro_torch.rl import RolloutWorker
+
+    env_kw = dict(vocab_size=17, ctx=16, min_prompt=3, max_prompt=6, horizon=6)
+    pol_kw = dict(vocab_size=17, ctx=16, d_model=32, n_layers=2, num_heads=4, num_kv_heads=2)
+    kw = dict(algo="ppo", num_envs=num_envs, rollout_len=8, seed=5, worker_index=1)
+    w_j = JaxRolloutWorker(JaxTokenEnv(**env_kw), JaxLMTokenPolicy(**pol_kw), **kw)
+    w_t = RolloutWorker(TokenEnv(**env_kw), LMTokenPolicy(**pol_kw), device="cpu", **kw)
+    w_t.set_weights(_numpy(w_j.get_weights()))
+    b_j, b_t = w_j.sample(), w_t.sample()
+    assert len(b_t["actions"]) == num_envs * 8
+    for col in ("actions", "obs", "rewards", "dones"):
+        np.testing.assert_array_equal(np.asarray(b_t[col]), np.asarray(b_j[col]), err_msg=col)
+    for col in ("values", "advantages", "returns") + (("logp",) if num_envs == 1 else ()):
+        _close(np.asarray(b_t[col]), b_j[col], TOL, name=col)
+    obs = torch.as_tensor(np.asarray(b_t["obs"]))
+    with torch.no_grad():
+        logits, _ = w_t.policy.logits_value(w_t.params, obs)
+    own = torch.log_softmax(logits, -1).gather(-1, torch.as_tensor(np.asarray(b_t["actions"]))[:, None].long())
+    _close(np.asarray(b_t["logp"]), own[:, 0].numpy(), TOL, name="logp under each env's own logits")
 
 
 # -------------------------------------------------------------- TokenEnv
