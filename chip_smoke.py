@@ -280,7 +280,23 @@ phase that fails, and then prints no result line):
    seconds to start a child (fork server and spawn) and to restart one,
    seconds per PPO iteration on each backend, bytes a batch and a weight
    sync put on the boundary, and the card's idle share (the driver's and
-   the children's kernels, each process profiled by its own window).
+   the children's kernels, each process profiled by its own window);
+38. learner group (``rl/learner_group.py``): phase 7's PPO-LM worker
+   (Qwen1.5-4B widths, 2 layers) learns one rollout's batch once by its own
+   ``learn_on_batch`` and once through ``ShardedLearnerGroup(microbatch=2)``
+   from the same weights: stats and every weight within 1e-4, each one's
+   peak memory and seconds printed, flash and surrogate launches exactly 2x
+   the plain step's; ``num_learners=2`` clamps to the one card with the
+   warning and trains; ``build_ppo(..., microbatch=2)`` trains PPO CartPole
+   3 iterations (2 surrogate launches each way a SGD step); IMPALA's learner
+   thread steps a ``microbatch=2`` group over whole length-32 traces (one
+   V-trace launch a microbatch) and stops with the flow; DQN's ``td_error``
+   comes back at the full length of a trimmed batch;
+39. explain: ``Algorithm.explain()`` on PPO CartPole and on PPO-LM, priced
+   at ``HW_H100``: both stepped rows priced, every kernel charge equal to
+   its bound's formula (phases 3 and 3b) at the sizes it was priced at, and
+   the rollout after each probe bitwise equal to one from a snapshot
+   restored before it.  Phases 38-39 run before 37.
 
 Phases 20-21 run a third pretraining path, Qwen3-14B (hf:Qwen/Qwen3-8B
 family: d_model 5120, 40 heads, 8 KV heads, d_ff 17408, vocab 151936,
@@ -325,6 +341,7 @@ import argparse
 import contextlib
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -753,9 +770,9 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     its profiled calls.  ``ms`` is the device time where the profiler gives
     one, else the event time; ``ms_from`` and ``plain_ms_from`` say which
     ("profiler" or "cuda_events").  Kernels of tens of milliseconds take a
-    smaller ``kernel_iters``; a plain version of tens of thousands of
-    launches is not profiled (``plain_profile``), its trace alone would take
-    minutes.  A profiler session that records no device time is retried
+    smaller ``kernel_iters``; a plain version of thousands of launches a
+    call is not profiled (``plain_profile``): its trace alone takes seconds
+    to minutes, and it is timed by events without a warmup call.  A profiler session that records no device time is retried
     (``_device_ms_retried``; ``profile_retries`` counts the new sessions)
     before the event time stands in.  With ``clocks``, the card's SM clock,
     power draw and temperature before and after each of the kernel's three
@@ -769,7 +786,9 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     t["call_ms_after"] = _time_ms(kernel, iters=kernel_iters, warmup=0)
     if clocks:
         t["clocks"] = samples + [_smi_sample()]
-    t["plain_call_ms"] = _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 1)
+    # A plain version that is not profiled (thousands of launches a call) is
+    # already warm from the case's check: no warmup call.
+    t["plain_call_ms"] = _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 0)
     t["plain_device_ms"], t["plain_records_lost"], t["plain_profile_retries"] = (
         _device_ms_retried(plain, plain_iters) if plain_profile else (None, None, 0))
     for key, device, call in (("ms", "device_ms", "call_ms"),
@@ -784,6 +803,62 @@ def _bound_ms(nbytes: int, nops: int, ops_per_s: float = FP32_OPS_PER_S) -> tupl
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _formula(name: str, key: dict) -> tuple:
+    """(flops or int32 ops, bytes) of one launch of kernel ``name`` at the
+    sizes ``key``: the one copy of the counts behind every bound of phases
+    3 and 3b, which phase 39 holds against the cost walker's own copy
+    (``distributed/hlo_cost.py``).  ``name`` and ``key`` are the walker's:
+    a ``_bwd`` suffix names a kernel's backward."""
+    base = name[:-4] if name.endswith("_bwd") else name
+    bwd = name.endswith("_bwd")
+    if base == "gae":
+        tb, b = key["tb"], key["b"]
+        return 8 * tb, (5 * tb + b) * 4
+    if base == "vtrace":
+        tb, b = key["tb"], key["b"]
+        return 20 * tb, (5 * tb + b) * 4 + 2 * tb * 4  # six inputs read, two outputs written
+    if base == "ppo_surrogate":
+        B, A, row_in = key["b"], key["a"], 4 * 4 + 8  # four float [B] vectors, the int64 action
+        if bwd:
+            # In: logits, the row inputs, the saved lse and ent, four cotangents.
+            return B * (16 * A + 40), B * (4 * A + row_in + 2 * 4 + 4 * 4) + B * (4 * A + 4 * 4)
+        return B * (6 * A + 20), B * (4 * A + row_in) + B * 5 * 4  # pg, vf, ent, kl and lse out
+    if base == "flash_attention":
+        B, Sq, Sk, H, KV, D = (key[x] for x in ("b", "sq", "sk", "h", "kv", "d"))
+        _, pairs = _visible_pairs(Sq, Sk, key["causal"], key["window"], key["q_offset"])
+        if bwd:  # reads q, o, dO, lse, k, v; writes dq, dk, dv
+            return 10 * B * H * D * pairs, (4 * B * Sq * H * D + 4 * B * Sk * KV * D + B * H * Sq) * 4
+        return 4 * B * H * D * pairs, (2 * B * Sq * H * D + 2 * B * Sk * KV * D + B * H * Sq) * 4
+    if base == "decode_attention":
+        B, H, KV, D, n_valid = (key[x] for x in ("b", "h", "kv", "d", "n_valid"))
+        return 4 * H * D * n_valid, (2 * B * H * D + 2 * n_valid * KV * D) * 4 + key["mask"]
+    if base == "rwkv6":
+        # The training forward reads r, k, v, w, u (and s0) and writes o,
+        # the final state and the chunk-start states; the backward reads r,
+        # k, v, w, u, dO, dS_T and the chunk-start states and writes dr, dk,
+        # dv, dw, du (and dS_0).  Operations per (b, t, h), counting an FMA
+        # as two: the forward's k v, S + u k v, r . (...) and w S + k v,
+        # 7 N^2; the backward's recomputed update, 3 N^2, and its sums and
+        # G update, 11 N^2.
+        B, T, H, N = (key[x] for x in ("b", "t", "h", "n"))
+        seq, st = B * T * H * N * 4, B * H * N * N * 4
+        ck = B * H * -(-T // key["chunk"]) * N * N * 4
+        s0 = st if key["state"] else 0
+        if bwd:
+            return 14 * B * T * H * N * N, 9 * seq + 2 * H * N * 4 + st + ck + s0
+        return 7 * B * T * H * N * N, 5 * seq + H * N * 4 + st + ck + s0
+    if base in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw"):
+        T, D, F, E = (key[x] for x in ("t", "d", "f", "e"))
+        return 2 * T * D * F, 4 * (T * D + E * D * F + T * F)
+    if base == "threefry_counts":
+        lanes, n, xor = key["lanes"], key["n"], key["xor"]
+        # 16 B a key read, 8 B a word (bits) or 16 B a key (keys) written
+        return _threefry_ops(lanes * n, xor), 16 * lanes + lanes * n * (8 if xor else 16)
+    if base == "threefry_fold_in":
+        return _threefry_ops(key["lanes"], False), key["lanes"] * (16 + 8 + 16)
+    raise PhaseError(f"no bound formula for kernel {name}")
 
 
 def _tensor_core_bounds(nbytes: int, flops: int) -> dict:
@@ -993,6 +1068,12 @@ def phase_build() -> dict:
 
 
 # ----------------------------------------------------------------- phase 3
+# The plain GAE and V-trace loops issue ~10 launches a time step: from this
+# many steps on they are timed by events, not profiled (on an H100 their
+# traces took most of those cases' seconds).
+LONG_SCAN = 128
+
+
 def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
     import torch
 
@@ -1011,13 +1092,13 @@ def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
     err = max(_close(f"gae[{T},{B}] adv", adv_k, adv_p), _close(f"gae[{T},{B}] ret", ret_k, ret_p))
     _require(torch.equal(adv_k, adv_2) and torch.equal(ret_k, ret_2),
              f"gae[{T},{B}]: two calls differ (not bitwise repeatable)")
-    nbytes = (5 * T * B + B) * 4
-    bound, by = _bound_ms(nbytes, 8 * T * B)
+    ops, nbytes = _formula("gae", {"tb": T * B, "b": B})
+    bound, by = _bound_ms(nbytes, ops)
     return {
         "shape": [T, B], "max_abs_err": err, "bitwise_repeatable": True, "bound_ms": bound,
         "bound_by": by, "bytes": nbytes, "library_ms": None,
         **_timings(lambda: gae_cuda(r, v, d, last), lambda: gae(r, v, d, last),
-                   plain_iters=plain_iters),
+                   plain_iters=plain_iters, plain_profile=T < LONG_SCAN),
     }
 
 
@@ -1053,14 +1134,15 @@ def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float =
     _require(torch.equal(vs_k, vs_2) and torch.equal(pg_k, pg_2),
              f"{name}: two calls differ (not bitwise repeatable)")
     T, B = shape[0], math.prod(shape[1:])
-    nbytes = (5 * T * B + B) * 4 + 2 * T * B * 4  # six inputs read, two outputs written
-    bound, by = _bound_ms(nbytes, 20 * T * B)
+    ops, nbytes = _formula("vtrace", {"tb": T * B, "b": B})
+    bound, by = _bound_ms(nbytes, ops)
     return {
         "shape": list(shape), "rho_clip": rho_clip, "c_clip": c_clip, "max_abs_err": err,
         "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         "library_ms": None,
         **_timings(lambda: vtrace_cuda(blp, tlp, r, v, d, last, **kw),
-                   lambda: vtrace(blp, tlp, r, v, d, last, **kw), plain_iters=plain_iters),
+                   lambda: vtrace(blp, tlp, r, v, d, last, **kw), plain_iters=plain_iters,
+                   plain_profile=shape[0] < LONG_SCAN),
     }
 
 
@@ -1165,12 +1247,10 @@ def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iter
         plain_iters=plain_iters,
     )
 
-    row_in = 4 * 4 + 8  # four float [B] vectors and the int64 action
-    fwd_bytes = B * (4 * A + row_in) + B * 5 * 4  # pg, vf, ent, kl and lse out
-    # In: logits, the row inputs, the saved lse and ent, four cotangents.
-    bwd_bytes = B * (4 * A + row_in + 2 * 4 + 4 * 4) + B * (4 * A + 4 * 4)
-    fwd_bound = _bound_ms(fwd_bytes, B * (6 * A + 20))
-    bwd_bound = _bound_ms(bwd_bytes, B * (16 * A + 40))
+    fwd_ops, fwd_bytes = _formula("ppo_surrogate", {"b": B, "a": A})
+    bwd_ops, bwd_bytes = _formula("ppo_surrogate_bwd", {"b": B, "a": A})
+    fwd_bound = _bound_ms(fwd_bytes, fwd_ops)
+    bwd_bound = _bound_ms(bwd_bytes, bwd_ops)
     shape = [B, A]
     chunks = load_library().ppo_surrogate_fwd_chunks(A)
     if chunks:
@@ -1270,8 +1350,9 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) 
     print(f"  {name}: splits {splits}, grid (B, KV, head chunks, splits) {grid}, "
           f"{math.prod(grid)} blocks")
     n_valid = int(valid.sum()) * (B if valid.dim() == 1 else 1)
-    nbytes = (2 * B * H * D + 2 * n_valid * KV * D) * 4 + valid.numel()
-    bound, by = _bound_ms(nbytes, 4 * H * D * n_valid)
+    ops, nbytes = _formula("decode_attention", {"b": B, "h": H, "kv": KV, "d": D, "w": W,
+                                                "n_valid": n_valid, "mask": valid.numel()})
+    bound, by = _bound_ms(nbytes, ops)
     mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     out = {
@@ -1323,8 +1404,9 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     torch.cuda.synchronize()
     err = _close(f"flash_attention_fwd[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}", got, want)
     del want
-    mask, pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
-    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D + B * H * Sq) * 4
+    mask, _ = _visible_pairs(Sq, Sk, causal, window, q_offset)
+    flops, nbytes = _formula("flash_attention", {"b": B, "sq": Sq, "sk": Sk, "h": H, "kv": KV,
+                                                 "d": D, **kw})
     simple = causal and not window and not q_offset and Sq == Sk
 
     def plain():
@@ -1333,7 +1415,7 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
 
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
-        **_tensor_core_bounds(nbytes, 4 * B * H * D * pairs),
+        **_tensor_core_bounds(nbytes, flops),
         **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
                    kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
@@ -1376,15 +1458,15 @@ def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
              f"{name}: gradients differ between two runs")
     del got, again, want
     o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
-    mask, pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
-    # reads q, o, dO, lse, k, v; writes dq, dk, dv
-    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KV * D + B * H * Sq) * 4
+    mask, _ = _visible_pairs(Sq, Sk, causal, window, q_offset)
+    flops, nbytes = _formula("flash_attention_bwd", {"b": B, "sq": Sq, "sk": Sk, "h": H, "kv": KV,
+                                                     "d": D, **kw})
     simple = causal and not window and not q_offset and Sq == Sk
     lib_xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
     lib_out = _sdpa(*lib_xs, mask, simple)
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err, "deterministic": True,
-        **_tensor_core_bounds(nbytes, 10 * B * H * D * pairs),
+        **_tensor_core_bounds(nbytes, flops),
         **_timings(
             lambda: flash_bwd_cuda(q, k, v, o, lse, dout, causal, window, q_offset),
             lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
@@ -1483,18 +1565,11 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     )
     del plain_graph, plain_ts, out_p, fin_p
 
-    # Bytes: the training forward reads r, k, v, w, u (and s0) and writes o,
-    # the final state and the chunk-start states; the backward reads r, k,
-    # v, w, u, dO, dS_T and the chunk-start states and writes dr, dk, dv, dw,
-    # du (and dS_0).  Operations per (b, t, h), counting an FMA as two: the
-    # forward's k v, S + u k v, r . (...) and w S + k v, 7 N^2; the
-    # backward's recomputed update, 3 N^2, and its sums and G update, 11 N^2.
-    seq, st_bytes = B * T * H * N * 4, B * H * N * N * 4
-    ck_bytes = B * H * -(-T // chunk) * N * N * 4
-    fwd_bytes = 5 * seq + H * N * 4 + st_bytes + ck_bytes + (st_bytes if state else 0)
-    bwd_bytes = 9 * seq + 2 * H * N * 4 + st_bytes + ck_bytes + (st_bytes if state else 0)
-    fwd_bound = _bound_ms(fwd_bytes, 7 * B * T * H * N * N)
-    bwd_bound = _bound_ms(bwd_bytes, 14 * B * T * H * N * N)
+    key = {"b": B, "t": T, "h": H, "n": N, "state": state, "chunk": chunk}
+    fwd_ops, fwd_bytes = _formula("rwkv6", key)
+    bwd_ops, bwd_bytes = _formula("rwkv6_bwd", key)
+    fwd_bound = _bound_ms(fwd_bytes, fwd_ops)
+    bwd_bound = _bound_ms(bwd_bytes, bwd_ops)
     shape = [B, T, H, N]
     common = {"shape": shape, "state": state, "chunk": chunk, "clip_share": clip_share,
               "library_ms": None}
@@ -1551,11 +1626,11 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
         cut = x[: T - overrun]
         err = max(err, _close(f"moe_gmm groups summing to {T} over {T - overrun} rows",
                               moe_gmm_cuda(cut, w, gs), moe_gmm_plain(cut, w, gs), GMM_TOL))
-    nbytes = 4 * (T * D + E * D * F + T * F)
+    flops, nbytes = _formula("moe_gmm", {"t": T, "d": D, "f": F, "e": E})
     path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3]
     return {
         "shape": [T, D, F, E], "groups": sizes, "tail": tail, "max_abs_err": err,
-        **_tensor_core_bounds(nbytes, 2 * T * D * F),
+        **_tensor_core_bounds(nbytes, flops),
         **_timings(lambda: moe_gmm_cuda(x, w, gs), lambda: moe_gmm_plain(x, w, gs),
                    plain_iters=3, kernel_iters=kernel_iters, clocks=path),
         **_gmm_library(sizes, lambda: torch.bmm(x.view(E, sizes[0], D), w)),
@@ -1601,8 +1676,9 @@ def _gmm_bwd_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20
                                     moe_gmm_dw_plain(x[:n], dyw[:n], gs), GMM_TOL))
     torch.cuda.synchronize()
     path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3]
+    flops, nbytes = _formula("moe_gmm_dx", {"t": T, "d": D, "f": F, "e": E})  # dW's alike
     common = {"shape": [T, D, F, E], "groups": sizes, "tail": tail,
-              **_tensor_core_bounds(4 * (T * D + E * D * F + T * F), 2 * T * D * F)}
+              **_tensor_core_bounds(nbytes, flops)}
     dx_lib, dw_lib = {"library_ms": None}, {"library_ms": None}
     if len(set(sizes)) == 1:
         B = batch
@@ -1990,7 +2066,7 @@ def phase_lm_learner_parity() -> dict:
 
 
 # ----------------------------------------------------------------- phase 7
-def _rlhf_worker(index: int):
+def _rlhf_worker(index: int, optimizer=None):
     from repro_torch.configs.qwen15_4b import CONFIG as QWEN
     from repro_torch.rl import LMTokenPolicy, TokenEnv, VectorizedRolloutWorker
 
@@ -2002,7 +2078,7 @@ def _rlhf_worker(index: int):
     return VectorizedRolloutWorker(
         env, policy, algo="ppo", num_envs=RLHF_CONFIG["num_envs"],
         rollout_len=RLHF_CONFIG["rollout_len"], decode="cache", seed=0, worker_index=index,
-        device="cuda",
+        device="cuda", **({"optimizer": optimizer} if optimizer is not None else {}),
     )
 
 
@@ -4105,9 +4181,9 @@ def _threefry_case(lanes: int, n: int, xor: bool, seed: int) -> dict:
     _require(torch.equal(got, again), f"threefry {shape}: two calls differ")
     _require(torch.equal(got.cpu(), cpu), f"threefry {shape}: the card differs from the CPU")
     del got, again, plain, cpu
-    nbytes = 16 * lanes + lanes * n * (8 if xor else 16)
+    bound_ops, nbytes = _formula("threefry_counts", {"lanes": lanes, "n": n, "xor": xor})
     ops = lanes * n * (THREEFRY_OPS + int(xor))
-    bound, by = _bound_ms(nbytes, _threefry_ops(lanes * n, xor), INT32_OPS_PER_S)
+    bound, by = _bound_ms(nbytes, bound_ops, INT32_OPS_PER_S)
     big = lanes * n >= 2**20
     return {
         "shape": shape, "mode": "bits" if xor else "keys", "max_abs_err": 0.0, "bitwise": True,
@@ -4140,8 +4216,8 @@ def _threefry_fold_in_case(lanes: int, seed: int) -> dict:
     word = tf.fold_in_cuda(keys_g, 5)
     _require(torch.equal(word.cpu(), tf.fold_in_plain(keys_c, 5)),
              "threefry fold_in: many keys over one word differs from the CPU")
-    nbytes = lanes * (16 + 8 + 16)
-    bound, by = _bound_ms(nbytes, _threefry_ops(lanes, False), INT32_OPS_PER_S)
+    bound_ops, nbytes = _formula("threefry_fold_in", {"lanes": lanes})
+    bound, by = _bound_ms(nbytes, bound_ops, INT32_OPS_PER_S)
     return {
         "shape": [lanes], "mode": "fold_in", "max_abs_err": 0.0, "bitwise": True,
         "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
@@ -4555,6 +4631,322 @@ def phase_qwen3_restart() -> dict:
           f"2 steps)")
     return {"losses": ref, "restored_losses": out, "max_rel_err": rel, "bytes": ckpt_bytes,
             "cli_bytes": cli_bytes, **times}
+
+
+# ------------------------------------------------------------- phase 38
+LG_MICROBATCH = 2  # the learner group's microbatches on the card
+
+
+class _Warnings(logging.Handler):
+    """Collects the messages of one logger while attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def _lg_learn(learn, batch, counters: list) -> tuple:
+    """One learn step: its stats, and its seconds, peak memory and launches
+    (every count set to 0 just before the step, read just after)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    info = learn(batch)
+    torch.cuda.synchronize()
+    return info, {"seconds": time.perf_counter() - t0,
+                  "peak_bytes": torch.cuda.max_memory_allocated(), "start_bytes": start,
+                  "launches": {c.name: c.value for c in counters}}
+
+
+def _lg_ppo_lm(counters: list) -> dict:
+    """The PPO-LM learner at Qwen1.5-4B widths (phase 7's worker): one
+    ``learn_on_batch`` of one rollout's batch through the worker and one
+    through ``ShardedLearnerGroup(microbatch=2)``, from the same weights.
+    SGD at lr 1, as phases 6, 8 and 19: the weight difference is then the
+    gradient difference.  (Under the worker's Adam the first step moves a
+    weight by about lr wherever its gradient is not 0, so a gradient of
+    rounding size whose sign the summation order flips moves it 2 x lr
+    apart: 5.888e-04 at lr 3e-4 on an H100.)"""
+    import torch
+
+    from repro_torch.core.operators import StandardizeFields
+    from repro_torch.optim import sgd
+    from repro_torch.rl import ShardedLearnerGroup
+    from repro_torch.tree import tree_leaves
+
+    k, L = LG_MICROBATCH, RLHF_LAYERS
+    # One seed: the same weights.
+    plain, grouped = _rlhf_worker(0, optimizer=sgd(1.0)), _rlhf_worker(0, optimizer=sgd(1.0))
+    try:
+        _require(all(torch.equal(a, b) for a, b in zip(tree_leaves(plain.params),
+                                                        tree_leaves(grouped.params))),
+                 "learner group: the two workers start from different weights")
+        batch = StandardizeFields(["advantages"])(plain.sample())
+        info_p, run_p = _lg_learn(plain.learn_on_batch, batch, counters)
+        group = ShardedLearnerGroup(grouped, microbatch=k)
+        info_g, run_g = _lg_learn(group.learn_on_batch, batch, counters)
+        stat_err = max(abs(info_p[s] - info_g[s]) for s in INFO_KEYS)
+        w_err = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(plain.params), tree_leaves(grouped.params)))
+    finally:
+        del plain, grouped
+        gc.collect()
+        torch.cuda.empty_cache()
+    step = {"flash_attention_fwd": L, "flash_attention_bwd": L, "ppo_surrogate_fwd": 1,
+            "ppo_surrogate_bwd": 1, "threefry": 1}  # the learner key: one hash a step
+    want_g = {n: (v if n == "threefry" else k * v) for n, v in step.items()}
+    got_p = {n: run_p["launches"][n] for n in step}
+    got_g = {n: run_g["launches"][n] for n in step}
+    print(f"learner group ppo_lm: {batch.count} rows, plain loss {info_p['loss']:.6f} vs "
+          f"microbatch={k} {info_g['loss']:.6f}; max stat err {stat_err:.3e}, max weight err "
+          f"{w_err:.3e} (tol {LEARNER_TOL}); peak memory plain {run_p['peak_bytes'] / 2**30:.2f} "
+          f"GiB, microbatch {run_g['peak_bytes'] / 2**30:.2f} GiB (from {run_p['start_bytes'] / 2**30:.2f} / "
+          f"{run_g['start_bytes'] / 2**30:.2f} GiB at the step's start); seconds "
+          f"{run_p['seconds']:.3f} / {run_g['seconds']:.3f}; launches plain {got_p}, "
+          f"microbatch {got_g}")
+    _require(stat_err <= LEARNER_TOL and w_err <= LEARNER_TOL,
+             f"learner group ppo_lm: microbatch={k} differs from the plain step "
+             f"(stats {stat_err:.3e}, weights {w_err:.3e})")
+    _require(got_p == step, f"learner group ppo_lm: plain step launched {got_p}, expected {step}")
+    _require(got_g == want_g, f"learner group ppo_lm: microbatch={k} launched {got_g}, "
+                              f"expected {want_g}")
+    return {"rows": batch.count, "stat_err": stat_err, "weight_err": w_err, "plain": run_p,
+            "microbatch": run_g, "loss_plain": info_p["loss"], "loss_microbatch": info_g["loss"],
+            "launches": got_g}  # the group's step alone: the plain one is phase 7's path
+
+
+def _lg_clamp() -> dict:
+    """``num_learners=2`` on one card: clamped to 1 with the warning, trains."""
+    import torch
+
+    from repro_torch.rl import ShardedLearnerGroup
+
+    caught = _Warnings()
+    log = logging.getLogger("repro_torch.rl.learner_group")
+    log.addHandler(caught)
+    try:
+        w = _make_worker(0, "cuda")
+        group = ShardedLearnerGroup(w, num_learners=2)
+    finally:
+        log.removeHandler(caught)
+    info = group.learn_on_batch(w.sample())
+    print(f"learner group clamp: num_learners=2 on {torch.cuda.device_count()} card(s) -> "
+          f"{group.num_learners}; warning {caught.messages}; loss {info['loss']:.5f}")
+    _require(group.num_learners == 1 and info["num_learners"] == 1,
+             f"learner group: num_learners=2 kept {group.num_learners} learners on one card")
+    _require(any("clamping" in m for m in caught.messages), "learner group: no clamp warning")
+    _require(math.isfinite(info["loss"]), f"learner group clamp: loss {info['loss']}")
+    return {"num_learners": group.num_learners, "warning": caught.messages}
+
+
+def _lg_ppo_cartpole(counters: list) -> dict:
+    """``build_ppo(..., microbatch=2)`` trains PPO CartPole for 3 iterations:
+    every SGD step is 2 surrogate launches each way."""
+    import torch
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm, build_ppo
+
+    cfg, k, iters = PPO_CONFIG, LG_MICROBATCH, 3
+    workers = WorkerSet.create(lambda i: _make_worker(i, "cuda"), cfg["num_workers"])
+    spec = build_ppo(workers, train_batch_size=cfg["train_batch_size"],
+                     num_sgd_iter=cfg["num_sgd_iter"],
+                     sgd_minibatch_size=cfg["sgd_minibatch_size"], microbatch=k)
+    rows = []
+    with Algorithm.from_plan(spec, workers) as algo:
+        for c in counters:
+            c.reset()
+        for i in range(iters):
+            t0 = time.perf_counter()
+            result = algo.train()
+            torch.cuda.synchronize()
+            info = result["info"]
+            rows.append({"seconds": time.perf_counter() - t0, "loss": info["loss"],
+                         "reward": result["episodes"]["episode_reward_mean"]})
+            _require(info["microbatch"] == k and math.isfinite(info["loss"]),
+                     f"learner group ppo: iteration {i} info {info}")
+    launches = {c.name: c.value for c in counters}
+    sgd = iters * cfg["num_sgd_iter"] * (cfg["train_batch_size"] // cfg["sgd_minibatch_size"])
+    print(f"learner group ppo cartpole (microbatch={k}): {iters} iterations "
+          f"{[round(r['seconds'], 3) for r in rows]} s, losses "
+          f"{[round(r['loss'], 4) for r in rows]}, launches {launches}")
+    for name in ("ppo_surrogate_fwd", "ppo_surrogate_bwd"):
+        _require(launches[name] == k * sgd,
+                 f"learner group ppo: {name} launched {launches[name]}, expected {k} x {sgd}")
+    _require(launches["gae"] > 0, "learner group ppo: no GAE launch")
+    return {"iterations": rows, "launches": launches}
+
+
+def _lg_impala(counters: list) -> dict:
+    """IMPALA's learner thread steps a ``microbatch=2`` group: each step
+    tiles whole length-32 traces, one V-trace launch a microbatch."""
+    import torch
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.flow import Algorithm
+
+    cfg, k, steps = ASYNC_PATHS["impala"], LG_MICROBATCH, 4
+    workers = WorkerSet.create(lambda i: _async_worker(i, "cuda", cfg), cfg["num_workers"])
+    algo = Algorithm.from_plan("impala", workers, train_batch_size=cfg["train_batch_size"],
+                               num_async=cfg["num_async"], microbatch=k)
+    learner = algo.resources["learner"]
+    group = learner.learner_group
+    try:
+        for c in counters:
+            c.reset()
+        with _deadline(ASYNC_DEADLINE_S, "learner group impala"):
+            while learner.num_steps < steps:
+                algo.train()
+                _require(learner.is_alive(), "learner group impala: the learner thread died")
+    finally:
+        algo.stop()
+    torch.cuda.synchronize()
+    launches = {c.name: c.value for c in counters}
+    print(f"learner group impala (microbatch={k}): {group.num_steps} group steps, trace_len "
+          f"{group.trace_len}, rows trimmed {group.num_rows_trimmed}, launches {launches}")
+    _require(group.trace_len == cfg["rollout_len"] and group.microbatch == k,
+             f"learner group impala: trace_len {group.trace_len}, microbatch {group.microbatch}")
+    _require(launches["vtrace"] == k * group.num_steps,
+             f"learner group impala: {launches['vtrace']} V-trace launches for "
+             f"{group.num_steps} steps of {k} microbatches")
+    _require(not learner.is_alive() and group._ranks is None,
+             "learner group impala: the learner thread or its ranks outlived stop()")
+    return {"steps": group.num_steps, "trimmed": group.num_rows_trimmed, "launches": launches}
+
+
+def _lg_dqn_td_error() -> dict:
+    """DQN's ``td_error`` comes back at the full batch's length after a
+    trim (the neutral padding of the trimmed rows)."""
+    import numpy as np
+
+    from repro_torch.rl import ShardedLearnerGroup
+
+    w = _dqn_worker(0, "cuda")
+    batch = w.sample()
+    ragged = batch.slice(0, batch.count - 3)
+    group = ShardedLearnerGroup(w, microbatch=4)
+    info = group.learn_on_batch(ragged)
+    td = info["td_error"]
+    print(f"learner group dqn: {ragged.count} rows, {group.num_rows_trimmed} trimmed, "
+          f"td_error {td.shape}")
+    _require(td.shape == (ragged.count,) and bool(np.isfinite(td).all()),
+             f"learner group dqn: td_error {td.shape} for {ragged.count} rows")
+    return {"rows": ragged.count, "trimmed": group.num_rows_trimmed}
+
+
+def phase_learner_group(counters: list) -> dict:
+    out = {"ppo_lm": _lg_ppo_lm(counters), "clamp": _lg_clamp(),
+           "ppo_cartpole": _lg_ppo_cartpole(counters), "impala": _lg_impala(counters),
+           "dqn": _lg_dqn_td_error()}
+    return out
+
+
+# ------------------------------------------------------------- phase 39
+def _check_explain(plan: str, report, want_kernels: set) -> dict:
+    """Every stepped row priced, and each kernel charge equal to its bound's
+    formula at the sizes it was priced at."""
+    rows = {r.node_id: r for r in report.rows}
+    stepped = [r for r in report.rows if r.kind == "rollouts" or "TrainOneStep" in r.label]
+    _require(len(stepped) == 2, f"explain {plan}: stepped rows {[r.node_id for r in stepped]}")
+    seen = set()
+    for r in stepped:
+        _require(not r.note and r.flops > 0 and r.hbm_bytes > 0
+                 and r.dominant in ("compute", "memory", "collective"),
+                 f"explain {plan}: row {r.node_id} {r.note!r} flops {r.flops} dominant {r.dominant!r}")
+        for name, agg in r.kernels.items():
+            seen.add(name)
+            ops = sum(n * _formula(name, key)[0] for key, n in agg["sizes"])
+            nbytes = sum(n * _formula(name, key)[1] for key, n in agg["sizes"])
+            got_ops = agg["int_ops"] if name.startswith("threefry") else agg["flops"]
+            _require(abs(got_ops - ops) <= 1e-9 * max(ops, 1) and agg["bytes"] == nbytes,
+                     f"explain {plan}: {r.node_id} {name} charged {got_ops} ops / {agg['bytes']} "
+                     f"bytes, its bound's formula {ops} / {nbytes}")
+        print(f"explain {plan} {r.node_id} ({r.kind}): flops {r.flops:.4e}, bytes "
+              f"{r.hbm_bytes:.4e}, dominant {r.dominant}, kernel candidate {r.kernel_candidate}, "
+              f"wall mean {r.wall_s_mean:.4f} s over {r.calls} calls; kernels "
+              + ", ".join(f"{n} x{a['launches']}" for n, a in r.kernels.items()))
+    _require(want_kernels <= seen, f"explain {plan}: kernels {sorted(seen)}, expected "
+                                   f"{sorted(want_kernels)}")
+    return {node: {"flops": r.flops, "bytes": r.hbm_bytes, "dominant": r.dominant,
+                   "kernel_candidate": r.kernel_candidate,
+                   "kernels": {n: {k: v for k, v in a.items() if k != "sizes"}
+                               for n, a in r.kernels.items()}}
+            for node, r in rows.items() if r in stepped}
+
+
+def _probe_leaves_rollout(lw, algo) -> None:
+    """``explain()`` changes nothing: the next rollout after it is bitwise
+    the one a snapshot taken before it gives."""
+    import numpy as np
+
+    before = lw.get_state()
+    algo.explain()
+    probed = lw.sample()
+    lw.set_state(before)
+    again = lw.sample()
+    for k in probed.keys():
+        _require(np.array_equal(probed[k], again[k]),
+                 f"explain: the rollout after the probe differs in {k}")
+
+
+def phase_explain() -> dict:
+    """``Algorithm.explain()`` on PPO CartPole and on PPO-LM (Qwen1.5-4B
+    widths) on the card, priced at ``HW_H100``."""
+    import torch
+
+    from repro_torch.core.workers import WorkerSet
+    from repro_torch.distributed.hlo_analysis import HW_H100
+    from repro_torch.flow import Algorithm
+
+    out = {}
+    cfg = PPO_CONFIG
+    workers = WorkerSet.create(lambda i: _make_worker(i, "cuda"), cfg["num_workers"])
+    with Algorithm.from_plan(
+        "ppo", workers, train_batch_size=cfg["train_batch_size"],
+        num_sgd_iter=cfg["num_sgd_iter"], sgd_minibatch_size=cfg["sgd_minibatch_size"],
+    ) as algo:
+        for _ in range(2):
+            algo.train()
+        t0 = time.perf_counter()
+        report = algo.explain()
+        explain_s = time.perf_counter() - t0
+        _require(report.hw is HW_H100, f"explain: priced at {report.hw}")
+        out["ppo"] = _check_explain("ppo", report, {"gae", "ppo_surrogate", "ppo_surrogate_bwd",
+                                                    "threefry_counts"})
+        out["ppo"]["explain_s"] = explain_s
+        _probe_leaves_rollout(workers.local_worker(), algo)
+    lm = RLHF_CONFIG
+    workers = WorkerSet.create(_rlhf_worker, 1)
+    try:
+        with Algorithm.from_plan("ppo_lm", workers, train_batch_size=lm["num_envs"] * lm["rollout_len"],
+                                 num_sgd_iter=1, sgd_minibatch_size=lm["sgd_minibatch_size"]) as algo:
+            algo.train()
+            t0 = time.perf_counter()
+            report = algo.explain()
+            explain_s = time.perf_counter() - t0
+            out["ppo_lm"] = _check_explain(
+                "ppo_lm", report, {"gae", "ppo_surrogate", "ppo_surrogate_bwd", "decode_attention",
+                                   "flash_attention", "flash_attention_bwd", "threefry_counts"})
+            out["ppo_lm"]["explain_s"] = explain_s
+            _probe_leaves_rollout(workers.local_worker(), algo)
+    finally:
+        workers.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"explain: priced at {HW_H100.name} (ridge {HW_H100.ridge:.1f} FLOP/byte); seconds "
+          f"ppo {out['ppo']['explain_s']:.2f}, ppo_lm {out['ppo_lm']['explain_s']:.2f}; the next "
+          f"rollout after each probe bitwise equal to a restored snapshot's")
+    return out
 
 
 # ------------------------------------------------------------- phase 37
@@ -5282,8 +5674,12 @@ def main() -> int:
         record["qwen3_restart"] = _run("qwen3_restart", phase_qwen3_restart)
         record["durability_slice_s"] = time.perf_counter() - t_durable
         print(f"determinism and durability phases 33-35: {record['durability_slice_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        record["learner_group"] = _run("learner_group", phase_learner_group, every_counter)
+        record["explain"] = _run("explain", phase_explain)
         # Each child of phase 37 holds its own CUDA context and allocator
-        # cache beside the driver's: release what the checkpoint phases left.
+        # cache beside the driver's: release what the earlier phases left.
         gc.collect()
         torch.cuda.empty_cache()
         try:
@@ -5311,6 +5707,8 @@ def main() -> int:
              **{name: record[name]["launches"] for name in (*ZOO_PRETRAIN_PATHS, *SERVE_ZOO)},
              **{name: record[name]["launches"] for name in PLAN_PATHS},
              "ppo_transformer_server": record["ppo_transformer_server"]["launches"],
+             **{f"learner_group_{p}": record["learner_group"][p]["launches"]
+                for p in ("ppo_lm", "ppo_cartpole", "impala")},
              **{f"ppo_cartpole_{b.replace('-', '_')}": record["runtime"]["ppo"][b]["launches"]
                 for b in RUNTIME_BACKENDS}}
     for name, (source, replaces) in KERNEL_SITES.items():

@@ -60,9 +60,10 @@ class LearnerThread(threading.Thread):
         self.learner_group: Any = None
         if num_learners > 1 or microbatch > 1:
             if hasattr(local_worker, "_loss_for"):
-                raise NotImplementedError(
-                    "num_learners/microbatch need the sharded learner group "
-                    "(rl/learner_group.py), which is not ported to repro_torch yet"
+                from repro_torch.rl.learner_group import ShardedLearnerGroup
+
+                self.learner_group = ShardedLearnerGroup(
+                    local_worker, num_learners=num_learners, microbatch=microbatch
                 )
             else:
                 import logging
@@ -86,6 +87,14 @@ class LearnerThread(threading.Thread):
         self.metrics: Optional[MetricsContext] = None
 
     def run(self) -> None:
+        try:
+            self._serve()
+        finally:
+            # The group's child ranks live as long as the thread that steps them.
+            if self.learner_group is not None:
+                self.learner_group.close()
+
+    def _serve(self) -> None:
         while not self.stopped:
             try:
                 item = self.inqueue.get(timeout=0.1)

@@ -301,9 +301,9 @@ class TrainOneStep:
     TrainOneStep).
 
     ``num_learners``/``microbatch`` lower the update onto a data-parallel
-    SPMD learner group (``repro.rl.learner_group.ShardedLearnerGroup``; not ported yet):
-    batch columns are sharded across a device mesh at the transport
-    boundary and gradients accumulate over ``microbatch`` slices.  Flow
+    learner group (``repro_torch.rl.learner_group.ShardedLearnerGroup``):
+    batch rows are split across learner ranks at the transport boundary
+    and gradients accumulate over ``microbatch`` slices.  Flow
     graphs set these declaratively — ``stream.learners(4).microbatch(2)``
     on the TrainOneStep node — and ``compile()`` lowers the annotations
     onto this operator.  The sharded path needs the local worker's pure
@@ -329,6 +329,7 @@ class TrainOneStep:
         self.sgd_minibatch_size = sgd_minibatch_size
         self.num_learners = num_learners
         self.microbatch = microbatch
+        self._group: Any = None
         self._warned_fallback = False
         self._rng = np.random.default_rng(0)
 
@@ -336,10 +337,20 @@ class TrainOneStep:
         return self.num_learners > 1 or self.microbatch > 1
 
     def _learner_group(self, lw: Any) -> Any:
-        raise NotImplementedError(
-            "num_learners/microbatch need the sharded learner group "
-            "(rl/learner_group.py), which is not ported to repro_torch yet"
-        )
+        if self._group is None or self._group.worker is not lw:
+            from repro_torch.rl.learner_group import ShardedLearnerGroup
+
+            self.close()
+            self._group = ShardedLearnerGroup(
+                lw, num_learners=self.num_learners, microbatch=self.microbatch
+            )
+        return self._group
+
+    def close(self) -> None:
+        """Stop the learner group's child ranks (the compiled flow's
+        teardown calls this; a later step starts them again)."""
+        if self._group is not None:
+            self._group.close()
 
     def __call__(self, batch: Any) -> Any:
         metrics = get_metrics()

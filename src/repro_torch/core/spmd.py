@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import DEFAULT_RULES, AxisRules
+from repro_torch.distributed.specs import opt_state_specs, param_specs, tree_shardings
 from repro_torch.models import Model, make_train_step
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
@@ -41,14 +43,51 @@ def _resolve_device(device: Any) -> torch.device:
 
 
 class SPMDTrainContext:
-    def __init__(self, cfg: ModelConfig, optimizer: Optimizer, device: Any = "cuda"):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        optimizer: Optimizer,
+        device: Any = "cuda",
+        mesh: Any = None,
+        rules: Optional[Dict[str, Any]] = None,
+    ):
         if optimizer.inplace is None:
             raise ValueError("SPMDTrainContext needs an optimizer with an in-place step")
         self.cfg = cfg
         self.model = Model(cfg)
         self.optimizer = optimizer
         self.device = _resolve_device(device)
+        self._mesh = mesh
+        self._rules = rules
         self._train_step: Optional[Callable] = None
+
+    # ------------------------------------------------------------- lowering
+    @property
+    def mesh(self) -> Any:
+        """The bound mesh; by default the (1, 1) mesh on this context's
+        device, made on first use."""
+        if self._mesh is None:
+            from repro_torch.launch.mesh import make_local_mesh
+
+            self._mesh = make_local_mesh(self.device)
+        return self._mesh
+
+    @property
+    def rules(self) -> AxisRules:
+        return AxisRules(self._rules or DEFAULT_RULES, self.mesh)
+
+    def shardings(self) -> Tuple[PyTree, PyTree]:
+        """(param shardings, optimizer-state shardings): a ``NamedSharding``
+        a leaf, from the shapes alone (the parameters are made as fake
+        tensors; nothing is allocated)."""
+        from repro_torch.launch.input_specs import abstract_params, eval_shape
+
+        params_shape = abstract_params(self.model)
+        rules = self.rules
+        pspecs = param_specs(params_shape, rules)
+        opt_shape = eval_shape(self.optimizer.init, params_shape)
+        ospecs = opt_state_specs(opt_shape, pspecs, rules)
+        return tree_shardings(self.mesh, pspecs), tree_shardings(self.mesh, ospecs)
 
     def init(self, seed: int = 0) -> Tuple[PyTree, PyTree]:
         """Random parameters (requiring grad) and the optimizer state, made

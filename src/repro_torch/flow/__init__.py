@@ -11,6 +11,7 @@ flowcheck analyzer (PyTorch port; all twelve of the reference's plans:
 """
 
 from repro_torch.flow.algorithm import Algorithm
+from repro_torch.flow.explain import ExplainReport, StageCost, explain_flow
 from repro_torch.flow.analysis import Diagnostic, FlowAnalysisError, Severity, analyze
 from repro_torch.flow.compile import (
     CompiledFlow,
@@ -48,6 +49,7 @@ from repro_torch.flow.spec import (
 __all__ = [
     "Algorithm",
     "CompiledFlow",
+    "ExplainReport",
     "Diagnostic",
     "FlowAnalysisError",
     "FlowRuntime",
@@ -58,6 +60,7 @@ __all__ = [
     "REPLAY_PLANS",
     "ResourceRef",
     "Severity",
+    "StageCost",
     "StageSpec",
     "Stream",
     "analyze",
@@ -74,6 +77,7 @@ __all__ = [
     "build_ppo_lm",
     "build_sac",
     "compose_stages",
+    "explain_flow",
     "fuse_for_each",
     "partition_flowspec",
     "pure",

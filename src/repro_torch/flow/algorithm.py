@@ -17,8 +17,9 @@ Side effects are deferred: constructing the Algorithm compiles the graph but
 starts nothing; the first ``train()`` starts learner threads; ``stop()``
 joins them — after it returns, no flow-owned threads are alive.
 
-The PyTorch port registers all twelve of the reference's plans; its
-``explain`` (cost attribution over XLA HLO) is not ported yet.
+The PyTorch port registers all twelve of the reference's plans;
+``explain`` prices each stage with the cost walker at H100 rates
+(``flow/explain.py``).
 """
 
 from __future__ import annotations
@@ -144,6 +145,30 @@ class Algorithm:
         """
         return sort_diagnostics(
             list(self._compiled.source_spec.check()) + list(self._compiled.diagnostics)
+        )
+
+    def explain(self, hw: Any = None) -> Any:
+        """Roofline-driven per-stage cost attribution (``ExplainReport``).
+
+        Runs each stage's step (rollout, learn step) once under the cost
+        walker, prices it against ``hw`` (default ``HW_H100``), and joins
+        the live per-node metrics this flow has accumulated — so run a few
+        ``train()`` calls first if you want the wall-time columns populated.
+        Memory-bound stages are flagged as kernel candidates.  The learn
+        step runs on fake tensors, but its probe batch is one real
+        ``sample()`` on the local worker's device; a rollout is priced on
+        fake tensors, except one whose control flow branches on its data
+        (the LM policy's), which runs for real on that device.  Purely
+        introspective: worker state is restored after each probe.
+        """
+        if self._stopped:
+            raise RuntimeError("Algorithm is stopped")
+        from repro_torch.distributed.hlo_analysis import HW_H100
+        from repro_torch.flow.explain import explain_flow
+
+        return explain_flow(
+            self._compiled, self._workers, self._it.metrics,
+            hw=hw if hw is not None else HW_H100,
         )
 
     def to_dot(self, with_metrics: bool = False) -> str:

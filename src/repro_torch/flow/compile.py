@@ -240,6 +240,9 @@ class CompiledFlow:
         self._annotated_policies: Dict[int, str] = {}
         self._inference_actors: List[Any] = []
         self._weight_sink_regs: List[Any] = []  # (workers, sink) to undo on stop
+        # Stage callables of this compile: stop() closes those that hold
+        # processes (TrainOneStep's learner group ranks).
+        self._stage_fns: List[Any] = []
         # node id -> {"router": InferenceRouter, "gate": CreditGate} for every
         # served source node: the serving-tier handle explain()/tests reach.
         self._inference_meta: Dict[str, Dict[str, Any]] = {}
@@ -284,6 +287,13 @@ class CompiledFlow:
         iterators so stream teardown (joining Concurrently/union driver
         threads) happens now rather than at GC time (idempotent)."""
         self.runtime.stop()
+        for fn in self._stage_fns:
+            close = getattr(fn, "close", None)
+            if callable(close):
+                try:
+                    close()
+                except Exception:  # pragma: no cover - teardown is best-effort
+                    pass
         # Unhook this flow's weight sinks BEFORE stopping the actors they
         # feed: a shared WorkerSet outlives the flow, and a sink bound to a
         # stopped InferenceActor would fail on every later broadcast.
@@ -683,6 +693,7 @@ class CompiledFlow:
                     up = up.for_each(fn)
                 return up
             fns = [self._instantiate(s) for s in p["stages"]]
+            self._stage_fns.extend(fns)
             self._lower_learner_annotations(node, fns)
             return up.for_each(compose_stages(fns))
         if k == "filter":

@@ -322,9 +322,8 @@ def build_impala(
     ``enqueue_policy``/``rollout_credits`` expose the data-plane
     backpressure knobs; the default blocking enqueue backpressures the
     rollout pipeline when the learner saturates.  ``num_learners``/
-    ``microbatch`` would shard the learner thread's update onto an SPMD
-    learner group, which is not ported: the learner thread raises
-    ``NotImplementedError``.  ``vector``/``inference`` configure the
+    ``microbatch`` shard the learner thread's update onto a data-parallel
+    learner group (``rl/learner_group.py``).  ``vector``/``inference`` configure the
     vectorized rollout engine on the sampling side — the many-shard async
     pipeline with N env lanes per shard is the high-env-count IMPALA
     scenario.

@@ -22,6 +22,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.distributed import hlo_cost as _cost
 from repro_torch.kernels.build import LaunchCounter, check, load_library
 
 __all__ = [
@@ -185,6 +186,8 @@ def fold_in_cuda(keys: torch.Tensor, data: Any) -> torch.Tensor:
 # --------------------------------------------------------------- dispatch
 def hash_counts(keys: torch.Tensor, n: int, xor: bool) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if _cost.LOCAL.walker is not None:
+        return _cost.LOCAL.walker.kernel("threefry_counts", keys, n, xor)
     if isinstance(keys, torch.Tensor) and keys.device.type == "cuda":
         return hash_counts_cuda(keys, n, xor)
     return hash_counts_plain(keys, n, xor)
@@ -192,6 +195,8 @@ def hash_counts(keys: torch.Tensor, n: int, xor: bool) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data: Any) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if _cost.LOCAL.walker is not None:
+        return _cost.LOCAL.walker.kernel("threefry_fold_in", keys, data)
     if isinstance(keys, torch.Tensor) and keys.device.type == "cuda":
         return fold_in_cuda(keys, data)
     return fold_in_plain(keys, data)

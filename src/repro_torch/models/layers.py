@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import get_axis_rules, shard
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
@@ -50,6 +51,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` as a torch dtype."""
     return _DTYPES[name]
+
+
+def split_heads(x: torch.Tensor, shape: Tuple[int, int, int, int]) -> torch.Tensor:
+    """[B, S, H * hd] -> ``shape`` = [B, S, H, hd].  Under sharding rules whose
+    'model' axis does not divide H (40 heads on 16 devices), the flat dim is
+    gathered first: a shard of H * hd need not fall on a head's bounds."""
+    rules = get_axis_rules()
+    if rules is not None and rules.mesh is not None and rules.resolve(
+        ["heads"], shape=[shape[2]]
+    )[0] is None:
+        x = shard(x, "batch", None, None)
+    return x.reshape(shape)
 
 
 # ------------------------------------------------------------------- norms
@@ -99,13 +112,14 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int) -> PyTree:
 
 def mlp_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = x @ params["up"]
+    h = shard(h, "batch", None, "d_ff")
     if cfg.activation == "silu":
         h = F.silu(x @ params["gate"]) * h
     elif cfg.activation == "relu2":
         h = torch.square(F.relu(h))
     else:  # gelu, tanh-approximated as jax.nn.gelu's default
         h = F.gelu(h, approximate="tanh")
-    return h @ params["down"]
+    return shard(h @ params["down"], "batch", None, None)
 
 
 # --------------------------------------------------------- attention (GQA)
@@ -153,14 +167,17 @@ def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions: t
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q = split_heads(q, (B, S, cfg.num_heads, hd))
+    k = split_heads(k, (B, S, cfg.num_kv_heads, hd))
+    v = split_heads(v, (B, S, cfg.num_kv_heads, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -170,7 +187,7 @@ def _mla_qkv_train(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions:
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    q = (x @ params["wq"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(x @ params["wq"], (B, S, H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
@@ -181,6 +198,9 @@ def _mla_qkv_train(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions:
     v = torch.einsum("bsc,chv->bshv", c, params["w_uv"])
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope.expand(B, S, H, m.rope_head_dim)], dim=-1)
+    q_full = shard(q_full, "batch", None, "heads", None)
+    k_full = shard(k_full, "batch", None, "heads", None)
+    v = shard(v, "batch", None, "heads", None)
     return q_full, k_full, v
 
 
@@ -251,10 +271,10 @@ def attention_apply(
         # reference (its Pallas kernel, like the CUDA one, takes equal dims).
         q, k, v = _mla_qkv_train(params, x, cfg, positions)
         out = chunked_attention(q, k, v, causal=True, window=win)
-        return out.reshape(B, S, -1) @ params["wo"]
+        return shard(out.reshape(B, S, -1) @ params["wo"], "batch", None, None)
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = kops.flash_attention(q, k, v, causal=True, window=win)
-    return out.reshape(B, S, -1) @ params["wo"]
+    return shard(out.reshape(B, S, -1) @ params["wo"], "batch", None, None)
 
 
 # ------------------------------------------------------------ decode / cache
@@ -338,9 +358,9 @@ def attention_decode(
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, 1, cfg.num_heads, hd)
-    k = k.reshape(B, 1, cfg.num_kv_heads, hd)
-    v = v.reshape(B, 1, cfg.num_kv_heads, hd)
+    q = split_heads(q, (B, 1, cfg.num_heads, hd))
+    k = split_heads(k, (B, 1, cfg.num_kv_heads, hd))
+    v = split_heads(v, (B, 1, cfg.num_kv_heads, hd))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -351,22 +371,23 @@ def attention_decode(
     if quant:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
+        cache_axes = ("batch", "window", "kv_heads", None)
         new_cache = {
-            "k_q": torch.where(hit, kq, cache["k_q"]),
-            "k_s": torch.where(hit, ks, cache["k_s"]),
-            "v_q": torch.where(hit, vq, cache["v_q"]),
-            "v_s": torch.where(hit, vs, cache["v_s"]),
+            "k_q": shard(torch.where(hit, kq, cache["k_q"]), *cache_axes),
+            "k_s": shard(torch.where(hit, ks, cache["k_s"]), *cache_axes),
+            "v_q": shard(torch.where(hit, vq, cache["v_q"]), *cache_axes),
+            "v_s": shard(torch.where(hit, vs, cache["v_s"]), *cache_axes),
         }
         # Dequantize for the attention math, as the reference: the cache
         # kept between steps is int8 either way, which is the memory win.
         ck = _dequantize_kv(new_cache["k_q"], new_cache["k_s"], k.dtype)
         cv = _dequantize_kv(new_cache["v_q"], new_cache["v_s"], v.dtype)
     else:
-        ck = torch.where(hit, k, cache["k"])
-        cv = torch.where(hit, v, cache["v"])
+        ck = shard(torch.where(hit, k, cache["k"]), "batch", "window", "kv_heads", None)
+        cv = shard(torch.where(hit, v, cache["v"]), "batch", "window", "kv_heads", None)
         new_cache = {"k": ck, "v": cv}
     out = kops.decode_attention(q, ck, cv, _ring_valid(pos, W, x.device))
-    return out.reshape(B, 1, -1) @ params["wo"], new_cache
+    return shard(out.reshape(B, 1, -1) @ params["wo"], "batch", None, None), new_cache
 
 
 def _mla_decode(
@@ -380,7 +401,7 @@ def _mla_decode(
     H = cfg.num_heads
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
 
-    q = (x @ params["wq"]).reshape(B, 1, H, m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(x @ params["wq"], (B, 1, H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
@@ -408,4 +429,4 @@ def _mla_decode(
     # Absorb W_uv on the way out.
     v = torch.einsum("bhc,chv->bhv", ctx_lat, params["w_uv"])
     out = v.reshape(B, 1, H * m.v_head_dim) @ params["wo"]
-    return out, {"c": cc, "k_rope": cr}
+    return shard(out, "batch", None, None), {"c": cc, "k_rope": cr}

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -131,15 +132,19 @@ class Model:
             x = F.embedding(tokens, params["embed"])
         if cfg.modality == "vlm" and media_emb is not None:
             x = torch.cat([media_emb.to(x.dtype), x], dim=1)
-        return x
+        return shard(x, "batch", None, None)
 
     def _head(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
         """Logits [..., V], or [..., K, V] for audio (one slice a codebook)."""
         cfg = self.cfg
         logits = x @ params["lm_head"]
         if cfg.modality == "audio":
-            return logits.reshape(tuple(x.shape[:-1]) + (cfg.num_codebooks, cfg.vocab_size))
-        return logits
+            # Split the codebooks out of a whole (unsharded) vocab dim: a
+            # vocab shard need not fall on a codebook's bounds.
+            logits = shard(logits, "batch", None, None)
+            logits = logits.reshape(tuple(x.shape[:-1]) + (cfg.num_codebooks, cfg.vocab_size))
+            return shard(logits, "batch", None, None, "vocab")
+        return shard(logits, "batch", None, "vocab")
 
     # --------------------------------------------------------------- forward
     def _mlp(self, lp: PyTree, x: torch.Tensor, spec: LayerSpec) -> Tuple[torch.Tensor, Any]:

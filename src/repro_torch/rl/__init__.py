@@ -18,6 +18,7 @@ from repro_torch.rl.inference import (
     InferenceRouter,
     InferenceUnavailable,
 )
+from repro_torch.rl.learner_group import ShardedLearnerGroup
 from repro_torch.rl.lm_policy import LMTokenPolicy
 from repro_torch.rl.model_based import ModelBasedWorker
 from repro_torch.rl.policy import (

@@ -233,11 +233,12 @@ def test_get_weights_during_learn_reads_one_whole_step():
 
 # ------------------------------------------------------------ end to end
 def _count_calls(monkeypatch, module, name):
+    """Patch ``module.name`` to record the thread of every call."""
     calls = []
     fn = getattr(module, name)
 
     def counted(*args, **kwargs):
-        calls.append(threading.current_thread().name)
+        calls.append(threading.current_thread())
         return fn(*args, **kwargs)
 
     monkeypatch.setattr(module, name, counted)
@@ -289,6 +290,12 @@ def test_async_plans_train_like_reference(monkeypatch, plan, algo):
 
     with JaxAlgorithm.from_plan(plan, JaxWorkerSet.create(jax_factory, 2), **kw) as ref:
         want = _train_until_trained(ref)
+    # The thread checks below are about the threads this Algorithm starts:
+    # under pytest-xdist a worker process also holds the threads of the
+    # files it ran before (an unstopped WorkerSet's "actor-*" mailbox, the
+    # reference's learner still inside its join timeout), and a
+    # process-wide name check then fails on threads the port never made.
+    threads_before = set(threading.enumerate())
     ws = WorkerSet.create(lambda i: _port_worker(i, algo=algo), 2)
     algo_t = Algorithm.from_plan(plan, ws, **kw)
     try:
@@ -298,13 +305,13 @@ def test_async_plans_train_like_reference(monkeypatch, plan, algo):
     finally:
         algo_t.stop()
     assert not learner.is_alive()
-    assert not [t.name for t in threading.enumerate() if t.name == "learner" or
-                t.name.startswith("actor-")]
+    assert not [t.name for t in threading.enumerate() if t not in threads_before and
+                (t.name == "learner" or t.name.startswith("actor-"))]
     assert got[-1]["counters"]["num_steps_trained"] > 0
     assert all(np.isfinite(r["info"]["loss"]) for r in got if r["info"])
     assert _shape(got[-1]) == _shape(want[-1])
     assert learner.num_steps > 0
-    assert calls.count("learner") == learner.num_steps
+    assert calls.count(learner) == learner.num_steps
 
 
 @pytest.mark.timeout(240)
@@ -328,8 +335,9 @@ def test_impala_builder_vector_lowers():
 
 @pytest.mark.parametrize("kw", [dict(num_learners=2), dict(inference="server")])
 def test_impala_unported_options_raise(kw):
-    """The sharded learner still raises; ``inference="server"`` is ported
-    since, and its case holds that IMPALA trains through the serving tier."""
+    """Both options are ported since: ``num_learners=2`` trains through a
+    2-rank learner group, and ``inference="server"`` through the serving
+    tier."""
     ws = WorkerSet.create(lambda i: _port_worker(i, cls=VectorizedRolloutWorker), 1)
     try:
         if "inference" in kw:
@@ -344,8 +352,18 @@ def test_impala_unported_options_raise(kw):
                 served = actor.sync("stats")["num_requests"]
             assert res["counters"]["num_steps_trained"] > 0 and served > 0
             return
-        with pytest.raises(NotImplementedError):
-            with Algorithm.from_plan("impala", ws, train_batch_size=32, **kw) as algo:
-                algo.train()
+        # num_learners=2: the learner thread steps a 2-rank gloo group.
+        with Algorithm.from_plan("impala", ws, train_batch_size=32, own_workers=False,
+                                 **kw) as algo:
+            learner = algo.resources["learner"]
+            assert learner.learner_group.num_learners == 2
+            res = algo.train()
+            for _ in range(20):
+                if res["counters"].get("num_steps_trained", 0):
+                    break
+                res = algo.train()
+        assert res["counters"]["num_steps_trained"] > 0
+        assert learner.learner_group.num_steps > 0 and not learner.is_alive()
+        assert learner.learner_group._ranks is None  # the thread closed its ranks
     finally:
         ws.stop()

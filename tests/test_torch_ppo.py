@@ -351,15 +351,26 @@ def test_algorithm_ppo_end_to_end_matches_reference_result_dict():
     assert shapes[0][1]["counters"]["num_steps_trained"] == 2 * 96
 
 
-def _unported(what):
+def _sharded_learner_trains_ppo():
+    """The sharded learner is ported: PPO's TrainOneStep runs on 2 gloo
+    ranks (the CPU worker gets the learners it asks for), trains, and
+    ``Algorithm.stop()`` stops the child rank."""
+    import multiprocessing
+
     from repro_torch.core.workers import WorkerSet
     from repro_torch.flow import Algorithm
 
     workers = WorkerSet.create(lambda i: _cpu_worker(i), 1)
     try:
-        if what == "sharded_learner":
-            with Algorithm.from_plan("ppo", workers, num_learners=2, **SMALL_PPO) as algo:
-                algo.train()
+        with Algorithm.from_plan("ppo", workers, num_learners=2, **SMALL_PPO) as algo:
+            result = algo.train()
+            assert [p.name for p in multiprocessing.active_children()
+                    if p.name.startswith("learner-rank")] == ["learner-rank-1"]
+        assert result["info"]["num_learners"] == 2
+        assert np.isfinite(result["info"]["loss"])
+        assert result["counters"]["num_steps_trained"] >= 96
+        assert not [p for p in multiprocessing.active_children()
+                    if p.name.startswith("learner-rank")]
     finally:
         workers.stop()
 
@@ -462,7 +473,7 @@ def _server_inference_trains_ppo():
 )
 def test_unported_paths_raise_instead_of_falling_back(what):
     # Ported since: these cases hold what strict=True, inference="server",
-    # the process backend and transport= do now.
+    # the sharded learner, the process backend and transport= do now.
     if what == "strict":
         _strict_compiles_ppo_and_refuses_errors()
         return
@@ -475,8 +486,7 @@ def test_unported_paths_raise_instead_of_falling_back(what):
     if what == "transport":
         _transport_selects_the_data_plane()
         return
-    with pytest.raises(NotImplementedError):
-        _unported(what)
+    _sharded_learner_trains_ppo()
 
 
 def test_unported_losses_and_algos_raise():
