@@ -33,8 +33,15 @@ walker, makes it raise (a train step is priced on fake tensors).
 A DTensor op is left to DTensor (the mode returns ``NotImplemented``, as
 ``CommDebugMode`` does), so the walker sees the local ops and collectives
 of one device, rank 0's: the numbers are per device, as the reference's
-per-device SPMD module is.  A loop runs its body as often as the step
-does, so there are no trip counts to recover.
+per-device SPMD module is.  DTensor works out an op's output shape by
+running the op once on fake tensors of the global shapes (its sharding
+propagator, cached per op and input layout); the walker prices none of
+those runs, which compute nothing on any rank.  A loop runs its body as
+often as the step does, so there are no trip counts to recover, but for a
+chunked time scan on fake tensors (``models/scan_utils.py``): every chunk
+computes the same shapes, so its first chunk runs and is priced once a
+chunk, backward included (``CostMode.repeated``), as the reference's
+walker multiplies a loop body by its trip count.
 """
 
 from __future__ import annotations
@@ -228,6 +235,24 @@ class _Charged(torch.autograd.Function):
         return (None, None, None, None, *g)
 
 
+class _ScaleBackward(torch.autograd.Function):
+    """An identity whose backward multiplies (``on``) or divides the
+    walker's pricing factor: placed on a loop body's outputs and on its
+    inputs, it prices the body's backward, which autograd runs between the
+    two, that many times."""
+
+    @staticmethod
+    def forward(ctx, walker, times, on, *xs):
+        ctx.walker, ctx.times, ctx.on = walker, times, on
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        w = ctx.walker
+        w._times = w._times * ctx.times if ctx.on else w._times // ctx.times
+        return (None, None, None, *grads)
+
+
 class CostMode(TorchDispatchMode):
     """Prices every op dispatched inside it into ``self.cost``."""
 
@@ -236,6 +261,7 @@ class CostMode(TorchDispatchMode):
         self.cost = OpCost()
         self.execute = execute
         self._suspend = 0
+        self._times = 1  # each op priced this many times (``repeated``)
 
     # -------------------------------------------------------------- aten ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -256,16 +282,18 @@ class CostMode(TorchDispatchMode):
             return
         out_bytes = sum(_bytes(t) for t in _tensors(out))
         kind = _COLLECTIVE_KINDS.get(name) if "c10d" in packet._qualified_op_name else None
+        times = self._times
         if kind is not None:
             c = self.cost
-            c.coll_bytes += out_bytes
-            c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0) + out_bytes
-            c.coll_counts[kind] = c.coll_counts.get(kind, 0) + 1
+            c.coll_bytes += out_bytes * times
+            c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0) + out_bytes * times
+            c.coll_counts[kind] = c.coll_counts.get(kind, 0) + times
             return
         formula = flop_registry.get(packet)
         flops = formula(*args, **kwargs, out_val=out) if formula is not None else 0
         in_bytes = sum(_bytes(t) for t in _tensors((args, kwargs)))
-        self.cost._add(name, float(flops), float(in_bytes + out_bytes))
+        for _ in range(times):
+            self.cost._add(name, float(flops), float(in_bytes + out_bytes))
 
     # ---------------------------------------------------------------- kernels
     @contextlib.contextmanager
@@ -279,9 +307,33 @@ class CostMode(TorchDispatchMode):
 
     def charge(self, name: str, flops: float, nbytes: float, int_ops: float = 0,
                key: Optional[Dict[str, Any]] = None) -> None:
-        self.cost.kernels.append(
-            KernelCharge(name, float(flops), float(nbytes), float(int_ops), dict(key or {})))
-        self.cost._add(name, float(flops), float(nbytes))
+        for _ in range(self._times):
+            self.cost.kernels.append(
+                KernelCharge(name, float(flops), float(nbytes), float(int_ops), dict(key or {})))
+            self.cost._add(name, float(flops), float(nbytes))
+
+    def repeated(self, times: int, fn: Callable, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``fn(*args)`` (a tuple of tensors) run once and priced ``times``
+        times, its backward too: one iteration of a loop whose iterations
+        compute the same shapes, priced as the reference's walker prices a
+        loop body times its trip count.  For fake tensors only, whose values
+        nothing reads.  The backward is scaled where autograd reaches the
+        inputs (``args``) from the outputs; a body whose inputs need no
+        gradient has its backward priced once."""
+        track = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+        if track:
+            args = _ScaleBackward.apply(self, times, False, *args)
+        with self._scaled(times):
+            out = tuple(fn(*args))
+        return _ScaleBackward.apply(self, times, True, *out) if track else out
+
+    @contextlib.contextmanager
+    def _scaled(self, times: int):
+        before, self._times = self._times, self._times * times
+        try:
+            yield
+        finally:
+            self._times = before
 
     def kernel(self, name: str, *args: Any, **kwargs: Any) -> Any:
         """Kernel ``name`` on these inputs, charged at its formula
@@ -312,6 +364,7 @@ class CostMode(TorchDispatchMode):
             return outs if len(outs) > 1 else outs[0]
 
     def __enter__(self):
+        _unpriced_shape_propagation()
         self._prev_walker = LOCAL.walker
         LOCAL.walker = self
         return super().__enter__()
@@ -319,6 +372,35 @@ class CostMode(TorchDispatchMode):
     def __exit__(self, *exc):
         LOCAL.walker = self._prev_walker
         return super().__exit__(*exc)
+
+
+_PROPAGATION_WRAPPED = False
+
+
+def _unpriced_shape_propagation() -> None:
+    """Wrap DTensor's global-shape meta propagation once so that a walker
+    on the calling thread does not price it (it dispatches the op at the
+    global shapes, under fake tensors, to read the output's shape)."""
+    global _PROPAGATION_WRAPPED
+    if _PROPAGATION_WRAPPED:
+        return
+    _PROPAGATION_WRAPPED = True
+    try:
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    except ImportError:  # pragma: no cover - a torch without DTensor
+        return
+    original = getattr(ShardingPropagator, "_propagate_tensor_meta_non_cached", None)
+    if original is None:  # pragma: no cover - a torch that propagates elsewhere
+        return
+
+    def propagate(self, op_schema):
+        walker = LOCAL.walker
+        if walker is None:
+            return original(self, op_schema)
+        with walker.suspended():
+            return original(self, op_schema)
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = propagate
 
 
 def _real_kernel(name: str) -> Callable:

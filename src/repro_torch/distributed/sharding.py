@@ -28,13 +28,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 __all__ = [
     "AxisRules",
     "DEFAULT_RULES",
+    "axis_index",
     "P",
     "PartitionSpec",
     "axis_rules_context",
@@ -44,6 +45,7 @@ __all__ = [
     "make_mesh",
     "placements",
     "shard",
+    "shard_map",
 ]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -181,6 +183,19 @@ def placements(spec: PartitionSpec, mesh: Any) -> Tuple[Any, ...]:
     )
 
 
+def axis_index(mesh: Any, axes: MeshAxes) -> Tuple[int, int]:
+    """(this rank's index along ``axes``, major axis first, and their total
+    size): which slice of a dim split over those mesh axes it holds."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    index, size = 0, 1
+    for a in names:
+        if a in sizes:
+            index, size = index * sizes[a] + coord[a], size * sizes[a]
+    return index, size
+
+
 def make_mesh(shape: Sequence[int], names: Sequence[str], device_type: str) -> Any:
     """A ``DeviceMesh`` of ``shape`` named ``names`` over ranks 0..N-1.
 
@@ -261,8 +276,26 @@ def logical_spec(*logical: Optional[str]) -> PartitionSpec:
     return rules.resolve(logical)
 
 
+class _Constrain(torch.autograd.Function):
+    """A layout constraint on a value and on its gradient, as
+    ``jax.lax.with_sharding_constraint``, whose transpose constrains the
+    cotangent alike.  DTensor's own ``redistribute`` hands the gradient
+    back in the input's layout instead: a partial sum then flows on
+    through the backward, and the products it meets gather their weights
+    rather than reduce it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target):
+        ctx.mesh, ctx.target = mesh, target
+        return x.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.target), None, None
+
+
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Constrain an intermediate to its logical sharding.
+    """Constrain an intermediate, and its gradient, to its logical sharding.
 
     No-op when no rules or mesh are active (one device), and for a plain
     tensor (one that no mesh distributes).  A ``DTensor`` is redistributed
@@ -276,4 +309,87 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     spec = rules.resolve(logical, shape=x.shape)
-    return x.redistribute(rules.mesh, placements(spec, rules.mesh))
+    return _Constrain.apply(x, rules.mesh, placements(spec, rules.mesh))
+
+
+def shard_map(
+    fn: Any,
+    in_axes: Sequence[Optional[Sequence[Optional[str]]]],
+    out_axes: Any,
+    *args: Any,
+    partial: Sequence[str] = (),
+    reduce_op: str = "sum",
+) -> Any:
+    """``fn(*args)`` on each rank's shards, the layout stated up front.
+
+    ``in_axes`` names each argument's logical dims (None for a non-tensor
+    or a replicated tensor); ``out_axes`` names the output's, or is a tuple
+    of such names for a tuple of outputs.  Under active rules with a mesh,
+    where an argument is a ``DTensor``, each argument is redistributed to
+    its resolved layout and ``fn`` runs on the local shards (so every op in
+    it works at the local shapes, as ``jax.experimental.shard_map`` does);
+    an output dim is sharded where an input dim of the same name is, and
+    the outputs are ``Partial`` over the mesh axes in ``partial`` (summed,
+    or reduced by ``reduce_op``).
+    A replicated argument's gradient is a partial sum over the mesh axes
+    that split the work.  Without rules, a mesh or a ``DTensor`` argument it
+    is ``fn(*args)``: one card and the CPU compute exactly that.
+
+    The model states layouts this way where DTensor's sharding propagation
+    has no rule for the ops (a batched product over dims that a reshape
+    merged from two sharded dims, a size read from data) and where it would
+    otherwise compute a replicated copy of work the reference shards.
+    """
+    rules = get_axis_rules()
+    if rules is None or rules.mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    mesh = rules.mesh
+    # A tensor the model made itself (a mask, positions) is replicated.
+    args = tuple(
+        DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) else a
+        for a in args
+    )
+    names: Dict[str, MeshAxes] = {}
+    in_specs = []
+    for a, axes in zip(args, in_axes):
+        if not isinstance(a, torch.Tensor):
+            in_specs.append(None)
+            continue
+        spec = rules.resolve(list(axes) if axes else [None] * a.dim(), shape=a.shape)
+        for name, entry in zip(axes or (), spec):
+            if name and entry is not None:
+                names.setdefault(name, entry)
+        in_specs.append(spec)
+    split = {ax for spec in in_specs if spec is not None for entry in spec
+             for ax in ((entry,) if isinstance(entry, str) else (entry or ()))}
+    split = {ax for ax in split if dict(zip(mesh.mesh_dim_names, mesh.shape))[ax] > 1}
+
+    def out_placements(axes: Sequence[Optional[str]]) -> List[Any]:
+        # A list: local_map reads a tuple as one entry an output.
+        spec = PartitionSpec(*(names.get(n) if n else None for n in axes))
+        return [Partial(reduce_op) if ax in partial else p
+                for ax, p in zip(mesh.mesh_dim_names, placements(spec, mesh))]
+
+    in_pl, grad_pl = [], []
+    for a, spec in zip(args, in_specs):
+        if spec is None:
+            in_pl.append(None)
+            grad_pl.append(None)
+            continue
+        pl = placements(spec, mesh)
+        in_pl.append(pl)
+        grad_pl.append(tuple(Partial() if ax in split and not isinstance(p, Shard) else p
+                             for ax, p in zip(mesh.mesh_dim_names, pl)))
+    many = isinstance(out_axes, tuple) and out_axes and isinstance(out_axes[0], (tuple, list))
+    out_pl = tuple(out_placements(o) for o in out_axes) if many else out_placements(out_axes)
+    wrapped = local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                        in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                        redistribute_inputs=True)
+    return wrapped(*args)
+

@@ -2,7 +2,9 @@
 (PyTorch port of ``repro/launch/dryrun.py``).
 
 For each combination this starts a ``"fake"`` process group of 256 (or 512)
-ranks in this one process, builds the production mesh over it, places the
+ranks in this one process (a fresh one a combination, destroyed after it
+with DTensor's caches, so a row is the same alone or after any other,
+failed or not), builds the production mesh over it, places the
 params, optimizer state, cache and batch by ``distributed/specs.py`` as
 DTensors of fake tensors (``FakeTensorMode``: nothing is allocated and
 nothing runs on any device), runs the train / prefill / decode step once
@@ -22,20 +24,26 @@ it counts under names that say so: ``hlo_flops`` -> ``op_flops``,
 ``cost_analysis``) -> ``walker_ops`` (the aten ops priced),
 ``unknown_trip_counts`` (while loops the walker could not count) ->
 ``kernel_launches`` (the hand-written kernels priced at their formula;
-the port's loops run, so there are no trip counts to recover), and
-``memory_analysis`` -> ``placed_bytes`` (the placed trees by kind).  An
-op with no DTensor sharding rule makes that row ``ok: false`` and names
-the op; the sweep goes on.
+the port's loops run, and a chunked time scan on fake tensors is priced
+as its first chunk once a chunk, so there are no trip counts to recover), and
+``memory_analysis`` -> ``placed_bytes`` (the placed trees by kind).  The
+model states the reference's layouts (``shard``, ``shard_map``, ``dense``
+under the axis rules), so rank 0's local shapes are the ones GSPMD gives
+the reference; the FLOPs then sit within 0.10-1.15x of the reference's
+``hlo_flops`` on every row (``PERF.md`` section 6).  An op with no
+DTensor sharding rule makes that row ``ok: false`` and names the op; the
+sweep goes on.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch musicgen-large --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
+  # the port's rows beside the reference's (its jsonl from ``python -m repro.launch.dryrun``)
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --compare REFERENCE.jsonl PORT.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -71,7 +79,7 @@ from repro_torch.models import Model, make_decode_step, make_prefill_step, make_
 from repro_torch.optim import adamw, linear_warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map_with_path
 
-__all__ = ["model_flops", "run_one", "init_fake_group", "main"]
+__all__ = ["compare", "model_flops", "run_one", "init_fake_group", "release_fake_group", "main"]
 
 
 def model_flops(cfg, shape) -> float:
@@ -85,43 +93,47 @@ def model_flops(cfg, shape) -> float:
 
 
 def init_fake_group(world_size: int) -> None:
-    """A ``"fake"`` process group of ``world_size`` ranks in this process
-    (rank 0): its collectives return at once and move nothing."""
+    """A fresh ``"fake"`` process group of ``world_size`` ranks in this
+    process (rank 0): its collectives return at once and move nothing.  Any
+    earlier group is destroyed first, with DTensor's caches (see
+    ``release_fake_group``)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    if dist.is_initialized():
-        if dist.get_world_size() >= world_size:
-            return
-        dist.destroy_process_group()
+    release_fake_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
-@contextlib.contextmanager
-def _fake_mask_buffers():
-    """DTensor's vocab-sharded embedding checks that a reused mask buffer
-    holds equal data (``torch.equal``), which fake tensors cannot answer;
-    skip that consistency check for fake masks while the step runs."""
+def release_fake_group() -> None:
+    """Destroy the default process group, if any, and clear DTensor's
+    caches.  Those caches key sharding decisions, tensor metadata and
+    redistribution plans by layouts that hold a mesh, and a cached answer
+    hands back that mesh: a later combination would reach a destroyed
+    group through it, or a mask buffer left by a failed step.  So each
+    combination starts from nothing and gives the same row alone as after
+    any other, failed or not."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     try:
-        from torch.distributed.tensor._ops._mask_buffer import MaskBuffer
-    except ImportError:  # pragma: no cover - a torch without it
-        yield
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import _redistribute
+        from torch.distributed.tensor._collective_utils import MeshTopoInfo
+    except ImportError:  # pragma: no cover - a torch without DTensor
         return
-    from torch._subclasses.fake_tensor import FakeTensor
-
-    original = MaskBuffer.materialize_mask
-
-    def materialize_mask(self, mask):
-        if self.refcount and isinstance(mask, FakeTensor):
-            self.refcount += 1
-            return
-        original(self, mask)
-
-    MaskBuffer.materialize_mask = materialize_mask
-    try:
-        yield
-    finally:
-        MaskBuffer.materialize_mask = original
+    prop = DTensor._op_dispatcher.sharding_propagator
+    caches = [
+        getattr(prop, "propagate_op_sharding", None),
+        getattr(prop, "_propagate_tensor_meta_cached", None),
+        getattr(_redistribute, "_gen_transform_infos", None),
+        getattr(MeshTopoInfo, "build_from_mesh", None),
+    ]
+    for cache in caches:
+        if hasattr(cache, "cache_clear"):
+            cache.cache_clear()
+    if hasattr(_redistribute, "clear_redistribute_planner_cache"):
+        _redistribute.clear_redistribute_planner_cache()
 
 
 def _place(tree: Any, shardings: Any) -> Any:
@@ -164,13 +176,23 @@ def run_one(
     overrides: Optional[Dict[str, Any]] = None,
     tag: str = "",
 ) -> Dict[str, Any]:
+    """Place and price one combination on a fake group of its own, which is
+    gone when it returns or raises."""
+    init_fake_group(512 if multi_pod else 256)
+    try:
+        return _price(arch, shape_name, multi_pod, overrides, tag)
+    finally:
+        release_fake_group()
+
+
+def _price(arch: str, shape_name: str, multi_pod: bool, overrides: Optional[Dict[str, Any]],
+           tag: str) -> Dict[str, Any]:
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     # Every path of the port is float32, whatever the configuration says.
     cfg = _overridden(dataclasses.replace(get_config(arch), dtype="float32"), overrides)
     shape = INPUT_SHAPES[shape_name]
-    init_fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     chips = mesh.size()
@@ -209,8 +231,7 @@ def run_one(
             args = (params, cache, batch)
         # The model makes some tensors of its own (positions, masks, rope
         # tables): DTensor takes them as replicated on the mesh.
-        with _fake_mask_buffers(), implicit_replication(), CommDebugMode() as comm, \
-                CostMode() as walker:
+        with implicit_replication(), CommDebugMode() as comm, CostMode() as walker:
             step(*args)
     cost = walker.cost
     bytes_per_dev = float(sum(placed.values()))
@@ -276,6 +297,41 @@ def _failure(arch: str, shape: str, multi_pod: bool, exc: BaseException) -> Dict
     return row
 
 
+_KINDS = (("all-gather", "AG"), ("all-reduce", "AR"), ("reduce-scatter", "RS"),
+          ("all-to-all", "A2A"), ("collective-permute", "CP"))
+
+
+def compare(reference_path: str, port_path: str) -> str:
+    """A markdown table of the port's rows beside the reference's
+    (``python -m repro.launch.dryrun``'s jsonl), a line a combination: for
+    each mesh, the FLOPs (port / reference and their ratio), the collective
+    bytes by kind (port / reference) and the dominant term.  The last row
+    of a combination in each file counts."""
+
+    def rows(path: str) -> Dict[tuple, Dict[str, Any]]:
+        with open(path) as f:
+            return {(r["arch"], r["shape"], r["mesh"]): r for r in map(json.loads, f)}
+
+    def cell(p: Optional[Dict[str, Any]], r: Optional[Dict[str, Any]]) -> str:
+        if not (p and r and p.get("ok") and r.get("ok")):
+            return (f"port ok={p.get('ok') if p else None} {p.get('op', '') if p else ''}; "
+                    f"reference ok={r.get('ok') if r else None}")
+        coll = ", ".join(
+            f"{short} {p['collectives'].get(kind, 0):.3g} / {r['collectives'].get(kind, 0):.3g}"
+            for kind, short in _KINDS
+            if p["collectives"].get(kind, 0) or r["collectives"].get(kind, 0))
+        return (f"**{p['op_flops'] / r['hlo_flops']:.2f}** {p['op_flops']:.3g} / "
+                f"{r['hlo_flops']:.3g}; {coll}; {p['dominant'][:4]} / {r['dominant'][:4]}")
+
+    ref, port = rows(reference_path), rows(port_path)
+    meshes = ("16x16", "2x16x16")
+    out = ["| arch | shape | " + " | ".join(meshes) + " |", "|---|---|---|---|"]
+    for arch, shape in sorted({k[:2] for k in port}):
+        cells = [cell(port.get((arch, shape, m)), ref.get((arch, shape, m))) for m in meshes]
+        out.append(f"| {arch} | {shape} | " + " | ".join(cells) + " |")
+    return "\n".join(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
@@ -283,6 +339,8 @@ def main() -> int:
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     ap.add_argument("--out", default="dryrun_torch.jsonl")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--compare", nargs=2, metavar=("REFERENCE_JSONL", "PORT_JSONL"),
+                    help="print the port's rows beside the reference's and exit")
     ap.add_argument(
         "--override",
         action="append",
@@ -290,6 +348,9 @@ def main() -> int:
         help="cfg overrides, e.g. --override shard_residuals=False",
     )
     args = ap.parse_args()
+    if args.compare:
+        print(compare(*args.compare))
+        return 0
     overrides: Dict[str, Any] = {}
     for ov in args.override:
         k, v = ov.split("=", 1)

@@ -12,8 +12,10 @@ reference does, and decodes in the latent space with plain einsums.
 
 Functions are pure over plain dict parameter trees in the reference's
 ``[din, dout]`` layout, so ``repro_torch.interop`` carries weights across.
-The reference's sharding annotations (``shard``) are no-ops without a mesh
-and are dropped.
+The reference's sharding annotations (``shard``) are kept; with the
+products (``dense``) and the attention of heads a mesh axis cannot split
+(``_flash``) they state the reference's layouts for the dry run's DTensors
+and compute nothing without axis rules.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import get_axis_rules, shard
+from repro_torch.distributed.sharding import axis_index, get_axis_rules, shard, shard_map
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
@@ -34,6 +36,7 @@ PyTree = Any
 __all__ = [
     "rms_norm",
     "rope",
+    "dense",
     "dense_init",
     "mlp_init",
     "mlp_apply",
@@ -41,6 +44,7 @@ __all__ = [
     "attention_apply",
     "attention_decode",
     "init_attn_cache",
+    "product",
     "chunked_attention",
     "torch_dtype",
 ]
@@ -53,23 +57,44 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def split_heads(x: torch.Tensor, shape: Tuple[int, int, int, int]) -> torch.Tensor:
-    """[B, S, H * hd] -> ``shape`` = [B, S, H, hd].  Under sharding rules whose
-    'model' axis does not divide H (40 heads on 16 devices), the flat dim is
-    gathered first: a shard of H * hd need not fall on a head's bounds."""
+def _heads_unsplit(heads: int) -> bool:
+    """Whether sharding rules are active whose 'model' axis does not divide
+    ``heads`` (40 heads on 16 devices): a shard of H * hd then need not fall
+    on a head's bounds."""
     rules = get_axis_rules()
-    if rules is not None and rules.mesh is not None and rules.resolve(
-        ["heads"], shape=[shape[2]]
-    )[0] is None:
+    return rules is not None and rules.mesh is not None and rules.resolve(
+        ["heads"], shape=[heads]
+    )[0] is None
+
+
+def split_heads(x: torch.Tensor, shape: Tuple[int, int, int, int]) -> torch.Tensor:
+    """[B, S, H * hd] -> ``shape`` = [B, S, H, hd], the flat dim gathered
+    first where the heads cannot be split (``_heads_unsplit``)."""
+    if _heads_unsplit(shape[2]):
         x = shard(x, "batch", None, None)
     return x.reshape(shape)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, hd] -> [B, S, H * hd]; where the heads cannot be split, the
+    merged dim (and so its gradient, which the split reads back) is kept
+    whole."""
+    B, S, H, _ = x.shape
+    x = x.reshape(B, S, -1)
+    if _heads_unsplit(H):
+        x = shard(x, "batch", None, None)
+    return x
 
 
 # ------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    # Where the features are split over a mesh axis the mean is a partial
+    # sum there: reduced in place, as GSPMD does (DTensor would rather split
+    # the rows over that axis, a layout the products after it cannot take).
+    var = shard(torch.mean(torch.square(x), dim=-1, keepdim=True),
+                "batch", *([None] * (x.dim() - 1)))
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
 
 
@@ -89,6 +114,44 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ------------------------------------------------------------------- linear
+def dense(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """``x @ w`` for the weight called ``name`` (a [din, dout] leaf of
+    ``distributed/specs.py``'s table), in its layout (``product``)."""
+    from repro_torch.distributed.specs import _PARAM_RULES
+
+    lead = ("batch",) + (None,) * (x.dim() - 2)
+    return product(torch.matmul, x, w, lead, _PARAM_RULES[name])
+
+
+def product(fn: Any, x: torch.Tensor, w: torch.Tensor, x_lead: Tuple, w_axes: Tuple) -> Any:
+    """``fn(x, w)``, a product over x's last dim and w's second to last;
+    ``x_lead`` names x's other dims and ``w_axes`` all of w's (its spec).
+
+    Under sharding rules whose mesh places ``w``, the product runs on each
+    rank's shards in the layout the weight's own spec gives GSPMD: its
+    tensor-parallel dim (heads, d_ff, vocab, experts) split, its 'fsdp' dim
+    gathered and x's rows on their batch shard; or, where the batch cannot
+    take the 'fsdp' axes (a decode of one sequence), the weight left in
+    place and x split alike, as GSPMD keeps a weight in place when the
+    activations are the smaller side.  A split contraction leaves a partial
+    sum that the caller's ``shard`` reduces.  Stated here because DTensor's
+    own choice per product can gather a weight whole (it prices the
+    collectives, not the work) or split rows over an axis the next product
+    has no rule for.
+    """
+    rules = get_axis_rules()
+    if rules is None or rules.mesh is None or not hasattr(w, "placements"):
+        return fn(x, w)
+    *w_lead, k, n = w_axes
+    stationary = "fsdp" in (k, n) and rules.resolve(["batch"], shape=x.shape[:1])[0] is None \
+        and rules.resolve(["fsdp"], shape=[w.shape[-2 if k == "fsdp" else -1]])[0] is not None
+    if not stationary:
+        k, n = (None if a == "fsdp" else a for a in (k, n))
+    split = rules.resolve([k], shape=w.shape[-2:-1])[0] if k else None
+    return shard_map(fn, (tuple(x_lead) + (k,), (*w_lead, k, n)), tuple(x_lead) + (n,), x, w,
+                     partial=(split,) if isinstance(split, str) else (split or ()))
+
+
 def dense_init(
     generator: torch.Generator, din: int, dout: int, dtype: torch.dtype, scale: float = 1.0
 ) -> torch.Tensor:
@@ -111,15 +174,15 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, d_ff: int) -> PyTree:
 
 
 def mlp_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ params["up"]
+    h = dense(x, params["up"], "up")
     h = shard(h, "batch", None, "d_ff")
     if cfg.activation == "silu":
-        h = F.silu(x @ params["gate"]) * h
+        h = F.silu(dense(x, params["gate"], "gate")) * h
     elif cfg.activation == "relu2":
         h = torch.square(F.relu(h))
     else:  # gelu, tanh-approximated as jax.nn.gelu's default
         h = F.gelu(h, approximate="tanh")
-    return shard(h @ params["down"], "batch", None, None)
+    return shard(dense(h, params["down"], "down"), "batch", None, None)
 
 
 # --------------------------------------------------------- attention (GQA)
@@ -162,9 +225,9 @@ def attention_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
 def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = dense(x, params["wq"], "wq")
+    k = dense(x, params["wk"], "wk")
+    v = dense(x, params["wv"], "wv")
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = split_heads(q, (B, S, cfg.num_heads, hd))
@@ -187,11 +250,11 @@ def _mla_qkv_train(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions:
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    q = split_heads(x @ params["wq"], (B, S, H, m.nope_head_dim + m.rope_head_dim))
+    q = split_heads(dense(x, params["wq"], "wq"), (B, S, H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
-    ckv = x @ params["w_dkv"]  # [B, S, lora + rope_dim]
+    ckv = dense(x, params["w_dkv"], "w_dkv")  # [B, S, lora + rope_dim]
     c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank :]
     k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)  # one shared head
     k_nope = torch.einsum("bsc,chn->bshn", c, params["w_uk"])
@@ -270,11 +333,49 @@ def attention_apply(
         # Distinct qk and v head dims: the plain chunked path, as the
         # reference (its Pallas kernel, like the CUDA one, takes equal dims).
         q, k, v = _mla_qkv_train(params, x, cfg, positions)
-        out = chunked_attention(q, k, v, causal=True, window=win)
-        return shard(out.reshape(B, S, -1) @ params["wo"], "batch", None, None)
+        heads = ("batch", None, "heads", None)
+        out = shard_map(lambda q, k, v: chunked_attention(q, k, v, causal=True, window=win),
+                        (heads, heads, heads), heads, q, k, v)
+        return shard(dense(merge_heads(out), params["wo"], "wo"), "batch", None, None)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=True, window=win)
-    return shard(out.reshape(B, S, -1) @ params["wo"], "batch", None, None)
+    out = _flash(q, k, v, win)
+    return shard(dense(merge_heads(out), params["wo"], "wo"), "batch", None, None)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> torch.Tensor:
+    """Causal ``ops.flash_attention`` over [B, S, H, D].
+
+    Under sharding rules whose heads axis does not divide H (40 heads on
+    16 devices), the heads stay whole on every rank, so the queries are
+    split over that axis instead, each rank taking two of 2m blocks of S
+    (blocks i and 2m-1-i: every rank the same share of the causal square)
+    against the whole K and V.  Each rank's result holds its own rows and
+    zeros elsewhere, a partial sum over the axis that ``merge_heads``
+    reduces.  Elsewhere it is the one kernel call."""
+    rules = get_axis_rules()
+    H, S = q.shape[2], q.shape[1]
+    if not _heads_unsplit(H) or not hasattr(q, "placements"):
+        return kops.flash_attention(q, k, v, causal=True, window=window)
+    axes = rules.rules.get("heads")
+    index, m = axis_index(rules.mesh, axes)
+    if m == 1 or S % (2 * m):
+        return kops.flash_attention(q, k, v, causal=True, window=window)
+    L = S // (2 * m)
+
+    def local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        parts, at = [], 0
+        for b in sorted((index, 2 * m - 1 - index)):
+            parts.append(torch.zeros_like(q[:, at:b * L]))
+            parts.append(kops.flash_attention(q[:, b * L:(b + 1) * L], k, v, causal=True,
+                                              window=window, q_offset=b * L))
+            at = (b + 1) * L
+        parts.append(torch.zeros_like(q[:, at:]))
+        return torch.cat(parts, dim=1)
+
+    rows = ("batch", None, None, None)
+    axes = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                 if a in rules.mesh.mesh_dim_names)
+    return shard_map(local, (rows, rows, rows), rows, q, k, v, partial=axes)
 
 
 # ------------------------------------------------------------ decode / cache
@@ -353,9 +454,9 @@ def attention_decode(
     W = (cache["k_q"] if quant else cache["k"]).shape[1]
     hd = cfg.head_dim
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = dense(x, params["wq"], "wq")
+    k = dense(x, params["wk"], "wk")
+    v = dense(x, params["wv"], "wv")
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = split_heads(q, (B, 1, cfg.num_heads, hd))
@@ -386,8 +487,52 @@ def attention_decode(
         ck = shard(torch.where(hit, k, cache["k"]), "batch", "window", "kv_heads", None)
         cv = shard(torch.where(hit, v, cache["v"]), "batch", "window", "kv_heads", None)
         new_cache = {"k": ck, "v": cv}
-    out = kops.decode_attention(q, ck, cv, _ring_valid(pos, W, x.device))
-    return shard(out.reshape(B, 1, -1) @ params["wo"], "batch", None, None), new_cache
+    out = _decode(q, ck, cv, _ring_valid(pos, W, x.device))
+    return shard(dense(merge_heads(out), params["wo"], "wo"), "batch", None, None), new_cache
+
+
+def _decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``ops.decode_attention`` of q [B, 1, H, D] against a [B, W, KV, D] cache.
+
+    Under sharding rules whose mesh splits the cache's window, each rank
+    attends over its own slice of the window with every query head (q is
+    gathered; the cache stays where it is), and the softmax is merged over
+    the window's axis: a maximum, then partial sums of the weights and of
+    the weighted values.  That is the plain decode attention partitioned as
+    GSPMD partitions the reference's, in plain ops, as the reference's dry
+    run prices it.  Elsewhere it is the one kernel call."""
+    rules = get_axis_rules()
+    B, _, H, D = q.shape
+    W, KV = ck.shape[1], ck.shape[2]
+    if rules is None or rules.mesh is None or not hasattr(ck, "placements"):
+        return kops.decode_attention(q, ck, cv, valid)
+    split = rules.resolve(["window"], shape=[W])[0]
+    if split is None:
+        return kops.decode_attention(q, ck, cv, valid)
+    axes = (split,) if isinstance(split, str) else tuple(split)
+    if valid.dim() == 1:
+        valid = valid[None].expand(B, W)
+    rows, cache, window = ("batch", None, None, None), ("batch", "window", None, None), ("batch", "window")
+    g = H // KV
+
+    def scores(q, k, valid):  # [B, KV, g, W_local] over the local window
+        s = torch.einsum("bkgd,bwkd->bkgw", q[:, 0].reshape(q.shape[0], KV, g, D).float(), k.float())
+        return torch.where(valid[:, None, None], s / math.sqrt(D), torch.full_like(s, -1e30))
+
+    s = shard_map(scores, (rows, cache, window), ("batch", None, None, "window"), q, ck, valid)
+    m = shard(shard_map(lambda s: s.amax(dim=-1), (("batch", None, None, "window"),),
+                        ("batch", None, None), s, partial=axes, reduce_op="max"), "batch", None, None)
+
+    def weighted(s, m, v, valid):  # the local window's share of the softmax's sums
+        e = torch.where(valid[:, None, None], torch.exp(s - m[..., None]), torch.zeros_like(s))
+        return e.sum(dim=-1), torch.einsum("bkgw,bwkd->bkgd", e, v.float())
+
+    den, num = shard_map(weighted, (("batch", None, None, "window"), ("batch", None, None), cache,
+                                    window), (("batch", None, None), ("batch", None, None, None)),
+                         s, m, cv, valid, partial=axes)
+    den, num = shard(den, "batch", None, None), shard(num, "batch", None, None, None)
+    out = num / torch.clamp(den, min=1e-30)[..., None]  # no valid slot: zeros
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def _mla_decode(
@@ -401,11 +546,11 @@ def _mla_decode(
     H = cfg.num_heads
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
 
-    q = split_heads(x @ params["wq"], (B, 1, H, m.nope_head_dim + m.rope_head_dim))
+    q = split_heads(dense(x, params["wq"], "wq"), (B, 1, H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
 
-    ckv = x @ params["w_dkv"]
+    ckv = dense(x, params["w_dkv"], "w_dkv")
     c_new, k_rope_new = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank :]
     k_rope_new = rope(k_rope_new[..., None, :], positions, cfg.rope_theta)[..., 0, :]
 
@@ -428,5 +573,5 @@ def _mla_decode(
     ctx_lat = torch.einsum("bhw,bwc->bhc", p, cc)
     # Absorb W_uv on the way out.
     v = torch.einsum("bhc,chv->bhv", ctx_lat, params["w_uv"])
-    out = v.reshape(B, 1, H * m.v_head_dim) @ params["wo"]
+    out = dense(v.reshape(B, 1, H * m.v_head_dim), params["wo"], "wo")
     return shard(out, "batch", None, None), {"c": cc, "k_rope": cr}

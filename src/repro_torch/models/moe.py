@@ -14,6 +14,9 @@ kernels on the card).
 The reference sends an expert product to its kernel only where the TPU's
 tiling gate (``_gmm_ok``) allows and to an einsum elsewhere; the CUDA kernel
 takes any group size, so the port sends every one.
+The reference's sharding annotations are kept, call for call; under axis
+rules the dispatch and combine run on each data shard's rows and the expert
+products on each (batch, experts) shard (``shard_map``).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard, shard_map
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import dense, dense_init, product, torch_dtype
 
 PyTree = Any
 
@@ -137,10 +141,24 @@ def _activate(h: torch.Tensor, gate: Any, cfg: ModelConfig) -> torch.Tensor:
     return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
 
 
+def _expert_mm(xe: torch.Tensor, w: torch.Tensor, w_axes: Tuple) -> torch.Tensor:
+    """[B, E, C, K] x [E, K, N] through ``GmmMatmul``, on each rank's
+    (batch, experts) shard where the rules split them: each rank multiplies
+    its own experts' slots, as the reference's expert-parallel layout
+    (``w_axes``, the weight's spec: its 'fsdp' dim on K or on N)."""
+    return product(GmmMatmul.apply, xe, w, ("batch", "experts", None), w_axes)
+
+
 def _expert_ffn(p: PyTree, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """xe: [B, E, C, d] -> [B, E, C, d] via the per-expert (gated) FFN."""
-    h = _activate(GmmMatmul.apply(xe, p["up"]), lambda: GmmMatmul.apply(xe, p["gate"]), cfg)
-    return GmmMatmul.apply(h, p["down"])
+    h = shard(_expert_mm(xe, p["up"], _K_SPLIT), "batch", "experts", None, None)
+    h = _activate(h, lambda: _expert_mm(xe, p["gate"], _K_SPLIT), cfg)
+    return shard(_expert_mm(h, p["down"], _N_SPLIT), "batch", "experts", None, None)
+
+
+# The expert weights' logical layouts (``distributed/specs.py``).
+_K_SPLIT = ("experts", "fsdp", None)
+_N_SPLIT = ("experts", None, "fsdp")
 
 
 def route(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
@@ -154,10 +172,11 @@ def route(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
     return probs, top_p, top_e
 
 
-def moe_apply(
-    params: PyTree, x: torch.Tensor, cfg: ModelConfig
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], router aux loss scalar)."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Route each row's tokens and fill its [E, C, d] dispatch buffer: (xe
+    [B, E, C, d], probs [B, S, E], the top-k expert counts [B, S, E], and
+    the tensors ``_combine`` reads, each [B, S * k]).  Everything is local
+    to a row, so to a data shard."""
     e = cfg.moe
     B, S, d = x.shape
     k = e.top_k
@@ -166,12 +185,9 @@ def moe_apply(
     device = x.device
 
     # ------------------------------------------------------------- routing
-    probs, top_p, top_e = route(params, x, cfg)
+    probs, top_p, top_e = route({"router": router}, x, cfg)
     top_p = (top_p / torch.sum(top_p, dim=-1, keepdim=True)).to(x.dtype)
-
-    # Load-balance auxiliary loss (Switch-style).
-    density = torch.mean(torch.sum(F.one_hot(top_e, E).float(), dim=2), dim=(0, 1))
-    aux = e.router_aux_coef * E * torch.mean(density * torch.mean(probs, dim=(0, 1)))
+    hot = torch.sum(F.one_hot(top_e, E).float(), dim=2)  # [B, S, E]
 
     # --------------------------------------- per-row sort-based dispatch
     C = max(1, int(math.ceil(e.capacity_factor * S * k / E)))
@@ -179,15 +195,16 @@ def moe_apply(
     flat_t = torch.arange(S, device=device)[:, None].expand(S, k).reshape(Sk)
     flat_w = top_p.reshape(B, Sk)
 
+    # Every dispatch intermediate is batch-sharded, as the reference states.
     order = torch.argsort(flat_e, dim=-1, stable=True)  # [B, Sk], as jnp.argsort
-    se = torch.gather(flat_e, 1, order)
-    st = flat_t[order]  # token index per sorted slot
-    sw = torch.gather(flat_w, 1, order)
+    se = shard(torch.gather(flat_e, 1, order), "batch", None)
+    st = shard(flat_t[order], "batch", None)  # token index per sorted slot
+    sw = shard(torch.gather(flat_w, 1, order), "batch", None)
     counts = torch.sum(F.one_hot(se, E), dim=1)  # [B, E]
     starts = torch.cumsum(counts, dim=-1) - counts
     pos = torch.arange(Sk, device=device)[None, :] - torch.gather(starts, 1, se)
     keep = pos < C
-    slot = se * C + torch.clamp(pos, max=C - 1)  # drops -> C-1
+    slot = shard(se * C + torch.clamp(pos, max=C - 1), "batch", None)  # drops -> C-1
 
     if e.dispatch == "gather":
         # After the per-row sort, expert e's kept tokens sit at sorted
@@ -200,31 +217,73 @@ def moe_apply(
         src_idx = torch.clamp(src_idx, max=Sk - 1)
         inv = torch.argsort(order, dim=-1)  # flat pos -> sorted idx
 
-        gathered = _ReplicateRows.apply(x, st, inv, k)  # [B, Sk, d]
-        xe = _PermuteRows.apply(gathered, src_idx, slot, slot_filled, keep).reshape(B, E, C, d)
-        ye = _expert_ffn(params, xe, cfg).reshape(B, E * C, d)
-
+        gathered = shard(_ReplicateRows.apply(x, st, inv, k), "batch", None, None)  # [B, Sk, d]
+        xe = _PermuteRows.apply(gathered, src_idx, slot, slot_filled, keep)
         # Slots -> token positions (backward: a gather by the slot's reader).
         tok_slot = torch.gather(slot, 1, inv)
         inv_p = torch.gather(order, 1, src_idx)  # slot -> flat pos
-        picked_raw = _PermuteRows.apply(ye, tok_slot, inv_p, torch.ones_like(keep), slot_filled)
         tok_w = torch.gather(sw * keep.to(sw.dtype), 1, inv)
-        picked = picked_raw * tok_w[..., None].to(x.dtype)
-        out = torch.sum(picked.reshape(B, S, k, d), dim=2)
-    elif e.dispatch == "scatter":
+        return xe.reshape(B, E, C, d), probs, hot, (tok_slot, inv_p, slot_filled, tok_w)
+    if e.dispatch == "scatter":
         gathered = _take_rows(x, st) * keep[..., None].to(x.dtype)  # dropped -> 0
+        gathered = shard(gathered, "batch", None, None)
         xe = torch.zeros((B, E * C, d), dtype=x.dtype, device=device)
-        xe = xe.scatter_add(1, slot[..., None].expand(-1, -1, d), gathered).reshape(B, E, C, d)
-        ye = _expert_ffn(params, xe, cfg).reshape(B, E * C, d)
-        back = _take_rows(ye, slot) * (sw * keep.to(sw.dtype))[..., None].to(x.dtype)
-        out = torch.zeros((B, S, d), dtype=x.dtype, device=device)
-        out = out.scatter_add(1, st[..., None].expand(-1, -1, d), back)
-    else:
-        raise ValueError(f"unknown MoE dispatch {e.dispatch!r}")
+        xe = xe.scatter_add(1, slot[..., None].expand(-1, -1, d), gathered)
+        xe = shard(xe, "batch", None, None)
+        return xe.reshape(B, E, C, d), probs, hot, (slot, st, sw * keep.to(sw.dtype))
+    raise ValueError(f"unknown MoE dispatch {e.dispatch!r}")
+
+
+def _combine(ye: torch.Tensor, *index: torch.Tensor, cfg: ModelConfig, S: int) -> torch.Tensor:
+    """The expert outputs ye [B, E * C, d] back at their tokens, weighted:
+    [B, S, d], local to a row as ``_dispatch``."""
+    e = cfg.moe
+    B, _, d = ye.shape
+    k = e.top_k
+    if e.dispatch == "gather":
+        tok_slot, inv_p, slot_filled, tok_w = index
+        picked_raw = _PermuteRows.apply(ye, tok_slot, inv_p,
+                                        torch.ones_like(tok_slot, dtype=torch.bool), slot_filled)
+        picked = picked_raw * tok_w[..., None].to(ye.dtype)
+        return shard(torch.sum(picked.reshape(B, S, k, d), dim=2), "batch", None, None)
+    slot, st, w = index
+    back = shard(_take_rows(ye, slot) * w[..., None].to(ye.dtype), "batch", None, None)
+    out = torch.zeros((B, S, d), dtype=ye.dtype, device=ye.device)
+    return shard(out.scatter_add(1, st[..., None].expand(-1, -1, d), back), "batch", None, None)
+
+
+def moe_apply(
+    params: PyTree, x: torch.Tensor, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], router aux loss scalar).
+
+    Under sharding rules the dispatch and the combine run on each data
+    shard's rows and the expert products on each (batch, experts) shard
+    (``shard_map``): the layouts the reference's annotations give GSPMD,
+    stated where DTensor would otherwise propagate its own through the
+    sorts and gathers."""
+    e = cfg.moe
+    B, S, d = x.shape
+    E = e.num_experts
+    rows, row_idx = ("batch", None, None), ("batch", None)
+    index_axes = (row_idx,) * (4 if e.dispatch == "gather" else 3)
+    xe, probs, hot, index = shard_map(
+        lambda x, router: _dispatch(x, router, cfg), (rows, (None, None)),
+        (("batch", None, None, None), rows, rows) + index_axes, x, params["router"])
+
+    # Load-balance auxiliary loss (Switch-style).
+    density = torch.mean(hot, dim=(0, 1))
+    aux = e.router_aux_coef * E * torch.mean(density * torch.mean(probs, dim=(0, 1)))
+
+    xe = shard(xe, "batch", "experts", None, None)  # the expert-parallel all-to-all
+    ye = shard(_expert_ffn(params, xe, cfg).reshape(B, -1, d), "batch", None, None)
+    out = shard_map(lambda ye, *index: _combine(ye, *index, cfg=cfg, S=S),
+                    (rows,) + index_axes, rows, ye, *index)
 
     # ------------------------------------------------------ shared experts
     if e.num_shared:
-        h = _activate(x @ params["shared_up"], lambda: x @ params["shared_gate"], cfg)
-        out = out + h @ params["shared_down"]
+        h = shard(dense(x, params["shared_up"], "shared_up"), "batch", None, "d_ff")
+        h = _activate(h, lambda: dense(x, params["shared_gate"], "shared_gate"), cfg)
+        out = out + dense(h, params["shared_down"], "shared_down")
 
     return out, aux

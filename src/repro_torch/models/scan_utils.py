@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import hlo_cost as _cost
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -87,6 +88,18 @@ def chunked_scan(
         return (*tree_leaves(c), *tree_leaves(ys))
 
     remat = remat and torch.is_grad_enabled()
+    walker = _cost.LOCAL.walker
+    if walker is not None and not walker.execute:
+        # Priced on fake tensors: every chunk computes the same shapes, so
+        # the first runs and is priced once a chunk, its backward too.
+        n = T // chunk
+        args = (*carry_leaves, *(a[:chunk] for a in xs_leaves))
+        out = walker.repeated(
+            n, lambda *a: checkpoint(inner, *a, use_reentrant=False) if remat else inner(*a),
+            *args)
+        ys = [y.expand((n,) + tuple(y.shape)).reshape((T,) + tuple(y.shape[1:]))
+              for y in out[n_carry:]]
+        return _unflatten(carry, list(out[:n_carry])), _unflatten(ys_template[0], ys)
     chunks = []
     # split(), like unbind() in scan, has one cat for its backward.
     for xs_chunk in zip(*(a.split(chunk) for a in xs_leaves)):

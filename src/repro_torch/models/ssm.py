@@ -9,7 +9,7 @@ with plain ops (no TPU kernel), and so does the port: the scan runs through
 ``scan_utils.chunked_scan`` in chunks of 128 steps, each checkpointed, as
 the reference's, with each chunk's elementwise work done for the whole
 chunk at once (``chunked_scan``'s ``prep`` and ``post``) rather than a step
-at a time.  The reference's sharding annotations (``shard``) are dropped.
+at a time.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard, shard_map
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
+from repro_torch.models.layers import dense, dense_init, rms_norm, torch_dtype
 from repro_torch.models.scan_utils import chunked_scan
 
 PyTree = Any
@@ -74,11 +75,12 @@ def _rwkv6_streams(params: PyTree, x: torch.Tensor, x_prev: torch.Tensor, cfg: M
         mu = params["mix"][i]
         return x * mu + x_prev * (1 - mu)
 
-    r = mixed(0) @ params["wr"]
-    k = mixed(1) @ params["wk"]
-    v = mixed(2) @ params["wv"]
-    g = F.silu(mixed(3) @ params["wg"])
-    dd = torch.tanh(mixed(4) @ params["decay_w1"]) @ params["decay_w2"]
+    r = dense(mixed(0), params["wr"], "wr")
+    k = dense(mixed(1), params["wk"], "wk")
+    v = dense(mixed(2), params["wv"], "wv")
+    g = F.silu(dense(mixed(3), params["wg"], "wg"))
+    dd = dense(torch.tanh(dense(mixed(4), params["decay_w1"], "decay_w1")), params["decay_w2"],
+               "decay_w2")
     # As jnp.clip in the reference, except at a value exactly on a bound,
     # where jnp.clip passes half the gradient and torch.clamp all of it.
     log_w = -torch.exp(torch.clamp((params["decay_w0"] + dd).float(), -8.0, 2.0))  # <= 0
@@ -98,7 +100,7 @@ def rwkv6_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     out, _ = kops.rwkv6(r, k, v, w, params["bonus_u"].float(), chunk=cfg.ssm.chunk)
     out = out.reshape(B, T, d)
     out = rms_norm(out, params["ln_out"], cfg.norm_eps) * g
-    return out @ params["wo"]
+    return shard(dense(out, params["wo"], "wo"), "batch", None, None)
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTree:
@@ -110,6 +112,13 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTre
     }
 
 
+def _wkv_step(r1, k1, v1, w1, u, S):
+    """One WKV step per (batch, head): (out [B, H, N], new state)."""
+    kv = k1[..., :, None] * v1[..., None, :]
+    o = torch.einsum("bhn,bhnm->bhm", r1, S + u[None, :, :, None] * kv)
+    return o, w1[..., :, None] * S + kv
+
+
 def rwkv6_decode(
     params: PyTree, x: torch.Tensor, state: PyTree, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, PyTree]:
@@ -119,14 +128,13 @@ def rwkv6_decode(
     x_prev = state["x_prev"][:, None, :]
     r, k, v, g, w = _rwkv6_streams(params, x, x_prev, cfg)
     r1, k1, v1, w1 = (z[:, 0].float() for z in (r, k, v, w))
-    u = params["bonus_u"].float()
-    S = state["wkv"]
-    kv = k1[..., :, None] * v1[..., None, :]
-    o = torch.einsum("bhn,bhnm->bhm", r1, S + u[None, :, :, None] * kv)
-    S = w1[..., :, None] * S + kv
+    head = ("batch", "heads", None)
+    o, S = shard_map(_wkv_step, (head, head, head, head, ("heads", None), head + (None,)),
+                     (head, head + (None,)), r1, k1, v1, w1, params["bonus_u"].float(),
+                     state["wkv"])
     out = o.reshape(B, 1, d).to(x.dtype)
     out = rms_norm(out, params["ln_out"], cfg.norm_eps) * g
-    return out @ params["wo"], {"wkv": S, "x_prev": x[:, 0]}
+    return shard(dense(out, params["wo"], "wo"), "batch", None, None), {"wkv": S, "x_prev": x[:, 0]}
 
 
 # ================================================================== Mamba
@@ -166,11 +174,23 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig) -> PyTree:
 def _mamba_scan(
     params: PyTree, xc: torch.Tensor, h0: torch.Tensor, s
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Selective scan. xc: [B, T, d_in] (post conv + silu); h0: [B, d_in, N]."""
+    """Selective scan. xc: [B, T, d_in] (post conv + silu); h0: [B, d_in, N].
+    Under sharding rules the recurrence runs on each (batch, d_in) shard, the
+    layout of ``xc`` and of the state."""
     A = -torch.exp(params["A_log"])  # [d_in, N]
-    proj = xc @ params["x_proj"]  # [B, T, 2N + 1]
+    proj = dense(xc, params["x_proj"], "x_proj")  # [B, T, 2N + 1]
     Bp, Cp, dt_in = proj[..., : s.d_state], proj[..., s.d_state : 2 * s.d_state], proj[..., -1:]
-    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])  # [B, T, d_in]
+    dt = F.softplus(dense(dt_in, params["dt_proj"], "dt_proj") + params["dt_bias"])  # [B, T, d_in]
+    seq, rows, state = ("batch", None, "d_ff"), ("batch", None, None), ("batch", "d_ff", None)
+    ys, h = shard_map(_selective_scan, (seq, rows, rows, seq, ("d_ff", None), state),
+                      (seq, state), xc, Bp, Cp, dt, A, h0)
+    y = ys.float() + xc.float() * params["D"]
+    return y.to(xc.dtype), h
+
+
+def _selective_scan(xc, Bp, Cp, dt, A, h0):
+    """The recurrence h_t = exp(dt_t A) h_t-1 + dt_t B_t x_t, y_t = h_t . C_t
+    over [B, T, ...] inputs: (ys [B, T, d_in] in xc's dtype, final state)."""
 
     def prep(inp):
         # A chunk's xs [L, B, ...] stay in model dtype; math in fp32.  The
@@ -192,8 +212,7 @@ def _mamba_scan(
 
     tm = lambda z: z.transpose(0, 1)  # noqa: E731
     h, ys = chunked_scan(step, h0, (tm(xc), tm(Bp), tm(Cp), tm(dt)), chunk=128, prep=prep, post=post)
-    y = ys.transpose(0, 1).float() + xc.float() * params["D"]
-    return y.to(xc.dtype), h
+    return ys.transpose(0, 1), h
 
 
 def mamba_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -201,12 +220,13 @@ def mamba_apply(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     s = cfg.ssm
     B = x.shape[0]
     d_in = s.expand * x.shape[-1]
-    xz = x @ params["in_proj"]
+    xz = dense(x, params["in_proj"], "in_proj")
     xc, z = xz[..., :d_in], xz[..., d_in:]
+    xc = shard(xc, "batch", None, "d_ff")
     xc = F.silu(_causal_conv(xc, params["conv_w"], params["conv_b"]))
     h0 = torch.zeros((B, d_in, s.d_state), dtype=torch.float32, device=x.device)
     y, _ = _mamba_scan(params, xc, h0, s)
-    return (y * F.silu(z)) @ params["out_proj"]
+    return shard(dense(y * F.silu(z), params["out_proj"], "out_proj"), "batch", None, None)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device: Any = "cpu") -> PyTree:
@@ -226,11 +246,11 @@ def mamba_decode(
     """One-token decode. x: [B, 1, d]; returns (out [B, 1, d], new state)."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
-    xz = x @ params["in_proj"]
+    xz = dense(x, params["in_proj"], "in_proj")
     xc, z = xz[..., :d_in], xz[..., d_in:]
     window = torch.cat([state["conv"], xc], dim=1)  # [B, d_conv, d_in]
     conv = torch.einsum("bkd,kd->bd", window, params["conv_w"]) + params["conv_b"]
     xc1 = F.silu(conv)[:, None, :]  # [B, 1, d_in]
     y, h = _mamba_scan(params, xc1, state["h"], s)
-    out = (y * F.silu(z)) @ params["out_proj"]
-    return out, {"h": h, "conv": window[:, 1:]}
+    out = dense(y * F.silu(z), params["out_proj"], "out_proj")
+    return shard(out, "batch", None, None), {"h": h, "conv": window[:, 1:]}

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import axis_index, get_axis_rules, shard, shard_map
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -33,6 +33,7 @@ from repro_torch.models.layers import (
     attention_apply,
     attention_decode,
     attention_init,
+    dense,
     init_attn_cache,
     mlp_apply,
     mlp_init,
@@ -125,11 +126,11 @@ class Model:
         tokens = tokens.long()
         if cfg.modality == "audio":
             # tokens [B, S, K] -> the sum of the per-codebook embeddings.
-            x = F.embedding(tokens[..., 0], params["embed"][0])
+            x = _lookup(params["embed"][0], tokens[..., 0])
             for k in range(1, cfg.num_codebooks):
-                x = x + F.embedding(tokens[..., k], params["embed"][k])
+                x = x + _lookup(params["embed"][k], tokens[..., k])
         else:
-            x = F.embedding(tokens, params["embed"])
+            x = _lookup(params["embed"], tokens)
         if cfg.modality == "vlm" and media_emb is not None:
             x = torch.cat([media_emb.to(x.dtype), x], dim=1)
         return shard(x, "batch", None, None)
@@ -137,12 +138,16 @@ class Model:
     def _head(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
         """Logits [..., V], or [..., K, V] for audio (one slice a codebook)."""
         cfg = self.cfg
-        logits = x @ params["lm_head"]
+        logits = dense(x, params["lm_head"], "lm_head")
         if cfg.modality == "audio":
             # Split the codebooks out of a whole (unsharded) vocab dim: a
             # vocab shard need not fall on a codebook's bounds.
             logits = shard(logits, "batch", None, None)
             logits = logits.reshape(tuple(x.shape[:-1]) + (cfg.num_codebooks, cfg.vocab_size))
+            # Whole here too, so the gradient is gathered over the vocab
+            # before the reshape back (a vocab shard of [K, V] is no shard
+            # of K * V that DTensor can gather).
+            logits = shard(logits, *(("batch",) + (None,) * (logits.dim() - 1)))
             return shard(logits, "batch", None, None, "vocab")
         return shard(logits, "batch", None, "vocab")
 
@@ -339,6 +344,33 @@ class Model:
         return logits, cache
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  Under sharding rules whose mesh splits
+    the table's vocab dim, each rank looks its tokens up in its own slice of
+    the vocab (zeros for a token outside it) and the result is a partial sum
+    over the vocab's mesh axes, reduced by the caller's ``shard``: DTensor
+    has a rule for that lookup's backward, where the plain vocab-sharded
+    ``F.embedding`` hands one partial layout to another it cannot convert."""
+    rules = get_axis_rules()
+    spec = None
+    if rules is not None and rules.mesh is not None:
+        spec = rules.resolve(["vocab", None], shape=table.shape)[0]
+    if spec is None or not hasattr(table, "placements"):
+        return F.embedding(tokens, table)
+    index, size = axis_index(rules.mesh, spec)
+    rows = table.shape[0] // size
+    lo = index * rows  # this rank's slice of the vocab
+
+    def local(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        hit = (tokens >= lo) & (tokens < lo + rows)
+        x = F.embedding(torch.where(hit, tokens - lo, torch.zeros_like(tokens)), table)
+        return x * hit[..., None].to(x.dtype)
+
+    batch = ("batch",) + (None,) * (tokens.dim() - 1)
+    return shard_map(local, (batch, ("vocab", None)), batch + (None,), tokens, table,
+                     partial=(spec,) if isinstance(spec, str) else spec)
+
+
 # ----------------------------------------------------------- step builders
 def make_train_step(model: Model, optimizer) -> Callable:
     """The learner's step: the loss, its gradient, and ``optimizer.apply_``,
@@ -390,7 +422,7 @@ def _prefill_attn_cache(
 ) -> PyTree:
     if cfg.mla is not None:
         m = cfg.mla
-        ckv = h @ ap["w_dkv"]
+        ckv = dense(h, ap["w_dkv"], "w_dkv")
         c, k_rope = ckv[..., : m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
         k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
         return {"c": _fit_window(c, W), "k_rope": _fit_window(k_rope, W)}
@@ -423,7 +455,8 @@ def _prefill_rwkv6(ap: PyTree, h: torch.Tensor, cfg: ModelConfig):
     r, k, v, g, w = ssm_mod._rwkv6_streams(ap, h, x_prev, cfg)
     out, state = kops.rwkv6(r, k, v, w, ap["bonus_u"].float(), chunk=cfg.ssm.chunk)
     out = rms_norm(out.reshape(B, T, d), ap["ln_out"], cfg.norm_eps) * g
-    return out @ ap["wo"], {"wkv": state, "x_prev": h[:, -1]}
+    # The sequence path's layout (``rwkv6_apply``): the product reduced here.
+    return shard(dense(out, ap["wo"], "wo"), "batch", None, None), {"wkv": state, "x_prev": h[:, -1]}
 
 
 def _prefill_mamba(ap: PyTree, h: torch.Tensor, cfg: ModelConfig):
@@ -432,10 +465,11 @@ def _prefill_mamba(ap: PyTree, h: torch.Tensor, cfg: ModelConfig):
     s = cfg.ssm
     B, T, d = h.shape
     d_in = s.expand * d
-    xz = h @ ap["in_proj"]
+    xz = dense(h, ap["in_proj"], "in_proj")
     xc, z = xz[..., :d_in], xz[..., d_in:]
+    xc = shard(xc, "batch", None, "d_ff")
     xc_act = F.silu(ssm_mod._causal_conv(xc, ap["conv_w"], ap["conv_b"]))
     h0 = torch.zeros((B, d_in, s.d_state), dtype=torch.float32, device=h.device)
     y, hN = ssm_mod._mamba_scan(ap, xc_act, h0, s)
-    out = (y * F.silu(z)) @ ap["out_proj"]
+    out = shard(dense(y * F.silu(z), ap["out_proj"], "out_proj"), "batch", None, None)  # as ``mamba_apply``
     return out, {"h": hN, "conv": xc[:, T - (s.d_conv - 1):]}

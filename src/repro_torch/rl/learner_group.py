@@ -14,16 +14,19 @@ program, the port runs torch's own idiom, one process per device:
   * **ranks** — rank 0 is the worker itself, in the driver's process; ranks
     1..N-1 are child processes started from the port's fork server (never
     by a fork after CUDA).  Each child receives the worker's learner
-    half by value (``core.transport.dumps``): the policy, the parameter and
-    target trees, and the learner's generator.  They form a process group
-    of their own (gloo for a CPU worker, NCCL for a CUDA worker) over a
-    ``FileStore`` in a fresh directory, so no fixed port is taken.  A CUDA
-    group of more than one rank raises ``NotImplementedError`` until
-    ``rl/learner_group_cards.py`` passes across cards: at 4 NCCL ranks its
-    CartPole comparison agrees, its PPO-LM one has not finished.
+    half (``core.transport.dumps``): the policy, the shapes and dtypes of
+    the parameter and target trees (their values arrive by each step's
+    broadcast), and the learner's seed.  They form a process group of their
+    own (gloo for a CPU worker, NCCL for a CUDA worker, one card a rank)
+    over a ``FileStore`` in a fresh directory, so no fixed port is taken;
+    ``rl/learner_group_cards.py`` holds 4 NCCL ranks against one card's
+    step.  Every wait of a step is bounded (``_TIMEOUT``): a rank that
+    stops, fails or never joins makes the step raise, and the group stops
+    all its ranks (the next step starts new ones).
   * **a step** — rank 0 trims the batch, sends each child its rows, and
     broadcasts the worker's current parameters (and the target network,
-    for the losses that read it).  Every rank computes the gradient of
+    for the losses that read it) from one flat buffer it keeps, which the
+    reduce reuses.  Every rank computes the gradient of
     each of its microbatches, weighted by its share of rows; the weighted
     gradients are summed onto rank 0, which applies the optimizer once.
     So the worker stays the one owner of the weights, and any write into
@@ -57,6 +60,7 @@ import math
 import os
 import shutil
 import tempfile
+import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -78,6 +82,23 @@ _HOST_COLUMNS = ("batch_indices", "eps_id")
 
 # How long a collective may wait for a rank before the group fails.
 _TIMEOUT = datetime.timedelta(seconds=300)
+
+
+class _Leaf:
+    """A weight's shape and dtype: what a child rank builds its copy from
+    (its values arrive by the step's broadcast)."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape: Tuple[int, ...], dtype: str):
+        self.shape, self.dtype = shape, dtype
+
+    @staticmethod
+    def of(t: torch.Tensor) -> "_Leaf":
+        return _Leaf(tuple(t.shape), str(t.dtype).split(".", 1)[1])
+
+    def empty(self, device: torch.device) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=getattr(torch, self.dtype), device=device)
 
 
 class _RankHost:
@@ -132,54 +153,96 @@ def _accumulate(
 
 # ----------------------------------------------------------------- collectives
 def _process_group(device: torch.device, store_path: str, rank: int, world: int) -> Any:
+    """The group's own process group (not torch's default one): gloo for a
+    CPU worker, NCCL for a CUDA one, each given ``_TIMEOUT``.  NCCL's
+    watchdog aborts a collective that outlives it; it is told to abort the
+    communicator only (``TORCH_NCCL_ASYNC_ERROR_HANDLING=2``), not to take
+    the driver's process down, so the step raises instead."""
     import torch.distributed as dist
 
     store = dist.FileStore(store_path, world)
     if device.type == "cuda":
-        return dist.ProcessGroupNCCL(store, rank, world)
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = _TIMEOUT
+        key = "TORCH_NCCL_ASYNC_ERROR_HANDLING"
+        before = os.environ.get(key)
+        os.environ[key] = "2"  # read once, as the group is built
+        try:
+            return dist.ProcessGroupNCCL(store, rank, world, opts)
+        finally:
+            if before is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = before
     opts = dist.ProcessGroupGloo._Options()
     opts._devices = [dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")]
     opts._timeout = _TIMEOUT
     return dist.ProcessGroupGloo(store, rank, world, opts)
 
 
-def _flat(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.cat([t.reshape(-1) for t in leaves])
+def _wait(work: Any, cuda: bool) -> None:
+    """Wait for a collective, at most ``_TIMEOUT``.  Gloo's wait holds its
+    own timeout and raises; an NCCL collective runs on the card, so its
+    completion is polled from the host and a collective that a rank never
+    joins raises ``TimeoutError`` here."""
+    if cuda:
+        deadline = time.monotonic() + _TIMEOUT.total_seconds()
+        while not work.is_completed():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"learner group: a collective waited {_TIMEOUT} for a rank")
+            time.sleep(0.0005)
+    work.wait()
 
 
-def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    out, i = [], 0
-    for t in like:
-        out.append(flat[i:i + t.numel()].view_as(t))
-        i += t.numel()
-    return out
+class _FlatBuffer:
+    """One flat buffer for a tree's leaves, reused by every step's broadcast
+    and reduce (a step then holds one extra copy of the weights, not one a
+    collective)."""
+
+    def __init__(self, like: Sequence[torch.Tensor]):
+        self.like = list(like)
+        self.flat = torch.empty(sum(t.numel() for t in like), dtype=like[0].dtype,
+                                device=like[0].device)
+
+    def fill(self, leaves: Optional[Sequence[torch.Tensor]]) -> torch.Tensor:
+        """The buffer holding ``leaves`` one after another (zeros for None)."""
+        with torch.no_grad():
+            if leaves is None:
+                self.flat.zero_()
+            else:
+                torch.cat([t.detach().reshape(-1) for t in leaves], out=self.flat)
+        return self.flat
+
+    def views(self) -> List[torch.Tensor]:
+        out, i = [], 0
+        for t in self.like:
+            out.append(self.flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
+        return out
 
 
-def _broadcast_into(pg: Any, leaves: Sequence[torch.Tensor], rank: int) -> None:
+def _broadcast_into(pg: Any, buf: _FlatBuffer, leaves: Sequence[torch.Tensor], rank: int) -> None:
     """Rank 0's values of ``leaves`` into every rank's ``leaves``."""
     if not leaves:
         return
-    flat = _flat(leaves) if rank == 0 else torch.empty(
-        sum(t.numel() for t in leaves), dtype=leaves[0].dtype, device=leaves[0].device
-    )
-    pg.broadcast([flat]).wait()
+    flat = buf.fill(leaves) if rank == 0 else buf.flat
+    _wait(pg.broadcast([flat]), flat.is_cuda)
     if rank != 0:
         with torch.no_grad():
-            for t, v in zip(leaves, _unflat(flat, leaves)):
+            for t, v in zip(leaves, buf.views()):
                 t.copy_(v)
 
 
-def _reduce_to_root(pg: Any, acc: Optional[List[torch.Tensor]], like: Sequence[torch.Tensor]):
-    """Σ over ranks of each rank's ``acc`` (zeros where None), on rank 0."""
+def _reduce_to_root(pg: Any, buf: _FlatBuffer, acc: Optional[List[torch.Tensor]]):
+    """Σ over ranks of each rank's ``acc`` (zeros where None), on rank 0, as
+    views of ``buf``."""
     import torch.distributed as dist
 
-    flat = _flat(acc) if acc is not None else torch.zeros(
-        sum(t.numel() for t in like), dtype=like[0].dtype, device=like[0].device
-    )
+    flat = buf.fill(acc)
     opts = dist.ReduceOptions()
     opts.rootRank = 0
-    pg.reduce([flat], opts).wait()
-    return _unflat(flat, like)
+    _wait(pg.reduce([flat], opts), flat.is_cuda)
+    return buf.views()
 
 
 def _rank_device(device: str, rank: int) -> torch.device:
@@ -203,8 +266,8 @@ def _rank_main(conn: Any, rank: int, world: int, store_path: str, seed: int) -> 
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         host = _RankHost(spec["policy"], spec["algo"], gen)
-        params = tree_map(lambda t: t.to(device), spec["params"])
-        target = tree_map(lambda t: t.to(device), spec["target"])
+        params = tree_map(lambda leaf: leaf.empty(device), spec["params"])
+        target = tree_map(lambda leaf: leaf.empty(device), spec["target"])
     except BaseException as exc:  # a rank that never joins would hang the group
         _send(conn, exc)
         conn.close()
@@ -213,6 +276,8 @@ def _rank_main(conn: Any, rank: int, world: int, store_path: str, seed: int) -> 
     pg = _process_group(device, store_path, rank, world)
     loss_for = spec["loss_for"]
     p_leaves, t_leaves = tree_leaves(params), tree_leaves(target)
+    p_buf = _FlatBuffer(p_leaves)
+    t_buf = _FlatBuffer(t_leaves) if t_leaves else None
     while True:
         try:
             msg = _recv(conn)
@@ -221,9 +286,12 @@ def _rank_main(conn: Any, rank: int, world: int, store_path: str, seed: int) -> 
         if msg is None:
             break
         micro, weights, with_target = msg
-        _broadcast_into(pg, p_leaves, rank)
-        if with_target:
-            _broadcast_into(pg, t_leaves, rank)
+        try:
+            _broadcast_into(pg, p_buf, p_leaves, rank)
+            if with_target:
+                _broadcast_into(pg, t_buf, t_leaves, rank)
+        except BaseException:  # the group failed: the driver raises and stops every rank
+            break
         error, acc, stats, rows = None, None, {}, []
         try:
             micro = [None if m is None else {k: torch.as_tensor(v, device=device)
@@ -233,7 +301,10 @@ def _rank_main(conn: Any, rank: int, world: int, store_path: str, seed: int) -> 
             )
         except BaseException as exc:  # the reduce below must still run
             error = exc
-        _reduce_to_root(pg, acc, p_leaves)
+        try:
+            _reduce_to_root(pg, p_buf, acc)
+        except BaseException:
+            break
         _send(conn, (error, stats, rows))
     conn.close()
 
@@ -247,6 +318,7 @@ class _Ranks:
         from repro_torch.core.transport import dumps
 
         device = _worker_device(worker)
+        self.failed = False
         self.dir = tempfile.mkdtemp(prefix="repro_torch_learners_")
         store_path = os.path.join(self.dir, "store")
         seed = worker._gen.initial_seed() if hasattr(worker, "_gen") else 0
@@ -256,10 +328,12 @@ class _Ranks:
             "algo": getattr(worker, "algo", None),
             "loss_for": type(worker)._loss_for,
             # On the host, so each rank builds them on its own device.
-            "params": tree_map(lambda t: t.detach().cpu(), worker.params),
-            "target": tree_map(lambda t: t.detach().cpu(), worker.target_params),
+            # Shapes only: every step broadcasts the weights a rank reads.
+            "params": tree_map(_Leaf.of, worker.params),
+            "target": tree_map(_Leaf.of, worker.target_params),
         })
         ctx = mp_context(None)  # the fork server: never a fork after CUDA
+        logger.info("learner group: starting %d ranks (%d bytes each)", world - 1, len(half))
         self.procs, self.conns = [], []
         for rank in range(1, world):
             parent, child = ctx.Pipe()
@@ -282,7 +356,11 @@ class _Ranks:
             for error in self.receive():  # each rank's set-up
                 if error is not None:
                     raise error
+            logger.info("learner group: %d ranks set up; joining the group", world - 1)
             self.pg = _process_group(device, store_path, 0, world)
+            self.params = _FlatBuffer(tree_leaves(worker.params))
+            target = tree_leaves(worker.target_params)
+            self.target = _FlatBuffer(target) if target else None
         except BaseException:
             self._finalizer()
             raise
@@ -294,17 +372,29 @@ class _Ranks:
             _send(conn, msg)
 
     def receive(self) -> List[Any]:
+        """Each rank's reply, waiting at most ``_TIMEOUT`` in all."""
         from repro_torch.core.executor import _recv
 
+        deadline = time.monotonic() + _TIMEOUT.total_seconds()
         out = []
         for rank, conn in enumerate(self.conns, start=1):
             try:
+                if not conn.poll(max(deadline - time.monotonic(), 0.0)):
+                    raise TimeoutError(f"learner rank {rank} gave no reply in {_TIMEOUT}")
                 out.append(_recv(conn))
             except (EOFError, OSError):
                 raise RuntimeError(f"learner rank {rank} died during a step") from None
         return out
 
     def close(self) -> None:
+        """Stop every rank; after a failed step, abort the group's
+        communicator first, so that no collective is left waiting."""
+        pg = getattr(self, "pg", None)
+        if self.failed and pg is not None and hasattr(pg, "abort"):
+            try:
+                pg.abort()
+            except Exception:
+                pass
         self._finalizer()
 
     @staticmethod
@@ -364,12 +454,6 @@ class ShardedLearnerGroup:
                     "visible; clamping", requested, visible,
                 )
             requested = min(requested, visible)
-            if requested > 1:
-                raise NotImplementedError(
-                    f"learner group: {requested} learners on CUDA cards; the NCCL group has not "
-                    "passed its check across cards at LM widths (ROADMAP A-12: "
-                    "python -m repro_torch.rl.learner_group_cards)"
-                )
         # A CPU worker's learners are gloo ranks: it gets the ones it asks for.
         self.num_learners = requested
         self.microbatch = max(microbatch, 1)
@@ -452,36 +536,27 @@ class ShardedLearnerGroup:
         w._next_key()  # the reference's learner key: the chain advances alike
         with_target = getattr(w, "algo", None) in ("dqn", "sac")
         ranks = self._start_ranks() if n > 1 else None
-        p_leaves = tree_leaves(w.params)
-        if ranks is not None:
-            ranks.send([(micro_of(r), [weights[r]] * k, with_target) for r in range(1, n)])
-            _broadcast_into(ranks.pg, p_leaves, 0)
-            if with_target:
-                _broadcast_into(ranks.pg, tree_leaves(w.target_params), 0)
-        error, acc, stats, own_rows = None, None, {}, []
-        try:
-            device = _worker_device(w)
+        device = _worker_device(w)
+
+        def own_step():
             micro = [None if m is None else {
                 name: torch.as_tensor(v if v.flags.writeable else np.array(v), device=device)
                 for name, v in m.items()} for m in micro_of(0)]
-            acc, stats, own_rows = _accumulate(
-                w._loss_for, w.params, w.target_params, micro, [weights[0]] * k
-            )
-        except BaseException as exc:  # the children's reduce must still run
-            if ranks is None:
-                raise
-            error = exc
-        replies = [(None, stats, own_rows)]
-        if ranks is not None:
-            grads = _reduce_to_root(ranks.pg, acc, p_leaves)
-            replies += ranks.receive()
+            return _accumulate(w._loss_for, w.params, w.target_params, micro, [weights[0]] * k)
+
+        if ranks is None:
+            grads, stats, own_rows = own_step()
+            replies = [(None, stats, own_rows)]
         else:
-            grads = acc
-        for rank_error, _, _ in replies:
-            if rank_error is not None:
-                raise rank_error
-        if error is not None:
-            raise error
+            try:
+                grads, replies = self._group_step(ranks, own_step, [
+                    (micro_of(r), [weights[r]] * k, with_target) for r in range(1, n)])
+            except BaseException:
+                # A rank that stopped, failed or never joined: no rank of
+                # this group is left waiting; the next step starts new ones.
+                ranks.failed = True
+                self.close()
+                raise
 
         it = iter(grads)
         w.params, w.opt_state = w.optimizer.apply(
@@ -494,6 +569,27 @@ class ShardedLearnerGroup:
         if hasattr(w, "_post_update"):
             w._post_update()
         return self._info(replies, count)
+
+    def _group_step(self, ranks: "_Ranks", own_step: Callable, msgs: List[Any]):
+        """One step across the ranks: the rows out, the weights broadcast,
+        every rank's gradient, their sum on rank 0.  Raises whatever a rank
+        raised, or where a rank died or a wait ran out."""
+        w = self.worker
+        ranks.send(msgs)
+        _broadcast_into(ranks.pg, ranks.params, tree_leaves(w.params), 0)
+        if msgs[0][2]:  # with the target network
+            _broadcast_into(ranks.pg, ranks.target, tree_leaves(w.target_params), 0)
+        error, acc, stats, own_rows = None, None, {}, []
+        try:
+            acc, stats, own_rows = own_step()
+        except BaseException as exc:  # the children's reduce must still run
+            error = exc
+        grads = _reduce_to_root(ranks.pg, ranks.params, acc)
+        replies = [(error, stats, own_rows)] + ranks.receive()
+        for rank_error, _, _ in replies:
+            if rank_error is not None:
+                raise rank_error
+        return grads, replies
 
     def _info(self, replies: List[Tuple[Any, Dict[str, float], List[Dict]]], count: int):
         info: Dict[str, Any] = {}

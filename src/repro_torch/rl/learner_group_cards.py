@@ -9,19 +9,21 @@ actor-critic, one 1,024-row batch, with and without ``microbatch=2``) and
 PPO-LM at Qwen1.5-4B's widths cut to 2 layers (one 256-row rollout).  For
 each it prints the largest stat and weight difference against the plain
 step (held to 1e-4; exit 1 past it), the seconds of a second step of each
-(the first builds the NCCL communicator), and card 0's peak memory; then it
-stops every rank and the fork server and fails if a process is left.
+(the first builds the NCCL communicator), and card 0's peak memory during
+the group's steps (the plain worker is freed before the group starts);
+then it stops every rank and the fork server and fails if a process is
+left.  A rank that stops makes the group's step raise within the group's
+bounded wait (``learner_group._TIMEOUT``) instead of hanging.
 
-``ShardedLearnerGroup`` refuses a CUDA group of more than one rank until
-this check passes: on four H100s the PPO CartPole comparisons agree
-(weights 1.9e-06 apart), and the PPO-LM one did not finish in 7 minutes.
-A change that repairs the group lifts that refusal and runs this script;
-each stage prints a line to stderr as it starts, so a hang shows where.
+On four H100s every comparison agrees (PPO-LM: weights 1.2e-05 apart).
+Each stage prints a line to stderr as it starts, and the group logs its
+set-up, so a failure shows where.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import multiprocessing
 import sys
@@ -72,28 +74,40 @@ def _compare(name: str, make: Callable, batches: list, learners: int, microbatch
     def stage(what: str) -> None:
         print(f"{name} (microbatch={microbatch}): {what}", file=sys.stderr, flush=True)
 
-    plain, grouped = make(), make()
+    # One card's steps first, kept on the host; that worker is freed before
+    # the group starts, so card 0 holds one worker's weights, not two.
+    plain = make()
+    stage("one card's step")
+    info_p, _ = _timed(plain.learn_on_batch, batches[0])
+    want = [t.detach().cpu() for t in tree_leaves(plain.params)]
+    _, plain_s = _timed(plain.learn_on_batch, batches[1])
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    grouped = make()
     group = ShardedLearnerGroup(grouped, num_learners=learners, microbatch=microbatch)
     try:
         torch.cuda.reset_peak_memory_stats(0)
-        stage("one card's step")
-        info_p, _ = _timed(plain.learn_on_batch, batches[0])
-        stage("the group's first step (its ranks start)")
+        stage("starting the ranks")
+        t0 = time.perf_counter()
+        group._start_ranks()
+        start_s = time.perf_counter() - t0
+        stage("the group's first step")
         info_g, first_s = _timed(group.learn_on_batch, batches[0])
-        stage("second steps")
         stat_err = max(abs(info_p[k] - info_g[k]) for k in info_p)
-        w_err = max(float((a - b).abs().max())
-                    for a, b in zip(tree_leaves(plain.params), tree_leaves(grouped.params)))
-        _, plain_s = _timed(plain.learn_on_batch, batches[1])
+        w_err = max(float((a - b.to(a.device)).abs().max())
+                    for a, b in zip(want, tree_leaves(grouped.params)))
+        stage("the group's second step")
         _, group_s = _timed(group.learn_on_batch, batches[1])
         peak = torch.cuda.max_memory_allocated(0)
         ranks = sorted(p.name for p in multiprocessing.active_children()
                        if p.name.startswith("learner-rank"))
     finally:
+        stage("stopping the ranks")
         group.close()
     row = {"path": name, "learners": group.num_learners, "microbatch": microbatch,
            "rows": batches[0].count, "stat_err": stat_err, "weight_err": w_err,
-           "plain_s": plain_s, "group_s": group_s, "group_first_s": first_s,
+           "plain_s": plain_s, "group_s": group_s, "group_first_s": first_s, "start_s": start_s,
            "card0_peak_bytes": peak, "child_ranks": ranks}
     print(json.dumps(row), flush=True)
     return row
@@ -107,6 +121,10 @@ def main() -> int:
         print(f"learner_group_cards: {args.learners} cards needed, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
+    import logging
+
+    logging.basicConfig(stream=sys.stderr, format="%(asctime)s %(message)s")
+    logging.getLogger("repro_torch.rl.learner_group").setLevel(logging.INFO)
     from repro_torch.core.executor import stop_helper_processes
     from repro_torch.core.operators import StandardizeFields
     from repro_torch.rl import SampleBatch

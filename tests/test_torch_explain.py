@@ -237,3 +237,38 @@ def test_walker_execute_mode_prices_forward_only():
     assert (charge.flops, charge.bytes) == flash_costs(**key)[0][:2]
     with pytest.raises(NotImplementedError, match="flash_attention's backward"):
         analyze_step(ops.flash_attention, q.requires_grad_(True), k, v, execute=True)
+
+
+def test_walker_prices_one_scan_chunk_per_chunk():
+    """On fake tensors ``chunked_scan`` runs its first chunk and the walker
+    prices it once a chunk, its recomputed forward and backward too: the
+    count of every chunk run, within the ops that stand in for the chunks'
+    concatenation (one op, 5 % of the bytes here)."""
+    from repro_torch.distributed import hlo_cost
+    from repro_torch.models import scan_utils
+
+    w = torch.randn(8, requires_grad=True)
+    x = torch.randn(512, 2, 8, requires_grad=True)
+
+    def train(x, w):
+        def step(h, inp):
+            h = h * w + inp
+            return h, h
+
+        h, ys = scan_utils.chunked_scan(step, torch.zeros(2, 8), x, chunk=128)
+        return torch.autograd.grad(ys.sum() + h.sum(), [x, w])
+
+    shortcut, _ = hlo_cost.analyze_step(train, x, w)
+
+    class _NoWalker:  # the same steps with every chunk run
+        LOCAL = type("L", (), {"walker": None})()
+
+    real = scan_utils._cost
+    scan_utils._cost = _NoWalker
+    try:
+        every, _ = hlo_cost.analyze_step(train, x, w)
+    finally:
+        scan_utils._cost = real
+    assert abs(shortcut.num_ops - every.num_ops) <= 2
+    assert shortcut.flops == every.flops
+    assert abs(shortcut.hbm_bytes - every.hbm_bytes) <= 0.05 * every.hbm_bytes

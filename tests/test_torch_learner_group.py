@@ -14,6 +14,9 @@ step) hold 1e-4 as well.
 
 import logging
 import multiprocessing
+import os
+import sys
+import time
 
 import jax
 import numpy as np
@@ -38,7 +41,11 @@ from repro_torch.rl import (
     SampleBatch,
     ShardedLearnerGroup,
 )
+from repro_torch.rl import learner_group as lg
 from repro_torch.tree import tree_leaves
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_chaos  # noqa: E402  (child ranks import it by name)
 
 TOL = 1e-4  # loss and parameters, group vs single-device step
 
@@ -282,17 +289,25 @@ def test_cuda_learners_clamp_to_the_visible_cards(monkeypatch, caplog):
     assert ShardedLearnerGroup(make_worker(), num_learners=3).num_learners == 3
 
 
-def test_cuda_groups_of_several_cards_raise(monkeypatch):
-    """A CUDA group of more than one rank (NCCL) refuses to start: it has
-    not passed its check across cards; one visible card clamps to 1."""
+def test_cuda_groups_of_several_cards_raise(monkeypatch, caplog):
+    """A CUDA group of several ranks (NCCL, one card a rank) starts as the
+    reference's group spans its mesh: 2 learners on 4 visible cards are 2,
+    with no warning; 8 clamp to the 4 cards with the reference's warning.
+    (It raised before the group passed its check across four H100s; the
+    name is kept.)"""
 
     class CudaWorker:
         device = torch.device("cuda")
         policy = ActorCriticPolicy(4, 2, loss_kind="ppo")
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A-12"):
-        ShardedLearnerGroup(CudaWorker(), num_learners=2)
+    with caplog.at_level(logging.WARNING, logger="repro_torch.rl.learner_group"):
+        two = ShardedLearnerGroup(CudaWorker(), num_learners=2)
+    assert two.num_learners == 2 and not caplog.records
+    with caplog.at_level(logging.WARNING, logger="repro_torch.rl.learner_group"):
+        eight = ShardedLearnerGroup(CudaWorker(), num_learners=8, microbatch=2)
+    assert eight.num_learners == 4 and eight.microbatch == 2
+    assert any("clamping" in r.getMessage() for r in caplog.records)
     assert ShardedLearnerGroup(CudaWorker(), num_learners=1, microbatch=2).num_learners == 1
 
 
@@ -381,3 +396,100 @@ def test_two_rank_vtrace_and_dqn_match_one_rank():
             assert max_param_diff(one.params, two.params) < TOL
         finally:
             g2.close()
+
+
+# ------------------------------------------- a rank that stops or fails
+def _alive_after(procs, seconds=30.0):
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline and any(p.is_alive() for p in procs):
+        time.sleep(0.1)
+    return [p for p in procs if p.is_alive()]
+
+
+@pytest.mark.timeout(240)
+def test_a_child_rank_that_dies_makes_the_step_raise():
+    """A child rank killed between steps (so before its next broadcast)
+    makes the next ``learn_on_batch`` raise within the bounded wait, with
+    every other rank stopped; the step after starts new ranks and trains."""
+    w = make_worker()
+    batch = w.sample()
+    group = ShardedLearnerGroup(w, num_learners=4)
+    try:
+        group.learn_on_batch(batch)
+        ranks = _learner_ranks()
+        assert len(ranks) == 3
+        ranks[1].kill()
+        ranks[1].join(10)
+        t0 = time.monotonic()
+        with pytest.raises(Exception):
+            group.learn_on_batch(batch)
+        assert time.monotonic() - t0 < lg._TIMEOUT.total_seconds()
+        assert not _alive_after(ranks)
+        info = group.learn_on_batch(batch)
+        assert np.isfinite(info["loss"]) and len(_learner_ranks()) == 3
+    finally:
+        group.close()
+    assert not _alive_after(_learner_ranks())
+
+
+class _RankLossFails(RolloutWorker):
+    _loss_for = torch_chaos.rank_loss_fails
+
+
+@pytest.mark.timeout(240)
+def test_a_child_rank_whose_loss_fails_makes_the_step_raise():
+    """A child rank whose loss raises still joins the reduce; the driver's
+    step raises that error and stops every rank."""
+    w = _RankLossFails(CartPole(), ActorCriticPolicy(4, 2, loss_kind="ppo"), algo="ppo",
+                       num_envs=4, rollout_len=32, seed=7, worker_index=0, device="cpu")
+    group = ShardedLearnerGroup(w, num_learners=3)
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="on purpose"):
+            group.learn_on_batch(w.sample())
+        assert time.monotonic() - t0 < lg._TIMEOUT.total_seconds()
+        assert not _alive_after(_learner_ranks())
+    finally:
+        group.close()
+
+
+def test_nccl_group_is_built_with_the_bounded_wait(monkeypatch, tmp_path):
+    """A CUDA worker's group is NCCL, built with ``_TIMEOUT`` on its options
+    and the watchdog told to abort the communicator, not the process; the
+    variable is restored after.  (A fake ``ProcessGroupNCCL``: no card.)"""
+    import torch.distributed as dist
+
+    built = {}
+
+    class FakeNCCL:
+        class Options:
+            _timeout = None
+
+        def __init__(self, store, rank, world, opts):
+            built.update(rank=rank, world=world, timeout=opts._timeout,
+                         handling=os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING"))
+
+    monkeypatch.setattr(dist, "ProcessGroupNCCL", FakeNCCL, raising=False)
+    monkeypatch.delenv("TORCH_NCCL_ASYNC_ERROR_HANDLING", raising=False)
+    pg = lg._process_group(torch.device("cuda"), str(tmp_path / "store"), 0, 1)
+    assert isinstance(pg, FakeNCCL)
+    assert built == {"rank": 0, "world": 1, "timeout": lg._TIMEOUT, "handling": "2"}
+    assert "TORCH_NCCL_ASYNC_ERROR_HANDLING" not in os.environ
+
+
+def test_nccl_wait_polls_to_the_deadline(monkeypatch):
+    """An NCCL collective that never completes raises ``TimeoutError`` at
+    the deadline instead of blocking the driver."""
+
+    class Stuck:
+        def is_completed(self):
+            return False
+
+        def wait(self):  # pragma: no cover - never reached
+            raise AssertionError("waited on a collective that never completed")
+
+    monkeypatch.setattr(lg, "_TIMEOUT", lg.datetime.timedelta(seconds=0.2))
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        lg._wait(Stuck(), cuda=True)
+    assert time.monotonic() - t0 < 5

@@ -187,3 +187,37 @@ def test_train_cli_smoke_runs_each_new_architecture(arch, capsys):
     assert f"{arch}-smoke" in out and "step    1 loss" in out
     losses = [float(line.split("loss ")[1].split()[0]) for line in out.splitlines() if " loss " in line]
     assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+# ------------------------------------------- the layouts stated, one device
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b", "deepseek-v2-lite-16b",
+                                  "qwen1.5-4b"])
+def test_sharding_annotations_change_nothing_on_one_device(arch):
+    """The reference's ``shard`` calls in the SSM and MoE layers, and the
+    layouts the port states with ``shard_map`` and ``dense``, compute
+    nothing on one device: under axis rules bound to a 1 x 1 mesh (every
+    placement replicated, no DTensor) the loss and every gradient are
+    bitwise those without rules (Mamba, MoE, RWKV-6, MLA, GQA attention)."""
+    from repro_torch.distributed.sharding import (
+        DEFAULT_RULES, AxisRules, axis_rules_context, make_mesh)
+
+    _, model_t, params = _pair(arch)
+    batch = make_batch(model_t.cfg, InputShape("t", SEQ, BATCH, "train"), seed=0, step=0)
+    media = batch.get("media_emb")
+
+    def run():
+        p_t = params_from_numpy(params)
+        leaves = tree_leaves(p_t)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = model_t.loss(p_t, torch.from_numpy(batch["tokens"]),
+                               torch.from_numpy(batch["labels"]),
+                               media_emb=None if media is None else torch.from_numpy(media))
+        return [loss.detach(), *torch.autograd.grad(loss, leaves)]
+
+    plain = run()
+    with axis_rules_context(AxisRules(DEFAULT_RULES, make_mesh((1, 1), ("data", "model"), "cpu"))):
+        ruled = run()
+    assert len(plain) == len(ruled)
+    for a, b in zip(plain, ruled):
+        assert torch.equal(a, b)

@@ -403,3 +403,13 @@ def make_stub_dummy_per_env(index: int) -> Any:
         StubEnv(max_steps=6), DummyPolicy(4, 2), algo="pg",
         num_envs=4, rollout_len=8, seed=21, worker_index=index, device="cpu",
     )
+
+
+def rank_loss_fails(host: Any, params: Any, target_params: Any, batch: Any) -> Any:
+    """A worker's ``_loss_for`` whose child learner ranks fail: rank 0 (the
+    worker itself) computes the worker's loss; any other rank raises."""
+    from repro_torch.rl import RolloutWorker
+
+    if not isinstance(host, RolloutWorker):
+        raise RuntimeError("learner rank: the loss failed on purpose")
+    return RolloutWorker._loss_for(host, params, target_params, batch)
