@@ -482,6 +482,10 @@ SERVE_DECODE_ATTENTION = {"serve_jamba": (2, 1, 32, 8, 128, _W), "serve_qwen32_i
 SERVE_RWKV6_SHAPE = (2, 512, 64, 64)
 SERVE_GMM_UP = {"serve_deepseek": [(49152, 2048, 1408, 64), (128, 2048, 1408, 64)],
                 "serve_jamba": [(16384, 4096, 14336, 16), (32, 4096, 14336, 16)]}
+# GmmMatmul passes block_m = B*C, the rows of a group, at most 128: a decode
+# step's 2 take the small-group kernel (csrc/moe_gmm_small.cu), the prefill's
+# 768 and 1,024 the 128-row-tile kernel (csrc/moe_gmm.cu).
+SERVE_GMM_DECODE = {path: ups[1] for path, ups in SERVE_GMM_UP.items()}
 
 
 def _down(up) -> list:
@@ -529,8 +533,10 @@ PATH_SHAPES = {
         ("pretrain_jamba", JAMBA_GMM_UP))}
        for name in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw")},
 }
-PATH_SHAPES["moe_gmm"].update({path: [list(up) for up in ups] + [_down(up) for up in ups]
+PATH_SHAPES["moe_gmm"].update({path: [list(ups[0]), _down(ups[0])]
                                for path, ups in SERVE_GMM_UP.items()})
+PATH_SHAPES["moe_gmm_small"] = {path: [list(up), _down(up)]
+                               for path, up in SERVE_GMM_DECODE.items()}
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 # The gradient paths (A2C, A3C) at examples/quickstart.py's workers: 2 'pg'
 # workers of 4 CartPole envs x 32 steps.
@@ -931,6 +937,11 @@ GMM_TILE, GMM_BK, GMM_STAGES, GMM_THREADS = 128, 32, 4, 256
 # its kept sub-chunk start states; a block has N * N / 8 threads.
 RWKV6_KERNELS = ("rwkv6_fwd_kernel", "rwkv6_bwd_kernel")
 RWKV6_TILE, RWKV6_SUB, RWKV6_MARKS = 32, 16, 4
+# The small-group kernels of moe_gmm_small.cu (CUDA cores): one per rows a
+# chunk (RMAX), blocks of 256 threads with 4 x RMAX x 128 floats of shared
+# memory.
+GMM_SMALL_ROWS = (1, 2, 4, 8, 16)
+GMM_SMALL_KERNELS = tuple(f"gmm_small_kernel<{r}>" for r in GMM_SMALL_ROWS)
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
 SM_REGISTERS = 65536
 
@@ -943,6 +954,13 @@ def _kernel_name(symbol: str):
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
     return next((name for key, name in GMM_KERNELS.items() if key in symbol), None)
+
+
+def _small_gmm_name(symbol: str):
+    """``gmm_small_kernel<2>`` from a mangled kernel symbol of
+    moe_gmm_small.cu, or None."""
+    m = re.search(r"gmm_small_kernelILi(\d+)E", symbol)
+    return f"gmm_small_kernel<{m.group(1)}>" if m else None
 
 
 def _kernel_smem(name: str) -> tuple:
@@ -1053,7 +1071,16 @@ def phase_build() -> dict:
         print(f"memory-bound kernel {name}: {json.dumps(u)}")
     _require(sorted(memory) == sorted(memory_kernels), f"ptxas reported {sorted(memory)}, want "
                                                        f"{sorted(memory_kernels)}")
-    for name, u in memory.items():
+    small = _ptxas_usage(log, _small_gmm_name)
+    for name, u in small.items():
+        rows = int(name[:-1].split("<")[1])
+        regs_per_warp = -(-u.get("registers", 255) * 32 // 256) * 256
+        u.update(smem_bytes=4 * rows * 128 * 4,
+                 blocks_per_sm=min(SM_REGISTERS // (8 * regs_per_warp), 8))
+        print(f"CUDA-core kernel {name}: {json.dumps(u)}")
+    _require(sorted(small) == sorted(GMM_SMALL_KERNELS),
+             f"ptxas reported {sorted(small)}, want {sorted(GMM_SMALL_KERNELS)}")
+    for name, u in {**memory, **small}.items():
         _require(u.get("stack", 1) == 0 and u.get("spill_stores", 1) == 0,
                  f"{name}: a stack frame or spills ({u}): a register array in local memory")
     usage = _kernel_usage(log, info["path"])
@@ -1064,7 +1091,7 @@ def phase_build() -> dict:
     for name, u in rwkv6.items():
         print(f"CUDA-core kernel {name}: {json.dumps(u)}")
     return {"build_s": seconds, "tensor_core_kernels": tensor_core, "rwkv6_kernels": rwkv6,
-            "memory_kernels": memory}
+            "memory_kernels": memory, "small_gmm_kernels": small}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1637,6 +1664,85 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
     }
 
 
+def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
+                    kernel_iters: int = 20, overrun: int = 0, tail: int = 0) -> dict:
+    """The small-group kernel (``moe_gmm_small_cuda`` at ``block_m``) against
+    the loop over groups, twice (bitwise equal), with ``overrun`` and
+    ``tail`` as ``_gmm_case``; timed beside the 128-row-tile kernel on the
+    same inputs (``tile_ms``) and, with equal groups, ``torch.bmm``.  Its
+    bound: the bytes, or the flops at the fp32 rate of the CUDA cores it
+    runs on."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import (
+        moe_gmm_cuda,
+        moe_gmm_plain,
+        moe_gmm_small_cuda,
+        small_rows,
+    )
+
+    x, _, w, gs = _gmm_inputs(sizes, D, F, seed, tail)
+    (T, _), E = x.shape, len(sizes)
+    name = f"moe_gmm_small [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:8]}... block_m {block_m}"
+    got = moe_gmm_small_cuda(x, w, gs, block_m)
+    again = moe_gmm_small_cuda(x, w, gs, block_m)
+    want = moe_gmm_plain(x, w, gs)
+    torch.cuda.synchronize()
+    err = _close(name, got, want, GMM_TOL)
+    _require(bool(torch.equal(got, again)), f"{name}: two calls differ (not bitwise repeatable)")
+    del got, again, want
+    if overrun:
+        cut = x[: T - overrun]
+        err = max(err, _close(f"{name}, groups summing to {T} over {T - overrun} rows",
+                              moe_gmm_small_cuda(cut, w, gs, block_m), moe_gmm_plain(cut, w, gs),
+                              GMM_TOL))
+    # The work this run's groups need: an empty group reads no w_e, and the
+    # tail's rows are written (zeros) but not read.
+    used = sum(1 for s in sizes if s)
+    flops, nbytes = _formula("moe_gmm", {"t": T - tail, "d": D, "f": F, "e": used})
+    nbytes += 4 * tail * F
+    bound, by = _bound_ms(nbytes, flops)
+
+    def tile():
+        return moe_gmm_cuda(x, w, gs, block_m=128)
+
+    tile_ms, _, _ = _device_ms_retried(tile, kernel_iters)
+    tile_call_ms = _time_ms(tile, iters=kernel_iters, warmup=2)
+    return {
+        "shape": [T, D, F, E], "groups": sizes, "tail": tail, "block_m": block_m,
+        "rows_a_chunk": small_rows(block_m), "blocks": [-(-F // 128), E + 1],
+        "max_abs_err": err, "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by,
+        "bytes": nbytes, "flops": flops,
+        **_timings(lambda: moe_gmm_small_cuda(x, w, gs, block_m), lambda: moe_gmm_plain(x, w, gs),
+                   plain_iters=3, kernel_iters=kernel_iters),
+        "tile_ms": tile_ms if tile_ms is not None else tile_call_ms,
+        "tile_ms_from": "profiler" if tile_ms is not None else "cuda_events",
+        "tile_call_ms": tile_call_ms,
+        **_gmm_library(sizes, lambda: torch.bmm(x.view(E, sizes[0], D), w)),
+    }
+
+
+def _gmm_small_cases() -> list:
+    """The small-group kernel at the serving paths' decode products, up and
+    down at block_m 2 (DeepSeek's up product, the path's shape, first); at
+    groups of 1, 3 and 8 rows at DeepSeek's decode widths; and at 64 ragged
+    groups of 0-8 rows with empty ones at those widths, alone, with groups
+    past x's end, and with rows past the last group at F 1,412 (the last
+    column slab one lane wide)."""
+    out = []
+    for seed, (T, D, F, E) in enumerate(SERVE_GMM_DECODE.values()):
+        for d, f in ((D, F), (F, D)):
+            out.append(_gmm_small_case([T // E] * E, d, f, 130 + seed, T // E))
+    T, D, F, E = SERVE_GMM_DECODE["serve_deepseek"]
+    for rows in (1, 3, 8):
+        out.append(_gmm_small_case([rows] * E, D, F, 140 + rows, rows))
+    ragged = [2, 0, 5, 1, 3, 0, 8, 2] * (E // 8)
+    out += [_gmm_small_case(ragged, D, F, 150, 8),
+            _gmm_small_case(ragged, D, F, 151, 8, overrun=6),
+            _gmm_small_case(ragged, D, F + 4, 152, 8, tail=5)]
+    return out
+
+
 def _gmm_bwd_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
                   overrun: int = 0, tail: int = 0, batch: int = PRETRAIN["batch"]) -> dict:
     """The backward products of the grouped matmul out = x @ w[e] against the
@@ -1736,9 +1842,10 @@ def _zoo_kernel_cases(out: dict) -> None:
     cases: flash forward and backward at the LLaVA, MusicGen (D = 64) and
     Jamba (batch 1) learners and forward at each serving prefill; the grouped
     matmul and its dX and dW at DeepSeek's and Jamba's learner products (up
-    and down) and forward at their serving products (prefill and a decode
-    step); decode attention at each serving case's heads and window (one
-    shared prefix mask, as the path's); RWKV-6 at the serving prefill."""
+    and down) and forward at their serving prefill's products; the
+    small-group kernel at their decode steps' (``_gmm_small_cases``);
+    decode attention at each serving case's heads and window (one shared
+    prefix mask, as the path's); RWKV-6 at the serving prefill."""
     t0 = time.perf_counter()
     for seed, (B, S, H, KV, D) in enumerate((LLAVA_ATTENTION, MUSICGEN_ATTENTION, JAMBA_ATTENTION)):
         out["flash_attention_fwd"].append(
@@ -1760,9 +1867,11 @@ def _zoo_kernel_cases(out: dict) -> None:
             bwd = _gmm_bwd_case([T // E] * E, d, f, 110 + seed, kernel_iters=10, batch=batch)
             out["moe_gmm_dx"].append(bwd["dx"])
             out["moe_gmm_dw"].append(bwd["dw"])
-    for seed, (T, D, F, E) in enumerate(u for ups in SERVE_GMM_UP.values() for u in ups):
+    for seed, ups in enumerate(SERVE_GMM_UP.values()):
+        T, D, F, E = ups[0]
         for d, f in ((D, F), (F, D)):
-            out["moe_gmm"].append(_gmm_case([T // E] * E, d, f, 120 + seed, kernel_iters=10))
+            out["moe_gmm"].append(_gmm_case([T // E] * E, d, f, 120 + 2 * seed, kernel_iters=10))
+    out["moe_gmm_small"] = _gmm_small_cases()
     print(f"  the model zoo's kernel cases: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1897,6 +2006,10 @@ def phase_kernels() -> dict:
             if c.get("clocks"):
                 print(f"  SM clock / power / temperature around its readings: "
                       f"{[tuple(x.values()) for x in c['clocks']]}")
+            if "tile_ms" in c:
+                print(f"  block_m {c['block_m']}: {c['rows_a_chunk']} rows a chunk, grid "
+                      f"{c['blocks']}; the 128-row-tile kernel on the same inputs "
+                      f"{c['tile_ms']} ms ({c['tile_ms_from']})")
     return out
 
 
@@ -3172,7 +3285,9 @@ def _serve_expected(cfg, steps: int) -> dict:
     space with plain einsums), the RWKV-6 forward once an RWKV-6 layer in
     the prefill (the decode step is plain, as the reference's), and the
     grouped matmul three (gated) or two times an MoE layer in the prefill and
-    in each step.  Mamba is plain throughout."""
+    in each step: the prefill's on the 128-row-tile kernel, each step's on
+    the small-group kernel (block_m = B*C = 2), which ``moe_gmm`` counts too.
+    Mamba is plain throughout."""
     expect: dict = {}
 
     def add(name, n):
@@ -3185,7 +3300,9 @@ def _serve_expected(cfg, steps: int) -> dict:
         if spec.kind == "rwkv6":
             add("rwkv6_fwd", 1)
         if spec.mlp == "moe":
-            add("moe_gmm", (3 if cfg.activation == "silu" else 2) * (1 + steps))
+            products = 3 if cfg.activation == "silu" else 2
+            add("moe_gmm", products * (1 + steps))
+            add("moe_gmm_small", products * steps)
     return expect
 
 
@@ -4970,6 +5087,7 @@ def _all_counters() -> list:
         MOE_GMM_DW_LAUNCHES,
         MOE_GMM_DX_LAUNCHES,
         MOE_GMM_LAUNCHES,
+        MOE_GMM_SMALL_LAUNCHES,
     )
     from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
@@ -4977,8 +5095,8 @@ def _all_counters() -> list:
 
     return [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
             DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
-            RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_DX_LAUNCHES,
-            MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
+            RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES,
+            MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
 
 
 class _ChildProbe:
@@ -5505,6 +5623,10 @@ KERNEL_SITES = {
     # No TPU kernel either: the reference learner differentiates ref.rwkv6_ref.
     "rwkv6_bwd": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/ref.py:128"),
     "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:24"),
+    # The same TPU kernel at the small block_m of a decode step
+    # (repro/models/moe.py:136).
+    "moe_gmm_small": ("src/repro_torch/kernels/csrc/moe_gmm_small.cu",
+                      "src/repro/kernels/moe_gmm.py:24"),
     # No TPU kernel: the reference's custom VJP computes both products of
     # the backward with einsums.
     "moe_gmm_dx": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/models/moe.py:145"),
@@ -5714,6 +5836,8 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}
+        if name == "moe_gmm":  # its counter counts the small-group route's launches too
+            by_path = {p: v - paths[p].get("moe_gmm_small", 0) for p, v in by_path.items()}
         cases_by_path = {}
         for p, shapes in PATH_SHAPES.get(name, {}).items():
             picked = []

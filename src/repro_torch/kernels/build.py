@@ -84,6 +84,8 @@ _SIGNATURES = {
     "moe_gmm_dx_launch": [_P] * 5 + [_I] * 4 + [_P],
     # x, dy, ends, dw, T, D, F, E, stream
     "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # x, w, ends, out, T, D, F, E, rmax, stream
+    "moe_gmm_small_launch": [_P] * 4 + [_I] * 5 + [_P],
     # keys, key_stride, lanes, n, out, xor_words, stream
     "threefry_counts_launch": [_P, _L, _L, _L, _P, _I, _P],
     # keys, key_stride, data, data_stride, lanes, out, stream

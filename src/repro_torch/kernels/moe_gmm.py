@@ -1,9 +1,14 @@
 """Grouped matrix products (the MoE expert FFN) on the GPU: the wrappers of
-the hand-written CUDA kernels ``csrc/moe_gmm.cu`` (the port of
-``repro/kernels/moe_gmm.py::moe_gmm_pallas``, and the two products of its
-backward) and their plain PyTorch versions.
+the hand-written CUDA kernels ``csrc/moe_gmm.cu`` and ``csrc/moe_gmm_small.cu``
+(the port of ``repro/kernels/moe_gmm.py::moe_gmm_pallas`` in its two
+configurations, and the two products of its backward) and their plain
+PyTorch versions.
 
-* ``moe_gmm``: out [T, F] = x [T, D] @ w[e] per group of rows;
+* ``moe_gmm``: out [T, F] = x [T, D] @ w[e] per group of rows, on one of two
+  kernels chosen by the caller's ``block_m`` (``gmm_route``), as the
+  reference chooses its row block: 128-row tiles on the tensor cores
+  (``moe_gmm.cu``) or, at the small groups of a decode step, a stream of
+  each w[e] with the group's rows in registers (``moe_gmm_small.cu``);
 * ``moe_gmm_dx``: dx [T, D] = dy [T, F] @ w[e]^T per group of rows;
 * ``moe_gmm_dw``: dw [E, D, F], dw[e] = x_e^T @ dy_e over group e's rows.
 
@@ -29,22 +34,33 @@ import torch
 from repro_torch.kernels.build import LaunchCounter, check, load_library
 
 __all__ = [
+    "gmm_route",
     "moe_gmm_cuda",
+    "moe_gmm_small_cuda",
     "moe_gmm_dx_cuda",
     "moe_gmm_dw_cuda",
     "moe_gmm_plain",
     "moe_gmm_dx_plain",
     "moe_gmm_dw_plain",
     "MOE_GMM_LAUNCHES",
+    "MOE_GMM_SMALL_LAUNCHES",
+    "SMALL_BLOCK_M",
+    "small_rows",
     "MOE_GMM_DX_LAUNCHES",
     "MOE_GMM_DW_LAUNCHES",
 ]
 
-MOE_GMM_LAUNCHES = LaunchCounter("moe_gmm")
+MOE_GMM_LAUNCHES = LaunchCounter("moe_gmm")  # both routes of the forward
+MOE_GMM_SMALL_LAUNCHES = LaunchCounter("moe_gmm_small")  # the small-group route alone
 MOE_GMM_DX_LAUNCHES = LaunchCounter("moe_gmm_dx")
 MOE_GMM_DW_LAUNCHES = LaunchCounter("moe_gmm_dw")
 
 ROW_TILE = 128  # rows per output tile of the kernels (kBM in moe_gmm.cu)
+# The largest block_m that takes the small-group kernel: from
+# ``moe_gmm_variants.py``'s sweep of both kernels over groups of 1-128 rows
+# at DeepSeek-V2-Lite's and Jamba's decode products (PERF.md).
+SMALL_BLOCK_M = 16
+SMALL_MAX_ROWS = 16  # most rows a chunk of the small kernel holds in registers
 
 
 def _groups(group_sizes: torch.Tensor):
@@ -105,35 +121,85 @@ def _validate(fn: str, group_sizes: torch.Tensor, E: int, D: int, F: int, tensor
         raise ValueError(f"{fn}: group_sizes must be an integer [{E}] tensor on {device}")
 
 
+def _ends(group_sizes: torch.Tensor, T: int) -> torch.Tensor:
+    """The groups' running row ends cut at T, int64, computed on the device
+    so that the launch never waits for them."""
+    return torch.cumsum(group_sizes.to(torch.int64), 0).clamp_(max=T)
+
+
 def _offsets(group_sizes: torch.Tensor, T: int):
-    """The groups' running row ends cut at T and the running counts of
-    128-row tiles of the cut groups, int32, computed on the device so that
-    the launch never waits for them."""
-    ends = torch.cumsum(group_sizes.to(torch.int64), 0).clamp_(max=T)
+    """The groups' running row ends cut at T (``_ends``) and the running
+    counts of 128-row tiles of the cut groups, int32, on the device."""
+    ends = _ends(group_sizes, T)
     sizes = torch.diff(ends, prepend=ends.new_zeros(1))
     tiles = torch.div(sizes + (ROW_TILE - 1), ROW_TILE, rounding_mode="floor")
     return ends.to(torch.int32), torch.cumsum(tiles, 0).to(torch.int32)
 
 
-def _launch(name: str, counter: LaunchCounter, device: torch.device, *args) -> None:
+def _launch(name: str, counters: tuple, device: torch.device, *args) -> None:
     lib = load_library()
     with torch.cuda.device(device):
         rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     check(lib, rc, name)
-    counter.add()
+    for counter in counters:
+        counter.add()
 
 
-def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    """The forward kernel; same contract as ``moe_gmm_plain``."""
+def gmm_route(block_m: int) -> str:
+    """The forward kernel for the caller's row block ``block_m``, the rows
+    its groups hold (the reference's ``moe_gmm_pallas`` argument):
+    ``"small"`` (``moe_gmm_small.cu``) at and below ``SMALL_BLOCK_M``,
+    ``"tile"`` (``moe_gmm.cu``'s 128-row tiles) above."""
+    if block_m < 1:
+        raise ValueError(f"block_m must be at least 1, got {block_m}")
+    return "small" if block_m <= SMALL_BLOCK_M else "tile"
+
+
+def small_rows(block_m: int) -> int:
+    """Most rows a chunk of the small kernel holds (its template argument
+    RMAX): the least power of two at or above ``block_m``, at most
+    ``SMALL_MAX_ROWS``.  Larger groups are taken in chunks."""
+    return min(SMALL_MAX_ROWS, 1 << max(0, block_m - 1).bit_length())
+
+
+def _check_forward(fn: str, x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> tuple:
     if x.dim() != 2 or w.dim() != 3:
-        raise ValueError(f"moe_gmm_cuda: want x [T, D] and w [E, D, F], got "
+        raise ValueError(f"{fn}: want x [T, D] and w [E, D, F], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     (T, _), (E, D, F) = x.shape, w.shape
-    _validate("moe_gmm_cuda", group_sizes, E, D, F, [("x", x, (T, D)), ("w", w, (E, D, F))])
+    _validate(fn, group_sizes, E, D, F, [("x", x, (T, D)), ("w", w, (E, D, F))])
+    return T, D, F, E
+
+
+def moe_gmm_small_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                       block_m: int = 2) -> torch.Tensor:
+    """The small-group forward kernel; same contract as ``moe_gmm_plain``.
+    ``block_m`` sets the rows a chunk holds (``small_rows``); any group
+    sizes are taken.  Counts under ``MOE_GMM_LAUNCHES`` and
+    ``MOE_GMM_SMALL_LAUNCHES``."""
+    T, D, F, E = _check_forward("moe_gmm_small_cuda", x, w, group_sizes)
+    if block_m < 1:
+        raise ValueError(f"moe_gmm_small_cuda: block_m must be at least 1, got {block_m}")
+    out = torch.empty((T, F), dtype=torch.float32, device=x.device)
+    if T:
+        ends = _ends(group_sizes, T).to(torch.int32)
+        _launch("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES), x.device,
+                x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), T, D, F, E,
+                small_rows(block_m))
+    return out
+
+
+def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                 block_m: int = 128) -> torch.Tensor:
+    """The forward on the kernel ``gmm_route(block_m)`` names; same contract
+    as ``moe_gmm_plain``."""
+    if gmm_route(block_m) == "small":
+        return moe_gmm_small_cuda(x, w, group_sizes, block_m)
+    T, D, F, E = _check_forward("moe_gmm_cuda", x, w, group_sizes)
     out = torch.empty((T, F), dtype=torch.float32, device=x.device)
     if T:
         ends, tile_ends = _offsets(group_sizes, T)
-        _launch("moe_gmm_launch", MOE_GMM_LAUNCHES, x.device, x.data_ptr(), w.data_ptr(),
+        _launch("moe_gmm_launch", (MOE_GMM_LAUNCHES,), x.device, x.data_ptr(), w.data_ptr(),
                 ends.data_ptr(), tile_ends.data_ptr(), out.data_ptr(), T, D, F, E)
     return out
 
@@ -148,7 +214,7 @@ def moe_gmm_dx_cuda(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
     dx = torch.empty((T, D), dtype=torch.float32, device=dy.device)
     if T:
         ends, tile_ends = _offsets(group_sizes, T)
-        _launch("moe_gmm_dx_launch", MOE_GMM_DX_LAUNCHES, dy.device, dy.data_ptr(), w.data_ptr(),
+        _launch("moe_gmm_dx_launch", (MOE_GMM_DX_LAUNCHES,), dy.device, dy.data_ptr(), w.data_ptr(),
                 ends.data_ptr(), tile_ends.data_ptr(), dx.data_ptr(), T, D, F, E)
     return dx
 
@@ -165,6 +231,6 @@ def moe_gmm_dw_cuda(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor
     dw = torch.empty((E, D, F), dtype=torch.float32, device=x.device)
     if E:
         ends, _ = _offsets(group_sizes, T)
-        _launch("moe_gmm_dw_launch", MOE_GMM_DW_LAUNCHES, x.device, x.data_ptr(), dy.data_ptr(),
+        _launch("moe_gmm_dw_launch", (MOE_GMM_DW_LAUNCHES,), x.device, x.data_ptr(), dy.data_ptr(),
                 ends.data_ptr(), dw.data_ptr(), T, D, F, E)
     return dw

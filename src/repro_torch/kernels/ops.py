@@ -96,16 +96,21 @@ def rwkv6(
     return rwkv6_plain(r, k, v, w, u, state=state, chunk=chunk)
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+            block_m: int = 128) -> torch.Tensor:
     """Grouped matmul [T, D] x [E, D, F] -> [T, F] over expert-contiguous
-    rows: the CUDA kernel for CUDA tensors, the loop over groups for CPU
-    tensors.  The reference's ``block_m``/``block_n`` (the TPU kernel's
-    tiles, to which every group must be aligned) have no counterpart: the
-    CUDA kernel tiles each group itself and takes any sizes."""
+    rows: a CUDA kernel for CUDA tensors, the loop over groups for CPU
+    tensors.  ``block_m`` is the reference's row block, the rows the
+    caller's groups hold (at most 128): on the card it picks the kernel
+    (``moe_gmm.gmm_route``), the small-group kernel at a decode step's
+    groups and the 128-row-tile kernel above; the plain version ignores it.
+    Both kernels take any group sizes, so the reference's ``block_n`` and
+    its alignment of groups to the block have no counterpart.  The cost
+    walker charges the function, the same whichever kernel runs."""
     if _cost.LOCAL.walker is not None:
         return _cost.LOCAL.walker.kernel("moe_gmm", x, w, group_sizes)
     if x.is_cuda:
-        return moe_gmm_cuda(x, w, group_sizes)
+        return moe_gmm_cuda(x, w, group_sizes, block_m=block_m)
     return moe_gmm_plain(x, w, group_sizes)
 
 

@@ -12,8 +12,13 @@ on the CPU) and whose backward computes the reference's two batched
 products with ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw`` (the dX and dW
 kernels on the card).
 The reference sends an expert product to its kernel only where the TPU's
-tiling gate (``_gmm_ok``) allows and to an einsum elsewhere; the CUDA kernel
-takes any group size, so the port sends every one.
+tiling gate (``_gmm_ok``) allows and to an einsum elsewhere; the CUDA
+kernels take any group size, so the port sends every one.  As the
+reference, ``GmmMatmul`` passes ``block_m`` = B*C, the rows of a group, when
+that is at most 128 and 128 above: on the card that picks the small-group
+kernel at a decode step's groups (2 rows at batch 2, capacity 1) and the
+128-row-tile kernel at prefill and training groups
+(``kernels/moe_gmm.py::gmm_route``).
 The reference's sharding annotations are kept, call for call; under axis
 rules the dispatch and combine run on each data shard's rows and the expert
 products on each (batch, experts) shard (``shard_map``).
@@ -79,10 +84,11 @@ class _ReplicateRows(torch.autograd.Function):
 class GmmMatmul(torch.autograd.Function):
     """[B, E, C, K] x [E, K, N] -> [B, E, C, N] through ``ops.moe_gmm``: the
     dispatch buffer transposed to [E, B*C, K] is a grouped-rows layout with
-    E groups of B*C rows.  The backward computes the reference's two batched
-    products (``repro/models/moe.py`` ``_gmm_matmul_bwd``) in that layout,
-    through ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw``; it reads the grouped
-    rows, so the forward saves them and not ``xe``."""
+    E groups of B*C rows, passed with the reference's ``block_m``
+    (``repro/models/moe.py:136``).  The backward computes the reference's
+    two batched products (``repro/models/moe.py`` ``_gmm_matmul_bwd``) in
+    that layout, through ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw``; it reads
+    the grouped rows, so the forward saves them and not ``xe``."""
 
     @staticmethod
     def forward(ctx, xe, w):
@@ -91,7 +97,8 @@ class GmmMatmul(torch.autograd.Function):
         groups = torch.full((E,), B * C, dtype=torch.int32, device=xe.device)
         ctx.save_for_backward(xg, w, groups)
         ctx.dims = (B, E, C, xe.dtype)
-        out = ops.moe_gmm(xg, w, groups)
+        block_m = B * C if B * C <= 128 else 128
+        out = ops.moe_gmm(xg, w, groups, block_m=block_m)
         return out.reshape(E, B, C, w.shape[-1]).transpose(0, 1).to(xe.dtype)
 
     @staticmethod

@@ -35,14 +35,20 @@ from repro_torch.kernels.moe_gmm import (
     MOE_GMM_DW_LAUNCHES,
     MOE_GMM_DX_LAUNCHES,
     MOE_GMM_LAUNCHES,
+    MOE_GMM_SMALL_LAUNCHES,
     ROW_TILE,
+    SMALL_BLOCK_M,
+    SMALL_MAX_ROWS,
     _offsets,
+    gmm_route,
     moe_gmm_cuda,
     moe_gmm_dw_cuda,
     moe_gmm_dw_plain,
     moe_gmm_dx_cuda,
     moe_gmm_dx_plain,
     moe_gmm_plain,
+    moe_gmm_small_cuda,
+    small_rows,
 )
 from repro_torch.models import moe
 from test_torch_attention import _mm_1xtf32, _mm_3xtf32, _tf32, _tf32_toward_zero
@@ -57,9 +63,15 @@ def _close(got, want, tol=TOL, name=""):
     )
 
 
-@pytest.mark.parametrize("sizes,D,F", [([64, 128, 64], 32, 64), ([128, 0, 128, 64], 64, 128)])
+@pytest.mark.parametrize("sizes,D,F,block_m", [
+    pytest.param([64, 128, 64], 32, 64, 64, id="sizes0-32-64"),
+    pytest.param([128, 0, 128, 64], 64, 128, 64, id="sizes1-64-128"),
+    # The reference's small-block configuration (block_m = B*C <= 128,
+    # repro/models/moe.py:136), groups of block_m rows: a decode step's is 2.
+    *(pytest.param([m] * 8, 64, 256, m, id=f"block_m{m}") for m in (1, 2, 8)),
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_moe_gmm_plain_matches_pallas_and_reference(sizes, D, F, dtype):
+def test_moe_gmm_plain_matches_pallas_and_reference(sizes, D, F, block_m, dtype):
     rng = np.random.default_rng(sum(sizes) + D)
     x = rng.standard_normal((sum(sizes), D)).astype(np.float32)
     w = rng.standard_normal((len(sizes), D, F)).astype(np.float32)
@@ -68,7 +80,7 @@ def test_moe_gmm_plain_matches_pallas_and_reference(sizes, D, F, dtype):
     tdt = getattr(torch, dtype)
     got = moe_gmm_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt), torch.tensor(sizes))
     tol = 5e-2 if dtype == "bfloat16" else TOL
-    pallas = moe_gmm_pallas(xj, wj, gs, block_m=64, block_n=64, interpret=True)
+    pallas = moe_gmm_pallas(xj, wj, gs, block_m=block_m, block_n=64, interpret=True)
     _close(got.float(), pallas.astype(jnp.float32), tol, name="vs pallas")
     _close(got.float(), moe_gmm_ref(xj, wj, gs).astype(jnp.float32), tol, name="vs ref")
 
@@ -146,6 +158,99 @@ def test_moe_gmm_wrapper_refuses_cpu_tensors_and_ops_dispatch_by_device():
     count = MOE_GMM_LAUNCHES.value
     torch.testing.assert_close(ops.moe_gmm(x, w, sizes), moe_gmm_plain(x, w, sizes), rtol=0, atol=0)
     assert MOE_GMM_LAUNCHES.value == count
+
+
+@pytest.mark.parametrize("B,C", [(2, 1), (2, 80)])
+def test_gmm_matmul_passes_the_reference_block_m(B, C, monkeypatch):
+    """At a decode step's groups (B 2, S 1, C 1: 2 rows an expert) and at a
+    training shape's (160 rows) ``GmmMatmul`` hands ``ops.moe_gmm`` the
+    ``block_m`` the reference hands its kernel, which on the card picks the
+    small-group kernel at the decode step and the tile kernel in training."""
+    E, K, N = 4, 8, 12
+    rng = np.random.default_rng(B * C)
+    xe = rng.standard_normal((B, E, C, K)).astype(np.float32)
+    w = rng.standard_normal((E, K, N)).astype(np.float32)
+    seen_j, seen_t = [], []
+    real_j, real_t = jax_moe.ops.moe_gmm, moe.ops.moe_gmm
+
+    def spy_j(x, w, gs, block_m=128, block_n=128):
+        seen_j.append(block_m)
+        return real_j(x, w, gs, block_m=block_m, block_n=block_n)
+
+    def spy_t(x, w, gs, block_m=128):
+        seen_t.append(block_m)
+        return real_t(x, w, gs, block_m=block_m)
+
+    monkeypatch.setattr(jax_moe.ops, "moe_gmm", spy_j)
+    monkeypatch.setattr(moe.ops, "moe_gmm", spy_t)
+    out_j = jax_moe._gmm_matmul(jnp.asarray(xe), jnp.asarray(w))
+    out_t = moe.GmmMatmul.apply(torch.from_numpy(xe), torch.from_numpy(w))
+    assert seen_t == seen_j == [B * C if B * C <= 128 else 128]
+    assert gmm_route(seen_t[0]) == ("small" if C == 1 else "tile")
+    _close(out_t, out_j, name="out")
+
+
+def test_gmm_route_takes_the_small_kernel_at_and_below_the_threshold():
+    """``moe_gmm_cuda``'s choice of kernel by ``block_m``, and the rows a
+    chunk of the small kernel holds (the least power of two at or above
+    ``block_m``, at most ``SMALL_MAX_ROWS``)."""
+    assert 2 <= SMALL_BLOCK_M < ROW_TILE
+    for block_m in range(1, SMALL_BLOCK_M + 1):
+        assert gmm_route(block_m) == "small", block_m
+        rows = small_rows(block_m)
+        assert rows in (1, 2, 4, 8, 16) and (rows >= block_m or rows == SMALL_MAX_ROWS), block_m
+        assert rows == 1 or rows // 2 < block_m, block_m
+    for block_m in (SMALL_BLOCK_M + 1, 64, 127, 128):
+        assert gmm_route(block_m) == "tile", block_m
+    with pytest.raises(ValueError, match="block_m"):
+        gmm_route(0)
+
+
+def _kernel_order(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``moe_gmm_small.cu``'s order of sums for one group, x [R, D] @ w [D, N]
+    in float32: each of 8 warps adds its depths 4j + 32i (four a step, in
+    order) by FMAs (emulated: the exact product and sum in float64, rounded
+    once to float32), then the warps in the fixed tree."""
+    R, D = x.shape
+    acc = torch.zeros((8, R, w.shape[1]), dtype=torch.float32)
+    for step in range(0, D, 32):
+        for j in range(8):
+            for k in range(4):
+                d = step + 4 * j + k
+                if d < D:
+                    prod = x[:, d, None].double() * w[d].double()
+                    acc[j] = (acc[j].double() + prod).float()
+    for half in (4, 2, 1):
+        acc[:half] = acc[:half] + acc[half:2 * half]
+    return acc[0]
+
+
+@pytest.mark.parametrize("D", [14336, 4096, 2048, 1408])
+def test_small_kernel_order_of_sums_keeps_gmm_tol(D):
+    """The small kernel's fp32 FMAs in its order of sums, at Jamba's and
+    DeepSeek-V2-Lite's decode contractions, on inputs N(0, 1) and weights
+    N(0, 1/D) as the experts': within GMM_TOL of float64."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((2, D)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((D, 16)) / np.sqrt(D)).astype(np.float32))
+    _close(_kernel_order(x, w), x.double() @ w.double(), tol=GMM_TOL, name=f"D {D}")
+
+
+def test_moe_gmm_small_wrapper_refuses_cpu_tensors_and_ops_dispatch_by_device():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 8, 4)).astype(np.float32))
+    sizes = torch.tensor([7, 3])
+    for block_m in (1, 2, SMALL_BLOCK_M):
+        with pytest.raises(ValueError, match="CUDA"):
+            moe_gmm_small_cuda(x, w, sizes, block_m)
+        with pytest.raises(ValueError, match="CUDA"):
+            moe_gmm_cuda(x, w, sizes, block_m=block_m)
+    counts = (MOE_GMM_LAUNCHES.value, MOE_GMM_SMALL_LAUNCHES.value)
+    want = moe_gmm_plain(x, w, sizes)
+    for block_m in (1, 2, SMALL_BLOCK_M, 128):
+        torch.testing.assert_close(ops.moe_gmm(x, w, sizes, block_m=block_m), want, rtol=0, atol=0)
+    assert (MOE_GMM_LAUNCHES.value, MOE_GMM_SMALL_LAUNCHES.value) == counts
 
 
 # Ragged groups with empty ones, summing to T (the reference's oracle gives
@@ -268,6 +373,17 @@ def test_moe_gmm_variants_edit_the_shipped_source(name):
         assert new != old
 
 
+@pytest.mark.parametrize("name", sorted(moe_gmm_variants.SMALL_VARIANTS))
+def test_moe_gmm_small_variants_edit_the_shipped_source(name):
+    """``moe_gmm_variants --small-variants`` builds each variant of the
+    small-group kernel by replacing text of ``csrc/moe_gmm_small.cu``: each
+    text must be there once."""
+    text = (build.CSRC_DIR / "moe_gmm_small.cu").read_text()
+    for old, new in moe_gmm_variants.SMALL_VARIANTS[name]:
+        assert text.count(old) == 1, old
+        assert new != old
+
+
 # ------------------------------- tests/test_moe_layer.py, on the port
 # The reference's five MoE invariants, each also held to the reference's
 # moe_apply on the same weights and inputs (1e-4, float32).
@@ -312,6 +428,22 @@ def test_moe_output_shape_and_finite():
     assert out.shape == (2, 16, 64)
     assert np.isfinite(out).all()
     assert aux >= 0.0
+
+
+def test_moe_apply_at_one_token_matches_reference(monkeypatch):
+    """A decode step's MoE layer (S = 1, batch 2) against the reference's
+    (1e-4); its expert products take the small-group route on the card."""
+    seen = []
+    real = moe.ops.moe_gmm
+
+    def spy(x, w, gs, block_m=128):
+        seen.append(block_m)
+        return real(x, w, gs, block_m=block_m)
+
+    monkeypatch.setattr(moe.ops, "moe_gmm", spy)
+    out, _ = _layer_apply(*_layer_pair(9, 1, B=2))
+    assert out.shape == (2, 1, 64) and np.isfinite(out).all()
+    assert seen and all(gmm_route(m) == "small" for m in seen), seen
 
 
 def test_moe_matches_dense_expert_computation():
