@@ -12,7 +12,10 @@ phase that fails, and then prints no result line):
    and the grouped matmul's) and each RWKV-6 kernel's registers, spills,
    shared memory and resident blocks per SM, and each tensor-core kernel's
    count of TF32 tensor-core instructions in the SASS (``cuobjdump``; none
-   fails the phase; the RWKV-6 kernels run on the CUDA cores);
+   fails the phase; the RWKV-6 kernels run on the CUDA cores); the bf16
+   kernels' registers and spills, the count of bf16 ``HMMA``/``HGMMA`` in
+   the flash and tile kernels' SASS (none fails the phase), no spill in the
+   small-group ones;
 3. kernels: first the device time of the library's empty kernel, the
    launch floor under the latency-bound kernels; then hold each kernel
    against its plain PyTorch version on the card and time kernel, plain
@@ -305,6 +308,25 @@ per step.  Every keyed path checks that it launched the threefry kernel
 (PPO CartPole and PPO-LM exactly: 4 a rollout and 2 a step, and 9 a step,
 plus 1 a SGD step); the pretraining paths launch none.
 
+Phase 3 also holds the four bf16 kernels (bf16 operands, fp32 sums, the
+output rounded once) against their plain versions within 2^-7 (atol = rtol),
+each bitwise equal across two calls, with device ms, the bound (bytes at 2
+an element, or one bf16 tensor-core pass at 989 TFLOP/s) and SDPA or
+``torch.bmm`` at bf16: the flash forward at the bf16 serve prefills and at
+the float32 cases' shapes (the PPO-LM learner's, GQA 40/8 windowed, with a
+q_offset, ragged, Phi's, Qwen3-14B's, D = 64 and 32), decode attention at
+the bf16 serve steps and at the float32 cases' masks, the tile kernel at
+DeepSeek's and Jamba's prefill products, Phi's and the ragged groups, the
+small-group kernel at the decode products and ragged groups; and every
+bf16-taking wrapper refusing mixed and float16 operands on the card.
+Phase 21e serves DeepSeek-V2-Lite, Jamba and Nemotron-4 at their own dtype,
+bfloat16, as phase 21d at float32: launches exact (the bf16 kernels), each
+step's logits within 5e-2 x max |logits| of a bf16 full forward's and
+within 0.1 x of a float32 run of the same weights widened, both on the
+decode run's expert choices (the forward's own held to them but at near
+ties), prefill seconds, ms a step and peak memory printed (phase 21d has them
+at float32).
+
 Phase 3 also holds the model zoo's path shapes: flash forward and backward
 at LLaVA's [2, 4096, 56/8, 128], MusicGen's [2, 4096, 32/32, 64] and Jamba's
 [1, 4096, 32/8, 128] and forward at each serving prefill; the grouped matmul
@@ -339,6 +361,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import logging
@@ -370,6 +393,14 @@ TF32_OPS_PER_S = 495e12
 # instructions a clock an SM.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TOL = 1e-5  # atol = rtol for kernel vs plain version, float32
+# The bf16 kernels (flash forward, decode attention, the grouped matmul's two
+# routes) against their plain versions (the same function in float32, rounded
+# once): atol = rtol = one bf16 ulp at the output.  An attention output is a
+# weighted mean of V rows, far below 1 in a long row, so there atol is one
+# ulp at the row's largest output (_close_rows).  Their tensor-core bound is
+# the H100 SXM's dense bf16 rate.
+BF16_TOL = 2.0 ** -7
+BF16_OPS_PER_S = 989e12
 # atol = rtol for attention gradients, kernel vs autograd through the plain
 # version: each dK/dV element sums Sq * g terms, each dQ element Sk terms,
 # in another order.
@@ -537,6 +568,35 @@ PATH_SHAPES["moe_gmm"].update({path: [list(ups[0]), _down(ups[0])]
                                for path, ups in SERVE_GMM_UP.items()})
 PATH_SHAPES["moe_gmm_small"] = {path: [list(up), _down(up)]
                                for path, up in SERVE_GMM_DECODE.items()}
+# The bf16 serving paths: DeepSeek-V2-Lite, Jamba and Nemotron-4 at their
+# configurations' own dtype (bfloat16, every configuration's default), cut
+# to 2 layers by cut_layers as their float32 cases, the same 2 x 512 prefill
+# and 16 steps, weights made at bf16 by init_params from a seed.  Each step's
+# logits (and the prefill's last) must be within SERVE_BF16_REL_TOL x max
+# |logits| of one bf16 full forward's and within SERVE_BF16_F32_REL_TOL x max
+# |logits| of a float32 run of the same weights widened, both runs taking
+# the decode run's expert choices (tolerances fixed from CPU runs at reduced
+# widths before any card run, PERF.md); the full forward's own choices must equal the
+# decode run's but at near ties (the k-th and (k + 1)-th probabilities within
+# ROUTE_NEAR_TIE of the larger).  They run the bf16 kernels at the float32
+# cases' shapes.
+SERVE_BF16 = {"serve_deepseek_bf16": "deepseek-v2-lite-16b", "serve_jamba_bf16": "jamba-v0.1-52b",
+              "serve_nemotron_bf16": "nemotron-4-15b"}
+SERVE_BF16_REL_TOL = 5e-2
+SERVE_BF16_F32_REL_TOL = 1e-1
+ROUTE_NEAR_TIE = 0.1
+_BF16_CASE = {"serve_deepseek": "serve_deepseek_bf16", "serve_jamba": "serve_jamba_bf16",
+              "serve_nemotron": "serve_nemotron_bf16"}
+SERVE_BF16_PREFILL_ATTENTION = {_BF16_CASE[p]: SERVE_PREFILL_ATTENTION[p]
+                                for p in ("serve_jamba", "serve_nemotron")}
+SERVE_BF16_DECODE_ATTENTION = {_BF16_CASE[p]: SERVE_DECODE_ATTENTION[p]
+                               for p in ("serve_jamba", "serve_nemotron")}
+PATH_SHAPES["flash_attention_fwd_bf16"] = {p: list(s) for p, s in SERVE_BF16_PREFILL_ATTENTION.items()}
+PATH_SHAPES["decode_attention_bf16"] = {p: list(s) for p, s in SERVE_BF16_DECODE_ATTENTION.items()}
+PATH_SHAPES["moe_gmm_bf16"] = {_BF16_CASE[p]: [list(ups[0]), _down(ups[0])]
+                               for p, ups in SERVE_GMM_UP.items()}
+PATH_SHAPES["moe_gmm_small_bf16"] = {_BF16_CASE[p]: [list(up), _down(up)]
+                                     for p, up in SERVE_GMM_DECODE.items()}
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 # The gradient paths (A2C, A3C) at examples/quickstart.py's workers: 2 'pg'
 # workers of 4 CartPole envs x 32 steps.
@@ -831,15 +891,17 @@ def _formula(name: str, key: dict) -> tuple:
             # In: logits, the row inputs, the saved lse and ent, four cotangents.
             return B * (16 * A + 40), B * (4 * A + row_in + 2 * 4 + 4 * 4) + B * (4 * A + 4 * 4)
         return B * (6 * A + 20), B * (4 * A + row_in) + B * 5 * 4  # pg, vf, ent, kl and lse out
+    # ``es``: the operands' bytes an element where not 4 (the bf16 kernels: 2).
+    es = key.get("es", 4)
     if base == "flash_attention":
         B, Sq, Sk, H, KV, D = (key[x] for x in ("b", "sq", "sk", "h", "kv", "d"))
         _, pairs = _visible_pairs(Sq, Sk, key["causal"], key["window"], key["q_offset"])
         if bwd:  # reads q, o, dO, lse, k, v; writes dq, dk, dv
             return 10 * B * H * D * pairs, (4 * B * Sq * H * D + 4 * B * Sk * KV * D + B * H * Sq) * 4
-        return 4 * B * H * D * pairs, (2 * B * Sq * H * D + 2 * B * Sk * KV * D + B * H * Sq) * 4
+        return 4 * B * H * D * pairs, (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * es + B * H * Sq * 4
     if base == "decode_attention":
         B, H, KV, D, n_valid = (key[x] for x in ("b", "h", "kv", "d", "n_valid"))
-        return 4 * H * D * n_valid, (2 * B * H * D + 2 * n_valid * KV * D) * 4 + key["mask"]
+        return 4 * H * D * n_valid, (2 * B * H * D + 2 * n_valid * KV * D) * es + key["mask"]
     if base == "rwkv6":
         # The training forward reads r, k, v, w, u (and s0) and writes o,
         # the final state and the chunk-start states; the backward reads r,
@@ -857,7 +919,7 @@ def _formula(name: str, key: dict) -> tuple:
         return 7 * B * T * H * N * N, 5 * seq + H * N * 4 + st + ck + s0
     if base in ("moe_gmm", "moe_gmm_dx", "moe_gmm_dw"):
         T, D, F, E = (key[x] for x in ("t", "d", "f", "e"))
-        return 2 * T * D * F, 4 * (T * D + E * D * F + T * F)
+        return 2 * T * D * F, es * (T * D + E * D * F + T * F)
     if base == "threefry_counts":
         lanes, n, xor = key["lanes"], key["n"], key["xor"]
         # 16 B a key read, 8 B a word (bits) or 16 B a key (keys) written
@@ -874,6 +936,13 @@ def _tensor_core_bounds(nbytes: int, flops: int) -> dict:
     bound, by = _bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S)
     return {"bound_ms": bound, "bound_by": by, "bound_fp32_ms": _bound_ms(nbytes, flops)[0],
             "bytes": nbytes, "flops": flops}
+
+
+def _bf16_bounds(nbytes: int, flops: int) -> dict:
+    """The bound of the bf16 tensor-core kernels: one bf16 pass a product,
+    the flops at 989 TFLOP/s, or the bytes (2 an element)."""
+    bound, by = _bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    return {"bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
 
 
 def _keyed_launches(name: str, launches: dict, expect: dict) -> None:
@@ -897,6 +966,25 @@ def _close(name: str, got, want, tol: float = TOL) -> float:
     _require(ok, f"{name}: kernel disagrees with its plain version "
                  f"(max abs err {err:.3e}, tol {tol})")
     return err
+
+
+def _close_rows(name: str, got, want) -> tuple:
+    """A bf16 attention output against its plain version: each element
+    within ``BF16_TOL`` x (m + its own |plain|), m the largest |plain| of its
+    row (one head's D outputs) but at most 1, so the limit follows the row's
+    scale and is nowhere looser than atol = rtol = ``BF16_TOL``; an all-zero
+    row must come out exactly zero.  Returns the max abs error and the
+    largest error over its limit."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = BF16_TOL * (want.abs().amax(-1, keepdim=True).clamp(max=1.0) + want.abs())
+    ratio = float(torch.where(err > 0, err / limit, torch.zeros_like(err)).max())
+    ok = ratio <= 1.0 and bool(torch.isfinite(got).all())
+    _require(ok, f"{name}: kernel disagrees with its plain version (max abs err "
+                 f"{float(err.max()):.3e}, {ratio:.3f} x its limit)")
+    return float(err.max()), ratio
 
 
 # ----------------------------------------------------------------- phase 1
@@ -942,6 +1030,14 @@ RWKV6_TILE, RWKV6_SUB, RWKV6_MARKS = 32, 16, 4
 # memory.
 GMM_SMALL_ROWS = (1, 2, 4, 8, 16)
 GMM_SMALL_KERNELS = tuple(f"gmm_small_kernel<{r}>" for r in GMM_SMALL_ROWS)
+# The bf16 kernels (flash_attention_bf16.cu, moe_gmm_bf16.cu on the tensor
+# cores; the bf16 kernels of decode_attention.cu and moe_gmm_small.cu on
+# the CUDA cores), by the names ``_bf16_kernel_name`` gives their symbols.
+BF16_TENSOR_CORE_KERNELS = (*(f"flash_fwd_bf16_kernel<{d}>" for d in (32, 64, 128)),
+                            "gmm_rows_bf16_kernel")
+BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
+BF16_DECODE_KERNELS = tuple(f"decode_attention_bf16_kernel<{h},{c}>"
+                            for h in (1, 2, 4, 8) for c in (1, 2))
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
 SM_REGISTERS = 65536
 
@@ -961,6 +1057,60 @@ def _small_gmm_name(symbol: str):
     moe_gmm_small.cu, or None."""
     m = re.search(r"gmm_small_kernelILi(\d+)E", symbol)
     return f"gmm_small_kernel<{m.group(1)}>" if m else None
+
+
+def _bf16_kernel_name(symbol: str):
+    """``flash_fwd_bf16_kernel<128>``, ``gmm_rows_bf16_kernel``,
+    ``gmm_small_bf16_kernel<2>`` or ``decode_attention_bf16_kernel<8,1>``
+    from a mangled kernel symbol of the bf16 sources, or None."""
+    for pattern, fmt in ((r"(flash_fwd_bf16_kernel)ILi(\d+)E", "{}<{}>"),
+                         (r"(gmm_small_bf16_kernel)ILi(\d+)E", "{}<{}>"),
+                         (r"(decode_attention_bf16_kernel)ILi(\d+)ELi(\d+)E", "{}<{},{}>")):
+        m = re.search(pattern, symbol)
+        if m:
+            return fmt.format(*m.groups())
+    return "gmm_rows_bf16_kernel" if "gmm_rows_bf16_kernel" in symbol else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(library: str) -> str:
+    """``cuobjdump -sass`` of the kernel library, or "" where the tool is not
+    found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return ""
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
+    _require(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    return sass.stdout
+
+
+def _bf16_kernel_usage(log: str, library: str) -> dict:
+    """Each bf16 kernel's registers and spills (``ptxas -v``) and, for the
+    tensor-core ones, the count of bf16 ``HMMA``/``HGMMA`` instructions in
+    its SASS (none fails the phase, as does a stack frame or spill of a
+    small-group kernel, as of its float32 twin)."""
+    usage = _ptxas_usage(log, _bf16_kernel_name)
+    want = BF16_TENSOR_CORE_KERNELS + BF16_SMALL_KERNELS + BF16_DECODE_KERNELS
+    _require(sorted(usage) == sorted(want), f"ptxas reported {sorted(usage)}, want {sorted(want)}")
+    name = None
+    for ln in _sass(library).splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = _bf16_kernel_name(m.group(1))
+            name = name if name in BF16_TENSOR_CORE_KERNELS else None
+            if name:
+                usage[name].update(hmma=0, hmma_bf16=0)
+        elif name and "MMA" in ln:
+            usage[name]["hmma"] += 1
+            usage[name]["hmma_bf16"] += "BF16" in ln
+    if _sass(library):
+        for name in BF16_TENSOR_CORE_KERNELS:
+            _require(usage[name].get("hmma_bf16", 0) > 0,
+                     f"{name}: no bf16 HMMA/HGMMA instruction in its SASS ({usage[name]})")
+    for name in BF16_SMALL_KERNELS:
+        _require(usage[name].get("stack", 1) == 0 and usage[name].get("spill_stores", 1) == 0,
+                 f"{name}: a stack frame or spills ({usage[name]}): a register array in local memory")
+    return usage
 
 
 def _kernel_smem(name: str) -> tuple:
@@ -1028,12 +1178,9 @@ def _kernel_usage(log: str, library: str) -> dict:
                                                      SM_SMEM_BYTES // (smem + 1024), 16))
     _require(len(usage) == 18, f"ptxas reported {sorted(usage)}, want 3 flash kernels x 3 head "
                                "dims, 3 grouped-matmul kernels and 2 RWKV-6 kernels x 3 head sizes")
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if Path(tool).exists():
-        sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, timeout=300)
-        _require(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    if _sass(library):
         name = None
-        for ln in sass.stdout.splitlines():
+        for ln in _sass(library).splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 name = _kernel_name(m.group(1))
@@ -1090,8 +1237,11 @@ def phase_build() -> dict:
         print(f"tensor-core kernel {name}: {json.dumps(u)}")
     for name, u in rwkv6.items():
         print(f"CUDA-core kernel {name}: {json.dumps(u)}")
+    bf16 = _bf16_kernel_usage(log, info["path"])
+    for name, u in bf16.items():
+        print(f"bf16 kernel {name}: {json.dumps(u)}")
     return {"build_s": seconds, "tensor_core_kernels": tensor_core, "rwkv6_kernels": rwkv6,
-            "memory_kernels": memory, "small_gmm_kernels": small}
+            "memory_kernels": memory, "small_gmm_kernels": small, "bf16_kernels": bf16}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1333,12 +1483,15 @@ def _randn(g, *shape):
     return torch.randn(shape, generator=g, device="cuda")
 
 
-def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) -> dict:
+def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int,
+                 bf16: bool = False) -> dict:
     """``mode``: "ragged" (per-lane [B, W] lengths in [1, W]), "ring" (a
     wrapped ring buffer: lane b holds slots [start_b, start_b + len_b) mod W,
     not a prefix), "empty_row" (ragged, lane 1 has no valid slot and must
     give exact zeros) or "shared" (one [W] mask).  The kernel's output must
-    be bitwise equal across two calls."""
+    be bitwise equal across two calls.  With ``bf16``, the bf16 kernel on
+    the same inputs rounded to bf16, within ``_close_rows``' limit, its bytes
+    at 2 an element and SDPA at bf16 beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -1351,6 +1504,8 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) 
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, kc, vc = _randn(g, B, 1, H, D), _randn(g, B, W, KV, D), _randn(g, B, W, KV, D)
+    if bf16:
+        q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
     pos = torch.arange(W, device="cuda")
     if mode == "shared":
         valid = pos < W - W // 7
@@ -1366,8 +1521,9 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) 
     again = decode_attention_cuda(q, kc, vc, valid)
     want = decode_attention_plain(q, kc, vc, valid)
     torch.cuda.synchronize()
-    name = f"decode_attention[{B},1,{H},{D}] W={W} {mode}"
-    err = _close(name, got, want)
+    name = f"decode_attention{'_bf16' if bf16 else ''}[{B},1,{H},{D}] W={W} {mode}"
+    _require(got.dtype == q.dtype, f"{name}: output {got.dtype} from {q.dtype} inputs")
+    err, ratio = _close_rows(name, got, want) if bf16 else (_close(name, got, want), None)
     _require(torch.equal(got, again), f"{name}: two calls differ (not bitwise repeatable)")
     if mode == "empty_row":
         _require(bool((got[1] == 0).all()), "decode_attention: an all-invalid row is not exactly 0")
@@ -1378,12 +1534,14 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int) 
           f"{math.prod(grid)} blocks")
     n_valid = int(valid.sum()) * (B if valid.dim() == 1 else 1)
     ops, nbytes = _formula("decode_attention", {"b": B, "h": H, "kv": KV, "d": D, "w": W,
-                                                "n_valid": n_valid, "mask": valid.numel()})
+                                                "n_valid": n_valid, "mask": valid.numel(),
+                                                **({"es": 2} if bf16 else {})})
     bound, by = _bound_ms(nbytes, ops)
     mask = valid[None, None, None, :] if valid.dim() == 1 else valid[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     out = {
         "shape": [B, 1, H, KV, D, W], "mode": mode, "max_abs_err": err, "bitwise_repeatable": True,
+        **({"err_over_limit": ratio} if bf16 else {}),
         "splits": splits, "grid": grid, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         **_timings(lambda: decode_attention_cuda(q, kc, vc, valid),
                    lambda: decode_attention_plain(q, kc, vc, valid), plain_iters=20),
@@ -1417,23 +1575,39 @@ def _sdpa(q, k, v, mask, simple_causal: bool):
     return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200) -> dict:
+def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200,
+                    bf16=False) -> dict:
+    """The forward kernel against the plain version, timed beside SDPA; with
+    ``bf16``, the bf16 kernel on the same inputs rounded to bf16, within
+    ``_close_rows``' limit and bitwise equal across two calls, its bound one bf16
+    tensor-core pass (``_bf16_bounds``) and SDPA at bf16 beside it."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_plain, flash_fwd_cuda
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _randn(g, B, Sq, H, D), _randn(g, B, Sk, KV, D), _randn(g, B, Sk, KV, D)
+    if bf16:
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    name = f"flash_attention_fwd{'_bf16' if bf16 else ''}[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}"
     with torch.no_grad():
         got, _ = flash_fwd_cuda(q, k, v, causal, window, q_offset)
         want = flash_attention_plain(q, k, v, **kw)
+        if bf16:
+            again, _ = flash_fwd_cuda(q, k, v, causal, window, q_offset)
     torch.cuda.synchronize()
-    err = _close(f"flash_attention_fwd[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}", got, want)
+    if bf16:
+        _require(got.dtype == torch.bfloat16, f"{name}: output {got.dtype}")
+        err, ratio = _close_rows(name, got, want)
+        _require(torch.equal(got, again), f"{name}: two calls differ (not bitwise repeatable)")
+        del again
+    else:
+        err, ratio = _close(name, got, want), None
     del want
     mask, _ = _visible_pairs(Sq, Sk, causal, window, q_offset)
     flops, nbytes = _formula("flash_attention", {"b": B, "sq": Sq, "sk": Sk, "h": H, "kv": KV,
-                                                 "d": D, **kw})
+                                                 "d": D, **kw, **({"es": 2} if bf16 else {})})
     simple = causal and not window and not q_offset and Sq == Sk
 
     def plain():
@@ -1442,7 +1616,8 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
 
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
-        **_tensor_core_bounds(nbytes, flops),
+        **(_bf16_bounds(nbytes, flops) if bf16 else _tensor_core_bounds(nbytes, flops)),
+        **({"bitwise_repeatable": True, "err_over_limit": ratio} if bf16 else {}),
         **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
                    kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
@@ -1632,32 +1807,51 @@ def _gmm_library(sizes: list, fn) -> dict:
     return out
 
 
+def _gmm_close(name: str, got, want, bf16: bool) -> float:
+    """``_close`` at ``GMM_TOL``, or for bf16 outputs at ``BF16_TOL`` in float32."""
+    if bf16:
+        _require(got.dtype == want.dtype, f"{name}: output {got.dtype}, plain {want.dtype}")
+        return _close(name, got.float(), want.float(), BF16_TOL)
+    return _close(name, got, want, GMM_TOL)
+
+
 def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
-              overrun: int = 0, tail: int = 0) -> dict:
+              overrun: int = 0, tail: int = 0, bf16: bool = False) -> dict:
     """The grouped matmul against the loop over groups.  With ``overrun``,
     also the same groups over x cut by that many rows: groups that sum past
     x's end are cut there by both versions; with ``tail``, x has that many
-    rows past the last group, which come out zero."""
+    rows past the last group, which come out zero.  With ``bf16``, the bf16
+    tile kernel on x and w rounded to bf16, bitwise equal across two calls,
+    its bound one bf16 tensor-core pass and ``torch.bmm`` at bf16 beside
+    it."""
     import torch
 
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 
     x, _, w, gs = _gmm_inputs(sizes, D, F, seed, tail)
+    if bf16:
+        x, w = x.bfloat16(), w.bfloat16()
     (T, _), E = x.shape, len(sizes)
+    name = f"moe_gmm{'_bf16' if bf16 else ''} [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:6]}..."
     got = moe_gmm_cuda(x, w, gs)
     want = moe_gmm_plain(x, w, gs)
+    if bf16:
+        _require(torch.equal(got, moe_gmm_cuda(x, w, gs)),
+                 f"{name}: two calls differ (not bitwise repeatable)")
     torch.cuda.synchronize()
-    err = _close(f"moe_gmm [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:6]}...", got, want, GMM_TOL)
+    err = _gmm_close(name, got, want, bf16)
     del got, want
     if overrun:
         cut = x[: T - overrun]
-        err = max(err, _close(f"moe_gmm groups summing to {T} over {T - overrun} rows",
-                              moe_gmm_cuda(cut, w, gs), moe_gmm_plain(cut, w, gs), GMM_TOL))
-    flops, nbytes = _formula("moe_gmm", {"t": T, "d": D, "f": F, "e": E})
-    path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3]
+        err = max(err, _gmm_close(f"{name} groups summing to {T} over {T - overrun} rows",
+                                  moe_gmm_cuda(cut, w, gs), moe_gmm_plain(cut, w, gs), bf16))
+    flops, nbytes = _formula("moe_gmm", {"t": T, "d": D, "f": F, "e": E,
+                                         **({"es": 2} if bf16 else {})})
+    path = sizes == [MOE_GMM_UP[0] // MOE_GMM_UP[3]] * MOE_GMM_UP[3] and not bf16
     return {
         "shape": [T, D, F, E], "groups": sizes, "tail": tail, "max_abs_err": err,
-        **_tensor_core_bounds(nbytes, flops),
+        **(_bf16_bounds(nbytes, flops) if bf16 else _tensor_core_bounds(nbytes, flops)),
+        **({"bitwise_repeatable": True} if bf16 else {}),
         **_timings(lambda: moe_gmm_cuda(x, w, gs), lambda: moe_gmm_plain(x, w, gs),
                    plain_iters=3, kernel_iters=kernel_iters, clocks=path),
         **_gmm_library(sizes, lambda: torch.bmm(x.view(E, sizes[0], D), w)),
@@ -1665,13 +1859,15 @@ def _gmm_case(sizes: list, D: int, F: int, seed: int, kernel_iters: int = 20,
 
 
 def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
-                    kernel_iters: int = 20, overrun: int = 0, tail: int = 0) -> dict:
+                    kernel_iters: int = 20, overrun: int = 0, tail: int = 0,
+                    bf16: bool = False) -> dict:
     """The small-group kernel (``moe_gmm_small_cuda`` at ``block_m``) against
     the loop over groups, twice (bitwise equal), with ``overrun`` and
     ``tail`` as ``_gmm_case``; timed beside the 128-row-tile kernel on the
     same inputs (``tile_ms``) and, with equal groups, ``torch.bmm``.  Its
     bound: the bytes, or the flops at the fp32 rate of the CUDA cores it
-    runs on."""
+    runs on.  With ``bf16``, the bf16 kernels on x and w rounded to bf16,
+    within ``BF16_TOL``, the bytes at 2 an element."""
     import torch
 
     from repro_torch.kernels.moe_gmm import (
@@ -1682,25 +1878,30 @@ def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
     )
 
     x, _, w, gs = _gmm_inputs(sizes, D, F, seed, tail)
+    if bf16:
+        x, w = x.bfloat16(), w.bfloat16()
     (T, _), E = x.shape, len(sizes)
-    name = f"moe_gmm_small [{T}, {D}] x [{E}, {D}, {F}] groups {sizes[:8]}... block_m {block_m}"
+    name = (f"moe_gmm_small{'_bf16' if bf16 else ''} [{T}, {D}] x [{E}, {D}, {F}] groups "
+            f"{sizes[:8]}... block_m {block_m}")
     got = moe_gmm_small_cuda(x, w, gs, block_m)
     again = moe_gmm_small_cuda(x, w, gs, block_m)
     want = moe_gmm_plain(x, w, gs)
     torch.cuda.synchronize()
-    err = _close(name, got, want, GMM_TOL)
+    err = _gmm_close(name, got, want, bf16)
     _require(bool(torch.equal(got, again)), f"{name}: two calls differ (not bitwise repeatable)")
     del got, again, want
     if overrun:
         cut = x[: T - overrun]
-        err = max(err, _close(f"{name}, groups summing to {T} over {T - overrun} rows",
-                              moe_gmm_small_cuda(cut, w, gs, block_m), moe_gmm_plain(cut, w, gs),
-                              GMM_TOL))
+        err = max(err, _gmm_close(f"{name}, groups summing to {T} over {T - overrun} rows",
+                                  moe_gmm_small_cuda(cut, w, gs, block_m),
+                                  moe_gmm_plain(cut, w, gs), bf16))
     # The work this run's groups need: an empty group reads no w_e, and the
     # tail's rows are written (zeros) but not read.
     used = sum(1 for s in sizes if s)
-    flops, nbytes = _formula("moe_gmm", {"t": T - tail, "d": D, "f": F, "e": used})
-    nbytes += 4 * tail * F
+    es = 2 if bf16 else 4
+    flops, nbytes = _formula("moe_gmm", {"t": T - tail, "d": D, "f": F, "e": used,
+                                         **({"es": es} if bf16 else {})})
+    nbytes += es * tail * F
     bound, by = _bound_ms(nbytes, flops)
 
     def tile():
@@ -1722,24 +1923,25 @@ def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
     }
 
 
-def _gmm_small_cases() -> list:
+def _gmm_small_cases(bf16: bool = False) -> list:
     """The small-group kernel at the serving paths' decode products, up and
     down at block_m 2 (DeepSeek's up product, the path's shape, first); at
     groups of 1, 3 and 8 rows at DeepSeek's decode widths; and at 64 ragged
     groups of 0-8 rows with empty ones at those widths, alone, with groups
     past x's end, and with rows past the last group at F 1,412 (the last
-    column slab one lane wide)."""
+    column slab one lane wide; at bf16, whose kernels take F a multiple of
+    8, F 1,416, two lanes)."""
     out = []
     for seed, (T, D, F, E) in enumerate(SERVE_GMM_DECODE.values()):
         for d, f in ((D, F), (F, D)):
-            out.append(_gmm_small_case([T // E] * E, d, f, 130 + seed, T // E))
+            out.append(_gmm_small_case([T // E] * E, d, f, 130 + seed, T // E, bf16=bf16))
     T, D, F, E = SERVE_GMM_DECODE["serve_deepseek"]
     for rows in (1, 3, 8):
-        out.append(_gmm_small_case([rows] * E, D, F, 140 + rows, rows))
+        out.append(_gmm_small_case([rows] * E, D, F, 140 + rows, rows, bf16=bf16))
     ragged = [2, 0, 5, 1, 3, 0, 8, 2] * (E // 8)
-    out += [_gmm_small_case(ragged, D, F, 150, 8),
-            _gmm_small_case(ragged, D, F, 151, 8, overrun=6),
-            _gmm_small_case(ragged, D, F + 4, 152, 8, tail=5)]
+    out += [_gmm_small_case(ragged, D, F, 150, 8, bf16=bf16),
+            _gmm_small_case(ragged, D, F, 151, 8, overrun=6, bf16=bf16),
+            _gmm_small_case(ragged, D, F + (8 if bf16 else 4), 152, 8, tail=5, bf16=bf16)]
     return out
 
 
@@ -1875,6 +2077,96 @@ def _zoo_kernel_cases(out: dict) -> None:
     print(f"  the model zoo's kernel cases: {time.perf_counter() - t0:.1f} s")
 
 
+def _mixed_dtypes_refused() -> None:
+    """Every bf16-taking wrapper raises on a CUDA call whose operands mix
+    bfloat16 and float32 or are float16, and launches nothing."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_small_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(260)
+    q, kv = _randn(g, 1, 64, 2, 64), _randn(g, 1, 64, 2, 64)
+    x, w = _randn(g, 8, 64), _randn(g, 2, 64, 64)
+    gs = torch.tensor([4, 4], dtype=torch.int32, device="cuda")
+    valid = torch.ones(64, dtype=torch.bool, device="cuda")
+    calls = {}
+    for label, (q_, k_, x_, w_) in (("bf16 with float32", (q.bfloat16(), kv, x.bfloat16(), w)),
+                                    ("float16", (q.half(), kv.half(), x.half(), w.half()))):
+        calls.update({
+            f"flash_fwd_cuda {label}": functools.partial(flash_fwd_cuda, q_, k_, k_, True, 0, 0),
+            f"decode_attention_cuda {label}": functools.partial(
+                decode_attention_cuda, q_[:, :1].contiguous(), k_, k_, valid),
+            f"moe_gmm_cuda {label}": functools.partial(moe_gmm_cuda, x_, w_, gs),
+            f"moe_gmm_small_cuda {label}": functools.partial(moe_gmm_small_cuda, x_, w_, gs, 4),
+        })
+    counters = _all_counters()
+    before = {c.name: c.value for c in counters}
+    for label, call in calls.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise PhaseError(f"{label}: no error")
+    _require({c.name: c.value for c in counters} == before, "a refused call launched a kernel")
+    print(f"  mixed and unsupported dtypes refused: {len(calls)} CUDA calls raised, none launched")
+
+
+def _bf16_kernel_cases(out: dict) -> None:
+    """The four bf16 kernels, each at its serve paths' shapes first
+    (``PATH_SHAPES``) and then at the shapes of this phase's float32 cases
+    of the same kernel, so the two precisions sit side by side: the flash
+    forward at the serve prefills, the PPO-LM learner's, GQA 40/8 with a
+    window, with a q_offset and at a ragged S, Phi's and Qwen3-14B's, and at
+    D = 64 and 32; decode attention at the serve steps' heads and window and
+    at phase 3's masks; the tile kernel at DeepSeek's and Jamba's prefill
+    products, Phi's and the ragged groups; the small-group kernel at
+    ``_gmm_small_cases``.  Then ``_mixed_dtypes_refused``."""
+    t0 = time.perf_counter()
+    flash = functools.partial(_flash_fwd_case, bf16=True)
+    d = RLHF_ENV["ctx"]
+    B, S, H, KV, D = PHI_ATTENTION
+    out["flash_attention_fwd_bf16"] = [
+        *(flash(b, s, s, h, kv, dd, True, 0, 0, 200 + i, kernel_iters=20)
+          for i, (b, s, h, kv, dd) in enumerate(SERVE_BF16_PREFILL_ATTENTION.values())),
+        flash(128, d, d, 20, 20, 128, True, 0, 0, 210),
+        flash(2, 2048, 2048, 40, 8, 128, True, 512, 0, 211),
+        flash(2, 1024, 2048, 40, 8, 128, True, 0, 1024, 212),
+        flash(2, 1000, 1000, 40, 8, 128, True, 0, 0, 213),
+        flash(B, S, S, H, KV, D, True, 0, 0, 214, kernel_iters=20),
+        *_narrow_heads(flash, 215),
+        flash(QWEN3_ATTENTION[0], QWEN3_ATTENTION[1], *QWEN3_ATTENTION[1:], True, 0, 0, 219,
+              kernel_iters=20),
+    ]
+    decode = functools.partial(_decode_case, bf16=True)
+    out["decode_attention_bf16"] = [
+        *(decode(b, h, kv, dd, w, "shared", 220 + i)
+          for i, (b, _, h, kv, dd, w) in enumerate(SERVE_BF16_DECODE_ATTENTION.values())),
+        decode(8, 20, 20, 128, d, "ragged", 230),
+        decode(8, 40, 8, 128, 4096, "ragged", 231),
+        decode(4, 20, 20, 128, d, "empty_row", 232),
+        decode(8, 40, 8, 128, 1000, "shared", 233),
+        decode(8, 20, 20, 128, d, "ring", 234),
+    ]
+    gmm = functools.partial(_gmm_case, bf16=True)
+    cases = []
+    for seed, ups in enumerate(SERVE_GMM_UP.values()):
+        T, D, F, E = ups[0]
+        for dd, f in ((D, F), (F, D)):
+            cases.append(gmm([T // E] * E, dd, f, 240 + 2 * seed, kernel_iters=10))
+    T, D, F, E = MOE_GMM_UP
+    ragged = [300, 0, 1000, 77, 129, 640, 1, 511]
+    out["moe_gmm_bf16"] = cases + [
+        gmm([T // E] * E, D, F, 250, 10), gmm([T // E] * E, F, D, 251, 10),
+        gmm(ragged, 1024, 1536, 252, 20, 600, 0), gmm(ragged, 1024, 1536, 253, 20, 0, 250),
+        gmm([1280, 1000, 1280, 1280], D, F, 254, 20),
+    ]
+    out["moe_gmm_small_bf16"] = _gmm_small_cases(bf16=True)
+    _mixed_dtypes_refused()
+    print(f"  the bf16 kernel cases: {time.perf_counter() - t0:.1f} s")
+
+
 def _launch_floor() -> dict:
     """Device and event time of the library's empty kernel: the floor under
     the latency-bound kernels (GAE, V-trace, the surrogate at RL widths)."""
@@ -1984,16 +2276,21 @@ def phase_kernels() -> dict:
     out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
     out.update(_gmm_cases())
     _zoo_kernel_cases(out)
+    _bf16_kernel_cases(out)
     for name, cases in out.items():
         tol = GRAD_TOL if name in ("flash_attention_bwd", "rwkv6_bwd") else TOL
         tol = GMM_TOL if name.startswith("moe_gmm") else tol
+        tol = BF16_TOL if name.endswith("_bf16") else tol
+        tol = ("2^-7 x (min(row max, 1) + |x|)"
+               if name in ("flash_attention_fwd_bf16", "decode_attention_bf16") else tol)
         for c in cases:
             lib = c.get("library_ms")
             lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
             fp32 = c.get("bound_fp32_ms")
             fp32_txt = f" bound_fp32_ms={fp32:.6f}" if fp32 is not None else ""
             print(
-                f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}) "
+                f"kernel {name} {c['shape']}: max_abs_err={c['max_abs_err']:.3e} (tol {tol}"
+                + (f", {c['err_over_limit']:.3f} x the limit" if "err_over_limit" in c else "") + ") "
                 f"device_ms={c['device_ms']} call_ms={c['call_ms']:.5f} "
                 f"call_ms_after={c['call_ms_after']:.5f} "
                 f"plain_device_ms={c['plain_device_ms']} plain_call_ms={c['plain_call_ms']:.5f} "
@@ -3287,10 +3584,14 @@ def _serve_expected(cfg, steps: int) -> dict:
     grouped matmul three (gated) or two times an MoE layer in the prefill and
     in each step: the prefill's on the 128-row-tile kernel, each step's on
     the small-group kernel (block_m = B*C = 2), which ``moe_gmm`` counts too.
-    Mamba is plain throughout."""
+    Mamba is plain throughout.  A bfloat16 configuration launches the bf16
+    kernels (the names with ``_bf16``) in their place."""
     expect: dict = {}
+    bf16 = "_bf16" if cfg.dtype == "bfloat16" else ""
 
     def add(name, n):
+        if name != "rwkv6_fwd":
+            name += bf16
         expect[name] = expect.get(name, 0) + n
 
     for spec in cfg.prologue + cfg.block_pattern * cfg.num_blocks:
@@ -3432,6 +3733,191 @@ def phase_serve_zoo(name: str, counters: list) -> dict:
           f"{step_s * 1e3:.2f} ms each; decode vs forward max err {step_err:.3e}, prefill "
           f"{first_err:.3e} (limit {tol:.3e}){int8}; launches {launches}; peak memory "
           f"{peak / 2**30:.2f} GiB; phase {out['phase_s']:.1f} s")
+    return out
+
+
+class _Routing:
+    """While active, records every MoE routing decision of the port
+    (``models/moe.py``'s ``route``: the probabilities and the experts, on
+    the device), or, given ``forced``, makes each call take the next of those
+    experts instead, weighted by its own probabilities.  A bf16 serve case
+    holds its decode steps to other runs on the decode run's expert choices,
+    so that a near tie in a router, which bf16 rounding can tip either way,
+    does not decide the comparison."""
+
+    def __init__(self, forced: list = None):
+        self.forced = forced
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._moe, route = moe, moe.route
+        pending = iter(self.forced or [])
+
+        def recorded(p, x, cfg):
+            probs, top_p, top_e = route(p, x, cfg)
+            if self.forced is not None:
+                top_e = next(pending)
+                top_p = torch.gather(probs, -1, top_e)
+            self.calls.append((probs, top_e))
+            return probs, top_p, top_e
+
+        self._route = route
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def by_layer(self, S: int, steps: int) -> list:
+        """A prefill's and ``steps`` decode steps' calls as one call per MoE
+        layer over all S + steps positions: [(probs, experts)], each
+        [B, S + steps, ...]."""
+        import torch
+
+        layers = len(self.calls) // (1 + steps)
+        return [tuple(torch.cat([self.calls[layer + j * layers][i] for j in range(1 + steps)], 1)
+                      for i in range(2)) for layer in range(layers)]
+
+
+def _route_flips(decided: list, other: list, name: str) -> list:
+    """The positions where ``other``'s expert choices (one call per MoE
+    layer over every position, in order) differ from ``decided``'s and no
+    earlier difference in the row reaches (a token's keys and values reach
+    the row's later positions), each required to be a near tie in
+    ``decided``'s probabilities: [(row, position, k-th, (k + 1)-th)]."""
+    import torch
+
+    _require(len(other) == len(decided), f"{name}: {len(other)} routing calls, want {len(decided)}")
+    B, P = decided[0][1].shape[:2] if decided else (0, 0)
+    earliest = [P] * B
+    flips = []
+    for (probs, experts), (_, experts_o) in zip(decided, other):
+        k = experts.shape[-1]
+        differ = (torch.sort(experts, -1).values != torch.sort(experts_o, -1).values).any(-1)
+        for b, p in differ.nonzero().tolist():
+            if p < earliest[b]:
+                ranked = torch.sort(probs[b, p].float(), descending=True).values.tolist()
+                flips.append((b, p, ranked[k - 1], ranked[k]))
+                _require(ranked[k - 1] - ranked[k] <= ROUTE_NEAR_TIE * ranked[k - 1],
+                         f"{name}: the forward routes row {b} position {p} to other experts than "
+                         f"the decode run where its top-{k} margin is no near tie: {ranked}")
+                earliest[b] = p
+    return flips
+
+
+def phase_serve_bf16(name: str, counters: list) -> dict:
+    """One bf16 serving path (``SERVE_BF16``): the configuration at its own
+    dtype, bfloat16, cut to 2 layers (``cut_layers``, as its float32 case),
+    MoE at capacity factor 8, random bf16 weights from a seed on the card;
+    ``make_prefill_step`` on a 2 x 512 prompt then 16 ``make_decode_step``
+    calls, counters zeroed just before and read just after and checked
+    against ``_serve_expected`` (the bf16 kernels), every other kernel 0.
+    Then, on the decode run's expert choices (``_Routing``): one bf16 full
+    forward, each step's logits (and the prefill's last) within
+    ``SERVE_BF16_REL_TOL`` x max |logits| of it at the same position, after
+    the forward's own choices are held to the decode run's but at near ties
+    (``_route_flips``); and the same prefill and steps in float32 on the
+    weights widened, within ``SERVE_BF16_F32_REL_TOL`` x max |logits|.
+    Prefill seconds, ms a step and peak memory of the bf16 run are printed;
+    the float32 serve case of phase 21d has them at float32 (the float32
+    run here starts on a freshly emptied allocator and is not timed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_layers
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    c = SERVE
+    t_phase = time.perf_counter()
+    cfg, cut = cut_layers(get_config(SERVE_BF16[name]), c["layers"])
+    _require(cfg.dtype == "bfloat16", f"{name}: {cfg.name} is {cfg.dtype}, not bfloat16")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=c["capacity_factor"]))
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, steps = c["batch"], c["prompt"], c["steps"]
+    with torch.no_grad():
+        params = model.init_params(g)
+        dtypes = sorted({str(t.dtype) for t in tree_leaves(params)})
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g, device="cuda")
+        expect = {k.name: 0 for k in counters}
+        expect.update(_serve_expected(cfg, steps))
+        # A short prefill and step first, so that the timed run does not pay
+        # for the first bf16 cuBLAS calls of the process.
+        _serve_run(model, params, tokens[:, :17], None, 1)
+        torch.cuda.synchronize()
+        for k in counters:
+            k.reset()
+        with _Routing() as decode_routes:
+            first, logits, cache, prefill_s, step_s = _serve_run(model, params, tokens, None, steps)
+        launches = {k.name: k.value for k in counters}
+        _require(launches == expect, f"{name}: launched {launches}, expected {expect}")
+        cache_dtypes = sorted({str(t.dtype) for t in tree_leaves(cache)})
+        del cache
+        decided = decode_routes.by_layer(S, steps)
+        with _Routing() as natural:
+            model.forward(params, tokens)
+        flips = _route_flips(decided, natural.calls, name)
+        del natural
+        with _Routing(forced=[experts for _, experts in decided]):
+            x, _ = model.forward(params, tokens)
+        full = model._head(params, x[:, S - 1:]).float()
+        del x
+        peak = torch.cuda.max_memory_allocated()
+        first, logits = first.float(), logits.float()
+        scale = float(full.abs().max())
+        step_err = float((logits - full[:, 1:]).abs().max())
+        first_err = float((first - full[:, 0]).abs().max())
+        finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(first).all())
+        del full
+        # The float32 run of the same weights, widened (exactly), on the
+        # decode run's expert choices in its call order.
+        params = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16 else t, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+        with _Routing(forced=[experts for _, experts in decode_routes.calls]):
+            f_first, f_logits, _, _, _ = _serve_run(model32, params, tokens, None, steps)
+        f32_err = max(float((logits - f_logits.float()).abs().max()),
+                      float((first - f_first.float()).abs().max()))
+    tol, f32_tol = SERVE_BF16_REL_TOL * scale, SERVE_BF16_F32_REL_TOL * scale
+    _require(finite, f"{name}: non-finite logits")
+    _require(dtypes == ["torch.bfloat16", "torch.float32"] or dtypes == ["torch.bfloat16"],
+             f"{name}: parameter dtypes {dtypes}")
+    _require(max(step_err, first_err) <= tol,
+             f"{name}: bf16 decode vs the bf16 forward's logits differ by "
+             f"{max(step_err, first_err):.3e} (limit {SERVE_BF16_REL_TOL} x max |logits| = {tol:.3e})")
+    _require(f32_err <= f32_tol, f"{name}: bf16 vs float32 logits differ by {f32_err:.3e} (limit "
+                                 f"{SERVE_BF16_F32_REL_TOL} x max |logits| = {f32_tol:.3e})")
+    _require(peak < 80e9, f"{name}: peak memory {peak / 1e9:.2f} GB")
+    out = {"config": cfg.name, "cut": cut, "params": n_params, "param_dtypes": dtypes,
+           "cache_dtypes": cache_dtypes, "prefill_s": prefill_s, "decode_step_s": step_s,
+           "launches": launches, "expected": expect, "max_abs_logits": scale,
+           "decode_vs_forward_err": step_err, "prefill_vs_forward_err": first_err,
+           "rel_err": max(step_err, first_err) / scale, "f32_err": f32_err,
+           "f32_rel_err": f32_err / scale, "route_flips": flips, "peak_memory_bytes": peak}
+    del params, logits, first, f_logits, f_first, tokens, model, model32, decided, decode_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{name} ({cut}): {n_params / 1e9:.3f} B parameters {dtypes}, caches {cache_dtypes}; "
+          f"prefill of {B} x {S} {prefill_s * 1e3:.1f} ms, {steps} decode steps "
+          f"{step_s * 1e3:.2f} ms each; decode vs the bf16 forward max "
+          f"err {step_err:.3e}, prefill {first_err:.3e} (limit {tol:.3e}); vs float32 "
+          f"{f32_err:.3e} (limit {f32_tol:.3e}); routing near ties the forward tipped "
+          f"{flips}; launches {launches}; peak memory {peak / 2**30:.2f} GiB; phase "
+          f"{out['phase_s']:.1f} s")
     return out
 
 
@@ -5081,12 +5567,21 @@ _PHASE33_STREAM: list = []  # phase 33's vectorized thread stream, for phase 37a
 
 def _all_counters() -> list:
     from repro_torch.kernels.advantages import GAE_LAUNCHES, VTRACE_LAUNCHES
-    from repro_torch.kernels.decode_attention import DECODE_ATTENTION_LAUNCHES
-    from repro_torch.kernels.flash_attention import FLASH_BWD_LAUNCHES, FLASH_FWD_LAUNCHES
+    from repro_torch.kernels.decode_attention import (
+        DECODE_ATTENTION_BF16_LAUNCHES,
+        DECODE_ATTENTION_LAUNCHES,
+    )
+    from repro_torch.kernels.flash_attention import (
+        FLASH_BWD_LAUNCHES,
+        FLASH_FWD_BF16_LAUNCHES,
+        FLASH_FWD_LAUNCHES,
+    )
     from repro_torch.kernels.moe_gmm import (
+        MOE_GMM_BF16_LAUNCHES,
         MOE_GMM_DW_LAUNCHES,
         MOE_GMM_DX_LAUNCHES,
         MOE_GMM_LAUNCHES,
+        MOE_GMM_SMALL_BF16_LAUNCHES,
         MOE_GMM_SMALL_LAUNCHES,
     )
     from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
@@ -5096,7 +5591,9 @@ def _all_counters() -> list:
     return [GAE_LAUNCHES, VTRACE_LAUNCHES, SURROGATE_FWD_LAUNCHES, SURROGATE_BWD_LAUNCHES,
             DECODE_ATTENTION_LAUNCHES, FLASH_FWD_LAUNCHES, FLASH_BWD_LAUNCHES,
             RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES,
-            MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES]
+            MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES,
+            FLASH_FWD_BF16_LAUNCHES, DECODE_ATTENTION_BF16_LAUNCHES, MOE_GMM_BF16_LAUNCHES,
+            MOE_GMM_SMALL_BF16_LAUNCHES]
 
 
 class _ChildProbe:
@@ -5634,6 +6131,16 @@ KERNEL_SITES = {
     # No TPU kernel: the reference hashes in XLA, jax.random under vmap (its
     # VectorEnv's per-lane split here; every rollout draw is such a hash).
     "threefry": ("src/repro_torch/kernels/csrc/threefry.cu", "src/repro/rl/env.py:299"),
+    # The same TPU kernels at bfloat16, the models' default dtype: bf16
+    # operands widened, fp32 sums, the output rounded once.
+    "flash_attention_fwd_bf16": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+                                 "src/repro/kernels/flash_attention.py:30"),
+    "decode_attention_bf16": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                              "src/repro/kernels/decode_attention.py:29"),
+    "moe_gmm_bf16": ("src/repro_torch/kernels/csrc/moe_gmm_bf16.cu",
+                     "src/repro/kernels/moe_gmm.py:24"),
+    "moe_gmm_small_bf16": ("src/repro_torch/kernels/csrc/moe_gmm_small.cu",
+                           "src/repro/kernels/moe_gmm.py:24"),
 }
 
 
@@ -5773,6 +6280,8 @@ def main() -> int:
             record[name] = _run(name, phase_pretrain, name, every_counter)
         for name in SERVE_ZOO:
             record[name] = _run(name, phase_serve_zoo, name, every_counter)
+        for name in SERVE_BF16:
+            record[name] = _run(name, phase_serve_bf16, name, every_counter)
         record["zoo_slice_s"] = time.perf_counter() - t_zoo
         print(f"model zoo phases 21b-21d: {record['zoo_slice_s']:.1f} s")
         record["plan_learner_parity"] = _run("plan_learner_parity", phase_plan_learner_parity)
@@ -5826,7 +6335,8 @@ def main() -> int:
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
              **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
-             **{name: record[name]["launches"] for name in (*ZOO_PRETRAIN_PATHS, *SERVE_ZOO)},
+             **{name: record[name]["launches"]
+                for name in (*ZOO_PRETRAIN_PATHS, *SERVE_ZOO, *SERVE_BF16)},
              **{name: record[name]["launches"] for name in PLAN_PATHS},
              "ppo_transformer_server": record["ppo_transformer_server"]["launches"],
              **{f"learner_group_{p}": record["learner_group"][p]["launches"]
@@ -5836,8 +6346,9 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_SITES.items():
         path_case = record["kernels"][name][0]  # the path's shape comes first
         by_path = {p: n[name] for p, n in paths.items() if name in n}
-        if name == "moe_gmm":  # its counter counts the small-group route's launches too
-            by_path = {p: v - paths[p].get("moe_gmm_small", 0) for p, v in by_path.items()}
+        if name in ("moe_gmm", "moe_gmm_bf16"):  # its counter counts the small route's too
+            small = name.replace("moe_gmm", "moe_gmm_small")
+            by_path = {p: v - paths[p].get(small, 0) for p, v in by_path.items()}
         cases_by_path = {}
         for p, shapes in PATH_SHAPES.get(name, {}).items():
             picked = []

@@ -134,6 +134,9 @@ def _tensors(tree: Any) -> List[torch.Tensor]:
 # Each takes the sizes one launch runs at (a plan's ``key``) and returns
 # (flops, bytes, int_ops) of the forward launch, and of the backward's where
 # the kernel has one: the counts ``chip_smoke.py`` computes its bounds from.
+# ``es`` is the operands' element size in bytes, a key only where it is not
+# 4 (the bf16 kernels: 2); statistics such as the flash forward's lse stay
+# float32.
 def visible_pairs(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> int:
     total = 0
     for i in range(sq):
@@ -160,15 +163,16 @@ def surrogate_costs(b: int, a: int) -> Tuple[Tuple, Tuple]:
 
 
 def flash_costs(b: int, sq: int, sk: int, h: int, kv: int, d: int, causal: bool, window: int,
-                q_offset: int) -> Tuple[Tuple, Tuple]:
+                q_offset: int, es: int = 4) -> Tuple[Tuple, Tuple]:
     pairs = visible_pairs(sq, sk, causal, window, q_offset)
-    fwd = (4 * b * h * d * pairs, (2 * b * sq * h * d + 2 * b * sk * kv * d + b * h * sq) * 4, 0)
+    fwd = (4 * b * h * d * pairs, (2 * b * sq * h * d + 2 * b * sk * kv * d) * es + b * h * sq * 4, 0)
     bwd = (10 * b * h * d * pairs, (4 * b * sq * h * d + 4 * b * sk * kv * d + b * h * sq) * 4, 0)
     return fwd, bwd
 
 
-def decode_cost(b: int, h: int, kv: int, d: int, w: int, n_valid: int, mask: int) -> Tuple:
-    return 4 * h * d * n_valid, (2 * b * h * d + 2 * n_valid * kv * d) * 4 + mask, 0
+def decode_cost(b: int, h: int, kv: int, d: int, w: int, n_valid: int, mask: int,
+                es: int = 4) -> Tuple:
+    return 4 * h * d * n_valid, (2 * b * h * d + 2 * n_valid * kv * d) * es + mask, 0
 
 
 def rwkv6_costs(b: int, t: int, h: int, n: int, state: bool, chunk: int) -> Tuple[Tuple, Tuple]:
@@ -180,8 +184,8 @@ def rwkv6_costs(b: int, t: int, h: int, n: int, state: bool, chunk: int) -> Tupl
     return fwd, bwd
 
 
-def gmm_cost(t: int, d: int, f: int, e: int) -> Tuple:
-    return 2 * t * d * f, 4 * (t * d + e * d * f + t * f), 0
+def gmm_cost(t: int, d: int, f: int, e: int, es: int = 4) -> Tuple:
+    return 2 * t * d * f, es * (t * d + e * d * f + t * f), 0
 
 
 THREEFRY_ALU_OPS = 41  # the bound's int32 ALU instructions a hash (chip_smoke.py)
@@ -454,6 +458,12 @@ def _like(x: torch.Tensor, shape: Optional[Sequence[int]] = None, dtype: Any = N
             {d: d for d in range(x.dim())} if same and dim_map is None else (dim_map or {}))
 
 
+def _es(x: torch.Tensor) -> dict:
+    """``{"es": element size}`` for operands that are not 4 bytes an element."""
+    size = x.element_size()
+    return {} if size == 4 else {"es": size}
+
+
 # Each plan returns (key, forward cost, backward cost or None, the inputs
 # a backward reaches, output specs).
 def _plan_gae(rewards, values, dones, last_value, gamma=0.99, lam=0.95):
@@ -475,7 +485,7 @@ def _plan_surrogate(logits, values, actions, behaviour_logp, advantages, returns
 def _plan_flash(q, k, v, causal=True, window=0, q_offset=0):
     (b, sq, h, d), (sk, kv) = _local(q).shape, _local(k).shape[1:3]
     key = dict(b=b, sq=sq, sk=sk, h=h, kv=kv, d=d, causal=bool(causal), window=int(window),
-               q_offset=int(q_offset))
+               q_offset=int(q_offset), **_es(q))
     return (key, *flash_costs(**key), (q, k, v), [_like(q)])
 
 
@@ -490,7 +500,7 @@ def _plan_decode(q, k_cache, v_cache, valid):
         n_valid = b * w
     else:
         n_valid = int(mask.sum()) * (b if mask.dim() == 1 else 1)
-    key = dict(b=b, h=h, kv=kv, d=d, w=w, n_valid=n_valid, mask=mask.numel())
+    key = dict(b=b, h=h, kv=kv, d=d, w=w, n_valid=n_valid, mask=mask.numel(), **_es(q))
     return key, decode_cost(**key), None, (), [_like(q)]
 
 
@@ -505,7 +515,7 @@ def _plan_rwkv6(r, k, v, w, u, state=None, chunk=64):
 
 def _plan_gmm(x, w, group_sizes):
     (t, d), (e, _, f) = _local(x).shape, _local(w).shape
-    key = dict(t=t, d=d, f=f, e=e)
+    key = dict(t=t, d=d, f=f, e=e, **_es(x))
     return key, gmm_cost(**key), None, (), [_like(x, (x.shape[0], w.shape[2]), dim_map={0: 0})]
 
 

@@ -17,6 +17,13 @@ audio model's codebook embeddings ``[K, V, d]`` and head ``[d, K * V]``, each
 with the blocks' leading ``num_blocks`` axis where a block holds it.  This
 module takes and returns numpy arrays and never imports JAX; a caller
 holding JAX arrays converts them with ``np.asarray``.
+
+bfloat16, the zoo's default dtype, has no numpy dtype of its own: a JAX
+array converts to ``ml_dtypes``' ``bfloat16``, which ``torch.from_numpy``
+does not take, and a bfloat16 tensor has no ``.numpy()``.  Such leaves are
+recognised by the dtype's name and carried through their 16 bits
+(``uint16``, ``Tensor.view(torch.bfloat16)``), bit for bit, so this module
+needs no ``ml_dtypes`` either.
 """
 
 from __future__ import annotations
@@ -31,13 +38,30 @@ from repro_torch.tree import tree_map
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def params_from_numpy(tree: Any) -> Any:
     """Numpy (or array-like) leaves -> CPU tensors of the same dtype (copies:
-    the tensors never alias the caller's arrays).  ``RolloutWorker.
-    set_weights`` takes such a tree, or the numpy tree itself, on any device."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    the tensors never alias the caller's arrays); a bfloat16 leaf keeps its
+    bits.  ``RolloutWorker.set_weights`` takes such a tree, or the numpy
+    tree itself, on any device."""
+    return tree_map(_tensor, tree)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def params_to_numpy(params: Any) -> Any:
-    """Tensor leaves -> numpy arrays on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """Tensor leaves -> numpy arrays on the host.  A bfloat16 leaf comes back
+    widened to float32, which is exact (as the reference's checkpoint keeps
+    it): ``.astype(ml_dtypes.bfloat16)`` gives back its bits.  So
+    ``params_from_numpy(params_to_numpy(t))`` widens a bfloat16 tree to
+    float32; narrow it again before it reaches a bfloat16 model."""
+    return tree_map(_array, params)

@@ -86,6 +86,11 @@ _SIGNATURES = {
     "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
     # x, w, ends, out, T, D, F, E, rmax, stream
     "moe_gmm_small_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # The bf16 kernels take the arguments of their float32 counterparts.
+    "flash_attention_bf16_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "decode_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "moe_gmm_bf16_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "moe_gmm_small_bf16_launch": [_P] * 4 + [_I] * 5 + [_P],
     # keys, key_stride, lanes, n, out, xor_words, stream
     "threefry_counts_launch": [_P, _L, _L, _L, _P, _I, _P],
     # keys, key_stride, data, data_stride, lanes, out, stream

@@ -2,7 +2,9 @@
 // kernel repro/kernels/decode_attention.py::decode_attention_pallas
 // (_decode_kernel).
 //
-// One query token per sequence against a KV cache, float32 throughout:
+// One query token per sequence against a KV cache, float32 throughout
+// (decode_attention_launch) or with bfloat16 q, caches and output
+// (decode_attention_bf16_launch, below):
 //     q [B, 1, H, D], k_cache / v_cache [B, W, KV, D], valid [B, W] bytes
 //     (row stride 0 broadcasts one [W] mask over the batch);
 //     query head h reads kv head h / g, g = H / KV (GQA);
@@ -48,11 +50,27 @@
 // shared-memory stages instead of registers, and the splits merged by a
 // second kernel instead of the last block (both were slower at every shape
 // it times; PERF.md has the numbers).
+//
+// bfloat16, the dtype the reference's models run it at (the TPU kernel
+// widens its operands to fp32 and rounds its output back to bf16,
+// decode_attention.py:78): the same design and every line of it but the
+// loads and stores.  A lane reads its four elements of a row as one 8-byte
+// load (a D = 128 row is one coalesced 256-byte load per warp), widened
+// exactly to fp32 in registers; the scores, the softmax, the sums and the
+// split workspace are fp32, and the output is rounded to bf16 once.  The
+// bound is half the bytes: at Nemotron-4's serve step [2, 1, 48/8, 128],
+// W 528, all valid, 4.3 MB, 0.0013 ms at 3.35 TB/s.  The two element types
+// have kernels of their own names (ptxas and the SASS name each).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;
@@ -69,6 +87,38 @@ __device__ __forceinline__ float4 axpby4(float4 acc, float alpha, float p, float
 }
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// Elements 4 ci .. 4 ci + 3 of a row, as fp32 (a bf16 value widens exactly).
+__device__ __forceinline__ float4 load4(const float* row, int ci) {
+  return reinterpret_cast<const float4*>(row)[ci];
+}
+
+__device__ __forceinline__ float4 load4(const bf16* row, int ci) {
+  const uint2 u = reinterpret_cast<const uint2*>(row)[ci];
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// x into elements 4 ci .. 4 ci + 3 of a row (rounded to bf16 once).
+__device__ __forceinline__ void store4(float* row, int ci, float4 x) {
+  reinterpret_cast<float4*>(row)[ci] = x;
+}
+
+__device__ __forceinline__ void store4(bf16* row, int ci, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  reinterpret_cast<uint2*>(row)[ci] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// x into elements 2 c, 2 c + 1 of a row.
+__device__ __forceinline__ void store2(float* row, int c, float2 x) {
+  reinterpret_cast<float2*>(row)[c] = x;
+}
+
+__device__ __forceinline__ void store2(bf16* row, int c, float2 x) {
+  reinterpret_cast<__nv_bfloat162*>(row)[c] = __floats2bfloat162_rn(x.x, x.y);
+}
 
 // Slots whose K and V rows a warp keeps in flight in registers,
 // and the blocks per SM its registers are capped for: fewer rows for a
@@ -164,8 +214,8 @@ __device__ __forceinline__ void fold(const float4 (*qs)[32 * CHUNKS], int lane,
 }
 
 // Take U valid slots, load all their rows, then fold.
-template <int HEADS, int CHUNKS>
-__device__ __forceinline__ void walk_registers(SlotCursor& cur, const float* kb, const float* vb,
+template <int HEADS, int CHUNKS, typename Elt>
+__device__ __forceinline__ void walk_registers(SlotCursor& cur, const Elt* kb, const Elt* vb,
                                                size_t slot_stride, int nchunk, int lane,
                                                const float4 (*qs)[32 * CHUNKS],
                                                float4 (&acc)[HEADS][CHUNKS], float (&m)[HEADS],
@@ -184,14 +234,12 @@ __device__ __forceinline__ void walk_registers(SlotCursor& cur, const float* kb,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const size_t off = static_cast<size_t>(on[u] ? slot[u] : 0) * slot_stride;
-      const float4* kw = reinterpret_cast<const float4*>(kb + off);
-      const float4* vw = reinterpret_cast<const float4*>(vb + off);
 #pragma unroll
       for (int c = 0; c < CHUNKS; ++c) {
         const int ci = lane + 32 * c;
         const bool in = on[u] && ci < nchunk;
-        kr[u][c] = in ? kw[ci] : zero4();
-        vr[u][c] = in ? vw[ci] : zero4();
+        kr[u][c] = in ? load4(kb + off, ci) : zero4();
+        vr[u][c] = in ? load4(vb + off, ci) : zero4();
       }
     }
     fold<HEADS, CHUNKS, U>(qs, lane, kr, vr, on, acc, m, l, nh, scale);
@@ -201,7 +249,8 @@ __device__ __forceinline__ void walk_registers(SlotCursor& cur, const float* kb,
 
 // Merge the splits' states of one group, in split order, into the output
 // rows of heads [head0, head0 + nh) of a group; work: [splits, g, D + 2].
-__device__ __forceinline__ void merge_splits(const float* work, float* out, int splits, int g,
+template <typename Elt>
+__device__ __forceinline__ void merge_splits(const float* work, Elt* out, int splits, int g,
                                              int head0, int nh, int D) {
   const int pairs = D / 2;
   const size_t row = static_cast<size_t>(D) + 2;
@@ -220,19 +269,18 @@ __device__ __forceinline__ void merge_splits(const float* work, float* out, int 
       o.x += f * a.x;
       o.y += f * a.y;
     }
-    reinterpret_cast<float2*>(out + j * D)[c] =
-        lt > 0.f ? make_float2(o.x / lt, o.y / lt) : make_float2(0.f, 0.f);
+    store2(out + j * D, c, lt > 0.f ? make_float2(o.x / lt, o.y / lt) : make_float2(0.f, 0.f));
   }
 }
 
-// HEADS: query heads per block; CHUNKS: float4 chunks per lane (D <= 128 * CHUNKS).
-template <int HEADS, int CHUNKS>
-__global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
-    decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const uint8_t* __restrict__ valid,
-                            float* __restrict__ out, float* __restrict__ work,
-                            unsigned* __restrict__ tickets, int W, int H, int KV, int D,
-                            int valid_row_stride, int splits, int split_len, float scale) {
+// HEADS: query heads per block; CHUNKS: chunks of 4 elements per lane
+// (D <= 128 * CHUNKS).
+template <int HEADS, int CHUNKS, typename Elt>
+__device__ __forceinline__ void decode_attention(
+    const Elt* __restrict__ q, const Elt* __restrict__ k, const Elt* __restrict__ v,
+    const uint8_t* __restrict__ valid, Elt* __restrict__ out, float* __restrict__ work,
+    unsigned* __restrict__ tickets, int W, int H, int KV, int D, int valid_row_stride, int splits,
+    int split_len, float scale) {
   const int g = H / KV;
   const int chunks = (g + HEADS - 1) / HEADS;
   const int split = blockIdx.x % splits;
@@ -250,11 +298,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
 
   // The chunk's queries in shared memory (zeros past D), read by every warp.
   __shared__ float4 s_q[HEADS][32 * CHUNKS];
-  const float4* qb = reinterpret_cast<const float4*>(q + (static_cast<size_t>(b) * H + h0) * D);
+  const Elt* qb = q + (static_cast<size_t>(b) * H + h0) * D;
   for (int t = threadIdx.x; t < nh * 32 * CHUNKS; t += kThreads) {
     const int j = t / (32 * CHUNKS);
     const int ci = t % (32 * CHUNKS);
-    s_q[j][ci] = ci < nchunk ? qb[j * nchunk + ci] : zero4();
+    s_q[j][ci] = ci < nchunk ? load4(qb + j * D, ci) : zero4();
   }
   float4 acc[HEADS][CHUNKS];
   float m[HEADS], l[HEADS];
@@ -281,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
   // Merge the warps' states in warp order, one head at a time.
   __shared__ float4 s_acc[kWarps][kMaxD / 4];
   __shared__ float s_m[kWarps], s_l[kWarps];
-  float* ob = out + (static_cast<size_t>(b) * H + h0) * D;
+  Elt* ob = out + (static_cast<size_t>(b) * H + h0) * D;
   float* wb = work + ((static_cast<size_t>(pair) * splits + split) * g + head0) * (D + 2);
 #pragma unroll
   for (int j = 0; j < HEADS; ++j) {
@@ -310,8 +358,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
       }
       if (splits == 1) {
         // l == 0 iff no slot was valid: attention over an empty cache is zeros.
-        reinterpret_cast<float4*>(ob + j * D)[ci] =
-            lt > 0.f ? make_float4(o.x / lt, o.y / lt, o.z / lt, o.w / lt) : zero4();
+        store4(ob + j * D, ci,
+               lt > 0.f ? make_float4(o.x / lt, o.y / lt, o.z / lt, o.w / lt) : zero4());
       } else {
         float2* wr = reinterpret_cast<float2*>(wb + j * (D + 2));
         wr[2 * ci] = make_float2(o.x, o.y);
@@ -339,22 +387,51 @@ __global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
 }
 
 template <int HEADS, int CHUNKS>
-cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t* valid,
-                   float* out, float* work, unsigned* tickets, int B, int W, int H, int KV, int D,
+__global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
+    decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const uint8_t* __restrict__ valid,
+                            float* __restrict__ out, float* __restrict__ work,
+                            unsigned* __restrict__ tickets, int W, int H, int KV, int D,
+                            int valid_row_stride, int splits, int split_len, float scale) {
+  decode_attention<HEADS, CHUNKS>(q, k, v, valid, out, work, tickets, W, H, KV, D,
+                                  valid_row_stride, splits, split_len, scale);
+}
+
+template <int HEADS, int CHUNKS>
+__global__ void __launch_bounds__(kThreads, min_blocks(HEADS, CHUNKS))
+    decode_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const uint8_t* __restrict__ valid,
+                                 bf16* __restrict__ out, float* __restrict__ work,
+                                 unsigned* __restrict__ tickets, int W, int H, int KV, int D,
+                                 int valid_row_stride, int splits, int split_len, float scale) {
+  decode_attention<HEADS, CHUNKS>(q, k, v, valid, out, work, tickets, W, H, KV, D,
+                                  valid_row_stride, splits, split_len, scale);
+}
+
+// The kernel of an element type.
+template <int HEADS, int CHUNKS, typename Elt>
+auto entry() {
+  if constexpr (std::is_same_v<Elt, bf16>) return decode_attention_bf16_kernel<HEADS, CHUNKS>;
+  else return decode_attention_kernel<HEADS, CHUNKS>;
+}
+
+template <int HEADS, int CHUNKS, typename Elt>
+cudaError_t launch(const Elt* q, const Elt* k, const Elt* v, const uint8_t* valid, Elt* out,
+                   float* work, unsigned* tickets, int B, int W, int H, int KV, int D,
                    int valid_row_stride, int splits, float scale, cudaStream_t stream) {
   const int g = H / KV;
   const long long groups = static_cast<long long>(B) * KV * ((g + HEADS - 1) / HEADS);
   if (groups * splits > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const int split_len = (W + splits - 1) / splits;
-  decode_attention_kernel<HEADS, CHUNKS><<<static_cast<unsigned>(groups * splits), kThreads, 0,
-                                           stream>>>(q, k, v, valid, out, work, tickets, W, H, KV,
-                                                     D, valid_row_stride, splits, split_len, scale);
+  const auto kernel = entry<HEADS, CHUNKS, Elt>();
+  kernel<<<static_cast<unsigned>(groups * splits), kThreads, 0, stream>>>(
+      q, k, v, valid, out, work, tickets, W, H, KV, D, valid_row_stride, splits, split_len, scale);
   return cudaGetLastError();
 }
 
-template <int CHUNKS>
-cudaError_t launch_heads(const float* q, const float* k, const float* v, const uint8_t* valid,
-                         float* out, float* work, unsigned* tickets, int B, int W, int H, int KV,
+template <int CHUNKS, typename Elt>
+cudaError_t launch_heads(const Elt* q, const Elt* k, const Elt* v, const uint8_t* valid,
+                         Elt* out, float* work, unsigned* tickets, int B, int W, int H, int KV,
                          int D, int valid_row_stride, int splits, float scale,
                          cudaStream_t stream) {
   const int g = H / KV;
@@ -366,6 +443,32 @@ cudaError_t launch_heads(const float* q, const float* k, const float* v, const u
   if (g <= 4) return DECODE_LAUNCH(4);
   return DECODE_LAUNCH(8);
 #undef DECODE_LAUNCH
+}
+
+// Checks the sizes and launches; Elt is the element type of q, k, v, out.
+template <typename Elt>
+int launch_checked(const void* q, const void* k, const void* v, const void* valid, void* out,
+                   void* work, void* tickets, int B, int W, int H, int KV, int D,
+                   int valid_row_stride, int splits, float scale, void* stream) {
+  if (B <= 0 || W <= 0 || KV <= 0 || H % KV != 0 || D % 4 != 0 || D < 4 || D > kMaxD ||
+      splits < 1 || splits > W || (splits > 1 && (work == nullptr || tickets == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* qp = static_cast<const Elt*>(q);
+  const auto* kp = static_cast<const Elt*>(k);
+  const auto* vp = static_cast<const Elt*>(v);
+  const auto* mp = static_cast<const uint8_t*>(valid);
+  auto* op = static_cast<Elt*>(out);
+  auto* wp = static_cast<float*>(work);
+  auto* tp = static_cast<unsigned*>(tickets);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      D <= 128
+          ? launch_heads<1>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
+                            scale, st)
+          : launch_heads<2>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
+                            scale, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -381,23 +484,16 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        const void* valid, void* out, void* work, void* tickets,
                                        int B, int W, int H, int KV, int D, int valid_row_stride,
                                        int splits, float scale, void* stream) {
-  if (B <= 0 || W <= 0 || KV <= 0 || H % KV != 0 || D % 4 != 0 || D < 4 || D > kMaxD ||
-      splits < 1 || splits > W || (splits > 1 && (work == nullptr || tickets == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  const auto* mp = static_cast<const uint8_t*>(valid);
-  auto* op = static_cast<float*>(out);
-  auto* wp = static_cast<float*>(work);
-  auto* tp = static_cast<unsigned*>(tickets);
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      D <= 128
-          ? launch_heads<1>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
-                            scale, st)
-          : launch_heads<2>(qp, kp, vp, mp, op, wp, tp, B, W, H, KV, D, valid_row_stride, splits,
-                            scale, st);
-  return static_cast<int>(err);
+  return launch_checked<float>(q, k, v, valid, out, work, tickets, B, W, H, KV, D,
+                               valid_row_stride, splits, scale, stream);
+}
+
+// The same with q, k/v and out bf16 (work stays float32).
+extern "C" int decode_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                            const void* valid, void* out, void* work,
+                                            void* tickets, int B, int W, int H, int KV, int D,
+                                            int valid_row_stride, int splits, float scale,
+                                            void* stream) {
+  return launch_checked<bf16>(q, k, v, valid, out, work, tickets, B, W, H, KV, D,
+                              valid_row_stride, splits, scale, stream);
 }

@@ -11,6 +11,12 @@ contiguous on one CUDA device, with ``H % KV == 0`` and ``D`` a multiple of
 ``repro_torch.kernels.ops.decode_attention``.  A row with no valid slot
 gives exact zeros on both paths.
 
+bfloat16 ``q`` and caches (the zoo's default dtype) take the same source's
+bf16 kernel, the same design reading the cache as bf16, half the bytes: scores, softmax and sums in fp32, the output rounded
+to bf16 once, as the TPU kernel widens its operands and rounds its output
+(``decode_attention.py:78``).  The plain version computes the same in
+float32 and rounds once.  Mixed dtypes raise.
+
 The kernel splits the window over blocks (flash-decoding): ``decode_splits``
 picks the number of splits from the shape, and with more than one the
 splits' softmax states go through a workspace ``[B, KV, splits, g, D + 2]``
@@ -34,10 +40,12 @@ __all__ = [
     "heads_per_block",
     "resident_blocks",
     "DECODE_ATTENTION_LAUNCHES",
+    "DECODE_ATTENTION_BF16_LAUNCHES",
 ]
 
 # One count per wrapper call, one CUDA launch: the splits are merged inside it.
 DECODE_ATTENTION_LAUNCHES = LaunchCounter("decode_attention")
+DECODE_ATTENTION_BF16_LAUNCHES = LaunchCounter("decode_attention_bf16")
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_SLOTS = 64  # a split is at least 8 slots for each of a block's 8 warps
@@ -71,7 +79,11 @@ def decode_splits(B: int, KV: int, g: int, D: int, W: int) -> int:
 def decode_attention_plain(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, valid: torch.Tensor
 ) -> torch.Tensor:
-    """q: [B,1,H,D]; caches: [B,W,KV,D]; valid: [W] or [B,W] bool -> [B,1,H,D]."""
+    """q: [B,1,H,D]; caches: [B,W,KV,D]; valid: [W] or [B,W] bool -> [B,1,H,D].
+    bfloat16 inputs are widened to float32 and the output rounded back once."""
+    dtype = q.dtype
+    if dtype == torch.bfloat16:
+        q, k_cache, v_cache = q.float(), k_cache.float(), v_cache.float()
     B, _, H, D = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
@@ -86,7 +98,7 @@ def decode_attention_plain(
     # the empty-cache output exactly zero instead.
     p = torch.where(vmask, p, torch.zeros_like(p))
     out = torch.einsum("bhgw,bwhd->bhgd", p, v_cache)
-    return out.reshape(B, 1, H, D)
+    return out.reshape(B, 1, H, D).to(dtype)
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device) -> None:
@@ -119,9 +131,11 @@ def decode_attention_cuda(
             f"decode_attention_cuda: needs H % KV == 0 and D a multiple of 4 in [4, 256], "
             f"got H={H} KV={KV} D={D}"
         )
-    _check("q", q, (B, 1, H, D), torch.float32, device)
-    _check("k_cache", k_cache, (B, W, KV, D), torch.float32, device)
-    _check("v_cache", v_cache, (B, W, KV, D), torch.float32, device)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attention_cuda: q must be float32 or bfloat16, got {q.dtype}")
+    _check("q", q, (B, 1, H, D), q.dtype, device)
+    _check("k_cache", k_cache, (B, W, KV, D), q.dtype, device)
+    _check("v_cache", v_cache, (B, W, KV, D), q.dtype, device)
     if valid.dim() == 1:
         _check("valid", valid, (W,), torch.bool, device)
         row_stride = 0
@@ -136,6 +150,8 @@ def decode_attention_cuda(
         return out.zero_()
     g = H // KV
     splits = decode_splits(B, KV, g, D, W)
+    bf16 = q.dtype == torch.bfloat16
+    name = "decode_attention_bf16_launch" if bf16 else "decode_attention_launch"
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -144,11 +160,11 @@ def decode_attention_cuda(
             work = torch.empty((B, KV, splits, g, D + 2), dtype=torch.float32, device=device)
             work_ptr = work.data_ptr()
             tickets_ptr = zeroed_tickets(device, stream, B * H).data_ptr()
-        rc = lib.decode_attention_launch(
+        rc = getattr(lib, name)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
             out.data_ptr(), work_ptr, tickets_ptr, B, W, H, KV, D, row_stride, splits,
             1.0 / math.sqrt(D), stream,
         )
-    check(lib, rc, "decode_attention")
-    DECODE_ATTENTION_LAUNCHES.add()
+    check(lib, rc, name)
+    (DECODE_ATTENTION_BF16_LAUNCHES if bf16 else DECODE_ATTENTION_LAUNCHES).add()
     return out

@@ -131,11 +131,11 @@ COMBINE = """__global__ void __launch_bounds__(kThreads)
 
 """
 MERGE = "// Merge the splits' states of one group"
-LAUNCH = "template <int HEADS, int CHUNKS>\ncudaError_t launch("
+LAUNCH = "template <int HEADS, int CHUNKS, typename Elt>\ncudaError_t launch("
 WALK = """  walk_registers<HEADS, CHUNKS>(cur, k + first, v + first, slot_stride, nchunk, lane, s_q, acc, m,
                                 l, nh, scale);"""
 GRID = "<<<static_cast<unsigned>(groups * splits), kThreads, 0,"
-LAUNCH_END = "  return cudaGetLastError();\n}\n\ntemplate <int CHUNKS>"
+LAUNCH_END = "  return cudaGetLastError();\n}\n\ntemplate <int CHUNKS, typename Elt>"
 # Each variant: (text in the source, its replacement) pairs.
 VARIANTS = {
     "shipped": [],
@@ -157,9 +157,12 @@ VARIANTS = {
   return cudaGetLastError();
 }
 
-template <int CHUNKS>"""),
+template <int CHUNKS, typename Elt>"""),
     ],
 }
+# The variants build the float32 kernel alone: the source up to its bf16
+# entry point.
+BF16_ENTRY = "// The same with q, k/v and out bf16"
 # B, H, KV, D, W, mask
 CASES = ((8, 20, 20, 128, 256, "ragged"), (8, 20, 20, 128, 256, "ring"),
          (8, 40, 8, 128, 4096, "ragged"), (8, 40, 8, 128, 1000, "shared"))
@@ -169,6 +172,7 @@ TOL = 1e-5
 
 def _build(name: str, edits: list) -> ctypes.CDLL:
     text = (build.CSRC_DIR / "decode_attention.cu").read_text()
+    text = text[:text.index(BF16_ENTRY)]
     for old, new in edits:
         if text.count(old) != 1:
             raise RuntimeError(f"decode_attention.cu no longer holds {old!r} once")

@@ -18,6 +18,15 @@ cores in 3xTF32 (each operand split into two TF32 parts, three products
 summed in fp32), which keeps them within 1e-5 of the plain version forward
 and 1e-4 in the gradients.  CPU tensors take the plain version in
 ``repro_torch.kernels.ops.flash_attention``.
+
+bfloat16 ``q``, ``k`` and ``v`` (the zoo's default dtype) take the forward
+of ``csrc/flash_attention_bf16.cu``: one bf16 tensor-core pass for each
+product, fp32 softmax and sums, the output rounded to bf16 once, as the TPU
+kernel widens its bf16 operands and rounds its output
+(``flash_attention.py:73-75,95``).  Its plain version is the same function
+computed in float32 and rounded once.  Operands of mixed dtypes raise; the
+bf16 backward is not ported (the bf16 training slice, ``ROADMAP.md``) and
+raises too.
 """
 
 from __future__ import annotations
@@ -34,13 +43,16 @@ __all__ = [
     "flash_attention_plain",
     "FlashAttention",
     "FLASH_FWD_LAUNCHES",
+    "FLASH_FWD_BF16_LAUNCHES",
     "FLASH_BWD_LAUNCHES",
 ]
 
 FLASH_FWD_LAUNCHES = LaunchCounter("flash_attention_fwd")
+FLASH_FWD_BF16_LAUNCHES = LaunchCounter("flash_attention_fwd_bf16")
 FLASH_BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")
 
 HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int, device) -> torch.Tensor:
@@ -63,7 +75,11 @@ def flash_attention_plain(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """q: [B,Sq,H,D], k/v: [B,Sk,KV,D] -> [B,Sq,H,D]; query head h reads kv
-    head h // (H // KV)."""
+    head h // (H // KV).  bfloat16 inputs are widened to float32 and the
+    output rounded back once, as the TPU kernel does."""
+    dtype = q.dtype
+    if dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -74,7 +90,7 @@ def flash_attention_plain(
     p = torch.softmax(scores, dim=-1)
     p = torch.where(mask, p, torch.zeros_like(p))
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    return out.reshape(B, Sq, H, v.shape[-1]).to(dtype)
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, ...]:
@@ -95,15 +111,17 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[in
         )
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention_cuda: B={B} and H={H} must be at most 65535")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention_cuda: q must be float32 or bfloat16, got {q.dtype}")
     for name, x, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Sk, KV, D)), ("v", v, (B, Sk, KV, D))):
-        _check_tensor(name, x, shape, device)
+        _check_tensor(name, x, shape, device, q.dtype)
     return B, Sq, Sk, H, KV, D
 
 
-def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device) -> None:
-    if x.device != device or x.dtype != torch.float32:
+def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device, dtype) -> None:
+    if x.device != device or x.dtype != dtype:
         raise ValueError(
-            f"flash_attention_cuda: {name} must be float32 on {device}, got {x.dtype} on {x.device}"
+            f"flash_attention_cuda: {name} must be {dtype} on {device}, got {x.dtype} on {x.device}"
         )
     if tuple(x.shape) != shape:
         raise ValueError(f"flash_attention_cuda: {name} has shape {tuple(x.shape)}, expected {shape}")
@@ -116,8 +134,10 @@ def _check_tensor(name: str, x: torch.Tensor, shape: tuple, device) -> None:
 def flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int, q_offset: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel launch: (o [B,Sq,H,D], lse [B,H,Sq])."""
+    """Forward kernel launch: (o [B,Sq,H,D] in q's dtype, lse [B,H,Sq]
+    float32); the bf16 kernel for bfloat16 operands."""
     B, Sq, Sk, H, KV, D = _check_inputs(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or Sk == 0:
@@ -125,14 +145,15 @@ def flash_fwd_cuda(
         lse.fill_(float("inf"))
         return o, lse
     lib = load_library()
+    name = "flash_attention_bf16_fwd_launch" if bf16 else "flash_attention_fwd_launch"
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd_launch(
+        rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, Sq, Sk, H, KV, D, int(causal), int(window), int(q_offset), 1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    check(lib, rc, "flash_attention_fwd")
-    FLASH_FWD_LAUNCHES.add()
+    check(lib, rc, name)
+    (FLASH_FWD_BF16_LAUNCHES if bf16 else FLASH_FWD_LAUNCHES).add()
     return o, lse
 
 
@@ -147,11 +168,16 @@ def flash_bwd_cuda(
     window: int,
     q_offset: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward kernel launches (row sums, dK/dV, dQ): (dq, dk, dv)."""
+    """Backward kernel launches (row sums, dK/dV, dQ): (dq, dk, dv), float32
+    only."""
     B, Sq, Sk, H, KV, D = _check_inputs(q, k, v)
-    _check_tensor("o", o, tuple(q.shape), q.device)
-    _check_tensor("dout", dout, tuple(q.shape), q.device)
-    _check_tensor("lse", lse, (B, H, Sq), q.device)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash_attention_cuda: the backward takes float32, got {q.dtype}: the bfloat16 "
+            "backward kernels belong to the bf16 training slice (ROADMAP.md), not ported yet")
+    _check_tensor("o", o, tuple(q.shape), q.device, torch.float32)
+    _check_tensor("dout", dout, tuple(q.shape), q.device, torch.float32)
+    _check_tensor("lse", lse, (B, H, Sq), q.device, torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

@@ -25,6 +25,15 @@ on the same device), contiguous, 16-byte aligned, with D and F multiples of
 groups that run past row T are cut there.  Rows past ``sum(group_sizes)``
 come out zero in every version, and so does ``dw`` of an empty group.  CPU
 tensors take the plain versions through ``repro_torch.kernels.ops``.
+
+The forward also takes bfloat16 ``x`` and ``w`` (the zoo's default dtype),
+on bf16 kernels of the same two routes, ``csrc/moe_gmm_bf16.cu`` (``wgmma``
+with bf16 operands, one pass, fp32 sums) and ``csrc/moe_gmm_small.cu``'s
+bf16 kernel (w streamed as bf16, fp32 FMAs), the output rounded to bf16 once, as the
+TPU kernel widens its operands and rounds its output (``moe_gmm.py:27-31``);
+D and F must then be multiples of 8.  ``moe_gmm_plain`` computes the same
+in float32 and rounds once.  Mixed dtypes raise; dX and dW take float32
+only (their bf16 kernels belong to the bf16 training slice, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ __all__ = [
     "moe_gmm_dw_plain",
     "MOE_GMM_LAUNCHES",
     "MOE_GMM_SMALL_LAUNCHES",
+    "MOE_GMM_BF16_LAUNCHES",
+    "MOE_GMM_SMALL_BF16_LAUNCHES",
     "SMALL_BLOCK_M",
     "small_rows",
     "MOE_GMM_DX_LAUNCHES",
@@ -52,6 +63,8 @@ __all__ = [
 
 MOE_GMM_LAUNCHES = LaunchCounter("moe_gmm")  # both routes of the forward
 MOE_GMM_SMALL_LAUNCHES = LaunchCounter("moe_gmm_small")  # the small-group route alone
+MOE_GMM_BF16_LAUNCHES = LaunchCounter("moe_gmm_bf16")  # both routes of the bf16 forward
+MOE_GMM_SMALL_BF16_LAUNCHES = LaunchCounter("moe_gmm_small_bf16")  # its small-group route alone
 MOE_GMM_DX_LAUNCHES = LaunchCounter("moe_gmm_dx")
 MOE_GMM_DW_LAUNCHES = LaunchCounter("moe_gmm_dw")
 
@@ -72,11 +85,15 @@ def _groups(group_sizes: torch.Tensor):
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """x: [T, D] rows grouped by expert (sorted order); w: [E, D, F];
-    group_sizes: [E] rows per expert. Returns [T, F] in x's dtype."""
+    group_sizes: [E] rows per expert. Returns [T, F] in x's dtype; bfloat16
+    operands are widened to float32 and the output rounded back once."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, w = x.float(), w.float()
     out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device)
     for e, rows in _groups(group_sizes):
         out[rows] = x[rows] @ w[e]
-    return out
+    return out.to(dtype)
 
 
 def moe_gmm_dx_plain(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -99,19 +116,21 @@ def moe_gmm_dw_plain(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tenso
     return dw
 
 
-def _validate(fn: str, group_sizes: torch.Tensor, E: int, D: int, F: int, tensors: list) -> None:
-    """Raise unless every (name, tensor, shape) of ``tensors`` is a float32,
-    contiguous, 16-byte aligned CUDA tensor of that shape, all on one
-    device, D and F are multiples of 4, and ``group_sizes`` is an integer
-    [E] tensor on that device."""
+def _validate(fn: str, group_sizes: torch.Tensor, E: int, D: int, F: int, tensors: list,
+              dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every (name, tensor, shape) of ``tensors`` is a
+    ``dtype``, contiguous, 16-byte aligned CUDA tensor of that shape, all on
+    one device, D and F are multiples of 4 (8 for bfloat16), and
+    ``group_sizes`` is an integer [E] tensor on that device."""
     device = tensors[0][1].device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    if D % 4 or F % 4:
-        raise ValueError(f"{fn}: D and F must be multiples of 4, got D={D} F={F}")
+    align = 8 if dtype == torch.bfloat16 else 4
+    if D % align or F % align:
+        raise ValueError(f"{fn}: D and F must be multiples of {align} for {dtype}, got D={D} F={F}")
     for name, t, shape in tensors:
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{fn}: {name} must be float32 on {device}, "
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} must be {dtype} on {device}, "
                              f"got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
@@ -163,12 +182,16 @@ def small_rows(block_m: int) -> int:
 
 
 def _check_forward(fn: str, x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> tuple:
+    """(T, D, F, E, whether bfloat16) of a forward's valid operands: both
+    float32 or both bfloat16."""
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"{fn}: want x [T, D] and w [E, D, F], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{fn}: x must be float32 or bfloat16, got {x.dtype}")
     (T, _), (E, D, F) = x.shape, w.shape
-    _validate(fn, group_sizes, E, D, F, [("x", x, (T, D)), ("w", w, (E, D, F))])
-    return T, D, F, E
+    _validate(fn, group_sizes, E, D, F, [("x", x, (T, D)), ("w", w, (E, D, F))], x.dtype)
+    return T, D, F, E, x.dtype == torch.bfloat16
 
 
 def moe_gmm_small_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -176,16 +199,19 @@ def moe_gmm_small_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tens
     """The small-group forward kernel; same contract as ``moe_gmm_plain``.
     ``block_m`` sets the rows a chunk holds (``small_rows``); any group
     sizes are taken.  Counts under ``MOE_GMM_LAUNCHES`` and
-    ``MOE_GMM_SMALL_LAUNCHES``."""
-    T, D, F, E = _check_forward("moe_gmm_small_cuda", x, w, group_sizes)
+    ``MOE_GMM_SMALL_LAUNCHES`` (bfloat16: ``MOE_GMM_BF16_LAUNCHES`` and
+    ``MOE_GMM_SMALL_BF16_LAUNCHES``)."""
+    T, D, F, E, bf16 = _check_forward("moe_gmm_small_cuda", x, w, group_sizes)
     if block_m < 1:
         raise ValueError(f"moe_gmm_small_cuda: block_m must be at least 1, got {block_m}")
-    out = torch.empty((T, F), dtype=torch.float32, device=x.device)
+    out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     if T:
         ends = _ends(group_sizes, T).to(torch.int32)
-        _launch("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES), x.device,
-                x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), T, D, F, E,
-                small_rows(block_m))
+        name, counters = (("moe_gmm_small_bf16_launch",
+                           (MOE_GMM_BF16_LAUNCHES, MOE_GMM_SMALL_BF16_LAUNCHES)) if bf16 else
+                          ("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES)))
+        _launch(name, counters, x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(),
+                out.data_ptr(), T, D, F, E, small_rows(block_m))
     return out
 
 
@@ -195,12 +221,14 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     as ``moe_gmm_plain``."""
     if gmm_route(block_m) == "small":
         return moe_gmm_small_cuda(x, w, group_sizes, block_m)
-    T, D, F, E = _check_forward("moe_gmm_cuda", x, w, group_sizes)
-    out = torch.empty((T, F), dtype=torch.float32, device=x.device)
+    T, D, F, E, bf16 = _check_forward("moe_gmm_cuda", x, w, group_sizes)
+    out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     if T:
         ends, tile_ends = _offsets(group_sizes, T)
-        _launch("moe_gmm_launch", (MOE_GMM_LAUNCHES,), x.device, x.data_ptr(), w.data_ptr(),
-                ends.data_ptr(), tile_ends.data_ptr(), out.data_ptr(), T, D, F, E)
+        name, counter = (("moe_gmm_bf16_launch", MOE_GMM_BF16_LAUNCHES) if bf16 else
+                         ("moe_gmm_launch", MOE_GMM_LAUNCHES))
+        _launch(name, (counter,), x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(),
+                tile_ends.data_ptr(), out.data_ptr(), T, D, F, E)
     return out
 
 

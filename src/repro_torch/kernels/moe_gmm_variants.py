@@ -103,7 +103,7 @@ VARIANTS = {
     ],
 }
 SMALL_BOUNDS = "__launch_bounds__(kThreads, RMAX <= 2 ? 4 : RMAX <= 8 ? 3 : 2)"
-SMALL_LOOP = "#pragma unroll 1\n  for (int d = 4 * warp; d < D; d += kStep) {"
+SMALL_LOOP = "#pragma unroll 1\n  for (int d = E::kDepth * warp; d < D; d += kStep) {"
 SMALL_VARIANTS = {
     "shipped": [],
     "five_blocks": [(SMALL_BOUNDS, SMALL_BOUNDS.replace("RMAX <= 2 ? 4", "RMAX <= 2 ? 5"))],
