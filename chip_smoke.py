@@ -261,12 +261,12 @@ phase that fails, and then prints no result line):
    2 with equal counters and losses within 1e-6, each remote worker's next
    sample bitwise equal; DQN with 2 replay actors restored with equal
    counters and replay stats, training on;
-35. Qwen3-14B restart: ``launch/train.py``'s ``main`` with ``--arch
-   qwen3-14b --layers 2 --checkpoint`` (2 steps of 2 x 4,096 tokens), its
-   file read back by ``restore_pytree``; then a learner's 2 steps,
-   ``save_pytree`` of its parameters and optimizer state, 2 more steps, and
-   a fresh learner restored from the file giving the same 2 losses within
-   1e-5.
+35. Qwen3-14B restart at bf16, the driver's dtype: ``launch/train.py``'s
+   ``main`` with ``--arch qwen3-14b --layers 2 --checkpoint`` (2 steps of
+   2 x 4,096 tokens), its file read back by ``restore_pytree``; then a
+   learner's 2 steps, ``save_pytree`` of its parameters and optimizer state,
+   2 more steps, and a fresh learner restored from the file holding every
+   saved leaf bit for bit and giving the same 2 losses within 1e-5.
 37. runtime across processes and hosts (under its own deadline): phase 33's
    stream through the thread backend, process children (pickle and
    shared-memory transports, started from the fork server) and a
@@ -325,7 +325,34 @@ step's logits within 5e-2 x max |logits| of a bf16 full forward's and
 within 0.1 x of a float32 run of the same weights widened, both on the
 decode run's expert choices (the forward's own held to them but at near
 ties), prefill seconds, ms a step and peak memory printed (phase 21d has them
-at float32).
+at float32); and RWKV-6 7B the same way, on the bf16 RWKV-6 forward.
+
+Pretraining at bfloat16, the configurations' own dtype, which the driver
+(``launch/train.py``) keeps as the reference's does; the float32 paths above
+ask for float32 themselves.  Phase 3 holds the bf16 flash backward
+(``flash_attention_bf16.cu``: P recomputed from the forward's fp32 logsumexp,
+P and dS rounded to bf16 for their products, fp32 sums, each gradient
+rounded once) at Qwen3-14B's, Phi's, LLaVA's, MusicGen's (D = 64) and Jamba's
+learner shapes, a window and a q_offset, and RWKV-6 at bf16 (``rwkv6.cu``'s
+bf16 kernels) at the learner's and the serve prefill's shapes and with half
+the decays at the clip, to their plain versions per row (``GRAD_ROW_TOL``,
+fixed from a CPU emulation of each kernel's roundings), bitwise equal across
+two runs, with their bound at 989 TFLOP/s or 2 bytes an element and SDPA's
+bf16 backward beside the flash backward; phase 2 fails on a stack frame or
+spill of either at the paths' head sizes.  It times the bf16 dX and dW
+einsums (no kernel: the reference's) at Phi's, DeepSeek's and Jamba's
+learner products with cuBLAS's bf16 reduced-precision reductions off (the
+driver's setting) and on, and their error against fp32 sums each way.
+Phase 19b (``pretrain_parity_bf16``) runs phase 19's parity at bf16 for
+RWKV-6, Phi-3.5-MoE, Qwen3-14B and DeepSeek-V2-Lite on the card's expert
+choices (the CPU's own held to them but at near ties), each weight within 2
+x ``PARITY_BF16_GAP`` x its leaf's largest update plus one bf16 ulp, the
+learner's leaves bf16 after the weight sync; phases 20-21 run
+``PRETRAIN_BF16_PATHS`` (Qwen3-14B, Phi-3.5-MoE, RWKV-6 7B, DeepSeek-V2-Lite,
+published widths cut to 2 layers, 2 x 4,096 tokens, ``PRETRAIN_BF16_STEPS``
+steps) with exact bf16 launches, bf16 parameters and float32 moments.  Phase
+35's restart runs at bf16 (every restored leaf bitwise the saved one); phase
+39 also prices a bf16 pretraining step through ``explain()``.
 
 Phase 3 also holds the model zoo's path shapes: flash forward and backward
 at LLaVA's [2, 4096, 56/8, 128], MusicGen's [2, 4096, 32/32, 64] and Jamba's
@@ -401,6 +428,23 @@ TOL = 1e-5  # atol = rtol for kernel vs plain version, float32
 # the H100 SXM's dense bf16 rate.
 BF16_TOL = 2.0 ** -7
 BF16_OPS_PER_S = 989e12
+# The bf16 backward kernels (flash attention's, RWKV-6's) and the bf16
+# RWKV-6 forward against their plain versions, per row (one head's D or N
+# values: a query's dq, a key's dk or dv, a step's output or gradients):
+# each element within GRAD_ROW_TOL x (m + its own |plain|), m the row's
+# largest |plain| (at most 1 for the RWKV-6 output, as _close_rows; for a
+# gradient the row's own scale, but at least 2^-8 of the tensor's largest
+# |plain|: a row that cancels to zero in exact arithmetic, such as dq of a
+# causal row that sees one key, keeps the rounding of dP - delta).  dq's
+# limit adds the one error the design puts in on purpose, as
+# FlashAttention-2's does: delta = rowsum(dO o O) from the bf16 O where the
+# plain version's exact gradient uses the fp32 O, which moves dS_ij by
+# P_ij (delta - delta_32) and so dq_i by at most scale x |delta_i -
+# delta_32,i| x max |k| (_dq_allowance).  Fixed before any card run from a
+# CPU emulation of each kernel's roundings (tests/test_torch_bf16_train_gates.py:
+# within 0.7 of it at every shape there, a dropped 64-key tile or time step
+# beyond it).
+GRAD_ROW_TOL = 2.0 ** -7
 # atol = rtol for attention gradients, kernel vs autograd through the plain
 # version: each dK/dV element sums Sq * g terms, each dQ element Sk terms,
 # in another order.
@@ -466,7 +510,7 @@ ZOO_PRETRAIN_PATHS = {"pretrain_deepseek": "deepseek-v2-lite-16b",
                       "pretrain_llava": "llava-next-34b",
                       "pretrain_musicgen": "musicgen-large"}
 PRETRAIN_BATCH = {"pretrain_jamba": 1}
-ZOO_STEPS = 4
+ZOO_STEPS = 3
 # Their kernels' shapes: the grouped matmul's up product [E * B * C, D] x
 # [E, D, F] with C = ceil(1.25 * T * top_k / E) (DeepSeek 480, Jamba 640),
 # and flash attention's [B, S, H, KV, D].  MLA attention (DeepSeek) is the
@@ -581,7 +625,7 @@ PATH_SHAPES["moe_gmm_small"] = {path: [list(up), _down(up)]
 # ROUTE_NEAR_TIE of the larger).  They run the bf16 kernels at the float32
 # cases' shapes.
 SERVE_BF16 = {"serve_deepseek_bf16": "deepseek-v2-lite-16b", "serve_jamba_bf16": "jamba-v0.1-52b",
-              "serve_nemotron_bf16": "nemotron-4-15b"}
+              "serve_nemotron_bf16": "nemotron-4-15b", "serve_rwkv6_bf16": "rwkv6-7b"}
 SERVE_BF16_REL_TOL = 5e-2
 SERVE_BF16_F32_REL_TOL = 1e-1
 ROUTE_NEAR_TIE = 0.1
@@ -597,6 +641,38 @@ PATH_SHAPES["moe_gmm_bf16"] = {_BF16_CASE[p]: [list(ups[0]), _down(ups[0])]
                                for p, ups in SERVE_GMM_UP.items()}
 PATH_SHAPES["moe_gmm_small_bf16"] = {_BF16_CASE[p]: [list(up), _down(up)]
                                      for p, up in SERVE_GMM_DECODE.items()}
+# The bf16 pretraining paths: launch/train.py at the configuration's own
+# dtype, bfloat16 (the reference driver's), each at published widths cut to
+# 2 layers, 2 x 4,096 tokens a step, PRETRAIN_BF16_STEPS steps, the kernels
+# at the float32 paths' shapes: the bf16 flash forward and backward, the
+# bf16 RWKV-6 forward and backward, the bf16 tile kernel (its dX and dW are
+# the reference's two bf16 einsums, no kernel).  Jamba, LLaVA and MusicGen
+# train at bf16 in the CPU tests; their flash backward shapes run in phase 3.
+PRETRAIN_BF16_PATHS = {"pretrain_qwen3_bf16": "qwen3-14b", "pretrain_phi_bf16": "phi3.5-moe-42b-a6.6b",
+                       "pretrain_rwkv6_bf16": "rwkv6-7b", "pretrain_deepseek_bf16": "deepseek-v2-lite-16b"}
+PRETRAIN_BF16_STEPS = 3
+# The bf16 learner parity (card vs CPU, one SGD step at lr 1 on the card's
+# expert choices): each weight within 2 x PARITY_BF16_GAP x its leaf's
+# largest update plus 2^-7 x its own |value| (one bf16 ulp: the rounding of
+# w - g can flip where the two gradients differ by less than a rounding),
+# and each statistic (loss, nll, aux) within 2 x PARITY_BF16_LOSS_GAP.
+# PARITY_BF16_GAP is the reference's own largest bf16 vs float32 gradient
+# gap over a leaf, as a share of the leaf's largest gradient, and
+# PARITY_BF16_LOSS_GAP its largest bf16 vs float32 loss gap, at these
+# reduced configurations on the CPU (0.018-0.037 and 8.5e-5 to 4.6e-4 at
+# 2 x 64 tokens; tests/test_torch_bf16_train_models.py holds both).
+PARITY_BF16_GAP = 0.04
+PARITY_BF16_LOSS_GAP = 5e-4
+PARITY_BF16_ARCHS = ("rwkv6-7b", "phi3.5-moe-42b-a6.6b", "qwen3-14b", "deepseek-v2-lite-16b")
+PATH_SHAPES["flash_attention_bwd_bf16"] = {"pretrain_qwen3_bf16": list(QWEN3_ATTENTION),
+                                           "pretrain_phi_bf16": list(PHI_ATTENTION)}
+PATH_SHAPES["flash_attention_fwd_bf16"].update(PATH_SHAPES["flash_attention_bwd_bf16"])
+PATH_SHAPES["rwkv6_fwd_bf16"] = {"pretrain_rwkv6_bf16": list(RWKV6_PATH_SHAPE),
+                                 "serve_rwkv6_bf16": list(SERVE_RWKV6_SHAPE)}
+PATH_SHAPES["rwkv6_bwd_bf16"] = {"pretrain_rwkv6_bf16": list(RWKV6_PATH_SHAPE)}
+PATH_SHAPES["moe_gmm_bf16"].update({"pretrain_phi_bf16": [list(MOE_GMM_UP), _down(MOE_GMM_UP)],
+                                    "pretrain_deepseek_bf16": [list(DEEPSEEK_GMM_UP),
+                                                               _down(DEEPSEEK_GMM_UP)]})
 ASYNC_DEADLINE_S = 300  # per async path: a wedged flow fails its phase
 # The gradient paths (A2C, A3C) at examples/quickstart.py's workers: 2 'pg'
 # workers of 4 CartPole envs x 32 steps.
@@ -897,7 +973,7 @@ def _formula(name: str, key: dict) -> tuple:
         B, Sq, Sk, H, KV, D = (key[x] for x in ("b", "sq", "sk", "h", "kv", "d"))
         _, pairs = _visible_pairs(Sq, Sk, key["causal"], key["window"], key["q_offset"])
         if bwd:  # reads q, o, dO, lse, k, v; writes dq, dk, dv
-            return 10 * B * H * D * pairs, (4 * B * Sq * H * D + 4 * B * Sk * KV * D + B * H * Sq) * 4
+            return 10 * B * H * D * pairs, (4 * B * Sq * H * D + 4 * B * Sk * KV * D) * es + B * H * Sq * 4
         return 4 * B * H * D * pairs, (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * es + B * H * Sq * 4
     if base == "decode_attention":
         B, H, KV, D, n_valid = (key[x] for x in ("b", "h", "kv", "d", "n_valid"))
@@ -909,9 +985,9 @@ def _formula(name: str, key: dict) -> tuple:
         # dv, dw, du (and dS_0).  Operations per (b, t, h), counting an FMA
         # as two: the forward's k v, S + u k v, r . (...) and w S + k v,
         # 7 N^2; the backward's recomputed update, 3 N^2, and its sums and
-        # G update, 11 N^2.
+        # G update, 11 N^2.  u and the states stay fp32 at bf16.
         B, T, H, N = (key[x] for x in ("b", "t", "h", "n"))
-        seq, st = B * T * H * N * 4, B * H * N * N * 4
+        seq, st = B * T * H * N * es, B * H * N * N * 4
         ck = B * H * -(-T // key["chunk"]) * N * N * 4
         s0 = st if key["state"] else 0
         if bwd:
@@ -968,19 +1044,48 @@ def _close(name: str, got, want, tol: float = TOL) -> float:
     return err
 
 
-def _close_rows(name: str, got, want) -> tuple:
-    """A bf16 attention output against its plain version: each element
-    within ``BF16_TOL`` x (m + its own |plain|), m the largest |plain| of its
-    row (one head's D outputs) but at most 1, so the limit follows the row's
-    scale and is nowhere looser than atol = rtol = ``BF16_TOL``; an all-zero
-    row must come out exactly zero.  Returns the max abs error and the
-    largest error over its limit."""
+def _row_ratio(got, want, tol: float, unit: bool = False, allowance=None) -> float:
+    """The largest error of ``got`` against ``want`` over its limit, tol x
+    (m + its own |want|) (+ ``allowance``, a row's), m the largest |want| of
+    its row (the last axis): with ``unit`` at most 1, and an element of an
+    all-zero row must be exactly zero; else at least 2^-8 x the largest
+    |want| of the tensor."""
     import torch
 
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     err = (got - want).abs()
-    limit = BF16_TOL * (want.abs().amax(-1, keepdim=True).clamp(max=1.0) + want.abs())
-    ratio = float(torch.where(err > 0, err / limit, torch.zeros_like(err)).max())
+    m = want.abs().amax(-1, keepdim=True)
+    m = m.clamp(max=1.0) if unit else m.clamp(min=2.0 ** -8 * float(want.abs().max()))
+    limit = tol * (m + want.abs()) + (0 if allowance is None else allowance)
+    return float(torch.where(err > 0, err / limit, torch.zeros_like(err)).max())
+
+
+def _dq_allowance(k, dout, o, o32):
+    """[B, Sq, H, 1]: the most the bf16 flash backward's delta, taken from
+    the bf16 output ``o`` where the exact gradient has the fp32 ``o32``,
+    moves a row of dq: scale x |rowsum(dO o (o - o32))| x the largest |k| of
+    the row's kv head (dq_i = scale sum_j dS_ij k_j, and the moved delta
+    shifts dS_ij by P_ij times its error, sum_j P_ij = 1)."""
+    B, Sq, H, D = o.shape
+    KV = k.shape[2]
+    derr = (dout.float() * (o.float() - o32.float())).sum(-1).abs()  # [B, Sq, H]
+    kmax = k.float().abs().amax(dim=(1, 3)).repeat_interleave(H // KV, dim=1)  # [B, H]
+    return (derr * kmax[:, None, :] / D ** 0.5)[..., None]
+
+
+def _close_rows(name: str, got, want, tol: float = BF16_TOL, unit: bool = True,
+                allowance=None) -> tuple:
+    """A bf16 kernel's output against its plain version: each element
+    within ``tol`` x (m + its own |plain|), m the largest |plain| of its row
+    (one head's D outputs), for attention outputs (``unit``) at most 1, so
+    the limit follows the row's scale and is nowhere looser than atol = rtol
+    = ``BF16_TOL``; an all-zero row must come out exactly zero.  Returns the
+    max abs error and the largest error over its limit."""
+    import torch
+
+    got = got.float()
+    err = (got - want.float()).abs()
+    ratio = _row_ratio(got, want, tol, unit, allowance)
     ok = ratio <= 1.0 and bool(torch.isfinite(got).all())
     _require(ok, f"{name}: kernel disagrees with its plain version (max abs err "
                  f"{float(err.max()):.3e}, {ratio:.3f} x its limit)")
@@ -1034,7 +1139,15 @@ GMM_SMALL_KERNELS = tuple(f"gmm_small_kernel<{r}>" for r in GMM_SMALL_ROWS)
 # cores; the bf16 kernels of decode_attention.cu and moe_gmm_small.cu on
 # the CUDA cores), by the names ``_bf16_kernel_name`` gives their symbols.
 BF16_TENSOR_CORE_KERNELS = (*(f"flash_fwd_bf16_kernel<{d}>" for d in (32, 64, 128)),
-                            "gmm_rows_bf16_kernel")
+                            "gmm_rows_bf16_kernel",
+                            *(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq")
+                              for d in (32, 64, 128)))
+# The bf16 RWKV-6 kernels of rwkv6.cu (CUDA cores), and the bf16 kernels
+# that must hold no stack frame or spill: the flash backward at the paths'
+# head dims and RWKV-6 at every head size.
+BF16_RWKV6_KERNELS = tuple(f"rwkv6_{k}_bf16_kernel<{n}>" for k in ("fwd", "bwd") for n in (16, 32, 64))
+BF16_NO_SPILL = (*(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq") for d in (64, 128)),
+                 *BF16_RWKV6_KERNELS)
 BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
 BF16_DECODE_KERNELS = tuple(f"decode_attention_bf16_kernel<{h},{c}>"
                             for h in (1, 2, 4, 8) for c in (1, 2))
@@ -1063,7 +1176,8 @@ def _bf16_kernel_name(symbol: str):
     """``flash_fwd_bf16_kernel<128>``, ``gmm_rows_bf16_kernel``,
     ``gmm_small_bf16_kernel<2>`` or ``decode_attention_bf16_kernel<8,1>``
     from a mangled kernel symbol of the bf16 sources, or None."""
-    for pattern, fmt in ((r"(flash_fwd_bf16_kernel)ILi(\d+)E", "{}<{}>"),
+    for pattern, fmt in ((r"(flash_fwd_bf16_kernel|flash_bwd_bf16_dkdv_kernel|flash_bwd_bf16_dq_kernel"
+                          r"|rwkv6_fwd_bf16_kernel|rwkv6_bwd_bf16_kernel)ILi(\d+)E", "{}<{}>"),
                          (r"(gmm_small_bf16_kernel)ILi(\d+)E", "{}<{}>"),
                          (r"(decode_attention_bf16_kernel)ILi(\d+)ELi(\d+)E", "{}<{},{}>")):
         m = re.search(pattern, symbol)
@@ -1090,7 +1204,7 @@ def _bf16_kernel_usage(log: str, library: str) -> dict:
     its SASS (none fails the phase, as does a stack frame or spill of a
     small-group kernel, as of its float32 twin)."""
     usage = _ptxas_usage(log, _bf16_kernel_name)
-    want = BF16_TENSOR_CORE_KERNELS + BF16_SMALL_KERNELS + BF16_DECODE_KERNELS
+    want = BF16_TENSOR_CORE_KERNELS + BF16_SMALL_KERNELS + BF16_DECODE_KERNELS + BF16_RWKV6_KERNELS
     _require(sorted(usage) == sorted(want), f"ptxas reported {sorted(usage)}, want {sorted(want)}")
     name = None
     for ln in _sass(library).splitlines():
@@ -1107,7 +1221,7 @@ def _bf16_kernel_usage(log: str, library: str) -> dict:
         for name in BF16_TENSOR_CORE_KERNELS:
             _require(usage[name].get("hmma_bf16", 0) > 0,
                      f"{name}: no bf16 HMMA/HGMMA instruction in its SASS ({usage[name]})")
-    for name in BF16_SMALL_KERNELS:
+    for name in BF16_SMALL_KERNELS + BF16_NO_SPILL:
         _require(usage[name].get("stack", 1) == 0 and usage[name].get("spill_stores", 1) == 0,
                  f"{name}: a stack frame or spills ({usage[name]}): a register array in local memory")
     return usage
@@ -1552,6 +1666,13 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int,
     return out
 
 
+def _plain_iters(kernel_iters: int) -> int:
+    """Timed calls of an attention case's plain version: one at the large
+    shapes (those whose kernel is timed over 20 calls or fewer, where the
+    plain version takes tens of milliseconds a call), five elsewhere."""
+    return 1 if kernel_iters <= 20 else 5
+
+
 def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset: int):
     import torch
 
@@ -1618,19 +1739,23 @@ def _flash_fwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err,
         **(_bf16_bounds(nbytes, flops) if bf16 else _tensor_core_bounds(nbytes, flops)),
         **({"bitwise_repeatable": True, "err_over_limit": ratio} if bf16 else {}),
-        **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain, plain_iters=5,
+        **_timings(lambda: flash_fwd_cuda(q, k, v, causal, window, q_offset), plain,
+                   plain_iters=_plain_iters(kernel_iters),
                    kernel_iters=kernel_iters),
         **_library(lambda: _sdpa(q, k, v, mask, simple)),
     }
 
 
 def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_iters=200,
-                    clocks=False) -> dict:
+                    clocks=False, bf16=False) -> dict:
     """Backward: gradients of the kernel's autograd.Function against torch
     autograd through the plain version (and bitwise equal across two runs),
     and the backward launch alone timed against the plain version's
     autograd backward and SDPA's, under the same mask; ``clocks`` as
-    ``_timings``'."""
+    ``_timings``'.  With ``bf16``, the bf16 kernels on the inputs rounded to
+    bf16 (and dO), each gradient within ``GRAD_ROW_TOL`` per row
+    (``_close_rows``; dq's limit plus ``_dq_allowance``), the bound one bf16
+    tensor-core pass a product and SDPA's bf16 backward beside it."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -1643,8 +1768,10 @@ def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _randn(g, B, Sq, H, D), _randn(g, B, Sk, KV, D), _randn(g, B, Sk, KV, D)
     dout = _randn(g, B, Sq, H, D)
+    if bf16:
+        q, k, v, dout = q.bfloat16(), k.bfloat16(), v.bfloat16(), dout.bfloat16()
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    name = f"flash_attention_bwd[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}"
+    name = f"flash_attention_bwd{'_bf16' if bf16 else ''}[{B},{Sq},{H}/{KV},{D}] Sk={Sk} {kw}"
 
     def grads(fn):
         xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1655,24 +1782,37 @@ def _flash_bwd_case(B, Sq, Sk, H, KV, D, causal, window, q_offset, seed, kernel_
     again, _ = grads(flash_attention_cuda)
     want, (plain_out, plain_xs) = grads(flash_attention_plain)
     torch.cuda.synchronize()
-    err = max(_close(f"{name} d{n}", a, b, GRAD_TOL) for n, a, b in zip("qkv", got, want))
+    o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
+    ratio = None
+    if bf16:
+        _require(all(x.dtype == torch.bfloat16 for x in got), f"{name}: gradients {got[0].dtype}")
+        with torch.no_grad():
+            o32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        allow = [_dq_allowance(k, dout, o, o32), None, None]
+        del o32
+        rows = [_close_rows(f"{name} d{n}", a, b, GRAD_ROW_TOL, unit=False, allowance=c)
+                for n, a, b, c in zip("qkv", got, want, allow)]
+        err, ratio = max(r[0] for r in rows), max(r[1] for r in rows)
+        del allow
+    else:
+        err = max(_close(f"{name} d{n}", a, b, GRAD_TOL) for n, a, b in zip("qkv", got, want))
     _require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
              f"{name}: gradients differ between two runs")
     del got, again, want
-    o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
     mask, _ = _visible_pairs(Sq, Sk, causal, window, q_offset)
     flops, nbytes = _formula("flash_attention_bwd", {"b": B, "sq": Sq, "sk": Sk, "h": H, "kv": KV,
-                                                     "d": D, **kw})
+                                                     "d": D, **kw, **({"es": 2} if bf16 else {})})
     simple = causal and not window and not q_offset and Sq == Sk
     lib_xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
     lib_out = _sdpa(*lib_xs, mask, simple)
     return {
         "shape": [B, Sq, H, KV, D], "Sk": Sk, **kw, "max_abs_err": err, "deterministic": True,
-        **_tensor_core_bounds(nbytes, flops),
+        **(_bf16_bounds(nbytes, flops) if bf16 else _tensor_core_bounds(nbytes, flops)),
+        **({"bitwise_repeatable": True, "err_over_limit": ratio} if bf16 else {}),
         **_timings(
             lambda: flash_bwd_cuda(q, k, v, o, lse, dout, causal, window, q_offset),
             lambda: torch.autograd.grad(plain_out, plain_xs, dout, retain_graph=True),
-            plain_iters=5, kernel_iters=kernel_iters, clocks=clocks,
+            plain_iters=_plain_iters(kernel_iters), kernel_iters=kernel_iters, clocks=clocks,
         ),
         **_library(lambda: torch.autograd.grad(lib_out, lib_xs, dout.transpose(1, 2), retain_graph=True)),
     }
@@ -1701,7 +1841,7 @@ def _rwkv6_inputs(B: int, T: int, H: int, N: int, seed: int, state: bool,
 
 def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
                 chunk: int = 64, kernel_iters: int = 50, check_profiler: bool = False,
-                clip_share: float = 0.0, clocks: bool = False) -> dict:
+                clip_share: float = 0.0, clocks: bool = False, bf16: bool = False) -> dict:
     """Forward (out, final state) and the gradients of all inputs, with
     cotangents on the output and the final state, through the kernels'
     autograd.Function, against the plain loop in float64 (chunk-checkpointed,
@@ -1709,42 +1849,73 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     bitwise equal gradients.  The oracle runs in float64 because du sums
     B * T steps: at [2, 4096, 64, 64] on an H100 the float32 plain loop's
     own du is 6.8e-4 away from the oracle in places, more than the
-    tolerance (each case records the float32 loop's distance as
-    ``plain_fp32_err``).  Times are of the float32 plain loop.  With
+    tolerance.  Times are of the float32 plain loop, its backward timed
+    once (a second plain backward, about 5 s at that shape, is not run).
+    With
     ``check_profiler``, also ``_profiler_records`` of the forward; with
-    ``clocks``, the card's clocks beside each kernel reading."""
+    ``clocks``, the card's clocks beside each kernel reading.  With ``bf16``,
+    the bf16 kernels on r, k, v, w and the output's cotangent rounded to
+    bf16 (u, the states and their cotangent float32): the output and dr,
+    dk, dv, dw against the oracle rounded to bf16 once, per row within
+    ``GRAD_ROW_TOL`` (``_close_rows``; the output's row scale at most 1),
+    the final state, du and the start state's gradient as the float32
+    case's; the plain version timed is the bf16 one (float32 inside)."""
     import torch
 
     from repro_torch.kernels.rwkv6 import rwkv6_bwd_cuda, rwkv6_cuda, rwkv6_fwd_cuda, rwkv6_plain
 
-    xs = _rwkv6_inputs(B, T, H, N, seed, state, clip_share)
+    xs = list(_rwkv6_inputs(B, T, H, N, seed, state, clip_share))
     s0 = xs[5]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     cot_o, cot_s = _randn(g, B, T, H, N), _randn(g, B, H, N, N)
-    name = (f"rwkv6[{B},{T},{H},{N}]" + (" with a start state" if state else "")
+    if bf16:  # the streams and dO in bf16, u and the states float32
+        xs[:4] = [x.bfloat16() for x in xs[:4]]
+        cot_o = cot_o.bfloat16()
+    name = (f"rwkv6{'_bf16' if bf16 else ''}[{B},{T},{H},{N}]"
+            + (" with a start state" if state else "")
             + (f" with {clip_share} of the decays at the clip" if clip_share else ""))
 
     def grads(fn, dtype, **kw):
-        ts = [x.to(dtype, copy=True).requires_grad_(True) for x in xs if x is not None]
+        """Through ``fn`` with every input in ``dtype`` (None: as made)."""
+        ts = [(x if dtype is None else x.to(dtype)).clone().requires_grad_(True)
+              for x in xs if x is not None]
         out, final = fn(*ts[:5], state=ts[5] if state else None, chunk=chunk, **kw)
-        cots = (cot_o.to(dtype), cot_s.to(dtype))
+        cots = (cot_o, cot_s) if dtype is None else (cot_o.to(dtype), cot_s.to(dtype))
         return (out, final), ts, torch.autograd.grad((out, final), ts, cots, retain_graph=True)
 
-    (out_k, fin_k), _, got = grads(rwkv6_cuda, torch.float32)
-    _, _, again = grads(rwkv6_cuda, torch.float32)
+    own = None if bf16 else torch.float32
+    (out_k, fin_k), _, got = grads(rwkv6_cuda, own)
+    _, _, again = grads(rwkv6_cuda, own)
     (out_p, fin_p), _, want = grads(rwkv6_plain, torch.float64)
     torch.cuda.synchronize()
-    fwd_err = max(_close(f"{name} out", out_k.detach().double(), out_p.detach()),
-                  _close(f"{name} final state", fin_k.detach().double(), fin_p.detach()))
     names = ["r", "k", "v", "w", "u", "state"]
-    bwd_err = max(_close(f"{name} d{n}", a.double(), b, GRAD_TOL) for n, a, b in zip(names, got, want))
+    ratio = None
+    if bf16:
+        _require(out_k.dtype == torch.bfloat16 and all(a.dtype == torch.bfloat16 for a in got[:4])
+                 and got[4].dtype == torch.float32,
+                 f"{name}: output {out_k.dtype}, gradients {[a.dtype for a in got]}")
+        out_err, out_ratio = _close_rows(f"{name} out", out_k.detach(), out_p.detach().bfloat16(),
+                                         GRAD_ROW_TOL, unit=True)
+        fwd_err = max(out_err, _close(f"{name} final state", fin_k.detach().double(), fin_p.detach()))
+        rows = [_close_rows(f"{name} d{n}", a, b.bfloat16(), GRAD_ROW_TOL, unit=False)
+                for n, a, b in zip(names[:4], got[:4], want[:4])]
+        bwd_err = max([r[0] for r in rows] + [_close(f"{name} d{n}", a.double(), b, GRAD_TOL)
+                                              for n, a, b in zip(names[4:], got[4:], want[4:])])
+        ratio = {"fwd": out_ratio, "bwd": max(r[1] for r in rows)}
+    else:
+        fwd_err = max(_close(f"{name} out", out_k.detach().double(), out_p.detach()),
+                      _close(f"{name} final state", fin_k.detach().double(), fin_p.detach()))
+        bwd_err = max(_close(f"{name} d{n}", a.double(), b, GRAD_TOL)
+                      for n, a, b in zip(names, got, want))
     _require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
              f"{name}: gradients differ between two runs")
     del got, again, out_k, fin_k, out_p, fin_p
-    # The float32 plain loop against the same oracle, for the record.
-    (out_p, fin_p), plain_ts, plain32 = grads(rwkv6_plain, torch.float32)
-    plain_fp32_err = {n: _max_err(a, b) for n, a, b in zip(names, plain32, want)}
-    del want, plain32
+    del want
+    # The plain version's graph (float32, or the bf16 plain version), whose
+    # backward is timed once below.
+    plain_ts = [(x if own is None else x.to(own)).clone().requires_grad_(True)
+                for x in xs if x is not None]
+    out_p, fin_p = rwkv6_plain(*plain_ts[:5], state=plain_ts[5] if state else None, chunk=chunk)
 
     r, k, v, w, u = xs[:5]
     plain_graph = (out_p, fin_p)
@@ -1767,7 +1938,8 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     )
     del plain_graph, plain_ts, out_p, fin_p
 
-    key = {"b": B, "t": T, "h": H, "n": N, "state": state, "chunk": chunk}
+    key = {"b": B, "t": T, "h": H, "n": N, "state": state, "chunk": chunk,
+           **({"es": 2} if bf16 else {})}
     fwd_ops, fwd_bytes = _formula("rwkv6", key)
     bwd_ops, bwd_bytes = _formula("rwkv6_bwd", key)
     fwd_bound = _bound_ms(fwd_bytes, fwd_ops)
@@ -1775,12 +1947,13 @@ def _rwkv6_case(B: int, T: int, H: int, N: int, seed: int, state: bool = False,
     shape = [B, T, H, N]
     common = {"shape": shape, "state": state, "chunk": chunk, "clip_share": clip_share,
               "library_ms": None}
+    extra = ({"fwd": {"bitwise_repeatable": True, "err_over_limit": ratio["fwd"]},
+              "bwd": {"err_over_limit": ratio["bwd"]}} if bf16 else {"fwd": {}, "bwd": {}})
     return {
         "fwd": {**common, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
-                "bound_by": fwd_bound[1], "bytes": fwd_bytes, **fwd_t},
+                "bound_by": fwd_bound[1], "bytes": fwd_bytes, **extra["fwd"], **fwd_t},
         "bwd": {**common, "max_abs_err": bwd_err, "deterministic": True, "bound_ms": bwd_bound[0],
-                "bound_by": bwd_bound[1], "bytes": bwd_bytes, "plain_fp32_err": plain_fp32_err,
-                **bwd_t},
+                "bound_by": bwd_bound[1], "bytes": bwd_bytes, **extra["bwd"], **bwd_t},
     }
 
 
@@ -2077,14 +2250,69 @@ def _zoo_kernel_cases(out: dict) -> None:
     print(f"  the model zoo's kernel cases: {time.perf_counter() - t0:.1f} s")
 
 
+def _gmm_bwd_einsums_case(up: tuple, batch: int, seed: int) -> dict:
+    """The bf16 grouped products' backward on the card: the reference's two
+    einsums (``models/moe.py``'s ``gmm_bwd_einsums``, no kernel) at a
+    pretraining path's up and down products, [B, E, C, K] x [E, K, N],
+    each against the float32-summed product rounded once (max abs error and
+    ``_row_ratio`` at ``BF16_TOL``), with cuBLAS's bf16 reduced-precision
+    reductions off (the port's setting, ``make_pretrain``) and on
+    (PyTorch's default), timed each way by the profiler; the bound one bf16
+    tensor-core pass of 2 T D F flops or the bytes at 2 an element."""
+    import torch
+
+    from repro_torch.models.moe import gmm_bwd_einsums
+
+    T, D, F, E = up
+    C = T // (E * batch)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    out = []
+    try:
+        for i, (k, n) in enumerate(((D, F), (F, D))):
+            g = torch.Generator(device="cuda").manual_seed(seed + i)
+            xe = _randn(g, batch, E, C, k).bfloat16()
+            w = (_randn(g, E, k, n) / math.sqrt(k)).bfloat16()
+            dy = _randn(g, batch, E, C, n).bfloat16()
+            want_dx = torch.einsum("becn,ekn->beck", dy.float(), w.float()).bfloat16()
+            want_dw = torch.einsum("beck,becn->ekn", xe.float(), dy.float()).bfloat16()
+            flops, nbytes = _formula("moe_gmm_dx", {"t": T, "d": k, "f": n, "e": E, "es": 2})
+            case = {"shape": [T, k, n, E], "batch": batch, **_bf16_bounds(nbytes, flops)}
+            for reduced in (False, True):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                dx, dw = gmm_bwd_einsums(xe, w, dy)
+                torch.cuda.synchronize()
+                tag = "reduced" if reduced else "fp32_sums"
+                case[tag] = {
+                    "dx_err": _max_err(dx.float(), want_dx.float()),
+                    "dw_err": _max_err(dw.float(), want_dw.float()),
+                    "dx_err_over_ulp": _row_ratio(dx, want_dx, BF16_TOL),
+                    "dw_err_over_ulp": _row_ratio(dw, want_dw, BF16_TOL),
+                    "dx_ms": _library(lambda: torch.einsum("becn,ekn->beck", dy, w), iters=5),
+                    "dw_ms": _library(lambda: torch.einsum("beck,becn->ekn", xe, dy), iters=5),
+                }
+                del dx, dw
+            out.append(case)
+            print(f"  gmm backward einsums bf16 {case['shape']} (batch {batch}): bound "
+                  f"{case['bound_ms']:.5f} ms; fp32 sums dX {case['fp32_sums']['dx_ms']['library_ms']:.5f}"
+                  f" / dW {case['fp32_sums']['dw_ms']['library_ms']:.5f} ms, err {case['fp32_sums']['dx_err']:.3e}"
+                  f" / {case['fp32_sums']['dw_err']:.3e}; reduced-precision reductions dX "
+                  f"{case['reduced']['dx_ms']['library_ms']:.5f} / dW {case['reduced']['dw_ms']['library_ms']:.5f}"
+                  f" ms, err {case['reduced']['dx_err']:.3e} / {case['reduced']['dw_err']:.3e}")
+            del xe, w, dy, want_dx, want_dw
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return out
+
+
 def _mixed_dtypes_refused() -> None:
     """Every bf16-taking wrapper raises on a CUDA call whose operands mix
     bfloat16 and float32 or are float16, and launches nothing."""
     import torch
 
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    from repro_torch.kernels.flash_attention import flash_bwd_cuda, flash_fwd_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_small_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
 
     g = torch.Generator(device="cuda").manual_seed(260)
     q, kv = _randn(g, 1, 64, 2, 64), _randn(g, 1, 64, 2, 64)
@@ -2100,7 +2328,20 @@ def _mixed_dtypes_refused() -> None:
                 decode_attention_cuda, q_[:, :1].contiguous(), k_, k_, valid),
             f"moe_gmm_cuda {label}": functools.partial(moe_gmm_cuda, x_, w_, gs),
             f"moe_gmm_small_cuda {label}": functools.partial(moe_gmm_small_cuda, x_, w_, gs, 4),
+            f"flash_bwd_cuda {label}": functools.partial(
+                flash_bwd_cuda, q_, k_, k_, q_, torch.zeros(1, 2, 64, device="cuda"), q_, True, 0, 0),
         })
+    r = _randn(g, 1, 64, 2, 16)
+    u = _randn(g, 2, 16)
+    calls.update({
+        "rwkv6_cuda bf16 r with float32 k, v, w": functools.partial(
+            rwkv6_cuda, r.bfloat16(), r, r, r, u),
+        "rwkv6_cuda bf16 u": functools.partial(rwkv6_cuda, *(r.bfloat16(),) * 4, u.bfloat16()),
+        "rwkv6_cuda float16": functools.partial(rwkv6_cuda, *(r.half(),) * 4, u),
+        "flash_bwd_cuda bf16 with a float32 o": functools.partial(
+            flash_bwd_cuda, q.bfloat16(), q.bfloat16(), q.bfloat16(), q, torch.zeros(1, 2, 64, device="cuda"),
+            q.bfloat16(), True, 0, 0),
+    })
     counters = _all_counters()
     before = {c.name: c.value for c in counters}
     for label, call in calls.items():
@@ -2163,8 +2404,33 @@ def _bf16_kernel_cases(out: dict) -> None:
         gmm([1280, 1000, 1280, 1280], D, F, 254, 20),
     ]
     out["moe_gmm_small_bf16"] = _gmm_small_cases(bf16=True)
+    # The bf16 pretraining paths' shapes: the flash backward at Qwen3-14B's,
+    # Phi's, LLaVA's, MusicGen's (D = 64) and Jamba's learners, a window and
+    # a q_offset; RWKV-6 at the learner's and the serve prefill's, and with
+    # half the decays at the clip (the largest rounds to exactly 1.0 in
+    # bf16); the tile kernel at DeepSeek's learner products.  The plain
+    # versions are called once a timing.
+    back = functools.partial(_flash_bwd_case, bf16=True, kernel_iters=10)
+    out["flash_attention_bwd_bf16"] = [
+        back(b, s, s, h, kv, dd, True, 0, 0, 270 + i) for i, (b, s, h, kv, dd) in enumerate(
+            (QWEN3_ATTENTION, PHI_ATTENTION, LLAVA_ATTENTION, MUSICGEN_ATTENTION, JAMBA_ATTENTION))
+    ] + [back(2, 2048, 2048, 40, 8, 128, True, 512, 0, 275),
+         back(2, 1024, 2048, 40, 8, 128, True, 0, 1024, 276)]
+    rw = functools.partial(_rwkv6_case, bf16=True, kernel_iters=20)
+    rwkv = [rw(*RWKV6_PATH_SHAPE, 280), rw(*SERVE_RWKV6_SHAPE, 281),
+            rw(2, 1024, 8, 64, 282, clip_share=0.5)]
+    out["rwkv6_fwd_bf16"] = [c["fwd"] for c in rwkv]
+    out["rwkv6_bwd_bf16"] = [c["bwd"] for c in rwkv]
+    T, D, F, E = DEEPSEEK_GMM_UP
+    out["moe_gmm_bf16"] += [gmm([T // E] * E, D, F, 255, 10), gmm([T // E] * E, F, D, 256, 10)]
     _mixed_dtypes_refused()
     print(f"  the bf16 kernel cases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    einsums = {path: _gmm_bwd_einsums_case(up, batch, 290 + 2 * i) for i, (path, up, batch) in enumerate(
+        (("pretrain_phi_bf16", MOE_GMM_UP, 2), ("pretrain_deepseek_bf16", DEEPSEEK_GMM_UP, 2),
+         ("jamba", JAMBA_GMM_UP, PRETRAIN_BATCH["pretrain_jamba"])))}
+    print(f"  the bf16 backward einsums: {time.perf_counter() - t0:.1f} s")
+    return einsums
 
 
 def _launch_floor() -> dict:
@@ -2268,7 +2534,7 @@ def phase_kernels() -> dict:
         _rwkv6_case(2, 1000, 64, 64, 51),  # ragged T
         _rwkv6_case(2, 300, 8, 64, 52, state=True),  # a start state
         _rwkv6_case(4, 256, 8, 32, 53, chunk=16),  # narrow heads
-        _rwkv6_case(*RWKV6_PATH_SHAPE, 54, state=True, kernel_iters=20),  # path shape, start state
+        _rwkv6_case(2, 1024, 64, 64, 54, state=True, kernel_iters=20),  # the path's heads, a start state
         _rwkv6_case(2, 512, 4, 16, 55),  # N = 16
         _rwkv6_case(2, 1024, 8, 64, 56, clip_share=0.5),  # decays at the clip's extremes
     ]
@@ -2276,13 +2542,16 @@ def phase_kernels() -> dict:
     out["rwkv6_bwd"] = [c["bwd"] for c in rwkv6_cases]
     out.update(_gmm_cases())
     _zoo_kernel_cases(out)
-    _bf16_kernel_cases(out)
+    einsums = _bf16_kernel_cases(out)
     for name, cases in out.items():
         tol = GRAD_TOL if name in ("flash_attention_bwd", "rwkv6_bwd") else TOL
         tol = GMM_TOL if name.startswith("moe_gmm") else tol
         tol = BF16_TOL if name.endswith("_bf16") else tol
         tol = ("2^-7 x (min(row max, 1) + |x|)"
-               if name in ("flash_attention_fwd_bf16", "decode_attention_bf16") else tol)
+               if name in ("flash_attention_fwd_bf16", "decode_attention_bf16", "rwkv6_fwd_bf16")
+               else tol)
+        tol = ("2^-7 x (row max (at least 2^-8 x the tensor's) + |x|), dq + _dq_allowance"
+               if name in ("flash_attention_bwd_bf16", "rwkv6_bwd_bf16") else tol)
         for c in cases:
             lib = c.get("library_ms")
             lib_txt = f" library_ms={lib} ({c.get('library_backend')})" if lib is not None else ""
@@ -2307,6 +2576,7 @@ def phase_kernels() -> dict:
                 print(f"  block_m {c['block_m']}: {c['rows_a_chunk']} rows a chunk, grid "
                       f"{c['blocks']}; the 128-row-tile kernel on the same inputs "
                       f"{c['tile_ms']} ms ({c['tile_ms_from']})")
+    out["gmm_bwd_einsums_bf16"] = einsums  # no kernel: the reference's einsums at bf16
     return out
 
 
@@ -3332,32 +3602,21 @@ def phase_flowcheck() -> dict:
 
 
 # ------------------------------------------------------------ phase 19
-def _record_routing(fn):
-    """Run ``fn`` while recording the experts every MoE layer routes to."""
-    from repro_torch.models import moe as moe_mod
-
-    route, seen = moe_mod.route, []
-
-    def recording(params, x, cfg):
-        probs, top_p, top_e = route(params, x, cfg)
-        seen.append(top_e.detach().cpu())
-        return probs, top_p, top_e
-
-    moe_mod.route = recording
-    try:
-        fn()
-    finally:
-        moe_mod.route = route
-    return seen
-
-
-def _pretrain_parity(arch: str) -> dict:
+def _pretrain_parity(arch: str, bf16: bool = False) -> dict:
     """One ``learn_on_batch`` (SGD at lr 1, so the weight difference is the
     gradient difference; see phase 6) of the pretraining learner on the card
     and on the CPU from the same weights, at ``arch``'s reduced
-    configuration in float32.  For an MoE one the experts every token routes
-    to must first be the same on both devices: one flipped choice would make
-    the weight comparison meaningless."""
+    configuration in float32 (within ``LEARNER_TOL``).  For an MoE one the
+    experts every token routes to must first be the same on both devices:
+    one flipped choice would make the weight comparison meaningless.  With
+    ``bf16``, at the configuration's own dtype: the weights cross through
+    ``params_to_numpy`` (which widens them) and the learner's leaves must
+    stay bf16; both runs take the card's expert choices (``_Routing``), the
+    CPU's own choices held to them but at near ties; each weight within 2 x
+    ``PARITY_BF16_GAP`` x its leaf's largest update + 2^-7 x its |value|,
+    each statistic within 2 x ``PARITY_BF16_LOSS_GAP``."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3370,45 +3629,86 @@ def _pretrain_parity(arch: str) -> dict:
     from repro_torch.tree import tree_leaves
 
     cfg = train_config(arch, smoke=True)
+    if not bf16:
+        cfg = dataclasses.replace(cfg, dtype="float32")
     gpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cuda"))
     cpu = SPMDLearnerWorker(SPMDTrainContext(cfg, sgd(1.0), device="cpu"))
     cpu.set_weights(params_to_numpy(gpu.get_weights()))
+    dtypes = sorted({str(p.dtype) for p in tree_leaves(cpu.params)})
+    _require(dtypes == [f"torch.{cfg.dtype}"], f"pretrain parity ({arch}): the CPU learner's "
+                                               f"leaves are {dtypes} after the weight sync")
+    before = tree_leaves(params_to_numpy(cpu.get_weights()))
     batch = make_batch(cfg, InputShape("t", 64, 2, "train"), seed=0, step=0)
-    routed = 0
+    routed, flips, forced = 0, [], (None, None)
     if cfg.moe is not None:
-        def probe(worker):
+        def probe(worker, routing):
             tokens, labels = (torch.from_numpy(batch[k]).to(worker.ctx.device)
                               for k in ("tokens", "labels"))
             media = batch.get("media_emb")
             media = None if media is None else torch.from_numpy(media).to(worker.ctx.device)
-            with torch.no_grad():
-                return _record_routing(
-                    lambda: worker.ctx.model.loss(worker.params, tokens, labels, media))
+            with torch.no_grad(), routing:
+                worker.ctx.model.loss(worker.params, tokens, labels, media)
+            return routing.calls
 
-        on_gpu, on_cpu = probe(gpu), probe(cpu)
+        on_gpu, on_cpu = probe(gpu, _Routing()), probe(cpu, _Routing())
         moe_layers = sum(s.mlp == "moe" for s in cfg.prologue + cfg.block_pattern * cfg.num_blocks)
         _require(len(on_gpu) == len(on_cpu) == moe_layers, "routing probe missed a layer")
-        flips = sum(int((a != b).sum()) for a, b in zip(on_gpu, on_cpu))
-        _require(flips == 0, f"pretrain parity ({arch}): {flips} expert choices differ between "
+        routed = sum(e.numel() for _, e in on_gpu)
+        if bf16:
+            decided = [(p.cpu(), e.cpu()) for p, e in on_gpu]
+            flips = _route_flips(decided, [(p, e) for p, e in on_cpu], f"pretrain parity ({arch})")
+            forced = ([e for _, e in on_gpu], [e for _, e in decided])
+        else:
+            n = sum(int((a[1].cpu() != b[1]).sum()) for a, b in zip(on_gpu, on_cpu))
+            _require(n == 0, f"pretrain parity ({arch}): {n} expert choices differ between "
                              "card and CPU, so the weights cannot be compared")
-        routed = sum(a.numel() for a in on_gpu)
-    info_g, info_c = gpu.learn_on_batch(batch), cpu.learn_on_batch(batch)
+        del on_gpu, on_cpu
+    with _Routing(forced=forced[0]):
+        info_g = gpu.learn_on_batch(batch)
+    with _Routing(forced=forced[1]):
+        info_c = cpu.learn_on_batch(batch)
     w_g = tree_leaves(params_to_numpy(gpu.get_weights()))
     w_c = tree_leaves(params_to_numpy(cpu.get_weights()))
     err = max(float(np.abs(a - b).max()) for a, b in zip(w_g, w_c))
     stat_err = max(abs(info_g[k] - info_c[k]) for k in info_g)
-    _require(err <= LEARNER_TOL, f"pretrain parity ({arch}): card vs CPU weights differ by {err:.3e}")
-    _require(stat_err <= LEARNER_TOL, f"pretrain parity ({arch}): stats differ by {stat_err:.3e}")
-    routing = f"; {routed} expert choices identical" if cfg.moe is not None else ""
-    print(f"pretrain learner parity ({cfg.name}): one learn_on_batch (SGD, lr 1) on 2 x 64 tokens, "
-          f"card vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} (tol "
-          f"{LEARNER_TOL}){routing}; loss {info_g['loss']:.4f}")
-    return {"weight_err": err, "stat_err": stat_err, "expert_choices_checked": routed}
+    if bf16:
+        ratio = max(float((np.abs(a - b) / (2 * PARITY_BF16_GAP * float(np.abs(b - w0).max())
+                                             + 2.0 ** -7 * np.abs(b) + 1e-30)).max())
+                    for a, b, w0 in zip(w_g, w_c, before))
+        stat_ratio = max(abs(info_g[k] - info_c[k]) / (2 * PARITY_BF16_LOSS_GAP) for k in info_g)
+        _require(ratio <= 1.0, f"pretrain parity ({arch}, bf16): card vs CPU weights {ratio:.3f} "
+                               f"x their limit (max err {err:.3e})")
+        _require(stat_ratio <= 1.0, f"pretrain parity ({arch}, bf16): stats {stat_ratio:.3f} x "
+                                    f"their limit ({info_g} vs {info_c})")
+        _require(all(p.dtype == torch.bfloat16 for p in tree_leaves(gpu.params) + tree_leaves(cpu.params)),
+                 f"pretrain parity ({arch}, bf16): a learner's leaf is not bf16 after its step")
+        tol = f"{ratio:.3f} x the per-leaf limit, stats {stat_ratio:.3f} x theirs"
+    else:
+        _require(err <= LEARNER_TOL, f"pretrain parity ({arch}): card vs CPU weights differ by {err:.3e}")
+        _require(stat_err <= LEARNER_TOL, f"pretrain parity ({arch}): stats differ by {stat_err:.3e}")
+        tol = f"tol {LEARNER_TOL}"
+    routing = (f"; {routed} expert choices" + (f" (the CPU's own flipped at near ties: {flips})"
+                                               if bf16 else " identical")
+               if cfg.moe is not None else "")
+    print(f"pretrain learner parity ({cfg.name}, {cfg.dtype}): one learn_on_batch (SGD, lr 1) on "
+          f"2 x 64 tokens, card vs CPU max weight err {err:.3e}, max stat err {stat_err:.3e} "
+          f"({tol}){routing}; loss {info_g['loss']:.4f}")
+    out = {"dtype": cfg.dtype, "weight_err": err, "stat_err": stat_err,
+           "expert_choices_checked": routed}
+    if bf16:
+        out.update(err_over_limit=ratio, stat_err_over_limit=stat_ratio, route_flips=flips)
+    return out
 
 
 def phase_pretrain_parity() -> dict:
     """``_pretrain_parity`` at the reduced RWKV-6, Phi-3.5-MoE and Qwen3-14B."""
     return {arch: _pretrain_parity(arch) for arch in PRETRAIN_PATHS.values()}
+
+
+def phase_pretrain_parity_bf16() -> dict:
+    """``_pretrain_parity`` at bfloat16, the configurations' own dtype, at
+    the reduced RWKV-6, Phi-3.5-MoE, Qwen3-14B and DeepSeek-V2-Lite."""
+    return {arch: _pretrain_parity(arch, bf16=True) for arch in PARITY_BF16_ARCHS}
 
 
 def phase_zoo_parity() -> dict:
@@ -3432,10 +3732,18 @@ def _pretrain_expected(cfg) -> dict:
     forward and backward, MLA none (the plain chunked path), Mamba none; an
     RWKV-6 layer the RWKV-6 forward and backward; an MoE MLP three expert
     products (up, gate, down) with a gated MLP, two without, and the dX and
-    dW products of each in the backward."""
+    dW products of each in the backward.  A bfloat16 configuration launches
+    the bf16 kernels (the names with ``_bf16``) in their place, and its
+    grouped products' dX and dW are the reference's bf16 einsums, no
+    kernel."""
     expect: dict = {}
+    bf16 = cfg.dtype == "bfloat16"
 
     def add(name, n):
+        if bf16:
+            if name in ("moe_gmm_dx", "moe_gmm_dw"):
+                return
+            name += "_bf16"
         expect[name] = expect.get(name, 0) + n
 
     for spec in cfg.prologue + cfg.block_pattern * cfg.num_blocks:
@@ -3476,7 +3784,12 @@ def phase_pretrain(name: str, counters: list) -> dict:
     (``make_pretrain`` -> ``build_lm_flow`` -> ``Algorithm.from_plan``) at
     the configuration's widths cut to 2 layers, ``steps`` train() calls
     under a deadline, the last one profiled.  Launches are read per step and
-    must be exactly what the configuration implies, every other kernel 0."""
+    must be exactly what the configuration implies, every other kernel 0.
+    The ``PRETRAIN_BF16_PATHS`` train at the configuration's own dtype,
+    bfloat16, as the driver does; the others in float32, which they ask for
+    (``dataclasses.replace(cfg, dtype="float32")``)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.flow import Algorithm
@@ -3484,11 +3797,15 @@ def phase_pretrain(name: str, counters: list) -> dict:
     from repro_torch.tree import tree_leaves
 
     batch = PRETRAIN_BATCH.get(name, PRETRAIN["batch"])
-    c = dict(PRETRAIN, batch=batch, data_shards=min(batch, PRETRAIN["data_shards"]),
-             steps=ZOO_STEPS if name in ZOO_PRETRAIN_PATHS else PRETRAIN["steps"])
-    cfg, cut = train_config({**PRETRAIN_PATHS, **ZOO_PRETRAIN_PATHS}[name], layers=c["layers"],
-                            with_note=True)
-    print(f"{name}: {cut}")
+    steps = (ZOO_STEPS if name in ZOO_PRETRAIN_PATHS else
+             PRETRAIN_BF16_STEPS if name in PRETRAIN_BF16_PATHS else PRETRAIN["steps"])
+    c = dict(PRETRAIN, batch=batch, data_shards=min(batch, PRETRAIN["data_shards"]), steps=steps)
+    cfg, cut = train_config({**PRETRAIN_PATHS, **ZOO_PRETRAIN_PATHS, **PRETRAIN_BF16_PATHS}[name],
+                            layers=c["layers"], with_note=True)
+    _require(cfg.dtype == "bfloat16", f"{name}: the driver's configuration is {cfg.dtype}")
+    if name not in PRETRAIN_BF16_PATHS:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    print(f"{name}: {cut}, {cfg.dtype}")
     _check_path_shapes(cfg, c["batch"])
     expect = {k.name: 0 for k in counters}
     expect.update(_pretrain_expected(cfg))
@@ -3529,6 +3846,9 @@ def phase_pretrain(name: str, counters: list) -> dict:
                     busy = prof.stop()
                 launched = {k.name: k.value - before[k.name] for k in counters}
                 info = result["info"]
+                if i == 0:
+                    dtypes = sorted({str(p.dtype) for p in tree_leaves(learner.params)})
+                    moments = sorted({str(m.dtype) for m in tree_leaves(learner.opt_state.mu)})
                 rows.append({"step": i, "seconds": dt, "tokens_per_s": tokens / dt, **info})
                 print(f"{name} train {i}: loss={info['loss']:.4f} nll={info['nll']:.4f} "
                       f"aux={info['aux']:.5f} {dt:.3f} s {tokens / dt:.1f} tokens/s "
@@ -3563,11 +3883,15 @@ def phase_pretrain(name: str, counters: list) -> dict:
           f"({profiled['idle_share_vs_unprofiled']:.4f} vs unprofiled); peak memory "
           f"{peak / 2**30:.2f} GiB; {n_params / 1e9:.3f} B parameters, init {init_s:.2f} s")
     print(f"{name} top device kernels (ms): {profiled['top_kernels_ms']}")
+    want = [f"torch.{cfg.dtype}"]
+    _require(dtypes == want and moments == ["torch.float32"],
+             f"{name}: parameters {dtypes} (want {want}), AdamW's moments {moments}")
     print(f"{name} main path: {c['steps']} train() steps of {tokens} tokens, "
           f"{warm_s:.3f} s per step and {tokens / warm_s:.1f} tokens/s after the first "
           f"(steps 1-{c['steps'] - 2}), per-step launches {expect}; phase "
           f"{time.perf_counter() - t_init:.1f} s")
-    return {"config": cfg.name, "layers": cfg.num_layers, "cut": cut, "batch": c["batch"],
+    return {"config": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers, "cut": cut,
+            "batch": c["batch"], "param_dtypes": dtypes, "moment_dtypes": moments,
             "params": n_params, "steps": rows, "phase_s": time.perf_counter() - t_init,
             "seconds_per_step": warm_s, "tokens_per_s": tokens / warm_s, "init_s": init_s,
             "launches": launches,
@@ -3590,8 +3914,7 @@ def _serve_expected(cfg, steps: int) -> dict:
     bf16 = "_bf16" if cfg.dtype == "bfloat16" else ""
 
     def add(name, n):
-        if name != "rwkv6_fwd":
-            name += bf16
+        name += bf16
         expect[name] = expect.get(name, 0) + n
 
     for spec in cfg.prologue + cfg.block_pattern * cfg.num_blocks:
@@ -3657,6 +3980,7 @@ def phase_serve_zoo(name: str, counters: list) -> dict:
     c = SERVE
     t_phase = time.perf_counter()
     cfg, cut = train_config(arch, layers=c["layers"], with_note=True)
+    cfg = dataclasses.replace(cfg, dtype="float32")  # the float32 serve cases; bf16 is phase 21e
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=c["capacity_factor"]))
     float_cfg = cfg
@@ -5150,13 +5474,16 @@ QWEN3_RESTART_DEADLINE_S = 600  # the driver's run, two learners and 35 GB of fi
 
 def phase_qwen3_restart() -> dict:
     """Qwen3-14B at its published widths cut to 2 layers, 2 x 4,096 tokens
-    a step, fp32.  First the driver a user runs, ``python -m
-    repro_torch.launch.train --arch qwen3-14b --layers 2 ... --checkpoint``
-    (its ``main``, 2 steps), whose file ``restore_pytree`` must read.  Then
-    the restart check of ``tests/test_durability.py``: a learner takes 2
-    steps, ``save_pytree`` writes its parameters and optimizer state, it
-    takes 2 more; a fresh learner restored from the file (copied into its own
-    tensors) takes the same 2 and gives the same losses within 1e-5."""
+    a step, at the driver's dtype, its configuration's own: bfloat16 (the
+    float32 checkpoint is phase 34's).  First the driver a user runs,
+    ``python -m repro_torch.launch.train --arch qwen3-14b --layers 2 ...
+    --checkpoint`` (its ``main``, 2 steps), whose file ``restore_pytree``
+    must read.  Then the restart check of ``tests/test_durability.py``: a
+    learner takes 2 steps, ``save_pytree`` writes its parameters and
+    optimizer state (bf16 leaves widened to float32 in the file, exactly),
+    it takes 2 more; a fresh learner restored from the file (copied into its
+    own tensors) must hold every saved leaf bit for bit, its parameters
+    bf16, and takes the same 2 steps with the same losses within 1e-5."""
     import tempfile
 
     import torch
@@ -5170,6 +5497,7 @@ def phase_qwen3_restart() -> dict:
 
     q = QWEN3_RESTART
     cfg = train.train_config(q["arch"], layers=q["layers"])
+    _require(cfg.dtype == "bfloat16", f"qwen3 restart: the driver's configuration is {cfg.dtype}")
     shape = InputShape("train", q["seq"], q["batch"], "train")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_qwen3_"))
     times = {}
@@ -5201,6 +5529,8 @@ def phase_qwen3_restart() -> dict:
             t0 = time.perf_counter()
             save_pytree(ck, {"params": a.params, "opt": a.opt_state})
             times["save_s"] = time.perf_counter() - t0
+            saved = [x.detach().clone() for x in tree_leaves({"params": a.params, "opt": a.opt_state})
+                     if torch.is_tensor(x)]
             ref = [step(a, s) for s in (2, 3)]
             del a
             gc.collect()
@@ -5211,6 +5541,11 @@ def phase_qwen3_restart() -> dict:
             state = restore_pytree(ck, {"params": b.params, "opt": b.opt_state})
             times["restore_s"] = time.perf_counter() - t0
             b.params, b.opt_state = state["params"], state["opt"]
+            restored = [x for x in tree_leaves(state) if torch.is_tensor(x)]
+            bitwise = len(restored) == len(saved) and all(
+                x.dtype == y.dtype and torch.equal(x.detach(), y) for x, y in zip(restored, saved))
+            param_dtypes = sorted({str(x.dtype) for x in tree_leaves(b.params)})
+            del saved, restored
             out = [step(b, s) for s in (2, 3)]
             ckpt_bytes = os.path.getsize(ck)
             os.remove(ck)
@@ -5224,15 +5559,19 @@ def phase_qwen3_restart() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     _require(finite, "qwen3: the driver's checkpoint holds non-finite parameters")
+    _require(param_dtypes == ["torch.bfloat16"], f"qwen3 restart: restored parameters {param_dtypes}")
+    _require(bitwise, "qwen3 restart: a restored leaf is not the saved one bit for bit")
     rel = max(abs(x - y) / abs(y) for x, y in zip(out, ref))
     _require(rel <= QWEN3_RESTART_RTOL,
              f"qwen3 restart: losses {out} against {ref} (rel err {rel:.3e})")
-    print(f"qwen3 restart: losses {ref} before, {out} after the restart (max rel err {rel:.3e}, "
+    print(f"qwen3 restart ({cfg.dtype}; every restored leaf bitwise the saved one): losses "
+          f"{ref} before, {out} after the restart (max rel err {rel:.3e}, "
           f"rtol {QWEN3_RESTART_RTOL}); checkpoint {ckpt_bytes / 2**30:.2f} GiB (save "
           f"{times['save_s']:.1f} s, restore {times['restore_s']:.1f} s); the driver's "
           f"--checkpoint {cli_bytes / 2**30:.2f} GiB read back ({times['cli_s']:.1f} s for its "
           f"2 steps)")
-    return {"losses": ref, "restored_losses": out, "max_rel_err": rel, "bytes": ckpt_bytes,
+    return {"dtype": cfg.dtype, "restored_bitwise": bitwise, "param_dtypes": param_dtypes,
+            "losses": ref, "restored_losses": out, "max_rel_err": rel, "bytes": ckpt_bytes,
             "cli_bytes": cli_bytes, **times}
 
 
@@ -5502,9 +5841,59 @@ def _probe_leaves_rollout(lw, algo) -> None:
                  f"explain: the rollout after the probe differs in {k}")
 
 
+EXPLAIN_BF16_ARCHS = ("qwen3-14b", "rwkv6-7b", "phi3.5-moe-42b-a6.6b")
+
+
+def _explain_pretrain_bf16(arch: str) -> dict:
+    """``Algorithm.explain()`` on the pretraining flow (``make_pretrain``) at
+    ``arch``'s reduced configuration at its own dtype, bfloat16, on the
+    card after one step: the ``SPMDTrainStep`` row priced, each bf16 kernel
+    of the step charged its bound's formula at 2 bytes an element, its bound
+    at ``HW_H100``'s bf16 rate (989 TFLOP/s) printed."""
+    import torch
+
+    from repro_torch.distributed.hlo_analysis import HW_H100
+    from repro_torch.flow import Algorithm
+    from repro_torch.launch.train import make_pretrain, train_config
+
+    cfg = train_config(arch, smoke=True)
+    _require(cfg.dtype == "bfloat16" and HW_H100.bf16_flops == BF16_OPS_PER_S,
+             f"explain {arch}: {cfg.dtype}, HW_H100 bf16 rate {HW_H100.bf16_flops}")
+    learner, _, workers, spec = make_pretrain(cfg, 64, 2, 1, steps=4, device="cuda")
+    with Algorithm.from_plan(spec, workers) as algo:
+        algo.train()
+        t0 = time.perf_counter()
+        report = algo.explain()
+        explain_s = time.perf_counter() - t0
+    rows = [r for r in report.rows if r.label.endswith("SPMDTrainStep")]
+    _require(len(rows) == 1 and not rows[0].note and rows[0].flops > 0,
+             f"explain {arch}: pretraining rows {[(r.label, r.note) for r in rows]}")
+    row, bounds = rows[0], {}
+    for name, agg in row.kernels.items():
+        ops = sum(n * _formula(name, key)[0] for key, n in agg["sizes"])
+        nbytes = sum(n * _formula(name, key)[1] for key, n in agg["sizes"])
+        _require(all(key.get("es") == 2 for key, _ in agg["sizes"]),
+                 f"explain {arch}: {name} priced at {[key for key, _ in agg['sizes']]}")
+        _require(abs(agg["flops"] - ops) <= 1e-9 * max(ops, 1) and agg["bytes"] == nbytes,
+                 f"explain {arch}: {name} charged {agg['flops']} / {agg['bytes']}, its bound's "
+                 f"formula {ops} / {nbytes}")
+        bounds[name] = _bound_ms(nbytes, ops, BF16_OPS_PER_S)[0]
+    del learner, workers, spec, algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"explain pretrain {arch} ({cfg.dtype}): flops {row.flops:.4e}, bytes "
+          f"{row.hbm_bytes:.4e}, dominant {row.dominant}; kernels "
+          + ", ".join(f"{n} x{a['launches']} (bound {bounds[n]:.6f} ms at 989 TFLOP/s)"
+                      for n, a in row.kernels.items()) + f"; {explain_s:.2f} s")
+    return {"flops": row.flops, "bytes": row.hbm_bytes, "dominant": row.dominant,
+            "kernels": {n: {k: v for k, v in a.items() if k != "sizes"} for n, a in row.kernels.items()},
+            "bound_ms_bf16": bounds, "explain_s": explain_s}
+
+
 def phase_explain() -> dict:
     """``Algorithm.explain()`` on PPO CartPole and on PPO-LM (Qwen1.5-4B
-    widths) on the card, priced at ``HW_H100``."""
+    widths) on the card, priced at ``HW_H100``; then on the pretraining flow
+    at bfloat16 (``_explain_pretrain_bf16``)."""
     import torch
 
     from repro_torch.core.workers import WorkerSet
@@ -5549,6 +5938,7 @@ def phase_explain() -> dict:
     print(f"explain: priced at {HW_H100.name} (ridge {HW_H100.ridge:.1f} FLOP/byte); seconds "
           f"ppo {out['ppo']['explain_s']:.2f}, ppo_lm {out['ppo_lm']['explain_s']:.2f}; the next "
           f"rollout after each probe bitwise equal to a restored snapshot's")
+    out["pretrain_bf16"] = {arch: _explain_pretrain_bf16(arch) for arch in EXPLAIN_BF16_ARCHS}
     return out
 
 
@@ -5572,6 +5962,7 @@ def _all_counters() -> list:
         DECODE_ATTENTION_LAUNCHES,
     )
     from repro_torch.kernels.flash_attention import (
+        FLASH_BWD_BF16_LAUNCHES,
         FLASH_BWD_LAUNCHES,
         FLASH_FWD_BF16_LAUNCHES,
         FLASH_FWD_LAUNCHES,
@@ -5584,7 +5975,12 @@ def _all_counters() -> list:
         MOE_GMM_SMALL_BF16_LAUNCHES,
         MOE_GMM_SMALL_LAUNCHES,
     )
-    from repro_torch.kernels.rwkv6 import RWKV6_BWD_LAUNCHES, RWKV6_FWD_LAUNCHES
+    from repro_torch.kernels.rwkv6 import (
+        RWKV6_BWD_BF16_LAUNCHES,
+        RWKV6_BWD_LAUNCHES,
+        RWKV6_FWD_BF16_LAUNCHES,
+        RWKV6_FWD_LAUNCHES,
+    )
     from repro_torch.kernels.surrogate import SURROGATE_BWD_LAUNCHES, SURROGATE_FWD_LAUNCHES
     from repro_torch.kernels.threefry import THREEFRY_LAUNCHES
 
@@ -5593,7 +5989,8 @@ def _all_counters() -> list:
             RWKV6_FWD_LAUNCHES, RWKV6_BWD_LAUNCHES, MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES,
             MOE_GMM_DX_LAUNCHES, MOE_GMM_DW_LAUNCHES, THREEFRY_LAUNCHES,
             FLASH_FWD_BF16_LAUNCHES, DECODE_ATTENTION_BF16_LAUNCHES, MOE_GMM_BF16_LAUNCHES,
-            MOE_GMM_SMALL_BF16_LAUNCHES]
+            MOE_GMM_SMALL_BF16_LAUNCHES, FLASH_BWD_BF16_LAUNCHES, RWKV6_FWD_BF16_LAUNCHES,
+            RWKV6_BWD_BF16_LAUNCHES]
 
 
 class _ChildProbe:
@@ -6141,6 +6538,12 @@ KERNEL_SITES = {
                      "src/repro/kernels/moe_gmm.py:24"),
     "moe_gmm_small_bf16": ("src/repro_torch/kernels/csrc/moe_gmm_small.cu",
                            "src/repro/kernels/moe_gmm.py:24"),
+    # The port-only backward at bf16: jax.grad through ref.chunked_attention
+    # at bf16 in the reference.
+    "flash_attention_bwd_bf16": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+                                 "src/repro/kernels/ref.py:58"),
+    "rwkv6_fwd_bf16": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/rwkv6.py:31"),
+    "rwkv6_bwd_bf16": ("src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/ref.py:128"),
 }
 
 
@@ -6272,7 +6675,8 @@ def main() -> int:
             record[name] = _run(name, phase_replay_plan, name, rl_counters)
         record["flowcheck"] = _run("flowcheck", phase_flowcheck)
         record["pretrain_parity"] = _run("pretrain_parity", phase_pretrain_parity)
-        for name in PRETRAIN_PATHS:
+        record["pretrain_parity_bf16"] = _run("pretrain_parity_bf16", phase_pretrain_parity_bf16)
+        for name in (*PRETRAIN_PATHS, *PRETRAIN_BF16_PATHS):
             record[name] = _run(name, phase_pretrain, name, every_counter)
         t_zoo = time.perf_counter()
         record["zoo_parity"] = _run("zoo_parity", phase_zoo_parity)
@@ -6334,7 +6738,7 @@ def main() -> int:
     paths = {"ppo_cartpole": record["main_path"]["launches"], "ppo_lm": record["rlhf"]["launches"],
              **{name: record[name]["launches"] for name in ASYNC_PATHS},
              **{name: record[name]["launches"] for name in (*GRADIENT_PATHS, *REPLAY_PATHS)},
-             **{name: record[name]["launches"] for name in PRETRAIN_PATHS},
+             **{name: record[name]["launches"] for name in (*PRETRAIN_PATHS, *PRETRAIN_BF16_PATHS)},
              **{name: record[name]["launches"]
                 for name in (*ZOO_PRETRAIN_PATHS, *SERVE_ZOO, *SERVE_BF16)},
              **{name: record[name]["launches"] for name in PLAN_PATHS},

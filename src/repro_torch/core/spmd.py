@@ -123,8 +123,10 @@ class SPMDLearnerWorker:
         self.ctx = ctx
         self.params, self.opt_state = ctx.init(seed)
         self.steps = 0
+        self.last_batch: Optional[Dict[str, Any]] = None  # host arrays; what explain() prices
 
     def learn_on_batch(self, batch: Any, policy_id: Optional[str] = None) -> Dict[str, Any]:
+        self.last_batch = dict(batch)
         self.params, self.opt_state, metrics = self.ctx(self.params, self.opt_state, dict(batch))
         self.steps += 1
         return {k: float(v) for k, v in metrics.items()}

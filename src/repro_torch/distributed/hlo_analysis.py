@@ -48,6 +48,7 @@ class Hardware:
     hbm_bw: float            # bytes/s per device
     ici_bw: float            # bytes/s per link per device (NVLink here)
     tf32_flops: float = 0.0  # tensor-core peak, dense TF32 (informational)
+    bf16_flops: float = 0.0  # tensor-core peak, dense bf16 (the bf16 kernels' bounds)
 
     @property
     def ridge(self) -> float:
@@ -57,7 +58,8 @@ class Hardware:
 
 # NVIDIA H100 Tensor Core GPU data sheet, SXM5 80GB column.
 HW_H100 = Hardware(
-    "nvidia-h100-sxm", peak_flops=67e12, hbm_bw=3.35e12, ici_bw=900e9, tf32_flops=495e12
+    "nvidia-h100-sxm", peak_flops=67e12, hbm_bw=3.35e12, ici_bw=900e9, tf32_flops=495e12,
+    bf16_flops=989e12,
 )
 
 

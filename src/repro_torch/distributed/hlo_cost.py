@@ -166,7 +166,7 @@ def flash_costs(b: int, sq: int, sk: int, h: int, kv: int, d: int, causal: bool,
                 q_offset: int, es: int = 4) -> Tuple[Tuple, Tuple]:
     pairs = visible_pairs(sq, sk, causal, window, q_offset)
     fwd = (4 * b * h * d * pairs, (2 * b * sq * h * d + 2 * b * sk * kv * d) * es + b * h * sq * 4, 0)
-    bwd = (10 * b * h * d * pairs, (4 * b * sq * h * d + 4 * b * sk * kv * d + b * h * sq) * 4, 0)
+    bwd = (10 * b * h * d * pairs, (4 * b * sq * h * d + 4 * b * sk * kv * d) * es + b * h * sq * 4, 0)
     return fwd, bwd
 
 
@@ -175,8 +175,9 @@ def decode_cost(b: int, h: int, kv: int, d: int, w: int, n_valid: int, mask: int
     return 4 * h * d * n_valid, (2 * b * h * d + 2 * n_valid * kv * d) * es + mask, 0
 
 
-def rwkv6_costs(b: int, t: int, h: int, n: int, state: bool, chunk: int) -> Tuple[Tuple, Tuple]:
-    seq, st = b * t * h * n * 4, b * h * n * n * 4
+def rwkv6_costs(b: int, t: int, h: int, n: int, state: bool, chunk: int,
+                es: int = 4) -> Tuple[Tuple, Tuple]:
+    seq, st = b * t * h * n * es, b * h * n * n * 4  # u and the states stay fp32
     ck = b * h * -(-t // chunk) * n * n * 4
     s0 = st if state else 0
     fwd = (7 * b * t * h * n * n, 5 * seq + h * n * 4 + st + ck + s0, 0)
@@ -506,7 +507,7 @@ def _plan_decode(q, k_cache, v_cache, valid):
 
 def _plan_rwkv6(r, k, v, w, u, state=None, chunk=64):
     b, t, h, n = _local(r).shape
-    key = dict(b=b, t=t, h=h, n=n, state=state is not None, chunk=int(chunk))
+    key = dict(b=b, t=t, h=h, n=n, state=state is not None, chunk=int(chunk), **_es(r))
     bg, _, hg, ng = r.shape
     ins = (r, k, v, w, u) if state is None else (r, k, v, w, u, state)
     return (key, *rwkv6_costs(**key), ins,
@@ -521,13 +522,13 @@ def _plan_gmm(x, w, group_sizes):
 
 def _plan_gmm_dx(dy, w, group_sizes):
     (t, f), (e, d, _) = _local(dy).shape, _local(w).shape
-    key = dict(t=t, d=d, f=f, e=e)
+    key = dict(t=t, d=d, f=f, e=e, **_es(dy))
     return key, gmm_cost(**key), None, (), [_like(dy, (dy.shape[0], w.shape[1]), dim_map={0: 0})]
 
 
 def _plan_gmm_dw(x, dy, group_sizes):
     (t, d), f, e = _local(x).shape, _local(dy).shape[1], group_sizes.shape[0]
-    key = dict(t=t, d=d, f=f, e=e)
+    key = dict(t=t, d=d, f=f, e=e, **_es(x))
     shape = (group_sizes.shape[0], x.shape[1], dy.shape[1])
     return key, gmm_cost(**key), None, (), [_like(x, shape, dim_map={})]
 

@@ -11,7 +11,10 @@ Each FlowSpec node of a compiled flow is attributed three cost sources:
     peak rates (``HW_H100`` by default).  Two node kinds carry a step:
     ``rollouts`` (the local worker's env+policy rollout) and any
     ``for_each`` node holding a ``TrainOneStep`` stage (the worker's
-    gradient step and optimizer apply).  Each hand-written kernel the step
+    gradient step and optimizer apply) or the LM pretraining flow's
+    ``SPMDTrainStep`` (``launch/train.py``: the learner's loss, gradient and
+    optimizer step on the last batch it learned on, a port-only row; the
+    reference's report leaves that stage unpriced).  Each hand-written kernel the step
     dispatches is one op, priced at its bound's formula, and listed in the
     row's ``kernels``.
   * **live** — the shared ``MetricsContext`` joined by node id: wall time
@@ -148,9 +151,9 @@ class ExplainReport:
 
 def _is_train_stage(stage: Any) -> bool:
     fn = getattr(stage, "fn", None)
-    return type(fn).__name__ == "TrainOneStep" or "TrainOneStep" in getattr(
-        stage, "label", ""
-    )
+    label = getattr(stage, "label", "")
+    return type(fn).__name__ == "TrainOneStep" or "TrainOneStep" in label or (
+        label == "SPMDTrainStep")
 
 
 def _has_train_stage(node: Any) -> bool:
@@ -198,6 +201,8 @@ def _learn_cost(workers: Any) -> OpCost:
     from repro_torch.rl.rollout_worker import _device_batch
 
     lw = workers.local_worker()
+    if hasattr(lw, "ctx"):  # the pretraining learner (core/spmd.py)
+        return _spmd_learn_cost(lw)
     snapshot = _snapshot(lw)
     try:
         batch = _device_batch(lw.sample(), lw.device)
@@ -210,6 +215,30 @@ def _learn_cost(workers: Any) -> OpCost:
     finally:
         if snapshot is not None:
             lw.set_state(snapshot)
+
+
+def _spmd_learn_cost(lw: Any) -> OpCost:
+    """The walker's cost of one step of the pretraining learner on the last
+    batch it learned on: the loss, its gradient and the optimizer's
+    functional apply (the step's in-place apply computes the same), on fake
+    tensors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if lw.last_batch is None:
+        raise ValueError("the learner has learned on no batch yet")
+    batch = {k: torch.from_numpy(np.asarray(v)).to(lw.ctx.device) for k, v in lw.last_batch.items()}
+    model, opt = lw.ctx.model, lw.ctx.optimizer
+
+    def step():
+        loss, _ = model.loss(lw.params, batch["tokens"], batch["labels"],
+                             media_emb=batch.get("media_emb"))
+        grads = iter(torch.autograd.grad(loss, tree_leaves(lw.params)))
+        return opt.apply(lw.params, tree_map(lambda _: next(grads), lw.params), lw.opt_state)
+
+    return analyze_step(step)[0]
 
 
 def _attribute_static(row: StageCost, cost: OpCost, hw: Hardware) -> None:

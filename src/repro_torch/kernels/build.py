@@ -91,6 +91,9 @@ _SIGNATURES = {
     "decode_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "moe_gmm_bf16_launch": [_P] * 5 + [_I] * 4 + [_P],
     "moe_gmm_small_bf16_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "flash_attention_bf16_bwd_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "rwkv6_bf16_fwd_launch": [_P] * 9 + [_I] * 5 + [_P],
+    "rwkv6_bf16_bwd_launch": [_P] * 14 + [_I] * 5 + [_P],
     # keys, key_stride, lanes, n, out, xor_words, stream
     "threefry_counts_launch": [_P, _L, _L, _L, _P, _I, _P],
     # keys, key_stride, data, data_stride, lanes, out, stream

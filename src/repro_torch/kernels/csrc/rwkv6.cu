@@ -94,11 +94,31 @@
 // Loops over the slots of a register array take their trip counts from
 // template arguments: a loop left rolled over such an array puts it in local
 // memory (it made an earlier build of the backward three times slower).
+//
+// bfloat16 (rwkv6_bf16_fwd_launch, rwkv6_bf16_bwd_launch, below): r, k, v,
+// w, dO and the outputs o, dr, dk, dv, dw are bf16; u, the states (start,
+// final, chunk-start checkpoints, the start state's gradient) and du stay
+// fp32, as the model passes them (models/ssm.py, the reference's
+// rwkv6_pallas widening every operand to fp32, rwkv6.py:50-54).  The
+// arithmetic is the float32 kernels', on the same fp32 staged tiles: each
+// thread copies pairs of bf16 elements (4 bytes) into a bf16 staging tile
+// with cp.async, and widens exactly the pairs it copied into the fp32 tile
+// once they have landed, before the barrier that publishes the tile; each
+// output is rounded to bf16 once.  A decay that rounds to exactly 1.0 in
+// bf16 is no special case: the state is fp32 and the step is the same FMA.
+// Each body is one template on the element type, instantiated by two
+// kernels of their own names (rwkv6_fwd_kernel / rwkv6_fwd_bf16_kernel,
+// rwkv6_bwd_kernel / rwkv6_bwd_bf16_kernel) with the same launch bounds.
 // Each kernel launches on the caller's stream and allocates nothing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kMaxChunk = 64;               // steps per saved chunk-start state, at most
 constexpr int kTile = 32;                   // forward: steps staged at once
@@ -166,7 +186,7 @@ __device__ __forceinline__ void store_tile(float* dst, const float (&S)[2][4], i
         make_float4(S[ri][0], S[ri][1], S[ri][2], S[ri][3]);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
@@ -175,22 +195,71 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// An fp32 output as the element type (a bf16 output rounded once).
+template <typename E>
+__device__ __forceinline__ E narrow(float x) {
+  if constexpr (std::is_same_v<E, bf16>) return __float2bfloat16_rn(x);
+  else return x;
+}
+
+template <typename E>
+constexpr bool kIsBf16 = std::is_same_v<E, bf16>;
+
 // Stage steps [t0, t0 + L) of the streams picked by `mask` (bit a: src[a],
 // each [B, T, H, N] with its pair's step 0 at src[a]) into dst[a][kSteps][N].
 // Each thread copies a fixed set of elements: no loop to run at run time.
-template <int N, int kSteps, int kStreams>
-__device__ __forceinline__ void stage_tile(float* dst, const float* const (&src)[kStreams], int mask,
-                                           size_t step, int t0, int L) {
+// bf16 streams land in raw[a][kSteps][N], a pair of elements a copy, and
+// unpack_tile widens them into dst.
+template <typename E, int N, int kSteps, int kStreams>
+__device__ __forceinline__ void stage_tile(float* dst, E* raw, const E* const (&src)[kStreams],
+                                           int mask, size_t step, int t0, int L) {
   constexpr int kThreads = Shape<N>::kThreads;
-  static_assert(kSteps * N % kThreads == 0, "a tile splits evenly over the block");
+  if constexpr (kIsBf16<E>) {
+    static_assert(kSteps * N / 2 % kThreads == 0, "a tile's pairs split evenly over the block");
 #pragma unroll
-  for (int e = 0; e < kSteps * N / kThreads; ++e) {
-    const int idx = threadIdx.x + e * kThreads, m = idx / N;
-    if (m < L) {
-      const size_t off = static_cast<size_t>(t0 + m) * step + idx % N;
+    for (int e = 0; e < kSteps * N / 2 / kThreads; ++e) {
+      const int idx = 2 * (threadIdx.x + e * kThreads), m = idx / N;
+      if (m < L) {
+        const size_t off = static_cast<size_t>(t0 + m) * step + idx % N;
 #pragma unroll
-      for (int a = 0; a < kStreams; ++a)
-        if (mask & (1 << a)) cp_async4(dst + a * kSteps * N + idx, src[a] + off);
+        for (int a = 0; a < kStreams; ++a)
+          if (mask & (1 << a)) cp_async4(raw + a * kSteps * N + idx, src[a] + off);
+      }
+    }
+  } else {
+    static_assert(kSteps * N % kThreads == 0, "a tile splits evenly over the block");
+#pragma unroll
+    for (int e = 0; e < kSteps * N / kThreads; ++e) {
+      const int idx = threadIdx.x + e * kThreads, m = idx / N;
+      if (m < L) {
+        const size_t off = static_cast<size_t>(t0 + m) * step + idx % N;
+#pragma unroll
+        for (int a = 0; a < kStreams; ++a)
+          if (mask & (1 << a)) cp_async4(dst + a * kSteps * N + idx, src[a] + off);
+      }
+    }
+  }
+}
+
+// After the thread's copies have landed (cp.async.wait_all), widen the
+// pairs it staged from raw into dst; nothing to do for float32 streams.
+// The barrier that follows publishes dst to the block.
+template <typename E, int N, int kSteps, int kStreams>
+__device__ __forceinline__ void unpack_tile(float* dst, const E* raw, int mask, int L) {
+  if constexpr (kIsBf16<E>) {
+    constexpr int kThreads = Shape<N>::kThreads;
+#pragma unroll
+    for (int e = 0; e < kSteps * N / 2 / kThreads; ++e) {
+      const int idx = 2 * (threadIdx.x + e * kThreads), m = idx / N;
+      if (m < L) {
+#pragma unroll
+        for (int a = 0; a < kStreams; ++a)
+          if (mask & (1 << a)) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(raw + a * kSteps * N + idx));
+            *reinterpret_cast<float2*>(dst + a * kSteps * N + idx) = x;
+          }
+      }
     }
   }
 }
@@ -277,13 +346,13 @@ __device__ __forceinline__ int col_reduce(float (&v)[4], int lane) {
 }
 
 // ------------------------------------------------------------------ forward
-template <int N>
-__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
-    rwkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ u, const float* __restrict__ s0,
-                     float* __restrict__ o, float* __restrict__ s_out,
-                     float* __restrict__ ckpt, int T, int H, int chunk) {
+template <typename E, int N>
+__device__ __forceinline__ void fwd_body(const E* __restrict__ r, const E* __restrict__ k,
+                                         const E* __restrict__ v, const E* __restrict__ w,
+                                         const float* __restrict__ u,
+                                         const float* __restrict__ s0, E* __restrict__ o,
+                                         float* __restrict__ s_out, float* __restrict__ ckpt,
+                                         int T, int H, int chunk) {
   using Sh = Shape<N>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -291,6 +360,7 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   float* part = buf + 2 * 4 * kTile * N;         // [kTile][kQuads][N]: o's partial sums by quad
   float* ruk = part + kTile * Sh::kQuads * N;    // [2][kTile]: sum_i r u k per step
   float* su = ruk + 2 * kTile;                   // [N]
+  E* raw = reinterpret_cast<E*>(su + N);         // bf16: [4][kTile][N], the staged copies
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int q = tid / Sh::kQuadLanes, i0 = 4 * q, j0 = 2 * (tid % Sh::kQuadLanes);
@@ -299,7 +369,7 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   const size_t pair = static_cast<size_t>(b) * H + h;
   const int nc = (T + chunk - 1) / chunk;
   const int ntiles = (T + kTile - 1) / kTile;
-  const float* const streams[4] = {r + base, k + base, v + base, w + base};
+  const E* const streams[4] = {r + base, k + base, v + base, w + base};
   // Checkpoints fall only on tile starts when a chunk is whole tiles long
   // (the LM path's 64): then a full tile's walk has no branch in it.
   const bool ck_at_tiles = ckpt == nullptr || chunk % kTile == 0;
@@ -326,14 +396,15 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
         float acc = 0.f;
 #pragma unroll
         for (int qq = 0; qq < Sh::kQuads; ++qq) acc += part[(s * Sh::kQuads + qq) * N + x];
-        o[base + static_cast<size_t>(t0 + s) * step + x] = fmaf(bv[idx], rk[s], acc);
+        o[base + static_cast<size_t>(t0 + s) * step + x] = narrow<E>(fmaf(bv[idx], rk[s], acc));
       }
     }
   };
 
-  stage_tile<N, kTile>(buf, streams, 0xf, step, 0, min(kTile, T));
+  stage_tile<E, N, kTile>(buf, raw, streams, 0xf, step, 0, min(kTile, T));
   cp_async_commit();
   cp_async_wait_all();
+  unpack_tile<E, N, kTile, 4>(buf, raw, 0xf, min(kTile, T));
   __syncthreads();
 
   int next_ck = 0;  // the next step whose start state goes to ckpt
@@ -349,8 +420,8 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
     __syncthreads();  // the bonus is in; the previous tile's buffers are free
 
     if (n + 1 < ntiles) {
-      stage_tile<N, kTile>(buf + (p ^ 1) * 4 * kTile * N, streams, 0xf, step, t0 + kTile,
-                           min(kTile, T - t0 - kTile));
+      stage_tile<E, N, kTile>(buf + (p ^ 1) * 4 * kTile * N, raw, streams, 0xf, step, t0 + kTile,
+                              min(kTile, T - t0 - kTile));
       cp_async_commit();
     }
     auto walk = [&](int s) {
@@ -387,6 +458,10 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
       }
     }
     cp_async_wait_all();
+    if (n + 1 < ntiles) {
+      unpack_tile<E, N, kTile, 4>(buf + (p ^ 1) * 4 * kTile * N, raw, 0xf,
+                                  min(kTile, T - t0 - kTile));
+    }
     __syncthreads();  // the next tile is staged; this tile's partial sums are complete
   }
   {
@@ -397,6 +472,26 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   for (int ri = 0; ri < 4; ++ri)
     *reinterpret_cast<float2*>(s_out + pair * N * N + (i0 + ri) * N + j0) =
         make_float2(S[ri][0], S[ri][1]);
+}
+
+template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
+    rwkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ s0,
+                     float* __restrict__ o, float* __restrict__ s_out,
+                     float* __restrict__ ckpt, int T, int H, int chunk) {
+  fwd_body<float, N>(r, k, v, w, u, s0, o, s_out, ckpt, T, H, chunk);
+}
+
+template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
+    rwkv6_fwd_bf16_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ w,
+                          const float* __restrict__ u, const float* __restrict__ s0,
+                          bf16* __restrict__ o, float* __restrict__ s_out,
+                          float* __restrict__ ckpt, int T, int H, int chunk) {
+  fwd_body<bf16, N>(r, k, v, w, u, s0, o, s_out, ckpt, T, H, chunk);
 }
 
 // ----------------------------------------------------------------- backward
@@ -434,15 +529,17 @@ __device__ __forceinline__ bool next_unit(Unit& u, int T, int chunk) {
   return true;
 }
 
-template <int N>
-__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
-    rwkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ u, const float* __restrict__ dout,
-                     const float* __restrict__ ckpt, const float* __restrict__ ds_final,
-                     float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
-                     float* __restrict__ dw, float* __restrict__ du_part,
-                     float* __restrict__ ds0, int T, int H, int chunk) {
+template <typename E, int N>
+__device__ __forceinline__ void bwd_body(const E* __restrict__ r, const E* __restrict__ k,
+                                         const E* __restrict__ v, const E* __restrict__ w,
+                                         const float* __restrict__ u,
+                                         const E* __restrict__ dout,
+                                         const float* __restrict__ ckpt,
+                                         const float* __restrict__ ds_final,
+                                         E* __restrict__ dr, E* __restrict__ dk,
+                                         E* __restrict__ dv, E* __restrict__ dw,
+                                         float* __restrict__ du_part, float* __restrict__ ds0,
+                                         int T, int H, int chunk) {
   using Sh = Shape<N>;
   constexpr int kRes = N + 4;  // padded row of the dr / dk / dw tile
   extern __shared__ float4 smem4[];
@@ -453,6 +550,7 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   float* res = dvp + kSub * Sh::kWarps * N;       // [kSub][3: dr, dk, dw][kRes]
   float* dots = res + kSub * 3 * kRes;            // [2][2: do . v, sum r u k][kSub]
   float* su = dots + 2 * 2 * kSub;                // [N]
+  E* raw = reinterpret_cast<E*>(su + N);          // bf16: [5][kSub][N], the staged copies
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int i0 = 2 * (tid / Sh::kPairLanes), j0 = 4 * (tid % Sh::kPairLanes);
@@ -460,7 +558,7 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   const size_t base = static_cast<size_t>(b) * T * step + static_cast<size_t>(h) * N;
   const size_t pair = static_cast<size_t>(b) * H + h;
   const int nc = (T + chunk - 1) / chunk;
-  const float* const streams[5] = {r + base, k + base, v + base, w + base, dout + base};
+  const E* const streams[5] = {r + base, k + base, v + base, w + base, dout + base};
 
   for (int x = tid; x < N; x += Sh::kThreads) su[x] = u[h * N + x];
   float G[2][4];
@@ -482,8 +580,9 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   };
   // A unit's streams (a forward pass needs k, v, w only) and, for a chunk's
   // first unit, the chunk's saved start state into marks[0].
+  auto mask = [](const Unit& un) { return un.fwd ? 0xe : 0x1f; };
   auto stage = [&](const Unit& un, float* dst) {
-    stage_tile<N, kSub>(dst, streams, un.fwd ? 0xe : 0x1f, step, start(un), length(un));
+    stage_tile<E, N, kSub>(dst, raw, streams, mask(un), step, start(un), length(un));
     if (un.first) {
       const float* src = ckpt + (pair * nc + un.c) * N * N;
 #pragma unroll
@@ -507,10 +606,10 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
         for (int wq = 0; wq < Sh::kWarps; ++wq) acc += dvp[(m * Sh::kWarps + wq) * N + x];
         const float dov = dd[m], ux = su[x];
         const size_t off = base + static_cast<size_t>(ts + m) * step + x;
-        dv[off] = fmaf(bo[idx], dd[kSub + m], acc);
-        dr[off] = fmaf(ux * bk[idx], dov, res[(m * 3 + 0) * kRes + x]);
-        dk[off] = fmaf(ux * br[idx], dov, res[(m * 3 + 1) * kRes + x]);
-        dw[off] = res[(m * 3 + 2) * kRes + x];
+        dv[off] = narrow<E>(fmaf(bo[idx], dd[kSub + m], acc));
+        dr[off] = narrow<E>(fmaf(ux * bk[idx], dov, res[(m * 3 + 0) * kRes + x]));
+        dk[off] = narrow<E>(fmaf(ux * br[idx], dov, res[(m * 3 + 1) * kRes + x]));
+        dw[off] = narrow<E>(res[(m * 3 + 2) * kRes + x]);
       }
     }
     if (tid < N) {
@@ -532,6 +631,13 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   int n = 0;
   for (;;) {
     const int p = n & 1;
+    if constexpr (kIsBf16<E>) {
+      // The unit's bf16 copies, widened by the threads that staged them (each
+      // waited for its own before the last barrier), then published.  Here,
+      // with only the loop's own state live, rather than after the walk.
+      unpack_tile<E, N, kSub, 5>(buf + p * 5 * kSub * N, raw, mask(cur), length(cur));
+      __syncthreads();
+    }
     const float* st = buf + p * 5 * kSub * N;
     const float *br = st, *bk = st + kSub * N, *bv = st + 2 * kSub * N, *bw = st + 3 * kSub * N,
                 *bo = st + 4 * kSub * N;
@@ -636,16 +742,45 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, 1)
   }
 }
 
-// Dynamic shared memory of each kernel, in bytes.
 template <int N>
-constexpr size_t fwd_smem() {
-  return (2 * 4 * kTile * N + kTile * Shape<N>::kQuads * N + 2 * kTile + N) * sizeof(float);
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
+    rwkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ dout,
+                     const float* __restrict__ ckpt, const float* __restrict__ ds_final,
+                     float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dw, float* __restrict__ du_part,
+                     float* __restrict__ ds0, int T, int H, int chunk) {
+  bwd_body<float, N>(r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, T, H,
+                     chunk);
 }
 
 template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads, 1)
+    rwkv6_bwd_bf16_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ w,
+                          const float* __restrict__ u, const bf16* __restrict__ dout,
+                          const float* __restrict__ ckpt, const float* __restrict__ ds_final,
+                          bf16* __restrict__ dr, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          bf16* __restrict__ dw, float* __restrict__ du_part,
+                          float* __restrict__ ds0, int T, int H, int chunk) {
+  bwd_body<bf16, N>(r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, T, H,
+                    chunk);
+}
+
+// Dynamic shared memory of each kernel, in bytes (bf16: and its staging
+// tile of bf16 copies).
+template <typename E, int N>
+constexpr size_t fwd_smem() {
+  return (2 * 4 * kTile * N + kTile * Shape<N>::kQuads * N + 2 * kTile + N) * sizeof(float) +
+         (kIsBf16<E> ? 4 * kTile * N * sizeof(E) : 0);
+}
+
+template <typename E, int N>
 constexpr size_t bwd_smem() {
   return (kMarks * N * N + 2 * 5 * kSub * N + kSub * Shape<N>::kWarps * N + kSub * 3 * (N + 4) +
-          2 * 2 * kSub + N) * sizeof(float);
+          2 * 2 * kSub + N) * sizeof(float) +
+         (kIsBf16<E> ? 5 * kSub * N * sizeof(E) : 0);
 }
 
 bool bad_shape(int B, int T, int H, int N, int chunk) {
@@ -653,33 +788,93 @@ bool bad_shape(int B, int T, int H, int N, int chunk) {
          !(N == 16 || N == 32 || N == 64);
 }
 
-template <int N>
-cudaError_t fwd(const float* r, const float* k, const float* v, const float* w, const float* u,
-                const float* s0, float* o, float* s_out, float* ckpt, int B, int T, int H,
-                int chunk, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<N>();
-  cudaError_t err = cudaFuncSetAttribute(rwkv6_fwd_kernel<N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename E, int N>
+cudaError_t fwd(const E* r, const E* k, const E* v, const E* w, const float* u, const float* s0,
+                E* o, float* s_out, float* ckpt, int B, int T, int H, int chunk, cudaStream_t st) {
+  constexpr size_t smem = fwd_smem<E, N>();
+  auto* kernel = [] {
+    if constexpr (kIsBf16<E>) return rwkv6_fwd_bf16_kernel<N>;
+    else return rwkv6_fwd_kernel<N>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  rwkv6_fwd_kernel<N><<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(r, k, v, w, u, s0, o, s_out,
-                                                                    ckpt, T, H, chunk);
+  kernel<<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(r, k, v, w, u, s0, o, s_out, ckpt, T, H,
+                                                        chunk);
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t bwd(const float* r, const float* k, const float* v, const float* w, const float* u,
-                const float* dout, const float* ckpt, const float* ds_final, float* dr, float* dk,
-                float* dv, float* dw, float* du_part, float* ds0, int B, int T, int H, int chunk,
-                cudaStream_t st) {
-  constexpr size_t smem = bwd_smem<N>();
-  cudaError_t err = cudaFuncSetAttribute(rwkv6_bwd_kernel<N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename E, int N>
+cudaError_t bwd(const E* r, const E* k, const E* v, const E* w, const float* u, const E* dout,
+                const float* ckpt, const float* ds_final, E* dr, E* dk, E* dv, E* dw,
+                float* du_part, float* ds0, int B, int T, int H, int chunk, cudaStream_t st) {
+  constexpr size_t smem = bwd_smem<E, N>();
+  auto* kernel = [] {
+    if constexpr (kIsBf16<E>) return rwkv6_bwd_bf16_kernel<N>;
+    else return rwkv6_bwd_kernel<N>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  rwkv6_bwd_kernel<N><<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(
+  kernel<<<dim3(H, B), Shape<N>::kThreads, smem, st>>>(
       r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, T, H, chunk);
   return cudaGetLastError();
+}
+
+template <typename E>
+int fwd_launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+               const void* s0, void* o, void* s_out, void* ckpt, int B, int T, int H, int N,
+               int chunk, void* stream) {
+  if (bad_shape(B, T, H, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* rp = static_cast<const E*>(r);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
+  const auto* wp = static_cast<const E*>(w);
+  const auto* up = static_cast<const float*>(u);
+  const auto* sp = static_cast<const float*>(s0);
+  auto* op = static_cast<E*>(o);
+  auto* outp = static_cast<float*>(s_out);
+  auto* cp = static_cast<float*>(ckpt);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (N == 16) err = fwd<E, 16>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
+  else if (N == 32) err = fwd<E, 32>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
+  else err = fwd<E, 64>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
+  return static_cast<int>(err);
+}
+
+template <typename E>
+int bwd_launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+               const void* dout, const void* ckpt, const void* ds_final, void* dr, void* dk,
+               void* dv, void* dw, void* du_part, void* ds0, int B, int T, int H, int N,
+               int chunk, void* stream) {
+  if (bad_shape(B, T, H, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* rp = static_cast<const E*>(r);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
+  const auto* wp = static_cast<const E*>(w);
+  const auto* up = static_cast<const float*>(u);
+  const auto* gp = static_cast<const E*>(dout);
+  const auto* cp = static_cast<const float*>(ckpt);
+  const auto* fp = static_cast<const float*>(ds_final);
+  auto* drp = static_cast<E*>(dr);
+  auto* dkp = static_cast<E*>(dk);
+  auto* dvp = static_cast<E*>(dv);
+  auto* dwp = static_cast<E*>(dw);
+  auto* dup = static_cast<float*>(du_part);
+  auto* d0p = static_cast<float*>(ds0);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (N == 16)
+    err = bwd<E, 16>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk,
+                     st);
+  else if (N == 32)
+    err = bwd<E, 32>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk,
+                     st);
+  else
+    err = bwd<E, 64>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk,
+                     st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -690,22 +885,7 @@ cudaError_t bwd(const float* r, const float* k, const float* v, const float* w, 
 extern "C" int rwkv6_fwd_launch(const void* r, const void* k, const void* v, const void* w,
                                 const void* u, const void* s0, void* o, void* s_out, void* ckpt,
                                 int B, int T, int H, int N, int chunk, void* stream) {
-  if (bad_shape(B, T, H, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* rp = static_cast<const float*>(r);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* up = static_cast<const float*>(u);
-  const auto* sp = static_cast<const float*>(s0);
-  auto* op = static_cast<float*>(o);
-  auto* outp = static_cast<float*>(s_out);
-  auto* cp = static_cast<float*>(ckpt);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (N == 16) err = fwd<16>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
-  else if (N == 32) err = fwd<32>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
-  else err = fwd<64>(rp, kp, vp, wp, up, sp, op, outp, cp, B, T, H, chunk, st);
-  return static_cast<int>(err);
+  return fwd_launch<float>(r, k, v, w, u, s0, o, s_out, ckpt, B, T, H, N, chunk, stream);
 }
 
 // Backward: from r, k, v, w, u, dout, the forward's ckpt and the final
@@ -717,28 +897,24 @@ extern "C" int rwkv6_bwd_launch(const void* r, const void* k, const void* v, con
                                 const void* ds_final, void* dr, void* dk, void* dv, void* dw,
                                 void* du_part, void* ds0, int B, int T, int H, int N, int chunk,
                                 void* stream) {
-  if (bad_shape(B, T, H, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* rp = static_cast<const float*>(r);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* up = static_cast<const float*>(u);
-  const auto* gp = static_cast<const float*>(dout);
-  const auto* cp = static_cast<const float*>(ckpt);
-  const auto* fp = static_cast<const float*>(ds_final);
-  auto* drp = static_cast<float*>(dr);
-  auto* dkp = static_cast<float*>(dk);
-  auto* dvp = static_cast<float*>(dv);
-  auto* dwp = static_cast<float*>(dw);
-  auto* dup = static_cast<float*>(du_part);
-  auto* d0p = static_cast<float*>(ds0);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (N == 16)
-    err = bwd<16>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
-  else if (N == 32)
-    err = bwd<32>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
-  else
-    err = bwd<64>(rp, kp, vp, wp, up, gp, cp, fp, drp, dkp, dvp, dwp, dup, d0p, B, T, H, chunk, st);
-  return static_cast<int>(err);
+  return bwd_launch<float>(r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, B,
+                           T, H, N, chunk, stream);
+}
+
+// The same with r, k, v, w, dout and o, dr, dk, dv, dw bf16 (4-byte
+// aligned); u, the states, ckpt and du_part stay float32.
+extern "C" int rwkv6_bf16_fwd_launch(const void* r, const void* k, const void* v, const void* w,
+                                     const void* u, const void* s0, void* o, void* s_out,
+                                     void* ckpt, int B, int T, int H, int N, int chunk,
+                                     void* stream) {
+  return fwd_launch<bf16>(r, k, v, w, u, s0, o, s_out, ckpt, B, T, H, N, chunk, stream);
+}
+
+extern "C" int rwkv6_bf16_bwd_launch(const void* r, const void* k, const void* v, const void* w,
+                                     const void* u, const void* dout, const void* ckpt,
+                                     const void* ds_final, void* dr, void* dk, void* dv, void* dw,
+                                     void* du_part, void* ds0, int B, int T, int H, int N,
+                                     int chunk, void* stream) {
+  return bwd_launch<bf16>(r, k, v, w, u, dout, ckpt, ds_final, dr, dk, dv, dw, du_part, ds0, B,
+                          T, H, N, chunk, stream);
 }

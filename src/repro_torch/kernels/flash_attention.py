@@ -19,14 +19,17 @@ summed in fp32), which keeps them within 1e-5 of the plain version forward
 and 1e-4 in the gradients.  CPU tensors take the plain version in
 ``repro_torch.kernels.ops.flash_attention``.
 
-bfloat16 ``q``, ``k`` and ``v`` (the zoo's default dtype) take the forward
+bfloat16 ``q``, ``k`` and ``v`` (the zoo's default dtype) take the kernels
 of ``csrc/flash_attention_bf16.cu``: one bf16 tensor-core pass for each
 product, fp32 softmax and sums, the output rounded to bf16 once, as the TPU
 kernel widens its bf16 operands and rounds its output
-(``flash_attention.py:73-75,95``).  Its plain version is the same function
-computed in float32 and rounded once.  Operands of mixed dtypes raise; the
-bf16 backward is not ported (the bf16 training slice, ``ROADMAP.md``) and
-raises too.
+(``flash_attention.py:73-75,95``).  Its backward recomputes P from the
+forward's fp32 logsumexp, rounds P and dS to bf16 for their products (the
+reference's ``chunked_attention`` rounds P to v's dtype and differentiates
+through it), sums in fp32 and rounds each gradient to bf16 once.  The plain
+version is the same function computed in float32 and rounded once, and
+autograd through it is the backward's plain version: exact fp32 gradients,
+each rounded once to bf16.  Operands of mixed dtypes raise.
 """
 
 from __future__ import annotations
@@ -45,11 +48,13 @@ __all__ = [
     "FLASH_FWD_LAUNCHES",
     "FLASH_FWD_BF16_LAUNCHES",
     "FLASH_BWD_LAUNCHES",
+    "FLASH_BWD_BF16_LAUNCHES",
 ]
 
 FLASH_FWD_LAUNCHES = LaunchCounter("flash_attention_fwd")
 FLASH_FWD_BF16_LAUNCHES = LaunchCounter("flash_attention_fwd_bf16")
 FLASH_BWD_LAUNCHES = LaunchCounter("flash_attention_bwd")
+FLASH_BWD_BF16_LAUNCHES = LaunchCounter("flash_attention_bwd_bf16")
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -168,30 +173,29 @@ def flash_bwd_cuda(
     window: int,
     q_offset: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward kernel launches (row sums, dK/dV, dQ): (dq, dk, dv), float32
-    only."""
+    """Backward kernel launches (row sums, dK/dV, dQ): (dq, dk, dv) in q's
+    dtype; the bf16 kernels for bfloat16 operands (o and dout in q's dtype,
+    lse float32)."""
     B, Sq, Sk, H, KV, D = _check_inputs(q, k, v)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"flash_attention_cuda: the backward takes float32, got {q.dtype}: the bfloat16 "
-            "backward kernels belong to the bf16 training slice (ROADMAP.md), not ported yet")
-    _check_tensor("o", o, tuple(q.shape), q.device, torch.float32)
-    _check_tensor("dout", dout, tuple(q.shape), q.device, torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    _check_tensor("o", o, tuple(q.shape), q.device, q.dtype)
+    _check_tensor("dout", dout, tuple(q.shape), q.device, q.dtype)
     _check_tensor("lse", lse, (B, H, Sq), q.device, torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = load_library()
+    name = "flash_attention_bf16_bwd_launch" if bf16 else "flash_attention_bwd_launch"
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd_launch(
+        rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, Sq, Sk, H, KV, D, int(causal), int(window), int(q_offset), 1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    check(lib, rc, "flash_attention_bwd")
-    FLASH_BWD_LAUNCHES.add()
+    check(lib, rc, name)
+    (FLASH_BWD_BF16_LAUNCHES if bf16 else FLASH_BWD_LAUNCHES).add()
     return dq, dk, dv
 
 

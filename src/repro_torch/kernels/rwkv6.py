@@ -15,6 +15,15 @@ steps; anything else raises.  Unlike the Pallas kernel, which starts from a
 zero state only (and for which the reference routes a nonzero state to its
 oracle), the CUDA kernel takes the start state, so ``ops.rwkv6`` sends every
 CUDA call to it.  CPU tensors take the plain version.
+
+bfloat16 r, k, v and w with float32 u and state (the dtypes a bf16 model
+passes: ``models/ssm.py`` widens ``bonus_u``, as the reference's
+``transformer.py`` does) take the bf16 kernels of the same source: the
+float32 kernels' arithmetic on the widened operands, the states fp32, each
+output (out; dr, dk, dv, dw) rounded to bf16 once and du float32, as the
+Pallas kernel widens its operands and writes its output in r's dtype
+(``rwkv6.py:50-54,68``).  The plain version computes the same in float32
+and rounds once.  Any other mix of dtypes raises.
 """
 
 from __future__ import annotations
@@ -32,13 +41,18 @@ __all__ = [
     "RWKV6",
     "RWKV6_FWD_LAUNCHES",
     "RWKV6_BWD_LAUNCHES",
+    "RWKV6_FWD_BF16_LAUNCHES",
+    "RWKV6_BWD_BF16_LAUNCHES",
 ]
 
 RWKV6_FWD_LAUNCHES = LaunchCounter("rwkv6_fwd")
 RWKV6_BWD_LAUNCHES = LaunchCounter("rwkv6_bwd")
+RWKV6_FWD_BF16_LAUNCHES = LaunchCounter("rwkv6_fwd_bf16")
+RWKV6_BWD_BF16_LAUNCHES = LaunchCounter("rwkv6_bwd_bf16")
 
 HEAD_SIZES = (16, 32, 64)
 MAX_CHUNK = 64
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _steps(r, k, v, w, u, S):
@@ -84,15 +98,18 @@ def rwkv6_plain(
     return torch.cat(outs, dim=1).to(r.dtype), S
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if x.device != device or x.dtype != torch.float32:
+def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
+    if x.device != device or x.dtype != dtype:
         raise ValueError(
-            f"rwkv6_cuda: {name} must be float32 on {device}, got {x.dtype} on {x.device}"
+            f"rwkv6_cuda: {name} must be {dtype} on {device}, got {x.dtype} on {x.device}"
         )
     if tuple(x.shape) != shape:
         raise ValueError(f"rwkv6_cuda: {name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"rwkv6_cuda: {name} must be contiguous")
+    if x.data_ptr() % 4:  # the bf16 kernels copy pairs of elements
+        raise ValueError(f"rwkv6_cuda: {name} must be 4-byte aligned")
 
 
 def _check_inputs(r, k, v, w, u, state, chunk) -> Tuple[int, int, int, int]:
@@ -109,8 +126,10 @@ def _check_inputs(r, k, v, w, u, state, chunk) -> Tuple[int, int, int, int]:
         )
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"rwkv6_cuda: chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+    if r.dtype not in DTYPES:
+        raise ValueError(f"rwkv6_cuda: r must be float32 or bfloat16, got {r.dtype}")
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
-        _check(name, x, (B, T, H, N), device)
+        _check(name, x, (B, T, H, N), device, r.dtype)
     _check("u", u, (H, N), device)
     if state is not None:
         _check("state", state, (B, H, N, N), device)
@@ -127,22 +146,25 @@ def rwkv6_fwd_cuda(
     chunk: int,
     save: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Forward kernel launch: (out, final state, chunk-start states or None)."""
+    """Forward kernel launch: (out in r's dtype, final state, chunk-start
+    states or None); the bf16 kernel for bfloat16 r, k, v, w."""
     B, T, H, N = _check_inputs(r, k, v, w, u, state, chunk)
+    bf16 = r.dtype == torch.bfloat16
     out = torch.empty_like(r)
     s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     nc = -(-T // chunk)
     ckpt = torch.empty((B, H, nc, N, N), dtype=torch.float32, device=r.device) if save else None
     lib = load_library()
+    name = "rwkv6_bf16_fwd_launch" if bf16 else "rwkv6_fwd_launch"
     with torch.cuda.device(r.device):
-        rc = lib.rwkv6_fwd_launch(
+        rc = getattr(lib, name)(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             state.data_ptr() if state is not None else None, out.data_ptr(), s_out.data_ptr(),
             ckpt.data_ptr() if ckpt is not None else None, B, T, H, N, chunk,
             torch.cuda.current_stream(r.device).cuda_stream,
         )
-    check(lib, rc, "rwkv6_fwd")
-    RWKV6_FWD_LAUNCHES.add()
+    check(lib, rc, name)
+    (RWKV6_FWD_BF16_LAUNCHES if bf16 else RWKV6_FWD_LAUNCHES).add()
     return out, s_out, ckpt
 
 
@@ -158,16 +180,19 @@ def rwkv6_bwd_cuda(
     chunk: int,
     want_ds0: bool,
 ):
-    """Backward kernel launch: (dr, dk, dv, dw, du [H, N], d start state or None)."""
+    """Backward kernel launch: (dr, dk, dv, dw in r's dtype, du [H, N] and
+    the start state's gradient or None in float32)."""
     B, T, H, N = _check_inputs(r, k, v, w, u, ds_final, chunk)
-    _check("dout", dout, (B, T, H, N), r.device)
+    bf16 = r.dtype == torch.bfloat16
+    _check("dout", dout, (B, T, H, N), r.device, r.dtype)
     _check("ckpt", ckpt, (B, H, -(-T // chunk), N, N), r.device)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device) if want_ds0 else None
     lib = load_library()
+    name = "rwkv6_bf16_bwd_launch" if bf16 else "rwkv6_bwd_launch"
     with torch.cuda.device(r.device):
-        rc = lib.rwkv6_bwd_launch(
+        rc = getattr(lib, name)(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             dout.data_ptr(), ckpt.data_ptr(),
             ds_final.data_ptr() if ds_final is not None else None,
@@ -175,8 +200,8 @@ def rwkv6_bwd_cuda(
             ds0.data_ptr() if ds0 is not None else None, B, T, H, N, chunk,
             torch.cuda.current_stream(r.device).cuda_stream,
         )
-    check(lib, rc, "rwkv6_bwd")
-    RWKV6_BWD_LAUNCHES.add()
+    check(lib, rc, name)
+    (RWKV6_BWD_BF16_LAUNCHES if bf16 else RWKV6_BWD_LAUNCHES).add()
     # Summed over the batch here, in a fixed order, so du is the same from
     # run to run.
     return dr, dk, dv, dw, du_part.sum(dim=0), ds0

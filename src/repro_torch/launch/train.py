@@ -13,8 +13,13 @@ Data pipeline shards are actors; the learner's ``learn_on_batch`` is the
 step.  Kernels on the path: RWKV-6 layers run ``ops.rwkv6`` (forward and
 backward kernels), MoE layers ``ops.moe_gmm`` and GQA attention layers
 ``ops.flash_attention``; MLA attention and Mamba layers are plain torch, as
-in the reference.  Every kernel of the port is float32, so the driver
-trains in float32 whatever the configuration's dtype says (and prints so).
+in the reference.  The driver trains at the configuration's own dtype, as
+the reference's does: bfloat16 for every architecture (weights drawn in
+float32 and cast, the loss in float32, bf16 gradients, AdamW's moments in
+float32), and prints it.  On the card the bf16 kernels run (flash forward
+and backward, RWKV-6 forward and backward, the grouped matmul's forward;
+its dX and dW are the reference's two bf16 einsums), and cuBLAS's bf16
+products sum in fp32 as the reference's do (``make_pretrain``).
 
 Runs on the GPU unless ``--device cpu`` is given; ``--layers`` cuts the
 configuration's depth and keeps its widths (``cut_layers``: a prologue
@@ -101,16 +106,15 @@ def cut_layers(cfg, layers: int):
 
 def train_config(arch: str, smoke: bool = False, layers: int = 0, with_note: bool = False):
     """The configuration the driver trains: ``arch`` (reduced with
-    ``smoke``), cut to ``layers`` layers when given (``cut_layers``), in
-    float32; with ``with_note``, (the configuration, ``cut_layers``' line or
-    "")."""
+    ``smoke``), cut to ``layers`` layers when given (``cut_layers``), at its
+    own dtype (``get_config``'s, as the reference's driver); with
+    ``with_note``, (the configuration, ``cut_layers``' line or "")."""
     from repro_torch.configs import get_config, reduced_config
 
     cfg = reduced_config(arch) if smoke else get_config(arch)
     note = ""
     if layers:
         cfg, note = cut_layers(cfg, layers)
-    cfg = dataclasses.replace(cfg, dtype="float32")
     return (cfg, note) if with_note else cfg
 
 
@@ -135,7 +139,13 @@ def make_pretrain(
 ) -> Tuple[Any, Any, Any, Any]:
     """The learner, the data actors, the worker set and the flow spec of one
     pretraining run, with the reference driver's optimizer
-    (``pretrain_optimizer``)."""
+    (``pretrain_optimizer``).  On the card it turns off cuBLAS's
+    reduced-precision reductions in bf16 products
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``),
+    so that they sum in fp32 as the reference's do; it changes no other
+    setting."""
+    import torch
+
     from repro_torch.configs.base import InputShape
     from repro_torch.core.actor import ActorPool
     from repro_torch.core.spmd import SPMDLearnerWorker, SPMDTrainContext
@@ -143,6 +153,8 @@ def make_pretrain(
     from repro_torch.data import TokenPipeline
 
     shape = InputShape("train", seq, batch, "train")
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     learner = SPMDLearnerWorker(
         SPMDTrainContext(cfg, pretrain_optimizer(steps, lr), device=device), seed=0
     )
@@ -175,8 +187,8 @@ def main(argv=None) -> None:
     cfg, note = train_config(args.arch, args.smoke, args.layers, with_note=True)
     if note:
         print(note, flush=True)
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, dtype float32 "
-          f"(the port's kernels are float32), device {args.device}", flush=True)
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, dtype {cfg.dtype} "
+          f"(the configuration's own), device {args.device}", flush=True)
     learner, pipes, workers, spec = make_pretrain(
         cfg, args.seq, args.batch, args.data_shards, args.steps, lr=args.lr, device=args.device
     )

@@ -81,6 +81,14 @@ class _ReplicateRows(torch.autograd.Function):
         return picked.reshape(B, Sk // ctx.k, ctx.k, d).sum(dim=2), None, None, None
 
 
+def gmm_bwd_einsums(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dxe, dw) of ``xe`` [B, E, C, K] x ``w`` [E, K, N] from ``dy`` [B, E,
+    C, N]: the reference's ``_gmm_matmul_bwd`` (``repro/models/moe.py``), two
+    einsums in the operands' dtype, each rounded to its input's dtype."""
+    dxe = torch.einsum("becn,ekn->beck", dy, w).to(xe.dtype)
+    return dxe, torch.einsum("beck,becn->ekn", xe, dy).to(w.dtype)
+
+
 class GmmMatmul(torch.autograd.Function):
     """[B, E, C, K] x [E, K, N] -> [B, E, C, N] through ``ops.moe_gmm``: the
     dispatch buffer transposed to [E, B*C, K] is a grouped-rows layout with
@@ -88,7 +96,12 @@ class GmmMatmul(torch.autograd.Function):
     (``repro/models/moe.py:136``).  The backward computes the reference's
     two batched products (``repro/models/moe.py`` ``_gmm_matmul_bwd``) in
     that layout, through ``ops.moe_gmm_dx`` and ``ops.moe_gmm_dw``; it reads
-    the grouped rows, so the forward saves them and not ``xe``."""
+    the grouped rows, so the forward saves them and not ``xe``.  At bf16 on
+    the card it computes the reference's two einsums themselves, in bf16,
+    each rounded to its input's dtype: the reference computes them outside
+    any Pallas kernel, and the port's bf16 tile kernel runs at 3.4-3.8x
+    ``torch.bmm`` (``PERF.md``), so a grouped backward kernel on it would
+    slow every step."""
 
     @staticmethod
     def forward(ctx, xe, w):
@@ -105,10 +118,8 @@ class GmmMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         xg, w, groups = ctx.saved_tensors
         B, E, C, dtype = ctx.dims
-        if dy.is_cuda and w.dtype != torch.float32:
-            raise NotImplementedError(
-                f"GmmMatmul: the dX and dW kernels take float32, got {w.dtype}: the bfloat16 "
-                "backward belongs to the bf16 training slice (ROADMAP.md), not ported yet")
+        if dy.is_cuda and w.dtype == torch.bfloat16:
+            return gmm_bwd_einsums(xg.reshape(E, B, C, -1).transpose(0, 1), w, dy.to(w.dtype))
         dyg = dy.transpose(0, 1).reshape(E * B * C, -1).contiguous()
         dxe = ops.moe_gmm_dx(dyg, w, groups).reshape(E, B, C, -1).transpose(0, 1)
         return dxe.to(dtype), ops.moe_gmm_dw(xg, dyg, groups).to(w.dtype)

@@ -74,9 +74,11 @@ class Optimizer:
 
 
 def _scaled(grads: List[Optional[torch.Tensor]], i: int, scale: Any) -> torch.Tensor:
-    """Take gradient ``i`` out of the list, times the clip scale if any."""
+    """Take gradient ``i`` out of the list, times the clip scale if any (in
+    float32: the reference's bf16 gradient times its float32 scale promotes,
+    where torch would keep a bf16 tensor times a 0-d float32 one in bf16)."""
     g, grads[i] = grads[i], None
-    return g if scale is None else g * scale
+    return g if scale is None else g.float() * scale
 
 
 # ------------------------------------------------------------------ schedules
@@ -215,7 +217,7 @@ def chain_clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
 
     def update(grads: PyTree, state: PyTree, params: PyTree):
         scale = _clip_scale(tree_leaves(grads), max_norm)
-        return opt.update(tree_map(lambda g: g * scale, grads), state, params)
+        return opt.update(tree_map(lambda g: g.float() * scale, grads), state, params)
 
     def inplace(params, grads, state, scale):
         if scale is not None:

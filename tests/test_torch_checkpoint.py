@@ -331,10 +331,11 @@ def test_train_cli_checkpoint_restores(tmp_path, capsys):
     restored = restore_pytree(ckpt, like)
     assert not all(torch.equal(a, b) for a, b in zip(tree_leaves(restored), before))
     assert all(torch.isfinite(x).all() for x in tree_leaves(restored))
-    # ... and the JAX package reads the same file into its own layout.
+    # ... and the JAX package reads the same file into its own layout (the
+    # driver's bf16 leaves widened to float32 in the file, exactly).
     back = jax_restore_pytree(ckpt, params_to_numpy(like))
     for a, b in zip(jax.tree_util.tree_leaves(back), tree_leaves(restored)):
-        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
+        np.testing.assert_array_equal(np.asarray(a), b.detach().float().numpy())
 
 
 # ------------------------------------------------------------ plan shims

@@ -157,7 +157,8 @@ def test_train_config_cut_keeps_a_prologue():
     full = get_config("deepseek-v2-lite-16b")
     assert (cfg.num_layers, cfg.num_blocks) == (2, 1)
     assert cfg.prologue == full.prologue and cfg.block_pattern == full.block_pattern
-    assert (cfg.d_model, cfg.mla, cfg.moe, cfg.dtype) == (full.d_model, full.mla, full.moe, "float32")
+    # The cut keeps the configuration's widths and its own dtype, bf16.
+    assert (cfg.d_model, cfg.mla, cfg.moe, cfg.dtype) == (full.d_model, full.mla, full.moe, full.dtype)
     cfg = train.train_config("deepseek-v2-lite-16b", layers=5)
     assert (cfg.num_layers, cfg.num_blocks) == (5, 4)
     with pytest.raises(ValueError):

@@ -225,11 +225,13 @@ def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--device", "cpu", "--smoke", "--steps", "2",
                 "--batch", "2", "--seq", "16", "--checkpoint", ckpt])
     out = capsys.readouterr().out
-    assert "dtype float32" in out and f"saved checkpoint to {ckpt}" in out
+    # The driver trains at the configuration's own dtype, as the reference's.
+    cfg = train.train_config("phi3.5-moe-42b-a6.6b", smoke=True)
+    assert cfg.dtype == "bfloat16"
+    assert f"dtype {cfg.dtype}" in out and f"saved checkpoint to {ckpt}" in out
     losses = [float(line.split()[3]) for line in out.splitlines() if line.startswith("step")]
     assert len(losses) == 2 and all(abs(x - np.log(512)) < 0.5 for x in losses)
     # The checkpoint holds every parameter of the model the driver trained.
-    cfg = train.train_config("phi3.5-moe-42b-a6.6b", smoke=True)
     like = Model(cfg).init_params(torch.Generator().manual_seed(1))
     restored = restore_pytree(ckpt, like)
     assert [tuple(x.shape) for x in tree_leaves(restored)] == [
