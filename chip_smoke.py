@@ -14,8 +14,9 @@ phase that fails, and then prints no result line):
    count of TF32 tensor-core instructions in the SASS (``cuobjdump``; none
    fails the phase; the RWKV-6 kernels run on the CUDA cores); the bf16
    kernels' registers and spills, the count of bf16 ``HMMA``/``HGMMA`` in
-   the flash and tile kernels' SASS (none fails the phase), no spill in the
-   small-group ones;
+   the flash and tile kernels' SASS (none fails the phase; the flash
+   kernels, on ``wgmma``, must show ``HGMMA``), no spill in the small-group
+   ones nor in the flash kernels at D = 64 and 128;
 3. kernels: first the device time of the library's empty kernel, the
    launch floor under the latency-bound kernels; then hold each kernel
    against its plain PyTorch version on the card and time kernel, plain
@@ -1143,11 +1144,16 @@ BF16_TENSOR_CORE_KERNELS = (*(f"flash_fwd_bf16_kernel<{d}>" for d in (32, 64, 12
                             *(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq")
                               for d in (32, 64, 128)))
 # The bf16 RWKV-6 kernels of rwkv6.cu (CUDA cores), and the bf16 kernels
-# that must hold no stack frame or spill: the flash backward at the paths'
-# head dims and RWKV-6 at every head size.
+# that must hold no stack frame or spill: the flash forward and backward at
+# the paths' head dims and RWKV-6 at every head size.
 BF16_RWKV6_KERNELS = tuple(f"rwkv6_{k}_bf16_kernel<{n}>" for k in ("fwd", "bwd") for n in (16, 32, 64))
-BF16_NO_SPILL = (*(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq") for d in (64, 128)),
+BF16_NO_SPILL = (*(f"flash_{k}_bf16{s}_kernel<{d}>" for k, s in (("fwd", ""), ("bwd", "_dkdv"),
+                                                                   ("bwd", "_dq")) for d in (64, 128)),
                  *BF16_RWKV6_KERNELS)
+# The bf16 flash kernels redesigned for Hopper (warpgroup products on tiles
+# that TMA lands swizzled): each must show bf16 HGMMA in its SASS, not
+# merely the warp-level HMMA of mma.sync.
+BF16_HGMMA_KERNELS = tuple(name for name in BF16_TENSOR_CORE_KERNELS if name.startswith("flash_"))
 BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
 BF16_DECODE_KERNELS = tuple(f"decode_attention_bf16_kernel<{h},{c}>"
                             for h in (1, 2, 4, 8) for c in (1, 2))
@@ -1213,14 +1219,18 @@ def _bf16_kernel_usage(log: str, library: str) -> dict:
             name = _bf16_kernel_name(m.group(1))
             name = name if name in BF16_TENSOR_CORE_KERNELS else None
             if name:
-                usage[name].update(hmma=0, hmma_bf16=0)
+                usage[name].update(hmma=0, hmma_bf16=0, hgmma_bf16=0)
         elif name and "MMA" in ln:
             usage[name]["hmma"] += 1
             usage[name]["hmma_bf16"] += "BF16" in ln
+            usage[name]["hgmma_bf16"] += "HGMMA" in ln and "BF16" in ln
     if _sass(library):
         for name in BF16_TENSOR_CORE_KERNELS:
             _require(usage[name].get("hmma_bf16", 0) > 0,
                      f"{name}: no bf16 HMMA/HGMMA instruction in its SASS ({usage[name]})")
+        for name in BF16_HGMMA_KERNELS:
+            _require(usage[name].get("hgmma_bf16", 0) > 0,
+                     f"{name}: no bf16 HGMMA (wgmma) instruction in its SASS ({usage[name]})")
     for name in BF16_SMALL_KERNELS + BF16_NO_SPILL:
         _require(usage[name].get("stack", 1) == 0 and usage[name].get("spill_stores", 1) == 0,
                  f"{name}: a stack frame or spills ({usage[name]}): a register array in local memory")

@@ -16,54 +16,81 @@
 // writes bf16 dq, dk, dv.
 //
 // Precision: a product of two bf16 values is exact in fp32, so one bf16
-// tensor-core pass with an fp32 accumulator (mma.sync m16n8k16) computes
-// S = Q K^T as the reference's dot_general of the widened operands does, up
-// to the order of the sum; no operand split is needed.  P V multiplies the
-// fp32 probabilities by bf16 V: P is rounded to bf16 for one pass (about
-// 2^-9 relative a weight), which is what the reference's dot_general at
-// default precision computes on a TPU and what its plain CPU path
-// (ref.chunked_attention: p.astype(v.dtype)) computes too.  The row sum l
-// adds the unrounded fp32 weights.  As in the float32 kernel, each tile of
-// the contraction over keys is summed from zero on the tensor cores and then
-// added into the fp32 running sum; the output is rounded to bf16 once.
+// tensor-core pass with an fp32 accumulator computes S = Q K^T as the
+// reference's dot_general of the widened operands does, up to the order of
+// the sum.  P V multiplies the fp32 probabilities by bf16 V: P is rounded to
+// bf16 for one pass (about 2^-9 relative a weight), which is what the
+// reference's dot_general at default precision computes on a TPU and what
+// its plain CPU path (ref.chunked_attention: p.astype(v.dtype)) computes
+// too.  The row sum l adds the unrounded fp32 weights.  Each key tile's
+// P V is summed from zero on the tensor cores and then added into the fp32
+// running sum; the output is rounded to bf16 once.
 //
 // Bound on the H100: 4 * D flops per visible (query, key) pair and head at
 // 989 TFLOP/s (bf16 dense), or the bytes (2 a bf16 element, 4 an lse) at
 // 3.35 TB/s.  At the serve prefills' [2, 512, 48/8, 128] causal that is 6.5
 // GFLOP (0.0065 ms) against 29.4 MB (0.0088 ms): bytes bound it there, and
-// operations at Qwen3-14B's [2, 4096, 40/8, 128].
+// operations at Qwen3-14B's [2, 4096, 40/8, 128] (344 GFLOP, 0.3475 ms).
 //
-// Design (FlashAttention-2 on mma.sync, as flash_attention.cu's forward): a
-// block of 4 warps owns 64 query rows, 16 a warp, with its scores and its
-// output accumulators in registers; K and V stream through shared memory in
-// tiles of 64 keys, 16-byte cp.async two stages deep.  Shared rows are
-// padded to D + 8 bf16 (16 bytes): every 32-bit fragment load of a warp and
-// every ldmatrix phase hits 32 distinct banks.  The score accumulators are
-// P's A fragments as they stand (the m16n8k16 accumulator and A layouts
-// line up), packed to bf16 pairs; V's B fragments come from ldmatrix.trans.
-// Masking, the visited tiles, the re-masked probabilities, exp2 in log2
-// units and the grid order are flash_attention.cu's.
+// Design (Hopper's: wgmma on tiles that TMA lands swizzled).  A block of
+// three warpgroups owns 128 query rows of one head: two consumer
+// warpgroups of 64 rows each and one producer warpgroup, of which one
+// thread issues every copy.  The producer loads the block's Q once, and K
+// and V in tiles of 128 keys into a ring of three stages, each stage with
+// its own full mbarrier for K and for V and one empty mbarrier; each tile
+// is a set of TMA boxes of 64 rows x 64 columns (128 bytes, 128-byte
+// swizzle; 32 columns and 64-byte swizzle at D = 32), read from the
+// [B, S, heads, D] tensors through 4-D tensor maps whose out-of-bounds rows
+// land as zeros (the ragged edge).  A consumer warpgroup computes
+// S = Q K^T with wgmma.m64n128k16, Q and K read K-major from shared memory
+// as they landed (the descriptors name the swizzle, so no tile is
+// rewritten); masks (-inf) and takes the row max on the raw scores, and
+// p = 2^(s scale log2 e - m scale log2 e) in one FFMA and ex2; packs P to
+// bf16 pairs, which is the wgmma A-fragment layout of the accumulator it
+// came from; and computes P V with wgmma.m64n64k16 (m64n32k16 at D = 32),
+// P from registers and V read MN-major (the transpose bit), one product a
+// 64-column box of D, each summed from zero into a 32-register partial and
+// added into the output.  The products run one tile behind the softmax:
+// tile j's S is issued, then tile j - 1's P V, and tile j's softmax runs
+// while they do, so O = alpha_j (O + P_{j-1} V_{j-1}).  setmaxnreg gives
+// the consumers 240 registers a thread and the producer 24 (a producer
+// warpgroup of one warp, which would leave the consumers 248, hangs at
+// setmaxnreg on an H100).  A lane masks its tile against the visible key
+// range of each of its two rows, [lo, hi), computed once.  Masking, the
+// visited tiles, the re-masked probabilities (a masked weight is 0, also in
+// a row that has seen no key yet) and the grid order (the last query
+// tiles, which see the most keys, first) are flash_attention.cu's.  The
+// two consumer warpgroups taking turns on named barriers (ping-pong) was
+// slower at the paths' shapes on an H100 and is not kept.
 //
-// Backward: flash_attention.cu's three launches and its order of sums, on
-// the same mma.sync m16n8k16 bf16 products as the forward.  (1) delta_i =
-// sum_d dO_i,d O_i,d in fp32 from the bf16 O and dO, D / 8 lanes a row.
-// (2) One block per (64-key tile, kv head, b), 16 keys a warp, streams the
-// query tiles of each of the group's g query heads (BN = 64 queries, 16 at
-// D = 128, two stages of cp.async); per tile it recomputes S^T = K Q^T and
-// P^T = exp(S^T scale - lse) in fp32 from the forward's fp32 logsumexp,
-// dP^T = V dO^T in fp32, and dS^T = P^T o (dP^T - delta); dV += P^T dO with
-// P^T rounded to bf16 (the reference rounds P to v's dtype,
-// ref.py:53,97, and differentiates through that rounding), dK += dS^T Q
-// with dS^T rounded to bf16.  (3) One block per (64-query tile, h, b)
-// streams 64-key tiles and sums dQ += dS K the same way.  Each streamed
-// tile's product is summed from zero and then added into the fp32 running
-// sums; a kv head's dK and dV sum over its g query heads in fp32; dK and dQ
-// take the scale at the end, and each gradient is rounded to bf16 once.
-// No atomics: every element is summed by one lane in a fixed order, so two
-// calls give the same bits.  Bound: 10 * D flops a visible (query, key)
-// pair and head (S, dP, dV, dK, dQ; 2.5x the forward's 4 D), or the bytes.
-// Each kernel launches on the caller's stream and allocates nothing.
+// Backward: delta_i = sum_d dO_i,d O_i,d in fp32 from the bf16 O and dO,
+// then two warp-specialised kernels of the forward's shape.  dK/dV: a
+// block owns 128 keys of one kv head (64 a consumer warpgroup), loads K and
+// V once, and streams 64-query tiles of each of the group's g query heads
+// (Q, dO, and the tile's lse and delta) through the ring; per tile it
+// computes S^T = K Q^T and dP^T = V dO^T (wgmma.m64n64k16, both operands
+// K-major), P^T = exp(S^T scale - lse) in fp32 from the forward's fp32
+// logsumexp and dS^T = P^T o (dP^T - delta); then dV += P^T dO with P^T
+// rounded to bf16 (the reference rounds P to v's dtype, ref.py:53,97, and
+// differentiates through that rounding) and dK += dS^T Q with dS^T rounded
+// to bf16, both from registers against dO and Q read MN-major.  dQ: a block
+// owns 128 queries of one head and streams 64-key tiles of K and V; per
+// tile S = Q K^T and dP = dO V^T, dS, and dQ += dS K with K read MN-major.
+// Each streamed tile's product is summed from zero, a 64-column half of D
+// at a time, and then added into the fp32 running sums; a kv head's dK and
+// dV sum over its g query heads in fp32; dK and dQ take the scale at the
+// end, and each gradient is rounded to bf16 once.  No atomics: every
+// element is summed by one lane in a fixed order, so two calls give the
+// same bits.  Bound: 10 * D flops a visible (query, key) pair and head (S,
+// dP, dV, dK, dQ; 2.5x the forward's 4 D), or the bytes; the two kernels
+// compute S and dP twice (14 * D).
+//
+// The tensor maps are encoded on the host by cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint (no -lcuda on the link line), and
+// passed as __grid_constant__ parameters.  Each kernel launches on the
+// caller's stream and allocates nothing.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the driver is reached at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,27 +100,38 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // query rows of a block
-constexpr int kCols = 64;           // keys of a streamed tile
-constexpr int kNT = kCols / 8;      // 8-key fragments of a tile
-constexpr int kPad = 8;             // bf16 of padding a shared row
+constexpr int kConsumers = 2;                    // consumer warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1); // and the producer warpgroup
+constexpr int kBlockRows = 64 * kConsumers;      // queries (forward, dQ) or keys (dK/dV) a block
+constexpr int kBox = 64;                         // rows of a TMA box
+constexpr int kFwdCols = 128;                    // keys of a forward tile
+constexpr int kBwdCols = 64;                     // rows of a streamed backward tile
+constexpr int kStages = 3;
+// setmaxnreg: 2 x 128 x 240 + 128 x 24 of an SM's 65,536 registers.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kNone = -0x40000000;  // an empty range's bound
+
+// How a [rows][D] bf16 tile lies in shared memory: as D / NC boxes side by
+// side, each [rows][NC] with rows of RB bytes, swizzled by TMA over RB
+// bytes (128, or 64 at D = 32); a box's 8-row group is 8 RB bytes.
+template <int D>
+struct Tile {
+  static constexpr int NC = D < 64 ? D : 64;
+  static constexpr int RB = 2 * NC;
+  static constexpr int kHalves = D / NC;
+  static constexpr uint64_t kLayout = NC == 64 ? 1 : 2;  // wgmma: 128-byte / 64-byte swizzle
+  static constexpr int kGroup = 8 * RB;
+  static_assert(NC == 64 || NC == 32, "D is 32, 64 or 128");
+};
 
 struct Geometry {
   int Sq, Sk, H, KV, g;
   int causal, window, q_offset;
   float scale;
 };
-
-__device__ __forceinline__ bool visible(const Geometry& geo, int qi, int kj) {
-  const int qp = geo.q_offset + qi;
-  return qi < geo.Sq && kj < geo.Sk && (!geo.causal || kj <= qp) &&
-         (!geo.window || kj > qp - geo.window);
-}
 
 // Whether every key of [k_lo, k_hi) is visible from every query row of
 // [q_lo, q_hi): such a tile needs no mask.
@@ -103,23 +141,17 @@ __device__ __forceinline__ bool all_visible(const Geometry& geo, int q_lo, int q
          (!geo.window || k_lo > geo.q_offset + q_hi - 1 - geo.window);
 }
 
-// Bit 4n + c set where element c of fragment n (row g + 8 (c >> 1), column
-// 8n + 2t + (c & 1) of a 16 x 8 NT tile) is visible; rows are queries, or
-// keys when `keys_are_rows` (dK/dV).
-template <int NT>
-__device__ __forceinline__ uint32_t visible_bits(const Geometry& geo, int row, int col0, int t,
-                                                 bool keys_are_rows) {
-  static_assert(NT * 4 <= 32, "one bit per element");
-  uint32_t bits = 0;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int r = row + 8 * (c >> 1);
-      const int col = col0 + 8 * n + 2 * t + (c & 1);
-      if (keys_are_rows ? visible(geo, col, r) : visible(geo, r, col)) bits |= 1u << (4 * n + c);
-    }
-  return bits;
+// The keys [lo, hi) that query row qi sees (empty past Sq).
+__device__ __forceinline__ void key_bounds(const Geometry& geo, int qi, int* lo, int* hi) {
+  const int qp = geo.q_offset + qi;
+  *lo = geo.window ? qp - geo.window + 1 : kNone;
+  *hi = qi >= geo.Sq ? kNone : geo.causal ? min(geo.Sk, qp + 1) : geo.Sk;
+}
+
+// The query rows [lo, hi) that see key kj (empty past Sk).
+__device__ __forceinline__ void query_bounds(const Geometry& geo, int kj, int* lo, int* hi) {
+  *lo = geo.causal ? kj - geo.q_offset : kNone;
+  *hi = kj >= geo.Sk ? kNone : geo.window ? min(geo.Sq, kj - geo.q_offset + geo.window) : geo.Sq;
 }
 
 // First and one past the last query row that can see any of keys [c0, c1).
@@ -144,54 +176,256 @@ __device__ __forceinline__ void key_range(const Geometry& geo, int r0, int r1, i
   *k_begin = geo.window ? max(0, geo.q_offset + r0 - geo.window + 1) : 0;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0));
+// ------------------------------------------------ barriers, TMA and wgmma
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// The dynamic shared memory, from its first 1024-byte boundary (a swizzled
+// box's pattern repeats every 1024 bytes and wgmma reads it from there).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` from the copies that name the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a [B, S, heads, D] tensor map, at (column, head, row, b),
+// into shared memory; completion counted on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                        int head, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Rows [row0, row0 + R) of head `head`, batch b, all of D, into an R-row
+// tile (Tile<D>'s layout): R / 64 x D / NC boxes.
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(void* tile, const CUtensorMap* map, uint64_t* bar,
+                                         int head, int row0, int b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+    for (int rb = 0; rb < R / kBox; ++rb)
+      tma_box(static_cast<unsigned char*>(tile) + (hh * R + rb * kBox) * L::RB, map, bar,
+              hh * L::NC, head, row0 + rb * kBox, b);
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 4 : 0));
-}
-
-// src[i0 .. i0 + N) (fp32) into dst, zeros at or past n.
 template <int N>
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int i0, int n) {
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    const bool in = i0 + i < n;
-    cp_async4(dst + i, in ? src + i0 + i : src, in);
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// A wgmma shared-memory descriptor: start address, leading offset 16
+// bytes (unused by these layouts), 8-row groups 8 RB apart, the swizzle.
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  using L = Tile<D>;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(L::kGroup >> 4) << 32) | (L::kLayout << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64 or the tile's N) of an R-row tile,
+// contraction over D, k-step kk (columns 16 kk .. 16 kk + 15): within a
+// box the step moves the start 32 bytes along the swizzled row.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  using L = Tile<D>;
+  const int col = 16 * kk;
+  return smem_desc<D>(tile + ((col / L::NC) * R + row0) * L::RB + (col % L::NC) * 2);
+}
+
+// MN-major operand: contraction over an R-row tile's rows (k-step kk: rows
+// 16 kk .. 16 kk + 15), N the NC columns of box hh (transpose bit set).
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int hh, int kk) {
+  using L = Tile<D>;
+  return smem_desc<D>(tile + (hh * R + 16 * kk) * L::RB);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers that wgmma reads or writes asynchronously: the compiler
+// may not move or reuse them across this point.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(r[i][c])::"memory");
+}
+
+// d (+)= a b, m64n128k16: a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b, m64n64k16: a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b, m64n64k16: a from registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b, m64n32k16: a from registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// 2^x on the special-function unit (ex2.approx: about 2^-22 relative).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The forward's softmax, one key tile of raw scores sc (rows g and g + 8 of
+// a warp's 16, masked scores -inf) at a time.  row_max: the rows' new
+// running max m (raw) and alpha = 2^((m_old - m) scale_log2), which
+// rescales what was summed against m_old (0 where nothing was).
+template <int N>
+__device__ __forceinline__ void row_max(const float (&sc)[N], float (&m)[2], float (&alpha)[2],
+                                        float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = m[i] == -INFINITY ? 0.f : ex2((m[i] - mx[i]) * scale_log2);
+    m[i] = mx[i];
   }
 }
 
-// Rows [row0, row0 + ROWS) of a [.., rows, heads, D] bf16 tensor (row
-// stride `stride` elements, head already applied to `base`) into a
-// [ROWS][D + kPad] shared tile; rows at or past `nrows` become zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ base,
-                                          size_t stride, int row0, int nrows) {
-  constexpr int kC8 = D / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < ROWS * kC8; idx += kThreads) {
-    const int r = idx / kC8;
-    const int c = (idx % kC8) * 8;
-    const bool in = row0 + r < nrows;
-    cp_async16(tile + r * (D + kPad) + c,
-               in ? base + static_cast<size_t>(row0 + r) * stride + c : base, in);
+// exp_rows: sc becomes p = 2^(s scale_log2 - m scale_log2) (0 for a masked
+// score, also in a row that has seen no key), and l = alpha l + the lane's
+// part of the row sums of the unrounded p.
+template <int N>
+__device__ __forceinline__ void exp_rows(float (&sc)[N], const float (&m)[2], float (&l)[2],
+                                         const float (&alpha)[2], float scale_log2) {
+  float ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ms[i] = m[i] == -INFINITY ? 0.f : m[i] * scale_log2;
+    l[i] *= alpha[i];
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    sc[i] = ex2(fmaf(sc[i], scale_log2, -ms[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += sc[i];
+  }
 }
 
 // Two fp32 values rounded to a bf16 pair, `lo` in the low half.
@@ -200,250 +434,266 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// row address of row l & 7 of matrix l >> 3.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
+// An m64nN accumulator (N = 4 K) rounded to bf16 as the A operand of K / 16
+// k-steps: the accumulator's layout (lane (g, t) of warp w holds rows
+// 16 w + g (+ 8), columns 8 n + 2 t (+ 1) in d[4 n .. 4 n + 3]) is the
+// A-fragment layout, two 8-column blocks a k-step.
+template <int K>
+__device__ __forceinline__ void to_a(uint32_t (&a)[K / 16][4], const float (&d)[K / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[kk][c] = pack_bf16(d[8 * kk + 2 * c], d[8 * kk + 2 * c + 1]);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
+// acc[hh] += a B for each box hh of D's columns: a [64][K] in registers
+// (K / 16 k-steps), B the first K rows of the R-row tile at `tile`, read
+// MN-major; each box's product is summed from zero, then added.
+template <int D, int R, int K>
+__device__ __forceinline__ void add_product(float (&acc)[Tile<D>::kHalves][Tile<D>::NC / 2],
+                                            uint32_t (&a)[K / 16][4], uint32_t tile) {
+  using L = Tile<D>;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int hh = 0; hh < L::kHalves; ++hh) {
+    float part[L::NC / 2];
+    keep(part);
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 4; ++c) x[i][c] = 0.f;
-}
-
-// s[n] = A B^T over all of D for a warp's 16 rows of A (Aw: query rows in
-// the forward and dQ, key rows in dK/dV) and the NT * 8 rows of a streamed
-// tile B (keys, or queries in dK/dV), both [.][D + kPad] shared tiles: s[n]
-// holds B rows [8n, 8n + 8), lane (g, t) rows g and g + 8, B rows 2t and
-// 2t + 1.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&s)[NT][4], const bf16* Aw, const bf16* Bt, int g,
-                                        int t) {
-  constexpr int LD = D + kPad;
-  zero(s);
+    for (int kk = 0; kk < K / 16; ++kk) wgmma_rs(part, a[kk], desc_mn<D, R>(tile, hh, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    keep(part);
+    keep(a);
 #pragma unroll
-  for (int ks = 0; ks < D; ks += 16) {
-    const bf16* qa = Aw + g * LD + ks + 2 * t;
-    const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8), ld32(qa + 8 * LD + 8)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* kb = Bt + (8 * n + g) * LD + ks + 2 * t;
-      const uint32_t b[2] = {ld32(kb), ld32(kb + 8)};
-      mma_bf16(s[n], a, b);
-    }
+    for (int i = 0; i < L::NC / 2; ++i) acc[hh][i] += part[i];
   }
 }
 
-// acc[n] += P B over a streamed tile's NT * 8 rows: P 16 x (NT * 8) in
-// mma_abt's layout, rounded to bf16 (the probabilities in the forward and
-// in dV, dS in dK and dQ); B a [NT * 8][D + kPad] shared tile (V, dO, Q or
-// K).  Each pair of 8-column blocks of D is summed over the tile from zero,
-// then added into acc.
-template <int D, int NT>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[NT][4],
-                                       const bf16* Bt, int lane) {
-  constexpr int LD = D + kPad;
-  static_assert(NT % 2 == 0, "a tile of whole 16-row k-steps");
-  uint32_t a[NT / 2][4];
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    a[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-  }
-  // Matrix l >> 3 of an ldmatrix: rows + 8 ((l >> 3) & 1), columns + 8 (l >> 4).
-  const bf16* base = Bt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int n = 0; n < D / 8; n += 2) {
-    float part[2][4];
-    zero(part);
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, base + 16 * kk * LD + 8 * n);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma_bf16(part[0], a[kk], b0);
-      mma_bf16(part[1], a[kk], b1);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      acc[n][c] += part[0][c];
-      acc[n + 1][c] += part[1][c];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, Geometry geo) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][LD]
-  bf16* Ks = Qs + kRows * LD;                     // [2][kCols][LD]
-  bf16* Vs = Ks + 2 * kCols * LD;                 // [2][kCols][LD]
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
-  const int kvh = h / geo.g;
-  const size_t q_stride = static_cast<size_t>(geo.H) * D;
-  const size_t kv_stride = static_cast<size_t>(geo.KV) * D;
-  const bf16* kb = k + (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
-  const bf16* vb = v + (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
-
-  int k_begin, k_end, first;
-  key_range(geo, q0, min(q0 + kRows, geo.Sq), &k_begin, &k_end);
-  const int n_tiles = tile_span<kCols>(k_begin, k_end, &first);
-  load_tile<D, kRows>(Qs, q + (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D, q_stride, q0,
-                      geo.Sq);
-  if (n_tiles > 0) {
-    load_tile<D, kCols>(Ks, kb, kv_stride, first * kCols, geo.Sk);
-    load_tile<D, kCols>(Vs, vb, kv_stride, first * kCols, geo.Sk);
-  }
-  cp_async_commit();
-
-  const int row = q0 + 16 * warp + g;  // this lane's rows: row, row + 8
-  const bf16* Qw = Qs + 16 * warp * LD;
-  const float scale_log2 = geo.scale * kLog2e;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-  zero(acc);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<D, kCols>(Ks + (stage ^ 1) * kCols * LD, kb, kv_stride, (first + j + 1) * kCols,
-                          geo.Sk);
-      load_tile<D, kCols>(Vs + (stage ^ 1) * kCols * LD, vb, kv_stride, (first + j + 1) * kCols,
-                          geo.Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + stage * kCols * LD;
-    const bf16* Vt = Vs + stage * kCols * LD;
-    const int k0 = (first + j) * kCols;
-
-    float s[kNT][4];
-    mma_abt<D, kNT>(s, Qw, Kt, g, t);
-    // Scores in log2 units (scale * log2 e folded in), so p = 2^(s - m).
-    const bool full = all_visible(geo, row - g, row - g + 16, k0, k0 + kCols);
-    const uint32_t bits = full ? ~0u : visible_bits<kNT>(geo, row, k0, t, false);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[n][c] = (bits >> (4 * n + c)) & 1u ? s[n][c] * scale_log2 : kNegInf;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = (bits >> (4 * n + c)) & 1u ? exp2f(s[n][c] - m[c >> 1]) : 0.f;  // re-masked
-        s[n][c] = p;
-        l[c >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
-    mma_pb<D, kNT>(acc, s, Vt, lane);
-    __syncthreads();  // stage j is consumed before tile j + 2 overwrites it
-  }
-  cp_async_wait<0>();
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;  // a row with no visible key is 0
-    const int r = row + 8 * i;
-    if (t == 0 && r < geo.Sq) {
-      lse[(static_cast<size_t>(b) * geo.H + h) * geo.Sq + r] =
-          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : INFINITY;
-    }
-  }
-  bf16* ob = o + (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + 8 * half;
-    if (r >= geo.Sq) continue;
-    bf16* dst = ob + static_cast<size_t>(r) * q_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[n][2 * half] * inv[half], acc[n][2 * half + 1] * inv[half]);
-    }
-  }
-}
-
-// --------------------------------------------------------------- backward
-// Query rows of a streamed tile in dK/dV: 16 at D = 128 keeps the dK and dV
-// accumulators (128 fp32 a lane) and the tile's S^T and dP^T in registers
-// (32 spilled 52 bytes at 255 registers on an H100's ptxas).
-template <int D>
-__host__ __device__ constexpr int bwd_kv_cols() {
-  return D == 128 ? 16 : 64;
-}
-
-// A warp's 16 rows x D of an fp32 accumulator, times scale, rounded to bf16
-// into rows [row0, row0 + 16) of a [.., rows, heads, D] tensor (row stride
+// Rows of a warp's 16 x D accumulator (acc[hh][4 n + c]: row g + 8 (c >> 1),
+// column hh NC + 8 n + 2 t + (c & 1)), times scale, rounded to bf16 into
+// rows [row0, row0 + 16) of a [.., rows, heads, D] tensor (row stride
 // `stride`); rows at or past `nrows` are not written.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, int nrows,
-                                           const float (&acc)[D / 8][4], float scale, int g,
-                                           int t) {
+                                           const float (&acc)[Tile<D>::kHalves][Tile<D>::NC / 2],
+                                           const float (&scale)[2], int g, int t) {
+  using L = Tile<D>;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = row0 + g + 8 * half;
     if (r >= nrows) continue;
     bf16* dst = base + static_cast<size_t>(r) * stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
-    }
+    for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+      for (int n = 0; n < L::NC / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + hh * L::NC + 8 * n) =
+            pack_bf16(acc[hh][4 * n + 2 * half] * scale[half],
+                      acc[hh][4 * n + 2 * half + 1] * scale[half]);
   }
 }
 
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[Tile<D>::kHalves][Tile<D>::NC / 2]) {
+#pragma unroll
+  for (int hh = 0; hh < Tile<D>::kHalves; ++hh)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::NC / 2; ++i) acc[hh][i] = 0.f;
+}
+
+// ---------------------------------------------------------------- forward
+template <int D>
+constexpr int fwd_smem() {
+  return kBlockRows * D * 2 + 2 * kStages * kFwdCols * D * 2 + 128 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                          float* __restrict__ lse, Geometry geo) {
+  using L = Tile<D>;
+  constexpr int kQBytes = kBlockRows * D * 2;
+  constexpr int kKVBytes = kFwdCols * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* Qs = smem;                                 // [kBlockRows][D]
+  unsigned char* Ks = Qs + kQBytes;                         // [kStages][kFwdCols][D]
+  unsigned char* Vs = Ks + kStages * kKVBytes;              // [kStages][kFwdCols][D]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * kKVBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* empty = bars + 1 + 2 * kStages;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
+  int k_begin, k_end, first;
+  key_range(geo, q0, min(q0 + kBlockRows, geo.Sq), &k_begin, &k_end);
+  const int n_tiles = tile_span<kFwdCols>(k_begin, k_end, &first);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // Producer: one thread issues every copy; K and V of a stage on their
+    // own barriers, so S can start before V has landed.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
+      const int kvh = h / geo.g;
+      mbar_expect_tx(q_full, kQBytes);
+      tma_tile<D, kBlockRows>(Qs, &tq, q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        const int k0 = (first + j) * kFwdCols;
+        mbar_expect_tx(&k_full[s], kKVBytes);
+        tma_tile<D, kFwdCols>(Ks + s * kKVBytes, &tk, &k_full[s], kvh, k0, b);
+        mbar_expect_tx(&v_full[s], kKVBytes);
+        tma_tile<D, kFwdCols>(Vs + s * kKVBytes, &tv, &v_full[s], kvh, k0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row = q0 + 64 * wg + 16 * warp + g;  // this lane's rows: row, row + 8
+    const float scale_log2 = geo.scale * kLog2e;
+    const uint32_t q_addr = smem_u32(Qs);
+    float m[2] = {-INFINITY, -INFINITY};  // the rows' running max of the raw scores
+    float l[2] = {0.f, 0.f};
+    float acc[L::kHalves][L::NC / 2];
+    zero<D>(acc);
+    float sc[kFwdCols / 2];      // S of tile j: rows row (+ 8), keys k0 + 8 n + 2 t (+ 1)
+    uint32_t pa[kFwdCols / 16][4];  // P of tile j - 1, bf16, as wgmma's A operand
+    float part[L::NC / 2];       // P V of tile j - 1 for one box of D, from zero
+
+    // S_j = Q K_j^T, one commit group.  Q's descriptors are rebuilt each
+    // time (an opaque copy of its address), not held in registers.
+    auto issue_s = [&](int j) {
+      const int s = j % kStages;
+      uint32_t qa = q_addr;
+      asm volatile("" : "+r"(qa));
+      mbar_wait(&k_full[s], (j / kStages) & 1);
+      keep(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, desc_k<D, kBlockRows>(qa, 64 * wg, kk),
+                 desc_k<D, kFwdCols>(smem_u32(Ks + s * kKVBytes), 0, kk), kk);
+      wgmma_commit();
+    };
+    // part = P_j V_j for box hh of D's columns, one commit group.
+    auto issue_pv = [&](int j, int hh) {
+      const int s = j % kStages;
+      if (hh == 0) mbar_wait(&v_full[s], (j / kStages) & 1);
+      keep(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdCols / 16; ++kk)
+        wgmma_rs(part, pa[kk], desc_mn<D, kFwdCols>(smem_u32(Vs + s * kKVBytes), hh, kk), kk);
+      wgmma_commit();
+    };
+    auto add_part = [&](int hh) {
+      keep(part);
+      keep(pa);
+#pragma unroll
+      for (int i = 0; i < L::NC / 2; ++i) acc[hh][i] += part[i];
+    };
+    // Masked scores of tile j become -inf.
+    int lo[2], hi[2];
+    key_bounds(geo, row, &lo[0], &hi[0]);
+    key_bounds(geo, row + 8, &lo[1], &hi[1]);
+    auto mask = [&](int j) {
+      const int k0 = (first + j) * kFwdCols;
+      if (!all_visible(geo, row - g, row - g + 16, k0, k0 + kFwdCols)) {
+#pragma unroll
+        for (int i = 0; i < kFwdCols / 2; ++i) {
+          const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col < lo[(i >> 1) & 1] || col >= hi[(i >> 1) & 1]) sc[i] = -INFINITY;
+        }
+      }
+    };
+    auto release = [&](int j) {  // this warp has read stage j's K and V
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[j % kStages]);
+    };
+
+    if (n_tiles > 0) {
+      mbar_wait(q_full, 0);
+      float alpha[2];
+      issue_s(0);
+      wgmma_wait<0>();
+      keep(sc);
+      mask(0);
+      row_max(sc, m, alpha, scale_log2);
+      exp_rows(sc, m, l, alpha, scale_log2);
+      to_a<kFwdCols>(pa, sc);
+      // Tile j's S and softmax beside tile j - 1's P V on the tensor cores.
+      for (int j = 1; j < n_tiles; ++j) {
+        issue_s(j);
+        issue_pv(j - 1, 0);
+        wgmma_wait<1>();
+        keep(sc);
+        mask(j);
+        row_max(sc, m, alpha, scale_log2);
+        wgmma_wait<0>();
+        add_part(0);
+        if constexpr (L::kHalves == 2) issue_pv(j - 1, 1);
+        exp_rows(sc, m, l, alpha, scale_log2);
+        if constexpr (L::kHalves == 2) {
+          wgmma_wait<0>();
+          add_part(1);
+        }
+        release(j - 1);
+        // O = alpha (O + P_{j-1} V_{j-1}): both were summed against the old max.
+#pragma unroll
+        for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+          for (int i = 0; i < L::NC / 2; ++i) acc[hh][i] *= alpha[(i >> 1) & 1];
+        to_a<kFwdCols>(pa, sc);
+      }
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) {
+        issue_pv(n_tiles - 1, hh);
+        wgmma_wait<0>();
+        add_part(hh);
+      }
+      release(n_tiles - 1);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;  // a row with no visible key is 0
+      const int r = row + 8 * i;
+      if (t == 0 && r < geo.Sq) {
+        lse[(static_cast<size_t>(b) * geo.H + h) * geo.Sq + r] =
+            l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * kLn2 : INFINITY;
+      }
+    }
+    bf16* ob = o + (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D;
+    store_rows<D>(ob, static_cast<size_t>(geo.H) * D, row - g, geo.Sq, acc, inv, g, t);
+  }
+}
+
+// --------------------------------------------------------------- backward
 // delta_i = sum_d dO_i,d * O_i,d for every (b, s, h) row, written [B, H, Sq]:
 // D / 8 lanes per row, 16 bytes of O and of dO each, summed in fp32.
 template <int D>
@@ -476,231 +726,364 @@ __global__ void flash_bwd_bf16_rowdot_kernel(const bf16* __restrict__ o,
   }
 }
 
-// dK and dV for one (k tile, kv head, b): the warp's 16 keys are the rows,
-// queries the streamed columns; S^T and dP^T are recomputed per q tile.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_bf16_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+constexpr int bwd_smem() {
+  return 2 * kBlockRows * D * 2 + kStages * 2 * kBwdCols * D * 2 + kStages * 2 * kBwdCols * 4 +
+         64 + 1024;
+}
+
+// dK and dV for one (128-key block, kv head, b): each consumer warpgroup's
+// 64 keys are the rows, queries the streamed columns; S^T and dP^T are
+// recomputed per query tile.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                bf16* __restrict__ dk, bf16* __restrict__ dv, Geometry geo) {
-  constexpr int LD = D + kPad;
-  constexpr int BN = bwd_kv_cols<D>();
-  constexpr int NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);       // [kRows][LD]
-  bf16* Vs = Ks + kRows * LD;                          // [kRows][LD]
-  bf16* Qs = Vs + kRows * LD;                          // [2][BN][LD]
-  bf16* Gs = Qs + 2 * BN * LD;                         // [2][BN][LD], dO
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BN * LD);  // [2][BN], lse
-  float* Ds = Ls + 2 * BN;                             // [2][BN], delta
+  using L = Tile<D>;
+  constexpr int kKVBytes = kBlockRows * D * 2;
+  constexpr int kTileBytes = kBwdCols * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* Ks = smem;                          // [kBlockRows][D]
+  unsigned char* Vs = Ks + kKVBytes;                 // [kBlockRows][D]
+  unsigned char* Qs = Vs + kKVBytes;                 // [kStages][kBwdCols][D]
+  unsigned char* Gs = Qs + kStages * kTileBytes;     // [kStages][kBwdCols][D], dO
+  float* Ls = reinterpret_cast<float*>(Gs + kStages * kTileBytes);  // [kStages][kBwdCols], lse
+  float* Ds = Ls + kStages * kBwdCols;                               // [kStages][kBwdCols], delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Ds + kStages * kBwdCols);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kRows;
-  const size_t q_stride = static_cast<size_t>(geo.H) * D;
-  const size_t kv_stride = static_cast<size_t>(geo.KV) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
-
+  const int k0 = blockIdx.z * kBlockRows;
   int r_begin, r_end, first;
-  query_range(geo, k0, min(k0 + kRows, geo.Sk), &r_begin, &r_end);
-  const int per_head = tile_span<BN>(r_begin, r_end, &first);
+  query_range(geo, k0, min(k0 + kBlockRows, geo.Sk), &r_begin, &r_end);
+  const int per_head = tile_span<kBwdCols>(r_begin, r_end, &first);
   const int n_tiles = geo.g * per_head;  // (head of the group, q tile), head major
 
-  auto load_q_tile = [&](int i, int stage) {
-    const int h = kvh * geo.g + i / per_head;
-    const int r0 = (first + i % per_head) * BN;
-    const size_t q_off = (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D;
-    const size_t row_off = (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
-    load_tile<D, BN>(Qs + stage * BN * LD, q + q_off, q_stride, r0, geo.Sq);
-    load_tile<D, BN>(Gs + stage * BN * LD, dout + q_off, q_stride, r0, geo.Sq);
-    load_vec<BN>(Ls + stage * BN, lse + row_off, r0, geo.Sq);
-    load_vec<BN>(Ds + stage * BN, delta + row_off, r0, geo.Sq);
-  };
-
-  load_tile<D, kRows>(Ks, k + kv_off, kv_stride, k0, geo.Sk);
-  load_tile<D, kRows>(Vs, v + kv_off, kv_stride, k0, geo.Sk);
-  if (n_tiles > 0) load_q_tile(0, 0);
-  cp_async_commit();
-
-  const int key = k0 + 16 * warp + g;  // this lane's keys: key, key + 8
-  const float scale_log2 = geo.scale * kLog2e;
-  const bf16* Kw = Ks + 16 * warp * LD;
-  const bf16* Vw = Vs + 16 * warp * LD;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_q_tile(j + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);               // the producer warp's lanes
+      mbar_init(&empty[s], 4 * kConsumers);  // one arrival a consumer warp
     }
-    __syncthreads();
-    const bf16* Qt = Qs + stage * BN * LD;
-    const bf16* Gt = Gs + stage * BN * LD;
-    const float* Lt = Ls + stage * BN;
-    const float* Dt = Ds + stage * BN;
-    const int r0 = (first + j % per_head) * BN;
-
-    float s[NT][4], dp[NT][4];  // S^T and dP^T: rows keys, columns queries
-    mma_abt<D, NT>(s, Kw, Qt, g, t);
-    mma_abt<D, NT>(dp, Vw, Gt, g, t);
-    const bool full = all_visible(geo, r0, r0 + BN, key - g, key - g + 16);
-    const uint32_t bits = full ? ~0u : visible_bits<NT>(geo, key, r0, t, true);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 8 * n + 2 * t + (c & 1);
-        const float p = (bits >> (4 * n + c)) & 1u
-                            ? exp2f(fmaf(s[n][c], scale_log2, -Lt[col] * kLog2e))
-                            : 0.f;
-        dp[n][c] = p * (dp[n][c] - Dt[col]);  // dS^T, the gradient of the scaled score
-        s[n][c] = p;
-      }
-    mma_pb<D, NT>(dv_acc, s, Gt, lane);   // dV += P^T dO, P^T rounded to bf16
-    mma_pb<D, NT>(dk_acc, dp, Qt, lane);  // dK += dS^T Q, dS^T rounded (times scale at the end)
-    __syncthreads();
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  const int krow0 = k0 + 16 * warp;
-  store_rows<D>(dk + kv_off, kv_stride, krow0, geo.Sk, dk_acc, geo.scale, g, t);
-  store_rows<D>(dv + kv_off, kv_stride, krow0, geo.Sk, dv_acc, 1.f, g, t);
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // Producer: its first warp; lane 0 issues the copies, every lane stages
+    // two of the tile's lse and delta values.
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 128 * kConsumers + 32 && n_tiles > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * kKVBytes);
+        tma_tile<D, kBlockRows>(Ks, &tk, kv_full, kvh, k0, b);
+        tma_tile<D, kBlockRows>(Vs, &tv, kv_full, kvh, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int h = kvh * geo.g + j / per_head;
+        const int r0 = (first + j % per_head) * kBwdCols;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        const size_t row_off = (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
+        for (int i = lane; i < kBwdCols; i += 32) {
+          const bool in = r0 + i < geo.Sq;
+          Ls[s * kBwdCols + i] = in ? lse[row_off + r0 + i] * kLog2e : 0.f;  // log2 units
+          Ds[s * kBwdCols + i] = in ? delta[row_off + r0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * kTileBytes);
+          tma_tile<D, kBwdCols>(Qs + s * kTileBytes, &tq, &full[s], h, r0, b);
+          tma_tile<D, kBwdCols>(Gs + s * kTileBytes, &tdo, &full[s], h, r0, b);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int key = k0 + 64 * wg + 16 * warp + g;  // this lane's keys: key, key + 8
+    const float scale_log2 = geo.scale * kLog2e;
+    int lo[2], hi[2];  // the queries that see each of the lane's keys
+    query_bounds(geo, key, &lo[0], &hi[0]);
+    query_bounds(geo, key + 8, &lo[1], &hi[1]);
+    const uint32_t k_addr = smem_u32(Ks);
+    const uint32_t v_addr = smem_u32(Vs);
+    float dk_acc[L::kHalves][L::NC / 2], dv_acc[L::kHalves][L::NC / 2];
+    zero<D>(dk_acc);
+    zero<D>(dv_acc);
+    if (n_tiles > 0) mbar_wait(kv_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const uint32_t q_addr = smem_u32(Qs + s * kTileBytes);
+      const uint32_t g_addr = smem_u32(Gs + s * kTileBytes);
+      const float* Lt = Ls + s * kBwdCols;
+      const float* Dt = Ds + s * kBwdCols;
+      const int r0 = (first + j % per_head) * kBwdCols;
+
+      float st[kBwdCols / 2], dpt[kBwdCols / 2];  // S^T and dP^T: rows keys, columns queries
+      keep(st);
+      keep(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, desc_k<D, kBlockRows>(k_addr, 64 * wg, kk),
+                 desc_k<D, kBwdCols>(q_addr, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, desc_k<D, kBlockRows>(v_addr, 64 * wg, kk),
+                 desc_k<D, kBwdCols>(g_addr, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(st);
+      keep(dpt);
+
+      // Element i = 4 n + c: key key + 8 (c >> 1), query r0 + 8 n + 2 t + (c & 1).
+#pragma unroll
+      for (int i = 0; i < kBwdCols / 2; ++i)
+        st[i] = ex2(fmaf(st[i], scale_log2, -Lt[8 * (i >> 2) + 2 * t + (i & 1)]));
+      if (!all_visible(geo, r0, r0 + kBwdCols, key - g, key - g + 16)) {
+#pragma unroll
+        for (int i = 0; i < kBwdCols / 2; ++i) {
+          const int col = r0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col < lo[(i >> 1) & 1] || col >= hi[(i >> 1) & 1]) st[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdCols / 2; ++i)  // dS^T, the gradient of the scaled score
+        dpt[i] = st[i] * (dpt[i] - Dt[8 * (i >> 2) + 2 * t + (i & 1)]);
+      uint32_t pa[kBwdCols / 16][4], sa[kBwdCols / 16][4];
+      to_a<kBwdCols>(pa, st);   // P^T rounded to bf16
+      to_a<kBwdCols>(sa, dpt);  // dS^T rounded to bf16 (times scale at the end)
+      add_product<D, kBwdCols, kBwdCols>(dv_acc, pa, g_addr);  // dV += P^T dO
+      add_product<D, kBwdCols, kBwdCols>(dk_acc, sa, q_addr);  // dK += dS^T Q
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const size_t kv_off = (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
+    const size_t kv_stride = static_cast<size_t>(geo.KV) * D;
+    const float scale[2] = {geo.scale, geo.scale}, one[2] = {1.f, 1.f};
+    store_rows<D>(dk + kv_off, kv_stride, key - g, geo.Sk, dk_acc, scale, g, t);
+    store_rows<D>(dv + kv_off, kv_stride, key - g, geo.Sk, dv_acc, one, g, t);
+  }
 }
 
-// dQ for one (q tile, h, b): the warp's 16 queries are the rows, keys the
-// streamed columns (tiles of kCols).
+// dQ for one (128-query block, h, b): each consumer warpgroup's 64 queries
+// are the rows, keys the streamed columns (tiles of 64).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              bf16* __restrict__ dq, Geometry geo) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][LD]
-  bf16* Gs = Qs + kRows * LD;                     // [kRows][LD], dO
-  bf16* Ks = Gs + kRows * LD;                     // [2][kCols][LD]
-  bf16* Vs = Ks + 2 * kCols * LD;                 // [2][kCols][LD]
+  using L = Tile<D>;
+  constexpr int kQBytes = kBlockRows * D * 2;
+  constexpr int kTileBytes = kBwdCols * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* Qs = smem;                       // [kBlockRows][D]
+  unsigned char* Gs = Qs + kQBytes;               // [kBlockRows][D], dO
+  unsigned char* Ks = Gs + kQBytes;               // [kStages][kBwdCols][D]
+  unsigned char* Vs = Ks + kStages * kTileBytes;  // [kStages][kBwdCols][D]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * kTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
-  const int kvh = h / geo.g;
-  const size_t q_stride = static_cast<size_t>(geo.H) * D;
-  const size_t kv_stride = static_cast<size_t>(geo.KV) * D;
-  const size_t q_off = (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D;
-  const bf16* kb = k + (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
-  const bf16* vb = v + (static_cast<size_t>(b) * geo.Sk * geo.KV + kvh) * D;
-
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
   int k_begin, k_end, first;
-  key_range(geo, q0, min(q0 + kRows, geo.Sq), &k_begin, &k_end);
-  const int n_tiles = tile_span<kCols>(k_begin, k_end, &first);
-  load_tile<D, kRows>(Qs, q + q_off, q_stride, q0, geo.Sq);
-  load_tile<D, kRows>(Gs, dout + q_off, q_stride, q0, geo.Sq);
-  if (n_tiles > 0) {
-    load_tile<D, kCols>(Ks, kb, kv_stride, first * kCols, geo.Sk);
-    load_tile<D, kCols>(Vs, vb, kv_stride, first * kCols, geo.Sk);
-  }
-  cp_async_commit();
+  key_range(geo, q0, min(q0 + kBlockRows, geo.Sq), &k_begin, &k_end);
+  const int n_tiles = tile_span<kBwdCols>(k_begin, k_end, &first);
 
-  const int row = q0 + 16 * warp + g;  // this lane's rows: row, row + 8
-  const float* lb = lse + (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
-  const float* db = delta + (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
-  float row_lse[2], row_delta[2];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = row + 8 * i < geo.Sq;
-    row_lse[i] = in ? lb[row + 8 * i] * kLog2e : 0.f;  // log2 units
-    row_delta[i] = in ? db[row + 8 * i] : 0.f;
-  }
-  const bf16* Qw = Qs + 16 * warp * LD;
-  const bf16* Gw = Gs + 16 * warp * LD;
-  const float scale_log2 = geo.scale * kLog2e;
-  float dq_acc[D / 8][4];
-  zero(dq_acc);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<D, kCols>(Ks + (stage ^ 1) * kCols * LD, kb, kv_stride, (first + j + 1) * kCols,
-                          geo.Sk);
-      load_tile<D, kCols>(Vs + (stage ^ 1) * kCols * LD, vb, kv_stride, (first + j + 1) * kCols,
-                          geo.Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
     }
-    __syncthreads();
-    const bf16* Kt = Ks + stage * kCols * LD;
-    const bf16* Vt = Vs + stage * kCols * LD;
-    const int k0 = (first + j) * kCols;
-
-    float s[kNT][4], dp[kNT][4];
-    mma_abt<D, kNT>(s, Qw, Kt, g, t);
-    mma_abt<D, kNT>(dp, Gw, Vt, g, t);
-    const bool full = all_visible(geo, row - g, row - g + 16, k0, k0 + kCols);
-    const uint32_t bits = full ? ~0u : visible_bits<kNT>(geo, row, k0, t, false);
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1;
-        const float p = (bits >> (4 * n + c)) & 1u
-                            ? exp2f(fmaf(s[n][c], scale_log2, -row_lse[i]))
-                            : 0.f;
-        s[n][c] = p * (dp[n][c] - row_delta[i]);  // dS
-      }
-    mma_pb<D, kNT>(dq_acc, s, Kt, lane);  // dQ += dS K, dS rounded to bf16 (times scale at the end)
-    __syncthreads();
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  store_rows<D>(dq + q_off, q_stride, q0 + 16 * warp, geo.Sq, dq_acc, geo.scale, g, t);
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
+      const int kvh = h / geo.g;
+      mbar_expect_tx(q_full, 2 * kQBytes);
+      tma_tile<D, kBlockRows>(Qs, &tq, q_full, h, q0, b);
+      tma_tile<D, kBlockRows>(Gs, &tdo, q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        const int c0 = (first + j) * kBwdCols;
+        tma_tile<D, kBwdCols>(Ks + s * kTileBytes, &tk, &full[s], kvh, c0, b);
+        tma_tile<D, kBwdCols>(Vs + s * kTileBytes, &tv, &full[s], kvh, c0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row = q0 + 64 * wg + 16 * warp + g;  // this lane's rows: row, row + 8
+    const float* lb = lse + (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
+    const float* db = delta + (static_cast<size_t>(b) * geo.H + h) * geo.Sq;
+    float row_lse[2], row_delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool in = row + 8 * i < geo.Sq;
+      row_lse[i] = in ? lb[row + 8 * i] * kLog2e : 0.f;  // log2 units
+      row_delta[i] = in ? db[row + 8 * i] : 0.f;
+    }
+    const float scale_log2 = geo.scale * kLog2e;
+    int lo[2], hi[2];  // the keys each of the lane's rows sees
+    key_bounds(geo, row, &lo[0], &hi[0]);
+    key_bounds(geo, row + 8, &lo[1], &hi[1]);
+    const uint32_t q_addr = smem_u32(Qs);
+    const uint32_t g_addr = smem_u32(Gs);
+    float dq_acc[L::kHalves][L::NC / 2];
+    zero<D>(dq_acc);
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const uint32_t k_addr = smem_u32(Ks + s * kTileBytes);
+      const uint32_t v_addr = smem_u32(Vs + s * kTileBytes);
+      const int c0 = (first + j) * kBwdCols;
+
+      float sc[kBwdCols / 2], dp[kBwdCols / 2];
+      keep(sc);
+      keep(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, desc_k<D, kBlockRows>(q_addr, 64 * wg, kk),
+                 desc_k<D, kBwdCols>(k_addr, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, desc_k<D, kBlockRows>(g_addr, 64 * wg, kk),
+                 desc_k<D, kBwdCols>(v_addr, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(sc);
+      keep(dp);
+
+      // Element i = 4 n + c: query row + 8 (c >> 1), key c0 + 8 n + 2 t + (c & 1).
+#pragma unroll
+      for (int i = 0; i < kBwdCols / 2; ++i)
+        sc[i] = ex2(fmaf(sc[i], scale_log2, -row_lse[(i >> 1) & 1]));
+      if (!all_visible(geo, row - g, row - g + 16, c0, c0 + kBwdCols)) {
+#pragma unroll
+        for (int i = 0; i < kBwdCols / 2; ++i) {
+          const int col = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col < lo[(i >> 1) & 1] || col >= hi[(i >> 1) & 1]) sc[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdCols / 2; ++i)  // dS
+        sc[i] = sc[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+      uint32_t sa[kBwdCols / 16][4];
+      to_a<kBwdCols>(sa, sc);  // dS rounded to bf16 (times scale at the end)
+      add_product<D, kBwdCols, kBwdCols>(dq_acc, sa, k_addr);  // dQ += dS K
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const float scale[2] = {geo.scale, geo.scale};
+    store_rows<D>(dq + (static_cast<size_t>(b) * geo.Sq * geo.H + h) * D,
+                  static_cast<size_t>(geo.H) * D, row - g, geo.Sq, dq_acc, scale, g, t);
+  }
 }
 
+// ------------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [B, S, heads, D] bf16 tensor as a 4-D tensor map (innermost first: D,
+// heads, S, B), read in boxes of NC columns x 1 head x 64 rows that land
+// swizzled as the wgmma descriptors read them; rows past S read zeros.
 template <int D>
-constexpr size_t fwd_smem() {
-  return static_cast<size_t>(kRows + 4 * kCols) * (D + kPad) * sizeof(bf16);
+cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int heads) {
+  using L = Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::NC), 1, kBox, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             L::NC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
                 const Geometry& geo, cudaStream_t stream) {
-  constexpr size_t bytes = fwd_smem<D>();
+  // A runtime call first: it makes the device's context current on this
+  // thread (an autograd thread may have none), which the encoder needs.
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem<D>());
+  CUtensorMap tq, tk, tv;
+  if (err == cudaSuccess) err = make_map<D>(&tq, q, B, geo.Sq, geo.H);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, B, geo.Sk, geo.KV);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, B, geo.Sk, geo.KV);
   if (err != cudaSuccess) return err;
-  const dim3 grid(geo.H, B, (geo.Sq + kRows - 1) / kRows);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, geo);
+  const dim3 grid(geo.H, B, (geo.Sq + kBlockRows - 1) / kBlockRows);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(tq, tk, tv, o, lse, geo);
   return cudaGetLastError();
-}
-
-template <int D>
-constexpr size_t dkdv_smem() {
-  return static_cast<size_t>(2 * kRows + 4 * bwd_kv_cols<D>()) * (D + kPad) * sizeof(bf16) +
-         4 * bwd_kv_cols<D>() * sizeof(float);
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return static_cast<size_t>(2 * kRows + 4 * kCols) * (D + kPad) * sizeof(bf16);
 }
 
 template <int D>
@@ -711,26 +1094,30 @@ cudaError_t bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* o, cons
   constexpr int kRowThreads = 256;
   const int row_blocks = static_cast<int>((static_cast<int64_t>(rows) * (D / 8) + kRowThreads - 1) /
                                           kRowThreads);
-  flash_bwd_bf16_rowdot_kernel<D><<<row_blocks, kRowThreads, 0, stream>>>(o, dout, delta, rows,
-                                                                          geo.Sq, geo.H);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_bf16_dkdv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dkdv_smem<D>()));
+  // Runtime calls first, as in fwd: the encoder needs a current context.
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_dkdv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem<D>());
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_bwd_bf16_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dq_smem<D>()));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem<D>());
+  CUtensorMap tq, tk, tv, tdo;
+  if (err == cudaSuccess) err = make_map<D>(&tq, q, B, geo.Sq, geo.H);
+  if (err == cudaSuccess) err = make_map<D>(&tdo, dout, B, geo.Sq, geo.H);
+  if (err == cudaSuccess) err = make_map<D>(&tk, k, B, geo.Sk, geo.KV);
+  if (err == cudaSuccess) err = make_map<D>(&tv, v, B, geo.Sk, geo.KV);
   if (err != cudaSuccess) return err;
-  const dim3 grid_kv(geo.KV, B, (geo.Sk + kRows - 1) / kRows);
-  flash_bwd_bf16_dkdv_kernel<D><<<grid_kv, kThreads, dkdv_smem<D>(), stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, geo);
+  flash_bwd_bf16_rowdot_kernel<D><<<row_blocks, kRowThreads, 0, stream>>>(o, dout, delta, rows,
+                                                                          geo.Sq, geo.H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_q(geo.H, B, (geo.Sq + kRows - 1) / kRows);
-  flash_bwd_bf16_dq_kernel<D><<<grid_q, kThreads, dq_smem<D>(), stream>>>(q, k, v, dout, lse,
-                                                                         delta, dq, geo);
+  const dim3 grid_kv(geo.KV, B, (geo.Sk + kBlockRows - 1) / kBlockRows);
+  flash_bwd_bf16_dkdv_kernel<D><<<grid_kv, kThreads, bwd_smem<D>(), stream>>>(
+      tq, tk, tv, tdo, lse, delta, dk, dv, geo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(geo.H, B, (geo.Sq + kBlockRows - 1) / kBlockRows);
+  flash_bwd_bf16_dq_kernel<D><<<grid_q, kThreads, bwd_smem<D>(), stream>>>(tq, tk, tv, tdo, lse,
+                                                                           delta, dq, geo);
   return cudaGetLastError();
 }
 
@@ -751,7 +1138,7 @@ Geometry make_geometry(int Sq, int Sk, int H, int KV, int causal, int window, in
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KV, int D) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
-         (Sq + kRows - 1) / kRows > 65535 || (Sk + kRows - 1) / kRows > 65535 ||
+         (Sq + kBlockRows - 1) / kBlockRows > 65535 || (Sk + kBlockRows - 1) / kBlockRows > 65535 ||
          !(D == 32 || D == 64 || D == 128);
 }
 
