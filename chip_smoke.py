@@ -15,8 +15,9 @@ phase that fails, and then prints no result line):
    fails the phase; the RWKV-6 kernels run on the CUDA cores); the bf16
    kernels' registers and spills, the count of bf16 ``HMMA``/``HGMMA`` in
    the flash and tile kernels' SASS (none fails the phase; the flash
-   kernels, on ``wgmma``, must show ``HGMMA``), no spill in the small-group
-   ones nor in the flash kernels at D = 64 and 128;
+   kernels and the tile kernel, on ``wgmma``, must show ``HGMMA``), no
+   spill in the small-group ones, the tile kernel, nor the flash kernels at
+   D = 64 and 128;
 3. kernels: first the device time of the library's empty kernel, the
    launch floor under the latency-bound kernels; then hold each kernel
    against its plain PyTorch version on the card and time kernel, plain
@@ -317,8 +318,9 @@ an element, or one bf16 tensor-core pass at 989 TFLOP/s) and SDPA or
 the float32 cases' shapes (the PPO-LM learner's, GQA 40/8 windowed, with a
 q_offset, ragged, Phi's, Qwen3-14B's, D = 64 and 32), decode attention at
 the bf16 serve steps and at the float32 cases' masks, the tile kernel at
-DeepSeek's and Jamba's prefill products, Phi's and the ragged groups, the
-small-group kernel at the decode products and ragged groups; and every
+DeepSeek's and Jamba's prefill products, Phi's, the ragged groups and D
+and F that are not multiples of 64, the small-group kernel at the decode
+products and ragged groups; and every
 bf16-taking wrapper refusing mixed and float16 operands on the card.
 Phase 21e serves DeepSeek-V2-Lite, Jamba and Nemotron-4 at their own dtype,
 bfloat16, as phase 21d at float32: launches exact (the bf16 kernels), each
@@ -1140,21 +1142,23 @@ GMM_SMALL_KERNELS = tuple(f"gmm_small_kernel<{r}>" for r in GMM_SMALL_ROWS)
 # cores; the bf16 kernels of decode_attention.cu and moe_gmm_small.cu on
 # the CUDA cores), by the names ``_bf16_kernel_name`` gives their symbols.
 BF16_TENSOR_CORE_KERNELS = (*(f"flash_fwd_bf16_kernel<{d}>" for d in (32, 64, 128)),
-                            "gmm_rows_bf16_kernel",
+                            "gmm_tile_bf16_kernel",
                             *(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq")
                               for d in (32, 64, 128)))
-# The bf16 RWKV-6 kernels of rwkv6.cu (CUDA cores), and the bf16 kernels
-# that must hold no stack frame or spill: the flash forward and backward at
-# the paths' head dims and RWKV-6 at every head size.
+# The bf16 RWKV-6 kernels of rwkv6.cu (CUDA cores), the small-group bf16
+# kernels of moe_gmm_small.cu, and the bf16 kernels that must hold no stack
+# frame or spill: the flash forward and backward at the paths' head dims,
+# the tile kernel, RWKV-6 at every head size and the small-group kernels.
 BF16_RWKV6_KERNELS = tuple(f"rwkv6_{k}_bf16_kernel<{n}>" for k in ("fwd", "bwd") for n in (16, 32, 64))
+BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
 BF16_NO_SPILL = (*(f"flash_{k}_bf16{s}_kernel<{d}>" for k, s in (("fwd", ""), ("bwd", "_dkdv"),
                                                                    ("bwd", "_dq")) for d in (64, 128)),
-                 *BF16_RWKV6_KERNELS)
-# The bf16 flash kernels redesigned for Hopper (warpgroup products on tiles
-# that TMA lands swizzled): each must show bf16 HGMMA in its SASS, not
-# merely the warp-level HMMA of mma.sync.
-BF16_HGMMA_KERNELS = tuple(name for name in BF16_TENSOR_CORE_KERNELS if name.startswith("flash_"))
-BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
+                 "gmm_tile_bf16_kernel", *BF16_RWKV6_KERNELS, *BF16_SMALL_KERNELS)
+# The bf16 kernels redesigned for Hopper (warpgroup products on tiles that
+# TMA lands swizzled): the flash kernels and the grouped matmul's tile
+# kernel, each must show bf16 HGMMA in its SASS, not merely the warp-level
+# HMMA of mma.sync.
+BF16_HGMMA_KERNELS = BF16_TENSOR_CORE_KERNELS
 BF16_DECODE_KERNELS = tuple(f"decode_attention_bf16_kernel<{h},{c}>"
                             for h in (1, 2, 4, 8) for c in (1, 2))
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
@@ -1179,7 +1183,7 @@ def _small_gmm_name(symbol: str):
 
 
 def _bf16_kernel_name(symbol: str):
-    """``flash_fwd_bf16_kernel<128>``, ``gmm_rows_bf16_kernel``,
+    """``flash_fwd_bf16_kernel<128>``, ``gmm_tile_bf16_kernel``,
     ``gmm_small_bf16_kernel<2>`` or ``decode_attention_bf16_kernel<8,1>``
     from a mangled kernel symbol of the bf16 sources, or None."""
     for pattern, fmt in ((r"(flash_fwd_bf16_kernel|flash_bwd_bf16_dkdv_kernel|flash_bwd_bf16_dq_kernel"
@@ -1189,7 +1193,7 @@ def _bf16_kernel_name(symbol: str):
         m = re.search(pattern, symbol)
         if m:
             return fmt.format(*m.groups())
-    return "gmm_rows_bf16_kernel" if "gmm_rows_bf16_kernel" in symbol else None
+    return "gmm_tile_bf16_kernel" if "gmm_tile_bf16_kernel" in symbol else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -1231,7 +1235,7 @@ def _bf16_kernel_usage(log: str, library: str) -> dict:
         for name in BF16_HGMMA_KERNELS:
             _require(usage[name].get("hgmma_bf16", 0) > 0,
                      f"{name}: no bf16 HGMMA (wgmma) instruction in its SASS ({usage[name]})")
-    for name in BF16_SMALL_KERNELS + BF16_NO_SPILL:
+    for name in BF16_NO_SPILL:
         _require(usage[name].get("stack", 1) == 0 and usage[name].get("spill_stores", 1) == 0,
                  f"{name}: a stack frame or spills ({usage[name]}): a register array in local memory")
     return usage
@@ -2054,9 +2058,11 @@ def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
     import torch
 
     from repro_torch.kernels.moe_gmm import (
+        SMALL_COLS,
         moe_gmm_cuda,
         moe_gmm_plain,
         moe_gmm_small_cuda,
+        small_chunks,
         small_rows,
     )
 
@@ -2090,11 +2096,14 @@ def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
     def tile():
         return moe_gmm_cuda(x, w, gs, block_m=128)
 
+    # bf16 splits D into the chunks that fill the SMs' last wave; float32 not.
+    chunks = small_chunks(x.device, D, F, E, small_rows(block_m)) if bf16 else 1
     tile_ms, _, _ = _device_ms_retried(tile, kernel_iters)
     tile_call_ms = _time_ms(tile, iters=kernel_iters, warmup=2)
     return {
         "shape": [T, D, F, E], "groups": sizes, "tail": tail, "block_m": block_m,
-        "rows_a_chunk": small_rows(block_m), "blocks": [-(-F // 128), E + 1],
+        "rows_a_chunk": small_rows(block_m), "chunks": chunks,
+        "blocks": -(-F // SMALL_COLS) * (E * chunks + 1),
         "max_abs_err": err, "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by,
         "bytes": nbytes, "flops": flops,
         **_timings(lambda: moe_gmm_small_cuda(x, w, gs, block_m), lambda: moe_gmm_plain(x, w, gs),
@@ -2372,7 +2381,8 @@ def _bf16_kernel_cases(out: dict) -> None:
     window, with a q_offset and at a ragged S, Phi's and Qwen3-14B's, and at
     D = 64 and 32; decode attention at the serve steps' heads and window and
     at phase 3's masks; the tile kernel at DeepSeek's and Jamba's prefill
-    products, Phi's and the ragged groups; the small-group kernel at
+    products, Phi's, the ragged groups and D = 1,000, F = 1,416 (TMA's
+    edges); the small-group kernel at
     ``_gmm_small_cases``.  Then ``_mixed_dtypes_refused``."""
     t0 = time.perf_counter()
     flash = functools.partial(_flash_fwd_case, bf16=True)
@@ -2412,6 +2422,7 @@ def _bf16_kernel_cases(out: dict) -> None:
         gmm([T // E] * E, D, F, 250, 10), gmm([T // E] * E, F, D, 251, 10),
         gmm(ragged, 1024, 1536, 252, 20, 600, 0), gmm(ragged, 1024, 1536, 253, 20, 0, 250),
         gmm([1280, 1000, 1280, 1280], D, F, 254, 20),
+        gmm(ragged, 1000, 1416, 257, 20, 600, 5),
     ]
     out["moe_gmm_small_bf16"] = _gmm_small_cases(bf16=True)
     # The bf16 pretraining paths' shapes: the flash backward at Qwen3-14B's,
@@ -2583,8 +2594,9 @@ def phase_kernels() -> dict:
                 print(f"  SM clock / power / temperature around its readings: "
                       f"{[tuple(x.values()) for x in c['clocks']]}")
             if "tile_ms" in c:
-                print(f"  block_m {c['block_m']}: {c['rows_a_chunk']} rows a chunk, grid "
-                      f"{c['blocks']}; the 128-row-tile kernel on the same inputs "
+                print(f"  block_m {c['block_m']}: {c['rows_a_chunk']} rows a chunk, "
+                      f"{c['chunks']} chunks of D, {c['blocks']} blocks; the 128-row-tile "
+                      f"kernel on the same inputs "
                       f"{c['tile_ms']} ms ({c['tile_ms_from']})")
     out["gmm_bwd_einsums_bf16"] = einsums  # no kernel: the reference's einsums at bf16
     return out

@@ -90,7 +90,10 @@ _SIGNATURES = {
     "flash_attention_bf16_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
     "decode_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "moe_gmm_bf16_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "moe_gmm_small_bf16_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # x, w, ends, out, work, tickets, T, D, F, E, rmax, chunks, stream
+    "moe_gmm_small_bf16_launch": [_P] * 6 + [_I] * 6 + [_P],
+    # D, F, E, rmax -> the chunks of D of a bf16 call, into an int
+    "moe_gmm_small_bf16_chunks": [_I] * 4 + [_P],
     "flash_attention_bf16_bwd_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
     "rwkv6_bf16_fwd_launch": [_P] * 9 + [_I] * 5 + [_P],
     "rwkv6_bf16_bwd_launch": [_P] * 14 + [_I] * 5 + [_P],

@@ -28,8 +28,10 @@ tensors take the plain versions through ``repro_torch.kernels.ops``.
 
 The forward also takes bfloat16 ``x`` and ``w`` (the zoo's default dtype),
 on bf16 kernels of the same two routes, ``csrc/moe_gmm_bf16.cu`` (``wgmma``
-with bf16 operands, one pass, fp32 sums) and ``csrc/moe_gmm_small.cu``'s
-bf16 kernel (w streamed as bf16, fp32 FMAs), the output rounded to bf16 once, as the
+with bf16 operands from TMA-fed, swizzled tiles, one pass, fp32 sums) and
+``csrc/moe_gmm_small.cu``'s bf16 kernel (w streamed as bf16, fp32 FMAs, D
+split into ``small_chunks`` runs whose fp32 partials the last unit of each
+(group, slab) adds in a fixed order), the output rounded to bf16 once, as the
 TPU kernel widens its operands and rounds its output (``moe_gmm.py:27-31``);
 D and F must then be multiples of 8.  ``moe_gmm_plain`` computes the same
 in float32 and rounds once.  Mixed dtypes raise; dX and dW take float32
@@ -38,9 +40,11 @@ only (their bf16 kernels belong to the bf16 training slice, ``ROADMAP.md``).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check, load_library
+from repro_torch.kernels.build import LaunchCounter, check, load_library, zeroed_tickets
 
 __all__ = [
     "gmm_route",
@@ -74,6 +78,7 @@ ROW_TILE = 128  # rows per output tile of the kernels (kBM in moe_gmm.cu)
 # at DeepSeek-V2-Lite's and Jamba's decode products (PERF.md).
 SMALL_BLOCK_M = 16
 SMALL_MAX_ROWS = 16  # most rows a chunk of the small kernel holds in registers
+SMALL_COLS = 128  # columns of F a unit of the small kernel owns (kCols)
 
 
 def _groups(group_sizes: torch.Tensor):
@@ -205,14 +210,47 @@ def moe_gmm_small_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tens
     if block_m < 1:
         raise ValueError(f"moe_gmm_small_cuda: block_m must be at least 1, got {block_m}")
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
-    if T:
-        ends = _ends(group_sizes, T).to(torch.int32)
-        name, counters = (("moe_gmm_small_bf16_launch",
-                           (MOE_GMM_BF16_LAUNCHES, MOE_GMM_SMALL_BF16_LAUNCHES)) if bf16 else
-                          ("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES)))
-        _launch(name, counters, x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(),
-                out.data_ptr(), T, D, F, E, small_rows(block_m))
+    if not T:
+        return out
+    ends = _ends(group_sizes, T).to(torch.int32)
+    rmax = small_rows(block_m)
+    if not bf16:
+        _launch("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES), x.device,
+                x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), T, D, F, E, rmax)
+        return out
+    # bf16: D split into the chunks that fill the card's last wave, each
+    # chunk's fp32 partials in `work`, added in chunk order by the last unit
+    # of each (group, column slab) to take its ticket.
+    chunks = small_chunks(x.device, D, F, E, rmax)
+    work_ptr = tickets_ptr = None
+    if chunks > 1:
+        work = torch.empty(chunks * T * F, dtype=torch.float32, device=x.device)
+        work_ptr = work.data_ptr()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets_ptr = zeroed_tickets(x.device, stream, E * -(-F // SMALL_COLS)).data_ptr()
+    _launch("moe_gmm_small_bf16_launch", (MOE_GMM_BF16_LAUNCHES, MOE_GMM_SMALL_BF16_LAUNCHES),
+            x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), work_ptr,
+            tickets_ptr, T, D, F, E, rmax, chunks)
     return out
+
+
+_chunks: dict = {}
+
+
+def small_chunks(device: torch.device, D: int, F: int, E: int, rmax: int) -> int:
+    """The chunks of D the bf16 small-group kernel splits a call into on
+    ``device`` (``moe_gmm_small.cu``'s ``pick_chunks``: the fewest whose
+    units fill the last wave of its resident blocks at least 7/8), cached
+    by shape."""
+    key = (device.index, D, F, E, rmax)
+    if key not in _chunks:
+        lib = load_library()
+        chunks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.moe_gmm_small_bf16_chunks(D, F, E, rmax, ctypes.byref(chunks))
+        check(lib, rc, "moe_gmm_small_bf16_chunks")
+        _chunks[key] = chunks.value
+    return _chunks[key]
 
 
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,

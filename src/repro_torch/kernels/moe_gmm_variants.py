@@ -57,6 +57,34 @@ product (the crossover).
 
     PYTHONPATH=src python -m repro_torch.kernels.moe_gmm_variants --sweep [--out f.json]
 
+With ``--bf16`` it times the bf16 kernels instead, each design's library
+built by its own nvcc, all at once, and none linked into the package's:
+
+* the tile kernel (``csrc/moe_gmm_bf16.cu``: warp-specialised ``wgmma`` on
+  TMA-fed, 128-byte-swizzled tiles) as shipped and with 3 or 5 stages or a
+  block a tile instead of a persistent grid (``BF16_TILE_VARIANTS``), beside the design it
+  replaced, ``variants/moe_gmm_bf16_core_matrices.cu`` (w's tile rewritten
+  into core matrices each K tile), and ``torch.bmm``, at DeepSeek-V2-Lite's
+  prefill and learner products, Phi-3.5-MoE's and Jamba's prefill products,
+  up and down;
+* the small-group kernel (``csrc/moe_gmm_small.cu``'s bf16 kernel: the
+  full waves' (group, slab) pairs whole, the last wave's split into the
+  chunks of D that fill it), the same with the last wave's pairs in 1-4
+  chunks, and a persistent grid of equal shares of all the steps
+  (``variants/moe_gmm_small_bf16_persistent.cu``, run at its own grid),
+  beside the grid it replaced,
+  ``variants/moe_gmm_small_bf16_slab_grid.cu`` (a block for each 128-column
+  slab and expert), and ``torch.bmm``, at the four decode products
+  (2-row groups).
+
+For each it prints the milliseconds a call (CUDA events over back-to-back
+calls after warm-up, the designs in turns, ``ROUNDS`` rounds), the max abs
+error against ``moe_gmm_plain`` (fp32 sums of the widened operands, rounded
+once) and whether it is within the phase-3 gate (2^-7, atol = rtol), and
+whether two calls agree bitwise, with the card's name and power limit.
+
+    PYTHONPATH=src python -m repro_torch.kernels.moe_gmm_variants --bf16 [--out f.json]
+
 Needs a CUDA device and nvcc; the extra libraries are built under
 ``kernels/_build/``, one nvcc each, all at once.
 """
@@ -65,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import re
@@ -81,6 +110,7 @@ from repro_torch.kernels.moe_gmm import (
     moe_gmm_dx_plain,
     moe_gmm_plain,
     moe_gmm_small_cuda,
+    small_chunks,
     small_rows,
 )
 
@@ -103,7 +133,7 @@ VARIANTS = {
     ],
 }
 SMALL_BOUNDS = "__launch_bounds__(kThreads, RMAX <= 2 ? 4 : RMAX <= 8 ? 3 : 2)"
-SMALL_LOOP = "#pragma unroll 1\n  for (int d = E::kDepth * warp; d < D; d += kStep) {"
+SMALL_LOOP = "#pragma unroll 1\n  for (int d = d0 + E::kDepth * warp; d < d1; d += kStep) {"
 SMALL_VARIANTS = {
     "shipped": [],
     "five_blocks": [(SMALL_BOUNDS, SMALL_BOUNDS.replace("RMAX <= 2 ? 4", "RMAX <= 2 ? 5"))],
@@ -319,6 +349,179 @@ def sweep() -> dict:
     return {"cases": cases, "small_faster_at": wins, "crossover_rows": crossover}
 
 
+_VARIANT_DIR = Path(__file__).resolve().parent / "variants"
+TILE_BF16 = build.CSRC_DIR / "moe_gmm_bf16.cu"
+SMALL_BF16 = build.CSRC_DIR / "moe_gmm_small.cu"
+# The bf16 tile kernel's designs: name -> (source, entry point, edits of the
+# source), each entry point taking moe_gmm_bf16_launch's arguments.
+BF16_TILE_VARIANTS = {
+    "shipped": (TILE_BF16, "moe_gmm_bf16_launch", []),
+    "stages3": (TILE_BF16, "moe_gmm_bf16_launch",
+                [("constexpr int kStages = 4;", "constexpr int kStages = 3;")]),
+    "stages5": (TILE_BF16, "moe_gmm_bf16_launch",
+                [("constexpr int kStages = 4;", "constexpr int kStages = 5;")]),
+    "block_a_tile": (TILE_BF16, "moe_gmm_bf16_launch",
+                     [("const int64_t grid = tiles < sms ? tiles : sms;",
+                       "const int64_t grid = tiles;")]),
+    "core_matrices": (_VARIANT_DIR / "moe_gmm_bf16_core_matrices.cu",
+                      "moe_gmm_bf16_core_matrices_launch", []),
+}
+# The bf16 small-group kernel's designs, each entry point taking
+# moe_gmm_small_bf16_launch's arguments.
+BF16_SMALL_VARIANTS = {
+    "shipped": (SMALL_BF16, "moe_gmm_small_bf16_launch", []),
+    "persistent": (_VARIANT_DIR / "moe_gmm_small_bf16_persistent.cu",
+                   "moe_gmm_small_bf16_persistent_launch", []),
+    "slab_grid": (_VARIANT_DIR / "moe_gmm_small_bf16_slab_grid.cu",
+                  "moe_gmm_small_bf16_slab_grid_launch", []),
+}
+BF16_ENTRY = {"tile": "moe_gmm_bf16_launch", "small": "moe_gmm_small_bf16_launch"}
+# The tile kernel's path products, [T, D] x [E, D, F] (up; down swaps D, F).
+BF16_TILE_SHAPES = {"deepseek prefill": (49152, 2048, 1408, 64),
+                    "deepseek learner": (61440, 2048, 1408, 64),
+                    "phi learner": (20480, 4096, 6400, 16),
+                    "jamba prefill": (16384, 4096, 14336, 16)}
+BF16_TOL = 2.0 ** -7
+BF16_ITERS = {"tile": 10, "small": 50}
+
+
+def _build_bf16(variants: dict, like: str) -> dict:
+    """Every design's library, one nvcc each, all at once; prints each
+    one's registers and spills."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (src, entry, edits) in variants.items():
+        text = src.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{src.name} no longer holds {old!r} once")
+            text = text.replace(old, new)
+        path = build.BUILD_DIR / f"{src.stem}_bf16_{name}.cu"
+        path.write_text(text)
+        lib_path = build.BUILD_DIR / f"lib{src.stem}_bf16_{name}.so"
+        procs[name] = (entry, lib_path, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(path),
+             str(build.CSRC_DIR / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (entry, lib_path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        usage = re.findall(r"Compiling entry function '(\w*bf16\w*)'[\s\S]*?"
+                           r"(\d+) bytes stack frame, (\d+) bytes spill stores[\s\S]*?"
+                           r"Used (\d+) registers", log)
+        print(f"variant {name}: " + "; ".join(f"{k[:48]} regs {r} stack {st} spills {sp}"
+                                              for k, st, sp, r in usage)
+              + (" (ptxas: wgmma serialized)" if "serialized" in log else ""), flush=True)
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, entry)
+        fn.argtypes = build._SIGNATURES[like]
+        fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        libs[name] = (lib, fn)
+    return libs
+
+
+def _bf16_case(calls: dict, want, out, iters: int) -> dict:
+    """Each call of ``calls`` (name -> fn writing ``out``) against ``want``:
+    max abs error, within the gate, bitwise equal across two calls, and ms a
+    call in ``ROUNDS`` rounds of turns."""
+    results = {}
+    for name, call in calls.items():
+        if name == "bmm":
+            results[name] = {"ms": []}
+            continue
+        out.zero_()
+        call()
+        first = out.clone()
+        call()
+        torch.cuda.synchronize()
+        results[name] = {
+            "max_abs_err": float((first.float() - want.float()).abs().max()),
+            "within_gate": bool(torch.allclose(first.float(), want.float(), atol=BF16_TOL,
+                                               rtol=BF16_TOL)),
+            "bitwise_repeatable": bool(torch.equal(first, out)), "ms": []}
+        del first
+    for _ in range(ROUNDS):
+        for name, call in calls.items():
+            results[name]["ms"].append(_ms(call, iters))
+    for r in results.values():
+        r["mean_ms"] = sum(r["ms"]) / len(r["ms"])
+    return results
+
+
+def _print_bf16(kind: str, shape: str, results: dict) -> None:
+    for name, r in results.items():
+        gate = (f", err {r['max_abs_err']:.3e} within gate {r['within_gate']} bitwise "
+                f"{r['bitwise_repeatable']}" if "max_abs_err" in r else "")
+        print(f"{kind} {shape} {name}: {r['mean_ms']:.5f} ms (rounds "
+              f"{[round(m, 5) for m in r['ms']]}){gate}", flush=True)
+
+
+def bf16_variants() -> dict:
+    """The bf16 tile and small-group kernels beside their variants and
+    ``torch.bmm`` (see the module's note)."""
+    tile_libs = _build_bf16(BF16_TILE_VARIANTS, BF16_ENTRY["tile"])
+    small_libs = _build_bf16(BF16_SMALL_VARIANTS, BF16_ENTRY["small"])
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"tile": {}, "small": {}}
+    for label, (T, D, F, E) in BF16_TILE_SHAPES.items():
+        for product, (d, f) in (("up", (D, F)), ("down", (F, D))):
+            g = torch.Generator(device="cuda").manual_seed(d + f + T)
+            x = torch.randn((T, d), generator=g, device="cuda").bfloat16()
+            w = (torch.randn((E, d, f), generator=g, device="cuda") / math.sqrt(d)).bfloat16()
+            sizes = torch.full((E,), T // E, dtype=torch.int32, device="cuda")
+            ends, tile_ends = _offsets(sizes, T)
+            want = moe_gmm_plain(x, w, sizes)
+            res = torch.empty_like(want)
+            args = (x.data_ptr(), w.data_ptr(), ends.data_ptr(), tile_ends.data_ptr(),
+                    res.data_ptr(), T, d, f, E, stream)
+            calls = {name: (lambda fn=fn, lib=lib, name=name: build.check(lib, fn(*args), name))
+                     for name, (lib, fn) in tile_libs.items()}
+            calls["bmm"] = lambda: torch.bmm(x.view(E, T // E, d), w)
+            shape = f"{label} {product} [{T}, {d}] x [{E}, {d}, {f}]"
+            r = _bf16_case(calls, want, res, BF16_ITERS["tile"])
+            bound = max(2 * T * d * f / 989e12, 2 * (T * d + E * d * f + T * f) / 3.35e12) * 1e3
+            out["tile"][shape] = {"bound_ms": bound, "designs": r}
+            _print_bf16("tile", f"{shape} (bound {bound:.6f} ms)", r)
+            del x, w, want, res
+    for model, (E, D, F) in SWEEP_SHAPES.items():
+        for product, (d, f) in (("up", (D, F)), ("down", (F, D))):
+            g = torch.Generator(device="cuda").manual_seed(d + f)
+            x = torch.randn((2 * E, d), generator=g, device="cuda").bfloat16()
+            w = (torch.randn((E, d, f), generator=g, device="cuda") / math.sqrt(d)).bfloat16()
+            sizes = torch.full((E,), 2, dtype=torch.int32, device="cuda")
+            ends = torch.arange(2, 2 * E + 1, 2, dtype=torch.int32, device="cuda")
+            want = moe_gmm_plain(x, w, sizes)
+            res = torch.empty_like(want)
+            picked = small_chunks(x.device, d, f, E, small_rows(2))
+            work = torch.empty(max(4, picked) * 2 * E * f, dtype=torch.float32, device="cuda")
+            tickets = torch.zeros(E * -(-f // 128), dtype=torch.int32, device="cuda")
+
+            def launch(fn, lib, name, chunks):
+                build.check(lib, fn(x.data_ptr(), w.data_ptr(), ends.data_ptr(), res.data_ptr(),
+                                    work.data_ptr(), tickets.data_ptr(), 2 * E, d, f, E,
+                                    small_rows(2), chunks, stream), name)
+
+            lib, fn = small_libs["shipped"]
+            calls = {f"shipped ({picked} chunks)": functools.partial(launch, fn, lib, "shipped", picked)}
+            calls.update({f"{c} chunks": functools.partial(launch, fn, lib, "shipped", c)
+                          for c in (1, 2, 3, 4) if c != picked})
+            lib, fn = small_libs["persistent"]
+            calls["persistent"] = functools.partial(launch, fn, lib, "persistent", picked)
+            lib, fn = small_libs["slab_grid"]
+            calls["slab_grid"] = functools.partial(launch, fn, lib, "slab_grid", 1)
+            calls["bmm"] = lambda: torch.bmm(x.view(E, 2, d), w)
+            shape = f"{model} decode {product} [{2 * E}, {d}] x [{E}, {d}, {f}]"
+            r = _bf16_case(calls, want, res, BF16_ITERS["small"])
+            bound = 2 * (2 * E * d + E * d * f + 2 * E * f) / 3.35e12 * 1e3
+            out["small"][shape] = {"bound_ms": bound, "chunks": picked, "designs": r}
+            _print_bf16("small", f"{shape} (bound {bound:.6f} ms)", r)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write the results here as JSON")
@@ -326,6 +529,8 @@ def main() -> None:
                     help="run the group-size sweep of the two forward kernels instead")
     ap.add_argument("--small-variants", action="store_true",
                     help="time the small-group kernel's variants instead")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 tile and small-group kernels' designs instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("moe_gmm_variants: needs a CUDA device")
@@ -333,8 +538,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    if args.sweep or args.small_variants:
-        result = sweep() if args.sweep else {"small_variants": small_variants()}
+    if args.sweep or args.small_variants or args.bf16:
+        result = (sweep() if args.sweep else {"bf16": bf16_variants()} if args.bf16 else
+                  {"small_variants": small_variants()})
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps({"device": smi.stdout.strip(), **result},

@@ -1,0 +1,317 @@
+// The bf16 small-group kernel's grid that csrc/moe_gmm_small.cu replaced,
+// kept to be timed beside it (python -m repro_torch.kernels.moe_gmm_variants
+// --bf16) and never linked into the library: one block for each (128-column
+// slab, expert), D not split, plus a row of blocks for the zeros past the
+// last group.  Its entry point, moe_gmm_small_bf16_slab_grid_launch, takes
+// the arguments of the shipped moe_gmm_small_bf16_launch and ignores the
+// work buffer, the tickets and the chunks of D.
+//
+// Grouped matrix product at small groups for Hopper (sm_90a): the port of
+// the Pallas kernel repro/kernels/moe_gmm.py::moe_gmm_pallas (_gmm_kernel)
+// in its small-block configuration.  repro/models/moe.py::_gmm_matmul
+// passes block_m = B * C whenever B * C <= 128: at every MoE decode step
+// (batch 2, capacity 1) each expert's group is 2 rows.  moe_gmm.cu's
+// 128-row tiles are the port of the other configuration, block_m = 128.
+//
+// x [T, D] with its rows sorted into E expert-contiguous groups, w [E, D,
+// F]: out[t] = x[t] @ w[e(t)], e(t) the group that holds row t.  `ends` [E]
+// (int32, on the device) are the groups' running row ends cut at T, so
+// groups that run past row T are cut there; rows past the last group come
+// out zero; an empty group writes nothing.  float32 (moe_gmm_small_launch)
+// or bfloat16 (moe_gmm_small_bf16_launch: the dtype the reference's models
+// run it at, bf16 operands widened to fp32, summed in fp32 and the output
+// rounded to bf16 once, moe_gmm.py:27-31).  Needs D % 4 == 0 (bf16:
+// D % 8 == 0), F % 4 == 0 and 16-byte aligned tensors.
+//
+// Bound on the H100: bytes.  A call reads x and w once and writes out,
+// 4 * (T * D + E * D * F + T * F) bytes, against 2 * T * D * F flops, about
+// one flop a byte at 2-row groups.  At DeepSeek-V2-Lite's decode step,
+// [128, 2048] x [64, 2048, 1408], that is 0.740 GB, 0.2209 ms at 3.35 TB/s,
+// against 0.011 ms of fp32 FMAs at 67 TFLOP/s; at Jamba's [32, 4096] x
+// [16, 4096, 14336], 3.76 GB and 1.1225 ms against 0.056 ms.  The tensor
+// cores buy nothing here: moe_gmm.cu splits a whole D x 128 slab of w_e
+// into TF32 parts and runs 12 wgmma products for every 2 valid rows.
+// At bf16 the bytes are half: 0.370 GB, 0.1105 ms, at DeepSeek's step and
+// 1.88 GB, 0.5612 ms, at Jamba's.
+//
+// Design: stream each w_e once, with the group's rows in registers.  A
+// block of 8 warps owns one (expert, slab of 128 columns of F): lane l of
+// every warp owns columns 4l..4l+3 of the slab, and warp j takes the depths
+// four at a time, 4j, 4j + 32, ... (32 depths a block step), so a warp
+// reads four whole 512-byte row segments of w a step, with 16-byte
+// streaming loads (ld.global.cs: read once, evicted first, so that x stays
+// in L2).  A lane keeps an R x 4 chunk of sums in registers and,
+// each step, reads each row's four x values (one 16-byte load at the same
+// address across the warp: x is the small operand, read from L1 and L2)
+// and does 16 R fp32 FMAs: exact fp32, tighter than 3xTF32.  The 8 warps'
+// sums are added through shared memory in a fixed tree (warp w + warp
+// w + 4, then + 2, then + 1), and warp 0 writes the chunk.  A group of more
+// rows than RMAX is taken in chunks of RMAX, each streaming w_e again; a
+// chunk's R is the least power of two at or above the rows it holds, at most
+// RMAX, the kernel's template argument, which the wrapper takes from the
+// caller's block_m (kernels/moe_gmm.py::small_rows).  Each block finds its
+// group's rows from `ends` on the device, so the launch never waits to
+// learn the sizes, and a row block of E + 1 writes the zeros of the rows
+// past the last group.  The decode steps' products give 512-1,792 blocks,
+// 4-14 for each of 132 SMs, so D is not split.  Every sum runs in a fixed
+// order, with no floating-point atomics, so two calls are bitwise equal.
+// The kernel launches on the caller's stream and allocates nothing.
+//
+// bf16 (Elem<bf16>): a lane reads its four columns of eight depths of w a
+// step, each one 8-byte streaming load (64 bytes in flight a lane, as the
+// float32 kernel's four 16-byte loads; with four depths a step, half those
+// bytes in flight, DeepSeek's up product ran no faster on an H100 than the
+// float32 kernel, PERF.md), and each row's eight x values as one 16-byte
+// load, widens them exactly to fp32 and does 32 R fp32 FMAs.  The two
+// element types share every line of the design but these loads and the
+// store, and have kernels of their own names (ptxas and the SASS name each).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kCols = 128;  // columns of F a block owns, 4 a lane
+
+// What differs by element type: the depths of w a warp reads a step, a
+// lane's four columns of one depth as loaded (Raw) and widened, a row's
+// x values of a step's depths, and the store of four sums.
+template <typename Elt>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kDepth = 4;
+  using Raw = float4;
+  static __device__ __forceinline__ float4 load_w(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ float4 zero_w() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ float4 widen(const float4& w) { return w; }
+  static __device__ __forceinline__ void load_x(const float* p, bool in, float (&xs)[kDepth]) {
+    const float4 v = in ? __ldg(reinterpret_cast<const float4*>(p)) : zero_w();
+    xs[0] = v.x;
+    xs[1] = v.y;
+    xs[2] = v.z;
+    xs[3] = v.w;
+  }
+  static __device__ __forceinline__ void store4(float* p, const float (&a)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+
+template <>
+struct Elem<bf16> {
+  static constexpr int kDepth = 8;
+  using Raw = uint2;
+  static __device__ __forceinline__ uint2 load_w(const bf16* p) {
+    return __ldcs(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ uint2 zero_w() { return make_uint2(0u, 0u); }
+  // Four bf16 values widened (exactly) to fp32.
+  static __device__ __forceinline__ float4 widen(const uint2& u) {
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ void load_x(const bf16* p, bool in, float (&xs)[kDepth]) {
+    const uint4 u = in ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+    const float4 lo = widen(make_uint2(u.x, u.y)), hi = widen(make_uint2(u.z, u.w));
+    xs[0] = lo.x;
+    xs[1] = lo.y;
+    xs[2] = lo.z;
+    xs[3] = lo.w;
+    xs[4] = hi.x;
+    xs[5] = hi.y;
+    xs[6] = hi.z;
+    xs[7] = hi.w;
+  }
+  // Four fp32 values rounded to bf16 at p.
+  static __device__ __forceinline__ void store4(bf16* p, const float (&a)[4]) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                              *reinterpret_cast<const uint32_t*>(&hi));
+  }
+};
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float x, const float4& w) {
+  acc[0] = fmaf(x, w.x, acc[0]);
+  acc[1] = fmaf(x, w.y, acc[1]);
+  acc[2] = fmaf(x, w.z, acc[2]);
+  acc[3] = fmaf(x, w.w, acc[3]);
+}
+
+// One chunk of `rows` <= R rows (x and o at the chunk's first row): o[r] =
+// x[r] @ w in this block's columns.  `red`
+// holds 4 x R x kCols floats.
+template <int R, typename Elt>
+__device__ void gmm_chunk(const Elt* __restrict__ x, int D, int rows, const Elt* __restrict__ wg,
+                          int F, int col, bool col_ok, Elt* __restrict__ o, float* red) {
+  using E = Elem<Elt>;
+  constexpr int kStep = E::kDepth * kWarps;  // depths of w a block reads a step
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll 1
+  for (int d = E::kDepth * warp; d < D; d += kStep) {
+    typename E::Raw wr[E::kDepth];  // the step's rows of w, as loaded
+#pragma unroll
+    for (int k = 0; k < E::kDepth; ++k)
+      wr[k] = col_ok ? E::load_w(wg + static_cast<size_t>(d + k) * F + col) : E::zero_w();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float xs[E::kDepth];
+      E::load_x(x + static_cast<size_t>(r) * D + d, r < rows, xs);
+#pragma unroll
+      for (int k = 0; k < E::kDepth; ++k) fma4(acc[r], xs[k], E::widen(wr[k]));
+    }
+  }
+  // The warps' sums in a fixed tree: w += w + half, half = 4, 2, 1.
+#pragma unroll
+  for (int half = kWarps / 2; half >= 1; half /= 2) {
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float4*>(red + ((warp - half) * R + r) * kCols + 4 * lane) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    if (warp < half) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(red + (warp * R + r) * kCols + 4 * lane);
+        acc[r][0] += v.x;
+        acc[r][1] += v.y;
+        acc[r][2] += v.z;
+        acc[r][3] += v.w;
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && col_ok) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rows) E::store4(o + static_cast<size_t>(r) * F + col, acc[r]);
+  }
+}
+
+// gmm_chunk at the least power of two R >= rows, R <= RMAX.
+template <int R, int RMAX, typename Elt>
+__device__ void gmm_chunk_at(const Elt* x, int D, int rows, const Elt* wg, int F, int col,
+                             bool col_ok, Elt* o, float* red) {
+  if constexpr (R > 1) {
+    if (rows <= R / 2) {
+      gmm_chunk_at<R / 2, RMAX>(x, D, rows, wg, F, col, col_ok, o, red);
+      return;
+    }
+  }
+  gmm_chunk<R>(x, D, rows, wg, F, col, col_ok, o, red);
+}
+
+// Block (column slab, group); group E (the last row of blocks) writes the
+// zeros of the rows past the last group.
+template <int RMAX, typename Elt>
+__device__ __forceinline__ void gmm_small(const Elt* __restrict__ x, const Elt* __restrict__ w,
+                                          const int* __restrict__ ends, Elt* __restrict__ out,
+                                          int T, int D, int F, int E) {
+  __shared__ __align__(16) float red[4 * RMAX * kCols];
+  const int col = blockIdx.x * kCols + 4 * (threadIdx.x % 32);
+  const bool col_ok = col < F;
+  const int e = blockIdx.y;
+  if (e == E) {  // the zeros of rows [ends[E - 1], T)
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    if (col_ok)
+      for (int r = ends[E - 1] + threadIdx.x / 32; r < T; r += kWarps)
+        Elem<Elt>::store4(out + static_cast<size_t>(r) * F + col, zero);
+    return;
+  }
+  const int begin = e ? ends[e - 1] : 0, end = ends[e];
+  const Elt* wg = w + static_cast<size_t>(e) * D * F;
+  for (int r0 = begin; r0 < end; r0 += RMAX)
+    gmm_chunk_at<RMAX, RMAX>(x + static_cast<size_t>(r0) * D, D, min(RMAX, end - r0), wg, F, col,
+                             col_ok, out + static_cast<size_t>(r0) * F, red);
+}
+
+// A thread holds RMAX x 4 sums, a step's 16 w values and the rows' x
+// values: within 64 registers (4 blocks an SM) at RMAX 2, 85 at 4 and 8,
+// 128 at 16.
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads, RMAX <= 2 ? 4 : RMAX <= 8 ? 3 : 2)
+    gmm_small_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const int* __restrict__ ends, float* __restrict__ out, int T, int D, int F,
+                     int E) {
+  gmm_small<RMAX>(x, w, ends, out, T, D, F, E);
+}
+
+// At bf16 a step's 32 w values take 16 registers (widened as used): within
+// 64 registers at RMAX 2, 85 at 4, 128 at 8 and 255 at 16 (capped at 85,
+// RMAX 8 spilled, and at 128 RMAX 16, even reading four depths a step).  A
+// decode step's groups take RMAX 2.
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads, RMAX <= 2 ? 4 : RMAX <= 4 ? 3 : RMAX <= 8 ? 2 : 1)
+    gmm_small_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                          const int* __restrict__ ends, bf16* __restrict__ out, int T, int D,
+                          int F, int E) {
+  gmm_small<RMAX>(x, w, ends, out, T, D, F, E);
+}
+
+// The kernel of an element type.
+template <int RMAX, typename Elt>
+auto entry() {
+  if constexpr (std::is_same_v<Elt, bf16>) return gmm_small_bf16_kernel<RMAX>;
+  else return gmm_small_kernel<RMAX>;
+}
+
+template <int RMAX, typename Elt>
+cudaError_t launch(const Elt* x, const Elt* w, const int* ends, Elt* out, int T, int D, int F,
+                   int E, cudaStream_t stream) {
+  const dim3 grid((F + kCols - 1) / kCols, E + 1);
+  const auto kernel = entry<RMAX, Elt>();
+  kernel<<<grid, kThreads, 0, stream>>>(x, w, ends, out, T, D, F, E);
+  return cudaGetLastError();
+}
+
+template <typename Elt>
+int launch_rows(const void* x, const void* w, const void* ends, void* out, int T, int D, int F,
+                int E, int rmax, void* stream) {
+  if (T == 0) return static_cast<int>(cudaSuccess);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xt = static_cast<const Elt*>(x);
+  const auto* wt = static_cast<const Elt*>(w);
+  const auto* ei = static_cast<const int*>(ends);
+  Elt* ot = static_cast<Elt*>(out);
+  switch (rmax) {
+    case 1: return static_cast<int>(launch<1>(xt, wt, ei, ot, T, D, F, E, s));
+    case 2: return static_cast<int>(launch<2>(xt, wt, ei, ot, T, D, F, E, s));
+    case 4: return static_cast<int>(launch<4>(xt, wt, ei, ot, T, D, F, E, s));
+    case 8: return static_cast<int>(launch<8>(xt, wt, ei, ot, T, D, F, E, s));
+    case 16: return static_cast<int>(launch<16>(xt, wt, ei, ot, T, D, F, E, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// out [T, F] = x [T, D] grouped by `ends` times w [E, D, F], all bf16:
+// `ends` [E] are the groups' running row ends cut at T (int32, on the
+// device); `rmax` (1, 2, 4, 8 or 16) the most rows a chunk holds.
+extern "C" int moe_gmm_small_bf16_slab_grid_launch(const void* x, const void* w, const void* ends,
+                                                   void* out, void* work, void* tickets, int T,
+                                                   int D, int F, int E, int rmax, int chunks,
+                                                   void* stream) {
+  (void)work;
+  (void)tickets;
+  (void)chunks;
+  if (T < 0 || D < 1 || F < 1 || E < 1 || D % 8 || F % 4 || E > 65534)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<bf16>(x, w, ends, out, T, D, F, E, rmax, stream);
+}

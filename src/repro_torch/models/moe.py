@@ -99,9 +99,9 @@ class GmmMatmul(torch.autograd.Function):
     the grouped rows, so the forward saves them and not ``xe``.  At bf16 on
     the card it computes the reference's two einsums themselves, in bf16,
     each rounded to its input's dtype: the reference computes them outside
-    any Pallas kernel, and the port's bf16 tile kernel runs at 3.4-3.8x
-    ``torch.bmm`` (``PERF.md``), so a grouped backward kernel on it would
-    slow every step."""
+    any Pallas kernel, and the port's bf16 tile kernel runs at 1.3-1.5x
+    ``torch.bmm`` (``PERF.md``): a dX kernel on it would run at the
+    einsum's time (``ROADMAP.md`` B-2)."""
 
     @staticmethod
     def forward(ctx, xe, w):
