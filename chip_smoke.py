@@ -640,6 +640,11 @@ SERVE_BF16_DECODE_ATTENTION = {_BF16_CASE[p]: SERVE_DECODE_ATTENTION[p]
                                for p in ("serve_jamba", "serve_nemotron")}
 PATH_SHAPES["flash_attention_fwd_bf16"] = {p: list(s) for p, s in SERVE_BF16_PREFILL_ATTENTION.items()}
 PATH_SHAPES["decode_attention_bf16"] = {p: list(s) for p, s in SERVE_BF16_DECODE_ATTENTION.items()}
+# The bf16 decode shapes of the serve cases that have no bf16 run yet
+# (Qwen1.5-32B's 40/40, MusicGen's D = 64, LLaVA's 56/8 at W 3,408): phase 3
+# holds the bf16 decode kernel to its plain version there, SDPA beside it.
+BF16_DECODE_NEXT = {p: SERVE_DECODE_ATTENTION[p] for p in ("serve_qwen32_int8", "serve_musicgen",
+                                                           "serve_llava")}
 PATH_SHAPES["moe_gmm_bf16"] = {_BF16_CASE[p]: [list(ups[0]), _down(ups[0])]
                                for p, ups in SERVE_GMM_UP.items()}
 PATH_SHAPES["moe_gmm_small_bf16"] = {_BF16_CASE[p]: [list(up), _down(up)]
@@ -907,6 +912,12 @@ def _smi_sample() -> dict:
                     (float(f) for f in fields))) if len(fields) == 3 else {}
 
 
+# Seconds that ``_timings`` spends timing kernels and their plain versions,
+# by the case function that called it: [kernel s, plain s, calls].  Phase 3
+# prints them, to show where its time goes.
+TIMING_SECONDS: dict = {}
+
+
 def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
              plain_profile: bool = True, clocks: bool = False) -> dict:
     """Kernel and plain version: device ms per call (profiler) and ms per
@@ -922,6 +933,7 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
     before the event time stands in.  With ``clocks``, the card's SM clock,
     power draw and temperature before and after each of the kernel's three
     readings."""
+    t0 = time.perf_counter()
     samples = [_smi_sample()] if clocks else []
     t = {"call_ms": _time_ms(kernel, iters=kernel_iters, warmup=min(10, kernel_iters))}
     samples += [_smi_sample()] if clocks else []
@@ -933,9 +945,14 @@ def _timings(kernel, plain, plain_iters: int, kernel_iters: int = 200,
         t["clocks"] = samples + [_smi_sample()]
     # A plain version that is not profiled (thousands of launches a call) is
     # already warm from the case's check: no warmup call.
+    t1 = time.perf_counter()
     t["plain_call_ms"] = _time_ms(plain, iters=plain_iters, warmup=2 if plain_profile else 0)
     t["plain_device_ms"], t["plain_records_lost"], t["plain_profile_retries"] = (
         _device_ms_retried(plain, plain_iters) if plain_profile else (None, None, 0))
+    case = TIMING_SECONDS.setdefault(sys._getframe(1).f_code.co_name, [0.0, 0.0, 0])
+    case[0] += t1 - t0
+    case[1] += time.perf_counter() - t1
+    case[2] += 1
     for key, device, call in (("ms", "device_ms", "call_ms"),
                               ("plain_ms", "plain_device_ms", "plain_call_ms")):
         profiled = t[device] is not None
@@ -1138,29 +1155,32 @@ RWKV6_TILE, RWKV6_SUB, RWKV6_MARKS = 32, 16, 4
 # memory.
 GMM_SMALL_ROWS = (1, 2, 4, 8, 16)
 GMM_SMALL_KERNELS = tuple(f"gmm_small_kernel<{r}>" for r in GMM_SMALL_ROWS)
-# The bf16 kernels (flash_attention_bf16.cu, moe_gmm_bf16.cu on the tensor
-# cores; the bf16 kernels of decode_attention.cu and moe_gmm_small.cu on
-# the CUDA cores), by the names ``_bf16_kernel_name`` gives their symbols.
+# The bf16 kernels (flash_attention_bf16.cu, moe_gmm_bf16.cu and
+# decode_attention_bf16.cu on the tensor cores; the bf16 kernel of
+# moe_gmm_small.cu on the CUDA cores), by the names ``_bf16_kernel_name``
+# gives their symbols.  The bf16 decode kernel runs its products on
+# mma.sync (bf16 HMMA), one kernel a padded head dim (64, 128).
+BF16_DECODE_KERNELS = ("decode_bf16_kernel<64>", "decode_bf16_kernel<128>")
 BF16_TENSOR_CORE_KERNELS = (*(f"flash_fwd_bf16_kernel<{d}>" for d in (32, 64, 128)),
                             "gmm_tile_bf16_kernel",
                             *(f"flash_bwd_bf16_{k}_kernel<{d}>" for k in ("dkdv", "dq")
-                              for d in (32, 64, 128)))
+                              for d in (32, 64, 128)), *BF16_DECODE_KERNELS)
 # The bf16 RWKV-6 kernels of rwkv6.cu (CUDA cores), the small-group bf16
 # kernels of moe_gmm_small.cu, and the bf16 kernels that must hold no stack
 # frame or spill: the flash forward and backward at the paths' head dims,
-# the tile kernel, RWKV-6 at every head size and the small-group kernels.
+# the tile kernel, the decode kernels, RWKV-6 at every head size and the
+# small-group kernels.
 BF16_RWKV6_KERNELS = tuple(f"rwkv6_{k}_bf16_kernel<{n}>" for k in ("fwd", "bwd") for n in (16, 32, 64))
 BF16_SMALL_KERNELS = tuple(f"gmm_small_bf16_kernel<{r}>" for r in GMM_SMALL_ROWS)
 BF16_NO_SPILL = (*(f"flash_{k}_bf16{s}_kernel<{d}>" for k, s in (("fwd", ""), ("bwd", "_dkdv"),
                                                                    ("bwd", "_dq")) for d in (64, 128)),
-                 "gmm_tile_bf16_kernel", *BF16_RWKV6_KERNELS, *BF16_SMALL_KERNELS)
-# The bf16 kernels redesigned for Hopper (warpgroup products on tiles that
+                 "gmm_tile_bf16_kernel", *BF16_DECODE_KERNELS, *BF16_RWKV6_KERNELS,
+                 *BF16_SMALL_KERNELS)
+# The bf16 kernels redesigned for Hopper on warpgroup products (tiles that
 # TMA lands swizzled): the flash kernels and the grouped matmul's tile
 # kernel, each must show bf16 HGMMA in its SASS, not merely the warp-level
-# HMMA of mma.sync.
-BF16_HGMMA_KERNELS = BF16_TENSOR_CORE_KERNELS
-BF16_DECODE_KERNELS = tuple(f"decode_attention_bf16_kernel<{h},{c}>"
-                            for h in (1, 2, 4, 8) for c in (1, 2))
+# HMMA of mma.sync.  The decode kernels' products take 16 rows: mma.sync.
+BF16_HGMMA_KERNELS = tuple(k for k in BF16_TENSOR_CORE_KERNELS if k not in BF16_DECODE_KERNELS)
 SM_SMEM_BYTES = 233472  # 228 KB of shared memory on an H100 SM; 1 KB more per block
 SM_REGISTERS = 65536
 
@@ -1184,12 +1204,12 @@ def _small_gmm_name(symbol: str):
 
 def _bf16_kernel_name(symbol: str):
     """``flash_fwd_bf16_kernel<128>``, ``gmm_tile_bf16_kernel``,
-    ``gmm_small_bf16_kernel<2>`` or ``decode_attention_bf16_kernel<8,1>``
-    from a mangled kernel symbol of the bf16 sources, or None."""
+    ``gmm_small_bf16_kernel<2>`` or ``decode_bf16_kernel<128>`` from a
+    mangled kernel symbol of the bf16 sources, or None."""
     for pattern, fmt in ((r"(flash_fwd_bf16_kernel|flash_bwd_bf16_dkdv_kernel|flash_bwd_bf16_dq_kernel"
-                          r"|rwkv6_fwd_bf16_kernel|rwkv6_bwd_bf16_kernel)ILi(\d+)E", "{}<{}>"),
-                         (r"(gmm_small_bf16_kernel)ILi(\d+)E", "{}<{}>"),
-                         (r"(decode_attention_bf16_kernel)ILi(\d+)ELi(\d+)E", "{}<{},{}>")):
+                          r"|rwkv6_fwd_bf16_kernel|rwkv6_bwd_bf16_kernel|decode_bf16_kernel)ILi(\d+)E",
+                          "{}<{}>"),
+                         (r"(gmm_small_bf16_kernel)ILi(\d+)E", "{}<{}>")):
         m = re.search(pattern, symbol)
         if m:
             return fmt.format(*m.groups())
@@ -1214,7 +1234,7 @@ def _bf16_kernel_usage(log: str, library: str) -> dict:
     its SASS (none fails the phase, as does a stack frame or spill of a
     small-group kernel, as of its float32 twin)."""
     usage = _ptxas_usage(log, _bf16_kernel_name)
-    want = BF16_TENSOR_CORE_KERNELS + BF16_SMALL_KERNELS + BF16_DECODE_KERNELS + BF16_RWKV6_KERNELS
+    want = BF16_TENSOR_CORE_KERNELS + BF16_SMALL_KERNELS + BF16_RWKV6_KERNELS
     _require(sorted(usage) == sorted(want), f"ptxas reported {sorted(usage)}, want {sorted(want)}")
     name = None
     for ln in _sass(library).splitlines():
@@ -1379,7 +1399,7 @@ def phase_build() -> dict:
 LONG_SCAN = 128
 
 
-def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
+def _gae_case(T: int, B: int, seed: int, plain_iters: int = 5) -> dict:
     import torch
 
     from repro_torch.kernels.advantages import gae_cuda
@@ -1408,7 +1428,7 @@ def _gae_case(T: int, B: int, seed: int, plain_iters: int = 20) -> dict:
 
 
 def _vtrace_case(shape: tuple, seed: int, rho_clip: float = 1.0, c_clip: float = 1.0,
-                 plain_iters: int = 20) -> dict:
+                 plain_iters: int = 5) -> dict:
     """V-trace kernel against its plain loop on time-major ``shape``: about
     10 % dones, log-ratios spread so rho lands below and above the clips,
     and every fifth element with target == behaviour log-prob exactly; two
@@ -1491,7 +1511,7 @@ def _surrogate_inputs(B: int, A: int, seed: int, clip_eps: float):
     return logits, actions, values, blp, adv, ret
 
 
-def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iters: int = 50) -> dict:
+def _surrogate_case(B: int, A: int, seed: int, clip_eps: float = 0.2, plain_iters: int = 10) -> dict:
     import torch
 
     from repro_torch.kernels.build import load_library
@@ -1619,11 +1639,13 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int,
     give exact zeros) or "shared" (one [W] mask).  The kernel's output must
     be bitwise equal across two calls.  With ``bf16``, the bf16 kernel on
     the same inputs rounded to bf16, within ``_close_rows``' limit, its bytes
-    at 2 an element and SDPA at bf16 beside it."""
+    at 2 an element and SDPA at bf16 beside it, its launch (cluster, stages,
+    blocks) from ``bf16_decode_plan``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
+        bf16_decode_plan,
         decode_attention_cuda,
         decode_attention_plain,
         decode_splits,
@@ -1656,10 +1678,19 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int,
     if mode == "empty_row":
         _require(bool((got[1] == 0).all()), "decode_attention: an all-invalid row is not exactly 0")
     g_ = H // KV
-    splits = decode_splits(B, KV, g_, D, W)
-    grid = [B, KV, -(-g_ // heads_per_block(g_)), splits]
-    print(f"  {name}: splits {splits}, grid (B, KV, head chunks, splits) {grid}, "
-          f"{math.prod(grid)} blocks")
+    if bf16:
+        plan = bf16_decode_plan(B, KV, g_, D, W)
+        launch = {"cluster": plan.cluster, "stages": plan.stages, "blocks": plan.blocks,
+                  "smem": plan.smem}
+        print(f"  {name}: clusters of {plan.cluster} (B, KV, head chunks of 16) "
+              f"{[B, KV, -(-g_ // 16)]}, {plan.blocks} blocks, {plan.stages} stages, "
+              f"{plan.smem} bytes of shared memory a block")
+    else:
+        splits = decode_splits(B, KV, g_, D, W)
+        grid = [B, KV, -(-g_ // heads_per_block(g_)), splits]
+        launch = {"splits": splits, "grid": grid}
+        print(f"  {name}: splits {splits}, grid (B, KV, head chunks, splits) {grid}, "
+              f"{math.prod(grid)} blocks")
     n_valid = int(valid.sum()) * (B if valid.dim() == 1 else 1)
     ops, nbytes = _formula("decode_attention", {"b": B, "h": H, "kv": KV, "d": D, "w": W,
                                                 "n_valid": n_valid, "mask": valid.numel(),
@@ -1670,9 +1701,9 @@ def _decode_case(B: int, H: int, KV: int, D: int, W: int, mode: str, seed: int,
     out = {
         "shape": [B, 1, H, KV, D, W], "mode": mode, "max_abs_err": err, "bitwise_repeatable": True,
         **({"err_over_limit": ratio} if bf16 else {}),
-        "splits": splits, "grid": grid, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        **launch, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         **_timings(lambda: decode_attention_cuda(q, kc, vc, valid),
-                   lambda: decode_attention_plain(q, kc, vc, valid), plain_iters=20),
+                   lambda: decode_attention_plain(q, kc, vc, valid), plain_iters=5),
     }
     if mode != "empty_row":  # SDPA's softmax over an empty row is NaN
         out.update(_library(lambda: F.scaled_dot_product_attention(
@@ -2096,8 +2127,8 @@ def _gmm_small_case(sizes: list, D: int, F: int, seed: int, block_m: int,
     def tile():
         return moe_gmm_cuda(x, w, gs, block_m=128)
 
-    # bf16 splits D into the chunks that fill the SMs' last wave; float32 not.
-    chunks = small_chunks(x.device, D, F, E, small_rows(block_m)) if bf16 else 1
+    # The chunks of D the wrapper splits into: those that fill the SMs' last wave.
+    chunks = small_chunks(x.device, D, F, E, small_rows(block_m), bf16)
     tile_ms, _, _ = _device_ms_retried(tile, kernel_iters)
     tile_call_ms = _time_ms(tile, iters=kernel_iters, warmup=2)
     return {
@@ -2323,9 +2354,54 @@ def _gmm_bwd_einsums_case(up: tuple, batch: int, seed: int) -> dict:
     return out
 
 
+def _bf16_decode_threads(rounds: int = 200) -> dict:
+    """The bf16 decode wrapper called from two threads at once, ``rounds``
+    calls each, at two shapes whose blocks ask for different shared memory
+    (Nemotron-4's serve step and LLaVA's step at W 3,408): no call raises,
+    and every output is bitwise the same shape's output from one thread.
+    The kernel's shared-memory limit is an attribute that every thread
+    shares, so a limit set for one shape must not refuse the other's."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import bf16_decode_plan, decode_attention_cuda
+
+    shapes = ((2, 48, 8, 128, 528), (2, 56, 8, 128, 3408))
+    g = torch.Generator(device="cuda").manual_seed(240)
+    inputs = [(torch.randn((B, 1, H, D), generator=g, device="cuda").bfloat16(),
+               torch.randn((B, W, KV, D), generator=g, device="cuda").bfloat16(),
+               torch.randn((B, W, KV, D), generator=g, device="cuda").bfloat16(),
+               torch.ones(W, dtype=torch.bool, device="cuda")) for B, H, KV, D, W in shapes]
+    smem = [bf16_decode_plan(B, KV, H // KV, D, W).smem for B, H, KV, D, W in shapes]
+    _require(smem[0] != smem[1], f"decode threads: both shapes ask for {smem[0]} bytes")
+    want = [decode_attention_cuda(*x) for x in inputs]
+    torch.cuda.synchronize()
+    errors, unequal = [], [0, 0]
+
+    def calls(i: int) -> None:
+        try:
+            for _ in range(rounds):
+                if not torch.equal(decode_attention_cuda(*inputs[i]), want[i]):
+                    unequal[i] += 1
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{shapes[i]}: {exc!r}")
+
+    threads = [threading.Thread(target=calls, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    _require(not errors, f"decode threads: {errors}")
+    _require(unequal == [0, 0], f"decode threads: outputs not bitwise one thread's: {unequal}")
+    print(f"  bf16 decode from two threads: {rounds} calls each at {list(shapes)} "
+          f"({smem} bytes of shared memory a block), every output bitwise one thread's")
+    return {"shapes": [list(x) for x in shapes], "smem": smem, "rounds": rounds}
+
+
 def _mixed_dtypes_refused() -> None:
     """Every bf16-taking wrapper raises on a CUDA call whose operands mix
-    bfloat16 and float32 or are float16, and launches nothing."""
+    bfloat16 and float32 or are float16, and the bf16 decode wrapper on a
+    head dim its kernel does not take (32), and launches nothing."""
     import torch
 
     from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -2357,6 +2433,9 @@ def _mixed_dtypes_refused() -> None:
             rwkv6_cuda, r.bfloat16(), r, r, r, u),
         "rwkv6_cuda bf16 u": functools.partial(rwkv6_cuda, *(r.bfloat16(),) * 4, u.bfloat16()),
         "rwkv6_cuda float16": functools.partial(rwkv6_cuda, *(r.half(),) * 4, u),
+        "decode_attention_cuda bf16 at D = 32": functools.partial(
+            decode_attention_cuda, r[:, :1].bfloat16().contiguous(), r.bfloat16(), r.bfloat16(),
+            valid),
         "flash_bwd_cuda bf16 with a float32 o": functools.partial(
             flash_bwd_cuda, q.bfloat16(), q.bfloat16(), q.bfloat16(), q, torch.zeros(1, 2, 64, device="cuda"),
             q.bfloat16(), True, 0, 0),
@@ -2379,10 +2458,10 @@ def _bf16_kernel_cases(out: dict) -> None:
     of the same kernel, so the two precisions sit side by side: the flash
     forward at the serve prefills, the PPO-LM learner's, GQA 40/8 with a
     window, with a q_offset and at a ragged S, Phi's and Qwen3-14B's, and at
-    D = 64 and 32; decode attention at the serve steps' heads and window and
-    at phase 3's masks; the tile kernel at DeepSeek's and Jamba's prefill
-    products, Phi's, the ragged groups and D = 1,000, F = 1,416 (TMA's
-    edges); the small-group kernel at
+    D = 64 and 32; decode attention at the serve steps' heads and window, at
+    phase 3's masks and at ``BF16_DECODE_NEXT``'s shapes; the tile kernel at
+    DeepSeek's and Jamba's prefill products, Phi's, the ragged groups and
+    D = 1,000, F = 1,416 (TMA's edges); the small-group kernel at
     ``_gmm_small_cases``.  Then ``_mixed_dtypes_refused``."""
     t0 = time.perf_counter()
     flash = functools.partial(_flash_fwd_case, bf16=True)
@@ -2409,6 +2488,8 @@ def _bf16_kernel_cases(out: dict) -> None:
         decode(4, 20, 20, 128, d, "empty_row", 232),
         decode(8, 40, 8, 128, 1000, "shared", 233),
         decode(8, 20, 20, 128, d, "ring", 234),
+        *(decode(b, h, kv, dd, w, "shared", 235 + i)
+          for i, (b, _, h, kv, dd, w) in enumerate(BF16_DECODE_NEXT.values())),
     ]
     gmm = functools.partial(_gmm_case, bf16=True)
     cases = []
@@ -2444,6 +2525,7 @@ def _bf16_kernel_cases(out: dict) -> None:
     out["rwkv6_bwd_bf16"] = [c["bwd"] for c in rwkv]
     T, D, F, E = DEEPSEEK_GMM_UP
     out["moe_gmm_bf16"] += [gmm([T // E] * E, D, F, 255, 10), gmm([T // E] * E, F, D, 256, 10)]
+    _bf16_decode_threads()
     _mixed_dtypes_refused()
     print(f"  the bf16 kernel cases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2498,9 +2580,9 @@ def phase_kernels() -> dict:
     # [16, 151937]: rows not 16-byte aligned (scalar loads); [8, 1024]: one
     # chunk a row; [3, 4097]: a one-column last chunk; [128, 2]: the
     # multi-agent PPO branch.
-    sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=10), _surrogate_case(256, 2, 3),
+    sur_cases = [_surrogate_case(128, 151936, 6, plain_iters=3), _surrogate_case(256, 2, 3),
                  _surrogate_case(512, 2, 8), _surrogate_case(65536, 18, 4),
-                 _surrogate_case(16, 151937, 12, plain_iters=10), _surrogate_case(8, 1024, 13),
+                 _surrogate_case(16, 151937, 12, plain_iters=3), _surrogate_case(8, 1024, 13),
                  _surrogate_case(3, 4097, 14), _surrogate_case(128, 2, 18)]
     d = RLHF_ENV["ctx"]
     B, S, H, KV, D = PHI_ATTENTION
@@ -2599,6 +2681,9 @@ def phase_kernels() -> dict:
                       f"kernel on the same inputs "
                       f"{c['tile_ms']} ms ({c['tile_ms_from']})")
     out["gmm_bwd_einsums_bf16"] = einsums  # no kernel: the reference's einsums at bf16
+    spent = sorted(TIMING_SECONDS.items(), key=lambda kv: -(kv[1][0] + kv[1][1]))
+    print("  seconds timing kernels / their plain versions, by case function: " + ", ".join(
+        f"{fn} {k:.1f} / {p:.1f} ({n} cases)" for fn, (k, p, n) in spent))
     return out
 
 
@@ -3952,10 +4037,12 @@ def _serve_expected(cfg, steps: int) -> dict:
     return expect
 
 
-def _serve_run(model, params, tokens, media, steps: int) -> tuple:
+def _serve_run(model, params, tokens, media, steps: int, profile_last: bool = False) -> tuple:
     """``make_prefill_step`` on tokens[:, :-steps] (and the media), then
     ``steps`` ``make_decode_step`` calls on the rest: (the prefill's last
-    logits, each step's logits, the final cache, prefill s, s per step)."""
+    logits, each step's logits, the final cache, prefill s, s per step).
+    With ``profile_last`` the last step runs under ``_DeviceProfile`` and
+    the tuple ends with its device microseconds by kernel name."""
     import torch
 
     from repro_torch.models import make_decode_step, make_prefill_step
@@ -3971,12 +4058,18 @@ def _serve_run(model, params, tokens, media, steps: int) -> tuple:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     logits = []
+    prof = None
     for i in range(steps):
+        if profile_last and i == steps - 1:
+            torch.cuda.synchronize()
+            prof = _DeviceProfile()
+            prof.start()
         step_logits, cache = decode(params, cache, {"tokens": tokens[:, S + i:S + i + 1]})
         logits.append(step_logits[:, 0])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return first[:, 0], torch.stack(logits, dim=1), cache, t1 - t0, (t2 - t1) / steps
+    out = first[:, 0], torch.stack(logits, dim=1), cache, t1 - t0, (t2 - t1) / steps
+    return out + (prof.stop(),) if prof is not None else out
 
 
 def phase_serve_zoo(name: str, counters: list) -> dict:
@@ -4168,6 +4261,10 @@ def phase_serve_bf16(name: str, counters: list) -> dict:
     the forward's own choices are held to the decode run's but at near ties
     (``_route_flips``); and the same prefill and steps in float32 on the
     weights widened, within ``SERVE_BF16_F32_REL_TOL`` x max |logits|.
+    For Jamba and Nemotron-4 (``SERVE_BF16_DECODE_ATTENTION``) the warm-up
+    run before it profiles its second and last decode step at the serve
+    run's window: the device busy ms of the step and the bf16 decode
+    kernel's share of it are printed.
     Prefill seconds, ms a step and peak memory of the bf16 run are printed;
     the float32 serve case of phase 21d has them at float32 (the float32
     run here starts on a freshly emptied allocator and is not timed)."""
@@ -4199,9 +4296,25 @@ def phase_serve_bf16(name: str, counters: list) -> dict:
         tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g, device="cuda")
         expect = {k.name: 0 for k in counters}
         expect.update(_serve_expected(cfg, steps))
-        # A short prefill and step first, so that the timed run does not pay
-        # for the first bf16 cuBLAS calls of the process.
-        _serve_run(model, params, tokens[:, :17], None, 1)
+        # A short run first, so that the timed run does not pay for the first
+        # bf16 cuBLAS calls of the process: a 16-token prefill and a step;
+        # for Jamba and Nemotron-4 the whole prompt but two tokens and two
+        # steps at the serve run's window, the second step profiled: the
+        # device busy ms of a step and the bf16 decode kernel's share of it.
+        step_profile = None
+        if name in SERVE_BF16_DECODE_ATTENTION:
+            *_, kernels = _serve_run(model, params, tokens, None, 2, profile_last=True)
+            busy = sum(kernels.values()) / 1e3
+            attn = sum(us for k, us in kernels.items() if "decode_bf16_kernel" in k) / 1e3
+            top = sorted(kernels, key=lambda k: -kernels[k])[:5]
+            step_profile = {"device_busy_ms": busy, "decode_attention_bf16_ms": attn,
+                            "decode_attention_bf16_share": attn / busy if busy else None,
+                            "top_kernels_ms": {k[:80]: kernels[k] / 1e3 for k in top}}
+            print(f"{name}: one profiled decode step: device busy {busy:.4f} ms, the bf16 "
+                  f"decode kernel {attn:.4f} ms of it ({attn / busy if busy else 0:.3f}); top "
+                  f"kernels {json.dumps(step_profile['top_kernels_ms'])}")
+        else:
+            _serve_run(model, params, tokens[:, :17], None, 1)
         torch.cuda.synchronize()
         for k in counters:
             k.reset()
@@ -4252,7 +4365,8 @@ def phase_serve_bf16(name: str, counters: list) -> dict:
            "launches": launches, "expected": expect, "max_abs_logits": scale,
            "decode_vs_forward_err": step_err, "prefill_vs_forward_err": first_err,
            "rel_err": max(step_err, first_err) / scale, "f32_err": f32_err,
-           "f32_rel_err": f32_err / scale, "route_flips": flips, "peak_memory_bytes": peak}
+           "f32_rel_err": f32_err / scale, "route_flips": flips, "peak_memory_bytes": peak,
+           **({"decode_step_profile": step_profile} if step_profile else {})}
     del params, logits, first, f_logits, f_first, tokens, model, model32, decided, decode_routes
     gc.collect()
     torch.cuda.empty_cache()
@@ -5139,7 +5253,7 @@ def _threefry_case(lanes: int, n: int, xor: bool, seed: int) -> dict:
         "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         "int32_ops": ops, "library_ms": None,
         **_timings(lambda: tf.hash_counts_cuda(keys_g, n, xor),
-                   lambda: tf.hash_counts_plain(keys_g, n, xor), plain_iters=5 if big else 20),
+                   lambda: tf.hash_counts_plain(keys_g, n, xor), plain_iters=2 if big else 5),
     }
 
 
@@ -5172,7 +5286,7 @@ def _threefry_fold_in_case(lanes: int, seed: int) -> dict:
         "bitwise_repeatable": True, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
         "int32_ops": lanes * THREEFRY_OPS, "library_ms": None,
         **_timings(lambda: tf.fold_in_cuda(keys_g, data_g),
-                   lambda: tf.fold_in_plain(keys_g, data_g), plain_iters=20),
+                   lambda: tf.fold_in_plain(keys_g, data_g), plain_iters=5),
     }
 
 
@@ -6554,7 +6668,7 @@ KERNEL_SITES = {
     # operands widened, fp32 sums, the output rounded once.
     "flash_attention_fwd_bf16": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
                                  "src/repro/kernels/flash_attention.py:30"),
-    "decode_attention_bf16": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+    "decode_attention_bf16": ("src/repro_torch/kernels/csrc/decode_attention_bf16.cu",
                               "src/repro/kernels/decode_attention.py:29"),
     "moe_gmm_bf16": ("src/repro_torch/kernels/csrc/moe_gmm_bf16.cu",
                      "src/repro/kernels/moe_gmm.py:24"),

@@ -84,12 +84,16 @@ _SIGNATURES = {
     "moe_gmm_dx_launch": [_P] * 5 + [_I] * 4 + [_P],
     # x, dy, ends, dw, T, D, F, E, stream
     "moe_gmm_dw_launch": [_P] * 4 + [_I] * 4 + [_P],
-    # x, w, ends, out, T, D, F, E, rmax, stream
-    "moe_gmm_small_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # x, w, ends, out, work, tickets, T, D, F, E, rmax, chunks, stream
+    "moe_gmm_small_launch": [_P] * 6 + [_I] * 6 + [_P],
+    # D, F, E, rmax -> the chunks of D that fill a float32 call's last wave
+    "moe_gmm_small_chunks": [_I] * 4 + [_P],
     # The bf16 kernels take the arguments of their float32 counterparts.
     "flash_attention_bf16_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
-    "decode_attention_bf16_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "moe_gmm_bf16_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, valid, out, B, W, H, KV, D, valid_row_stride, cluster,
+    # stages, scale, stream
+    "decode_attention_bf16_launch": [_P] * 5 + [_I] * 8 + [_F, _P],
     # x, w, ends, out, work, tickets, T, D, F, E, rmax, chunks, stream
     "moe_gmm_small_bf16_launch": [_P] * 6 + [_I] * 6 + [_P],
     # D, F, E, rmax -> the chunks of D of a bf16 call, into an int

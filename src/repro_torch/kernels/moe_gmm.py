@@ -36,6 +36,8 @@ TPU kernel widens its operands and rounds its output (``moe_gmm.py:27-31``);
 D and F must then be multiples of 8.  ``moe_gmm_plain`` computes the same
 in float32 and rounds once.  Mixed dtypes raise; dX and dW take float32
 only (their bf16 kernels belong to the bf16 training slice, ``ROADMAP.md``).
+The float32 small-group kernel takes the same split of D, where its
+last wave is partial (``small_chunks``).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ __all__ = [
     "MOE_GMM_SMALL_BF16_LAUNCHES",
     "SMALL_BLOCK_M",
     "small_rows",
+    "small_chunks",
     "MOE_GMM_DX_LAUNCHES",
     "MOE_GMM_DW_LAUNCHES",
 ]
@@ -214,41 +217,39 @@ def moe_gmm_small_cuda(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tens
         return out
     ends = _ends(group_sizes, T).to(torch.int32)
     rmax = small_rows(block_m)
-    if not bf16:
-        _launch("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES), x.device,
-                x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), T, D, F, E, rmax)
-        return out
-    # bf16: D split into the chunks that fill the card's last wave, each
-    # chunk's fp32 partials in `work`, added in chunk order by the last unit
-    # of each (group, column slab) to take its ticket.
-    chunks = small_chunks(x.device, D, F, E, rmax)
+    # D split into the chunks that fill the card's last wave, each chunk's
+    # fp32 partials in `work`, added in chunk order by the last unit of each
+    # (group, column slab) to take its ticket.
+    chunks = small_chunks(x.device, D, F, E, rmax, bf16)
     work_ptr = tickets_ptr = None
     if chunks > 1:
         work = torch.empty(chunks * T * F, dtype=torch.float32, device=x.device)
         work_ptr = work.data_ptr()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         tickets_ptr = zeroed_tickets(x.device, stream, E * -(-F // SMALL_COLS)).data_ptr()
-    _launch("moe_gmm_small_bf16_launch", (MOE_GMM_BF16_LAUNCHES, MOE_GMM_SMALL_BF16_LAUNCHES),
-            x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), work_ptr,
-            tickets_ptr, T, D, F, E, rmax, chunks)
+    name, counters = (("moe_gmm_small_bf16_launch", (MOE_GMM_BF16_LAUNCHES, MOE_GMM_SMALL_BF16_LAUNCHES))
+                      if bf16 else ("moe_gmm_small_launch", (MOE_GMM_LAUNCHES, MOE_GMM_SMALL_LAUNCHES)))
+    _launch(name, counters, x.device, x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(),
+            work_ptr, tickets_ptr, T, D, F, E, rmax, chunks)
     return out
 
 
 _chunks: dict = {}
 
 
-def small_chunks(device: torch.device, D: int, F: int, E: int, rmax: int) -> int:
-    """The chunks of D the bf16 small-group kernel splits a call into on
-    ``device`` (``moe_gmm_small.cu``'s ``pick_chunks``: the fewest whose
-    units fill the last wave of its resident blocks at least 7/8), cached
-    by shape."""
-    key = (device.index, D, F, E, rmax)
+def small_chunks(device: torch.device, D: int, F: int, E: int, rmax: int, bf16: bool) -> int:
+    """The chunks of D that fill the small-group kernel's last wave on
+    ``device`` at its dtype (``moe_gmm_small.cu``'s ``pick_chunks``: the
+    pairs past the full waves each split into as many chunks as fit the
+    last wave, at most 8), cached by shape."""
+    key = (device.index, D, F, E, rmax, bf16)
     if key not in _chunks:
         lib = load_library()
+        fn = "moe_gmm_small_bf16_chunks" if bf16 else "moe_gmm_small_chunks"
         chunks = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = lib.moe_gmm_small_bf16_chunks(D, F, E, rmax, ctypes.byref(chunks))
-        check(lib, rc, "moe_gmm_small_bf16_chunks")
+            rc = getattr(lib, fn)(D, F, E, rmax, ctypes.byref(chunks))
+        check(lib, rc, fn)
         _chunks[key] = chunks.value
     return _chunks[key]
 

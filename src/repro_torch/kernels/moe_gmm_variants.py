@@ -57,6 +57,17 @@ product (the crossover).
 
     PYTHONPATH=src python -m repro_torch.kernels.moe_gmm_variants --sweep [--out f.json]
 
+With ``--small-split`` it times the float32 small-group kernel at the four
+decode products, groups of 1, 2 and 4 rows: D whole and split into the
+chunks that fill the last wave (``small_chunks(..., bf16=False)``, the rule
+the wrapper takes), and D whole in a second library built from the source
+with the split path compiled out of the float32 kernels (``no_f32_split``:
+the float32 kernel as it was before it could split), beside ``torch.bmm``,
+in rounds of turns, each within ``GMM_TOL`` of ``moe_gmm_plain`` and
+bitwise repeatable.
+
+    PYTHONPATH=src python -m repro_torch.kernels.moe_gmm_variants --small-split [--out f.json]
+
 With ``--bf16`` it times the bf16 kernels instead, each design's library
 built by its own nvcc, all at once, and none linked into the package's:
 
@@ -304,8 +315,8 @@ def small_variants() -> dict:
             ends = torch.arange(2, 2 * E + 1, 2, dtype=torch.int32, device="cuda")
             want = torch.bmm(x.view(E, 2, d), w).view(2 * E, f)
             out = torch.empty_like(want)
-            args = (x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), 2 * E, d, f, E,
-                    small_rows(2), stream)
+            args = (x.data_ptr(), w.data_ptr(), ends.data_ptr(), out.data_ptr(), None, None,
+                    2 * E, d, f, E, small_rows(2), 1, stream)
             calls = {name: (lambda lib=lib, name=name: build.check(
                 lib, lib.moe_gmm_small_launch(*args), name)) for name, lib in libs.items()}
             case = {}
@@ -321,6 +332,60 @@ def small_variants() -> dict:
                 print(f"small variant {name} at {shape}: {sum(r['ms']) / ROUNDS:.4f} ms per call "
                       f"(rounds {r['ms']}), err vs bmm {r['err_vs_bmm']:.2e}", flush=True)
             results[shape] = case
+    return results
+
+
+# The float32 small-group kernel with its split path compiled out.
+NO_F32_SPLIT = {"no_f32_split": [("std::is_same_v<Elt, bf16> || RMAX <= 4;",
+                                  "std::is_same_v<Elt, bf16>;")]}
+SPLIT_ROWS = (1, 2, 4)
+
+
+def small_split_times() -> dict:
+    """The float32 small-group kernel at the four decode products, groups
+    of ``SPLIT_ROWS`` rows (block_m the same): D whole (``unsplit``), split
+    into the chunks that fill the last wave (``small_chunks(...,
+    bf16=False)``) where there is more than one, and D whole in the library
+    built with ``NO_F32_SPLIT``, beside ``torch.bmm``: ms a call by CUDA
+    events in ``ROUNDS`` rounds of turns, the max abs error against
+    ``moe_gmm_plain`` and whether it is within ``GMM_TOL``, and whether two
+    calls agree bitwise."""
+    lib = build.load_library()
+    no_split = _build_all(NO_F32_SPLIT, "moe_gmm_small.cu", ("moe_gmm_small_launch",))["no_f32_split"]
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+    for model, (E, D, F) in SWEEP_SHAPES.items():
+        for product, (d, f) in (("up", (D, F)), ("down", (F, D))):
+            for rows in SPLIT_ROWS:
+                g = torch.Generator(device="cuda").manual_seed(d + f + rows)
+                x = torch.randn((rows * E, d), generator=g, device="cuda")
+                w = torch.randn((E, d, f), generator=g, device="cuda") / math.sqrt(d)
+                sizes = torch.full((E,), rows, dtype=torch.int32, device="cuda")
+                ends = torch.arange(rows, rows * E + 1, rows, dtype=torch.int32, device="cuda")
+                want = moe_gmm_plain(x, w, sizes)
+                res = torch.empty_like(want)
+                rmax = small_rows(rows)
+                picked = small_chunks(x.device, d, f, E, rmax, bf16=False)
+                work = torch.empty(picked * rows * E * f, dtype=torch.float32, device="cuda")
+                tickets = torch.zeros(E * -(-f // 128), dtype=torch.int32, device="cuda")
+
+                def launch(chunks, lib=lib, x=x, w=w, ends=ends, res=res, work=work,
+                           tickets=tickets, d=d, f=f, rows=rows, rmax=rmax):
+                    build.check(lib, lib.moe_gmm_small_launch(
+                        x.data_ptr(), w.data_ptr(), ends.data_ptr(), res.data_ptr(),
+                        work.data_ptr(), tickets.data_ptr(), rows * E, d, f, E, rmax, chunks,
+                        stream), "moe_gmm_small_launch")
+
+                calls = {"unsplit": functools.partial(launch, 1),
+                         "no_f32_split": functools.partial(launch, 1, lib=no_split)}
+                if picked > 1:
+                    calls[f"split ({picked} chunks)"] = functools.partial(launch, picked)
+                calls["bmm"] = lambda x=x, w=w, rows=rows, d=d: torch.bmm(x.view(E, rows, d), w)
+                shape = f"{model} decode {product} [{rows * E}, {d}] x [{E}, {d}, {f}]"
+                r = _bf16_case(calls, want, res, SWEEP_ITERS, GMM_TOL)
+                bound = 4 * (rows * E * d + E * d * f + rows * E * f) / 3.35e12 * 1e3
+                results[shape] = {"bound_ms": bound, "chunks": picked, "rows": rows, "designs": r}
+                _print_bf16("small float32", f"{shape} (bound {bound:.6f} ms)", r)
     return results
 
 
@@ -424,10 +489,10 @@ def _build_bf16(variants: dict, like: str) -> dict:
     return libs
 
 
-def _bf16_case(calls: dict, want, out, iters: int) -> dict:
+def _bf16_case(calls: dict, want, out, iters: int, tol: float = BF16_TOL) -> dict:
     """Each call of ``calls`` (name -> fn writing ``out``) against ``want``:
-    max abs error, within the gate, bitwise equal across two calls, and ms a
-    call in ``ROUNDS`` rounds of turns."""
+    max abs error, within the gate (``tol``, atol = rtol), bitwise equal
+    across two calls, and ms a call in ``ROUNDS`` rounds of turns."""
     results = {}
     for name, call in calls.items():
         if name == "bmm":
@@ -440,8 +505,7 @@ def _bf16_case(calls: dict, want, out, iters: int) -> dict:
         torch.cuda.synchronize()
         results[name] = {
             "max_abs_err": float((first.float() - want.float()).abs().max()),
-            "within_gate": bool(torch.allclose(first.float(), want.float(), atol=BF16_TOL,
-                                               rtol=BF16_TOL)),
+            "within_gate": bool(torch.allclose(first.float(), want.float(), atol=tol, rtol=tol)),
             "bitwise_repeatable": bool(torch.equal(first, out)), "ms": []}
         del first
     for _ in range(ROUNDS):
@@ -496,7 +560,7 @@ def bf16_variants() -> dict:
             ends = torch.arange(2, 2 * E + 1, 2, dtype=torch.int32, device="cuda")
             want = moe_gmm_plain(x, w, sizes)
             res = torch.empty_like(want)
-            picked = small_chunks(x.device, d, f, E, small_rows(2))
+            picked = small_chunks(x.device, d, f, E, small_rows(2), bf16=True)
             work = torch.empty(max(4, picked) * 2 * E * f, dtype=torch.float32, device="cuda")
             tickets = torch.zeros(E * -(-f // 128), dtype=torch.int32, device="cuda")
 
@@ -531,6 +595,8 @@ def main() -> None:
                     help="time the small-group kernel's variants instead")
     ap.add_argument("--bf16", action="store_true",
                     help="time the bf16 tile and small-group kernels' designs instead")
+    ap.add_argument("--small-split", action="store_true",
+                    help="time the float32 small-group kernel split and unsplit instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("moe_gmm_variants: needs a CUDA device")
@@ -538,8 +604,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip())
-    if args.sweep or args.small_variants or args.bf16:
+    if args.sweep or args.small_variants or args.bf16 or args.small_split:
         result = (sweep() if args.sweep else {"bf16": bf16_variants()} if args.bf16 else
+                  {"small_split": small_split_times()} if args.small_split else
                   {"small_variants": small_variants()})
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -387,11 +387,11 @@ def test_flash_variants_edit_the_shipped_source(name):
 @pytest.mark.parametrize("name", sorted(decode_variants.VARIANTS))
 def test_decode_variants_edit_the_shipped_source(name):
     """``python -m repro_torch.kernels.decode_variants`` builds the ring and
-    two-launch variants by editing ``csrc/decode_attention.cu``: each text
+    two-launch variants by editing ``csrc/decode_attention.cu``, which holds
+    the float32 kernel alone (the bf16 kernel is its own source): each text
     it replaces must be there once."""
     text = (build.CSRC_DIR / "decode_attention.cu").read_text()
-    assert text.count(decode_variants.BF16_ENTRY) == 1
-    text = text[:text.index(decode_variants.BF16_ENTRY)]
+    assert "decode_attention_bf16" not in text.replace("decode_attention_bf16.cu", "")
     for old, new in decode_variants.VARIANTS[name]:
         assert text.count(old) == 1, old
         assert new != old
